@@ -1,0 +1,99 @@
+"""The port's CUDA kernels on the card: each held against its plain
+PyTorch version, and the serving path's launch counts. Every test here
+needs a CUDA device (a hand-written kernel has no CPU mode) and skips
+without one. The file imports neither JAX nor the reference package,
+so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import pytest
+import torch
+
+from ptype_tpu_torch.models import transformer as ttfm
+from ptype_tpu_torch.ops import flash_attention as flash_mod
+from ptype_tpu_torch.ops import paged_attention as paged_mod
+from ptype_tpu_torch.serve import GeneratorActor
+from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+
+pytestmark = pytest.mark.cuda
+#: Kernel vs plain: f32 at the reference tests' tolerances; bf16 within
+#: two bf16 ulps of outputs up to 2 in magnitude (the kernel rounds the
+#: probabilities to bf16 before the P·V product, the plain version
+#: does not).
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: A narrow config with the serving head width (Dh = 128) and GQA.
+NARROW = ttfm.TransformerConfig(vocab_size=256, d_model=512, n_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=256,
+                                max_seq=256, dtype=torch.float32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,causal", [
+    (2, 320, 4, 2, True), (2, 320, 4, 2, False), (1, 200, 6, 6, True)])
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, causal):
+    q = torch.randn(B, S, H, 128, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, S, K, 128, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, S, K, 128, generator=cuda, device="cuda").to(dtype)
+    before = flash_mod.flash_attention.launches
+    o, lse = flash_mod.flash_attention(q, k, v, causal, return_lse=True)
+    ro, rl = flash_mod.flash_attention_plain(q, k, v, causal,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_mod.flash_attention.launches == before + 1
+    assert (o.float() - ro.float()).abs().max().item() < FLASH_TOL[dtype]
+    assert (lse - rl).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Kh", [(6, 6), (32, 8)])
+def test_paged_kernel_matches_plain(cuda, dtype, H, Kh):
+    n_blocks, bt, nb = 80, 16, 16
+    kc = torch.randn(n_blocks, bt, Kh, 128, generator=cuda,
+                     device="cuda").to(dtype)
+    vc = torch.randn_like(kc)
+    q = torch.randn(4, 1, H, 128, generator=cuda, device="cuda").to(dtype)
+    tables = torch.randint(1, n_blocks, (4, nb), generator=cuda,
+                           device="cuda", dtype=torch.int32)
+    pos = torch.tensor([0, 15, 16, 255], dtype=torch.int32, device="cuda")
+    before = paged_mod.paged_attention.launches
+    got = paged_mod.paged_attention(q, kc, vc, tables, pos)
+    want = paged_mod.paged_attention_plain(q, kc, vc, tables, pos)
+    torch.cuda.synchronize()
+    assert paged_mod.paged_attention.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() < PAGED_TOL[dtype]
+
+
+def test_generate_prefill_launches_flash_once_per_layer(cuda):
+    actor = GeneratorActor(NARROW, device="cuda")
+    prompt = torch.randint(1, 256, (2, 128), generator=cuda, device="cuda")
+    flash_mod.flash_attention.launches = 0
+    out = actor.Generate(prompt, 4)
+    assert flash_mod.flash_attention.launches == NARROW.n_layers
+    assert out.shape == (2, 4)
+
+
+def test_engine_launches_paged_kernel_per_step_and_layer(cuda):
+    a = PagedGeneratorActor(NARROW, device="cuda", n_slots=2,
+                            attn="kernel")
+    b = PagedGeneratorActor(NARROW, params=a.params, device="cuda",
+                            n_slots=2)
+    try:
+        p = torch.randint(1, 256, (1, 37), generator=cuda, device="cuda")
+        paged_mod.paged_attention.launches = 0
+        steps0 = a.Info()["engine_steps"]
+        got = a.Generate(p, 12)
+        steps = a.Info()["engine_steps"] - steps0
+        assert paged_mod.paged_attention.launches == steps * NARROW.n_layers
+        assert torch.equal(got, b.Generate(p, 12))
+    finally:
+        a.close()
+        b.close()

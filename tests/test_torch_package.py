@@ -1,0 +1,110 @@
+"""Package rules of ptype_tpu_torch: it imports with JAX blocked, no
+module of it (nor chip_smoke.py) imports jax or the ptype_tpu package,
+its entry points raise rather than run on the CPU unasked, and
+chip_smoke.py fails without a card."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "ptype_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = list(_modules())
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'ptype_tpu'"
+            " or m.startswith('ptype_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print('ok', len(" + repr(mods) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_source_imports_jax_or_the_reference_package(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "ptype_tpu"), (path, n)
+
+
+def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from ptype_tpu_torch.device import resolve_device
+    from ptype_tpu_torch.models import transformer as ttfm
+    from ptype_tpu_torch.serve import GeneratorActor
+    from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+
+    cfg = ttfm.preset("tiny", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GeneratorActor(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedGeneratorActor(cfg)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_is_lazy_and_targets_hopper():
+    from ptype_tpu_torch.ops import _build
+
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
+        "flash_fwd", "paged_decode"}
+    assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
+    assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+    # Each source exports its entry point and error_string (the
+    # ctypes contract the wrappers bind).
+    for name, fn in (("flash_fwd", "flash_fwd"),
+                     ("paged_decode", "paged_decode")):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f"int {fn}(" in src and "const char* error_string(" in src
+    # The target name hashes source and flags: stable until either moves.
+    assert _build._target("flash_fwd") == _build._target("flash_fwd")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
