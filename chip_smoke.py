@@ -7,13 +7,16 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
 1. build — every CUDA kernel under ptype_tpu_torch/ops/csrc is compiled
    by nvcc for sm_90a (one nvcc per source, all at once); prints the
-   build seconds and the card's name and power limit;
+   build seconds, each kernel's registers and spills, and the card's
+   name and power limit;
 2. kernels — each kernel against its plain PyTorch version at the
-   shapes the serving path gives it (bf16, plus f32), with the stated
-   tolerance, its time, the plain version's time, one library call's
-   time where one computes the same function, and the least time the
-   card could take (the larger of bytes / 3.35 TB/s and operations /
-   the peak rate of their type);
+   shapes the serving and training paths give it (bf16, plus f32), with
+   the stated tolerance, its time, the plain version's time, one
+   library call's time where one computes the same function (for the
+   backward kernels: torch.autograd.grad through
+   F.scaled_dot_product_attention), and the least time the card could
+   take (the larger of bytes / 3.35 TB/s and operations / the peak rate
+   of their type);
 3. GeneratorActor.Generate at optimus-125m full width, prompt (4, 512),
    32 new tokens: the flash kernel must have been launched; per-step
    logits under teacher forcing are held against the same actor built
@@ -22,7 +25,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
    concurrent requests of 100-700 tokens sharing a 96-token prefix,
    64 new tokens each: the paged kernel must run decode steps x 12
    layers times; greedy tokens in f32 equal the attn="gather" engine's;
-   one bf16 decode step's logits agree between the two paths.
+   one bf16 decode step's logits agree between the two paths;
+5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
+   one repeated batch: forward, dq and dk/dv kernels each launched
+   steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
+   against the H100's bf16 peak, peak memory; and on one B=4 batch each
+   parameter's gradient through the kernels against the same gradient
+   through dense attention (attn_impl="xla").
 
 Then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -32,6 +41,7 @@ outside a checkout, it exits non-zero and prints no result.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -42,6 +52,15 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; f32 FMA
 TOL = {"flash": {"bf16": 3e-2, "f32": 2e-4},
        "paged": {"bf16": 1e-2, "f32": 1e-5}}
+#: Backward kernels vs plain, as max abs error over the largest plain
+#: magnitude: f32 sums the same terms in another order; bf16 rounds P and
+#: dS to bf16 (8-bit mantissa) before the tensor-core products, where
+#: the plain version keeps f32.
+BWD_TOL = {"bf16": 2e-2, "f32": 1e-4}
+#: Per-parameter gradient through the kernels vs through dense attention,
+#: both bf16, as ||g_flash - g_dense|| / ||g_dense||: the two round
+#: probabilities, dP and dS to bf16 at different points in 12 layers.
+GRAD_REL_TOL = 5e-2
 #: Logits tolerance between two bf16 attention paths at optimus-125m:
 #: bf16 keeps 8 mantissa bits and the two paths round scores and
 #: probabilities at different points through 12 layers, on logits of
@@ -98,6 +117,26 @@ def bound(nbytes, ops, kind):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_summary(log):
+    """{kernel<type,Dh>: "N regs, S spill bytes"} from ptxas -v."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d([a-z][a-z_]*_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)E", m.group(1))
+            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
+                    f",{k.group(3)}>" if k else m.group(1)[:60])
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            out[name] = f"spill {m.group(1)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} regs, " + out.get(name, "")
+    return out
+
+
 # ----------------------------------------------------------- phase 2
 
 
@@ -131,6 +170,75 @@ def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen):
             "Dh": Dh, "dtype": kind, "max_abs_err": err,
             "tol": TOL["flash"][kind], "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
+def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen):
+    """The dq and dk/dv kernels against their plain versions: two rows."""
+    Dh = 128
+
+    def rand(heads):
+        return torch.randn(B, S, heads, Dh, generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v, do = rand(H), rand(K), rand(K), rand(H)
+    o, lse = flash_mod.flash_attention(q, k, v, causal, return_lse=True)
+    delta = flash_mod.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    got = {"dq": flash_mod.flash_attention_dq(*args)}
+    got["dk"], got["dv"] = flash_mod.flash_attention_dkv(*args)
+    want = {"dq": flash_mod.flash_attention_dq_plain(*args)}
+    want["dk"], want["dv"] = flash_mod.flash_attention_dkv_plain(*args)
+    torch.cuda.synchronize()
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    err, rel = {}, {}
+    for n in got:
+        check(torch.isfinite(got[n]).all().item(), f"{n} not finite")
+        err[n] = (got[n].float() - want[n].float()).abs().max().item()
+        rel[n] = err[n] / want[n].float().abs().max().item()
+        check(rel[n] <= BWD_TOL[kind],
+              f"{n} {B}x{S}x{H}/{K} {kind} causal={causal}: max err "
+              f"{err[n]} is {rel[n]} of the largest value > {BWD_TOL[kind]}")
+    del got, want
+    ms = {"dq": time_ms(torch, lambda: flash_mod.flash_attention_dq(*args),
+                        10, flush),
+          "dkv": time_ms(torch,
+                         lambda: flash_mod.flash_attention_dkv(*args), 10,
+                         flush)}
+    plain = {"dq": time_ms(torch, lambda: flash_mod.flash_attention_dq_plain(
+                 *args), 3, flush),
+             "dkv": time_ms(torch, lambda: flash_mod.flash_attention_dkv_plain(
+                 *args), 3, flush)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=K != H)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
+    esz = q.element_size()
+    q_bytes, kv_bytes = B * S * H * Dh * esz, B * S * K * Dh * esz
+    rows = 2 * B * H * S * 4                      # lse and delta, f32
+    pairs = S * (S + 1) // 2 if causal else S * S
+    bounds = {
+        # q, dO, dQ; k, v: S = QK^T, dP = dO V^T, dQ = dS K
+        "dq": bound(3 * q_bytes + 2 * kv_bytes + rows,
+                    6 * Dh * pairs * B * H, kind),
+        # q, dO; k, v, dK, dV: S, dP, dV = P^T dO, dK = dS^T Q
+        "dkv": bound(2 * q_bytes + 4 * kv_bytes + rows,
+                     8 * Dh * pairs * B * H, kind)}
+    base = {"B": B, "S": S, "H": H, "K": K, "Dh": Dh, "dtype": kind,
+            "causal": causal, "tol_rel": BWD_TOL[kind],
+            "library_ms": lib_ms, "library": "sdpa backward (dq, dk, dv)"}
+    return [
+        {"kernel": "flash_bwd_dq", **base, "max_abs_err": err["dq"],
+         "max_rel_err": rel["dq"], "ms": ms["dq"], "plain_ms": plain["dq"],
+         "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]},
+        {"kernel": "flash_bwd_dkv", **base,
+         "max_abs_err": max(err["dk"], err["dv"]),
+         "max_rel_err": max(rel["dk"], rel["dv"]),
+         "dk_max_abs_err": err["dk"], "dv_max_abs_err": err["dv"],
+         "ms": ms["dkv"], "plain_ms": plain["dkv"],
+         "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]}]
 
 
 def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen):
@@ -250,6 +358,145 @@ def paged_logits_pair(torch, gen_mod, params, cfg, prompts):
     return outs["kernel"], outs["gather"]
 
 
+# ----------------------------------------------------------- phase 5
+
+
+def trainer_phase(torch, tfm, flash_mod, train_mod, cfg):
+    """Trainer at optimus-125m: launches, a falling loss, throughput."""
+    B, S, steps, warm = 16, 1024, 8, 2
+    tr = train_mod.Trainer(
+        cfg, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0),
+        optimizer=train_mod.default_optimizer(lr=1e-3, warmup=2),
+        sync_every=0)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, B, S, seed=3,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    for c in counters:
+        c.launches = 0
+    losses = []
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        losses.append(tr.step(batch)["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = [c.launches for c in counters]
+    tr.sync()
+    losses = [float(x) for x in losses]
+    want = steps * cfg.n_layers
+    check(launches == [want] * 3,
+          f"trainer launches fwd/dq/dkv {launches} != {want} each")
+    check(all(x == x and abs(x) != float("inf") for x in losses),
+          f"trainer loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"trainer loss did not fall: {losses}")
+    prof = step_profile(torch, tr, batch)
+    timed = steps - warm
+    tok_s = timed * B * S / wall
+    fpt = tfm.flops_per_token(cfg, S)
+    peak = 989e12
+    row = {"phase": "trainer", "preset": "optimus-125m", "B": B, "S": S,
+           "steps": steps, "timed_steps": timed, "losses": losses,
+           "launches": {"flash_fwd": launches[0], "flash_bwd_dq":
+                        launches[1], "flash_bwd_dkv": launches[2]},
+           "step_ms": wall / timed * 1e3, "steps_per_s": timed / wall,
+           "tokens_per_s": tok_s, "flops_per_token": fpt,
+           "mfu": tok_s * fpt / peak,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "trainer_throughput_all_steps": tr.throughput(),
+           "profile_one_step": prof}
+    del tr
+    return row, launches
+
+
+def kernel_family(name):
+    low = name.lower()
+    for key, fam in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_dq"),
+                     ("flash_bwd_dkv", "flash_dkv"), ("gemm", "matmul"),
+                     ("cutlass", "matmul"), ("xmma", "matmul"),
+                     ("nvjet", "matmul"),
+                     ("softmax", "softmax"), ("reduce", "reduction"),
+                     ("index", "gather/scatter"), ("gather", "gather/scatter"),
+                     ("scatter", "gather/scatter"), ("elementwise",
+                                                     "elementwise")):
+        if key in low:
+            return fam
+    return "other"
+
+
+def step_profile(torch, tr, batch):
+    """One more step (after the counted run) under torch.profiler:
+    device time by kernel family, and the device's idle share of the
+    step's wall time (the profiler's own overhead included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tr.step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    fams, kernels = {}, {}
+    for ev in prof.key_averages():
+        # Device-side events only: a CPU op also reports the device time
+        # of the kernels it launched.
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        fam = kernel_family(ev.key)
+        fams[fam] = fams.get(fam, 0.0) + us / 1e3
+        kernels[ev.key[:80]] = (us / 1e3, ev.count)
+    busy = sum(fams.values())
+    if busy == 0:
+        return {"device_time": "not measured (profiler saw no device time)"}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms,
+            "by_family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": n, "ms": t, "calls": c}
+                            for n, (t, c) in top]}
+
+
+def grad_parity(torch, tfm, train_mod, cfg):
+    """Each parameter's gradient through the kernels against the same
+    gradient through dense attention, on one B=4 batch."""
+    from dataclasses import replace
+
+    from ptype_tpu_torch.models.weights import init_params
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         cfg)
+    for _, p in train_mod.trainer._flatten(params):
+        p.requires_grad_(True)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, 4, 1024,
+                                             seed=4, device="cuda"))
+    lf, gf = train_mod.trainer.grads_of(params, batch, cfg)
+    lx, gx = train_mod.trainer.grads_of(params, batch,
+                                        replace(cfg, attn_impl="xla"))
+    rel = {}
+    for (path, a), (_, b) in zip(train_mod.trainer._flatten(gf),
+                                 train_mod.trainer._flatten(gx)):
+        rel["/".join(path)] = ((a.float() - b.float()).norm()
+                               / b.float().norm()).item()
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= GRAD_REL_TOL,
+          f"grad of {worst} differs from dense by {rel[worst]} (relative "
+          f"norm) > {GRAD_REL_TOL}")
+    return {"phase": "grad_parity", "B": 4, "S": 1024,
+            "loss_flash": float(lf), "loss_dense": float(lx),
+            "grad_rel_norm_diff": rel, "worst": worst,
+            "tol": GRAD_REL_TOL}
+
+
 def main():
     import torch
 
@@ -270,6 +517,7 @@ def main():
     from ptype_tpu_torch.ops import paged_attention as paged_mod
     from ptype_tpu_torch.serve import GeneratorActor
     from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+    import ptype_tpu_torch.train as train_mod
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -278,8 +526,7 @@ def main():
     # 1. build
     t0 = time.monotonic()
     built = _build.build_all()
-    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for n, log in _build.build_logs.items()}
+    regs = {n: ptxas_summary(log) for n, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "built": built, "ptxas": regs, "card": card})
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -295,11 +542,20 @@ def main():
             emit(cases[-1])
     for B, S, H, K, dt in ((4, 512, 6, 6, torch.bfloat16),
                            (4, 1024, 6, 6, torch.bfloat16),
+                           (16, 1024, 6, 6, torch.bfloat16),
                            (1, 2048, 32, 8, torch.bfloat16),
                            (4, 512, 6, 6, torch.float32)):
         cases.append(flash_case(torch, F, flash_mod, B, S, H, K, dt, flush,
                                 g))
         emit(cases[-1])
+    for B, S, H, K, dt, causal in ((16, 1024, 6, 6, torch.bfloat16, True),
+                                   (4, 512, 6, 6, torch.float32, True),
+                                   (1, 2048, 32, 8, torch.bfloat16, True),
+                                   (4, 1024, 6, 6, torch.bfloat16, False)):
+        for row in bwd_case(torch, F, flash_mod, B, S, H, K, dt, causal,
+                            flush, g):
+            cases.append(row)
+            emit(row)
     del flush
 
     # 3. GeneratorActor at optimus-125m
@@ -397,25 +653,47 @@ def main():
     emit({"phase": "paged_parity", "f32_greedy_identical": same,
           "bf16_step_logits_max_abs_diff": ldiff, "tol": LOGIT_TOL_BF16})
 
-    def main_row(name, route, source, replaces, launches, row):
-        return {"name": name, "route": route, "source": source,
+    del eng, e
+    torch.cuda.empty_cache()
+
+    # 5. Trainer at optimus-125m
+    row, (fwd_n, dq_n, dkv_n) = trainer_phase(torch, tfm, flash_mod,
+                                              train_mod, cfg)
+    emit(row)
+    emit(grad_parity(torch, tfm, train_mod, cfg))
+
+    def main_row(name, source, replaces, launches, row, **extra):
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "dtype": row["dtype"]}
+                "library_ms": row["library_ms"], "dtype": row["dtype"],
+                "shape": {k: row[k] for k in ("B", "S", "H", "K", "Kh")
+                          if k in row},
+                **extra}
 
-    flash_row = next(c for c in cases if c["kernel"] == "flash_fwd"
-                     and c["S"] == 512 and c["dtype"] == "bf16")
+    def pick(kernel, S, B, dtype="bf16"):
+        return next(c for c in cases if c["kernel"] == kernel
+                    and c.get("S") == S and c["B"] == B
+                    and c["dtype"] == dtype and c.get("causal", True))
+
+    bwd_src = "ptype_tpu_torch/ops/csrc/flash_bwd.cu"
     paged_row = next(c for c in cases if c["kernel"] == "paged_decode"
                      and c["H"] == 6 and c["dtype"] == "bf16")
     emit({"kernels": [
-        main_row("flash_fwd", "cuda",
-                 "ptype_tpu_torch/ops/csrc/flash_fwd.cu",
-                 "ptype_tpu/ops/flash_attention.py:160", flash_launches,
-                 flash_row),
-        main_row("paged_decode", "cuda",
-                 "ptype_tpu_torch/ops/csrc/paged_decode.cu",
+        main_row("flash_fwd", "ptype_tpu_torch/ops/csrc/flash_fwd.cu",
+                 "ptype_tpu/ops/flash_attention.py:160",
+                 flash_launches + fwd_n, pick("flash_fwd", 512, 4),
+                 launches_by_path={"generator_actor": flash_launches,
+                                   "trainer": fwd_n}),
+        main_row("flash_bwd_dq", bwd_src,
+                 "ptype_tpu/ops/flash_attention.py:320", dq_n,
+                 pick("flash_bwd_dq", 1024, 16)),
+        main_row("flash_bwd_dkv", bwd_src,
+                 "ptype_tpu/ops/flash_attention.py:342", dkv_n,
+                 pick("flash_bwd_dkv", 1024, 16)),
+        main_row("paged_decode", "ptype_tpu_torch/ops/csrc/paged_decode.cu",
                  "ptype_tpu/ops/paged_attention.py:149",
                  paged_main_launches, paged_row)]})
     print(card, flush=True)

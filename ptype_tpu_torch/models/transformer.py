@@ -1,5 +1,5 @@
 """Decoder-only transformer in PyTorch — the port of
-``ptype_tpu/models/transformer.py`` (forward path only).
+``ptype_tpu/models/transformer.py``: the forward and the training loss.
 
 Same architecture and parameter tree as the reference: RMSNorm, RoPE,
 SwiGLU, grouped-query attention, all block parameters stacked on a
@@ -13,9 +13,15 @@ Precision policy as in the reference: matmuls in ``cfg.dtype`` (bf16
 by default), parameters in ``cfg.param_dtype`` (f32), norms, RoPE,
 softmax and logits in f32.
 
-Not ported yet (ROADMAP): mixture-of-experts (``_moe_mlp``), the loss
-and its fused head, ``param_specs``, ring/Ulysses attention. A config
-with ``n_experts > 0`` raises ``NotImplementedError``.
+The loss is the reference's: the LM head fused with the cross-entropy
+in row chunks (:func:`_chunked_nll`), each chunk's logits recomputed in
+backward rather than saved. With ``attn_impl`` "flash" (the default on
+CUDA) attention is differentiable through the flash kernels
+(``ops/flash_attention.py``).
+
+Not ported yet (ROADMAP): mixture-of-experts (``_moe_mlp``),
+``param_specs``, remat, ring/Ulysses attention. A config with
+``n_experts > 0`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -105,6 +111,21 @@ def count_params(params) -> int:
     return params.numel()
 
 
+def flops_per_token(cfg: TransformerConfig, seq_len: int,
+                    n_params: int | None = None) -> float:
+    """Fwd+bwd training FLOPs per token (PaLM appendix B convention):
+    ``6·N_matmul + 12·L·D·S`` — the MFU denominator. ``N_matmul``
+    counts matmul parameters only (norms excluded)."""
+    if n_params is None:
+        L, D = cfg.n_layers, cfg.d_model
+        H, K, Dh, F = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
+        per_layer = D * Dh * (H + 2 * K) + H * Dh * D + 3 * D * F
+        n_params = cfg.vocab_size * D + L * per_layer
+        if not cfg.tie_embeddings:
+            n_params += D * cfg.vocab_size
+    return 6.0 * n_params + 12.0 * cfg.n_layers * cfg.d_model * seq_len
+
+
 # ----------------------------------------------------------------- forward
 
 
@@ -178,9 +199,10 @@ def default_attn_impl(device) -> str:
 
 
 def _flash_attn_fn(q, k, v, cfg: TransformerConfig):
-    """``attn_impl="flash"`` for :func:`forward`: the same shape rule as
-    the reference's ``make_flash_attn_fn`` (1024 blocks clamped to S;
-    a sequence they do not tile falls back to dense)."""
+    """``attn_impl="flash"`` for :func:`forward`: the differentiable
+    flash attention, with the same shape rule as the reference's
+    ``make_flash_attn_fn`` (1024 blocks clamped to S; a sequence they do
+    not tile falls back to dense)."""
     from ptype_tpu_torch.ops.flash_attention import flash_attention
 
     S = q.shape[1]
@@ -256,7 +278,8 @@ def hidden_with_aux(params: dict, tokens: torch.Tensor,
         q, k, v = qkv_proj(x, layer, cfg, sin, cos)
         x = attn_residual(x, attn_fn(q, k, v, cfg), layer, cfg)
         x = mlp_residual(x, layer, cfg)
-    return rms_norm(x, params["final_norm"]), torch.zeros(())
+    return (rms_norm(x, params["final_norm"]),
+            torch.zeros((), device=tokens.device))
 
 
 def head_weight(params: dict, cfg: TransformerConfig) -> torch.Tensor:
@@ -269,8 +292,140 @@ def head_logits(x: torch.Tensor, head: torch.Tensor,
     return (x.to(cfg.dtype) @ head.to(cfg.dtype)).float()
 
 
+def forward_with_aux(params: dict, tokens: torch.Tensor,
+                     cfg: TransformerConfig, attn_fn=None):
+    """(logits (B, S, V) f32, aux) — aux is 0.0 (dense MLPs only)."""
+    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn)
+    return head_logits(x, head_weight(params, cfg), cfg), aux
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             attn_fn=None) -> torch.Tensor:
     """Logits (B, S, V) in f32."""
-    x, _ = hidden_with_aux(params, tokens, cfg, attn_fn)
-    return head_logits(x, head_weight(params, cfg), cfg)
+    return forward_with_aux(params, tokens, cfg, attn_fn)[0]
+
+
+# -------------------------------------------------------------------- loss
+
+
+def nll_terms_from_logits(logits: torch.Tensor, batch: dict):
+    """(nll_sum, denom) — the unnormalized pieces of the (masked) mean
+    cross-entropy, so gradient accumulation can sum them across
+    microbatches and divide once."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["targets"][..., None].long())
+    nll = logz - gold[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return nll.sum(), torch.tensor(float(nll.numel()),
+                                       device=nll.device)
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum(), torch.clamp(mask.sum(), min=1.0)
+
+
+def nll_from_logits(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """(Masked) mean cross-entropy from precomputed logits."""
+    nll_sum, denom = nll_terms_from_logits(logits, batch)
+    return nll_sum / denom
+
+
+#: Rows of (tokens × vocab) logits materialized at once by the fused
+#: loss head: 8192 × 32k vocab f32 is about 1 GB of transient per chunk,
+#: and the full (B·S, V) tensor never exists.
+LOSS_CHUNK_ROWS = 8192
+
+
+def _chunk_rows(n: int) -> int:
+    """The largest divisor of ``n`` within :data:`LOSS_CHUNK_ROWS`
+    (global batch 12 × seq 1024 chunks at 6144, not one dense chunk);
+    below 512 rows (odd or prime ``n``) one dense chunk beats a scan of
+    tiny ones."""
+    chunk = min(n, LOSS_CHUNK_ROWS)
+    while n % chunk:
+        chunk -= 1
+    return n if chunk < 512 else chunk
+
+
+class _ChunkedNLL(torch.autograd.Function):
+    """Σ mask·(logsumexp(x·W) − (x·W)[target]) over row chunks.
+
+    Forward keeps only the chunk sums. Backward recomputes each chunk's
+    logits and forms ``(softmax − onehot)·mask·g`` for it, so no
+    (rows, V) tensor lives from forward to backward: the saved state is
+    x, W, the targets and the mask, O(rows·D)."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets, mask, chunk, dt):
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        hdt = head.to(dt)
+        for i in range(0, x.shape[0], chunk):
+            logits = (x[i:i + chunk].to(dt) @ hdt).float()
+            gold = torch.gather(logits, 1, targets[i:i + chunk, None])
+            nll = torch.logsumexp(logits, dim=-1) - gold[:, 0]
+            total += (nll * mask[i:i + chunk]).sum()
+        ctx.save_for_backward(x, head, targets, mask)
+        ctx.chunk, ctx.dt = chunk, dt
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, targets, mask = ctx.saved_tensors
+        chunk, dt = ctx.chunk, ctx.dt
+        hdt = head.to(dt)
+        dx = torch.empty_like(x) if ctx.needs_input_grad[0] else None
+        dhead = (torch.zeros(head.shape, dtype=torch.float32,
+                             device=head.device)
+                 if ctx.needs_input_grad[1] else None)
+        for i in range(0, x.shape[0], chunk):
+            xc = x[i:i + chunk].to(dt)
+            logits = (xc @ hdt).float()
+            d = torch.softmax(logits, dim=-1)
+            rows = torch.arange(d.shape[0], device=d.device)
+            d[rows, targets[i:i + chunk]] -= 1.0
+            d = (d * (mask[i:i + chunk] * g)[:, None]).to(dt)
+            if dx is not None:
+                dx[i:i + chunk] = (d @ hdt.T).to(x.dtype)
+            if dhead is not None:
+                dhead += (xc.T @ d).float()
+        if dhead is not None:
+            dhead = dhead.to(head.dtype)
+        return dx, dhead, None, None, None, None
+
+
+def _chunked_nll(x, head, targets, mask, cfg: TransformerConfig):
+    """(nll_sum, denom) with the LM head fused into the loss: rows
+    stream through :data:`LOSS_CHUNK_ROWS`-sized chunks (the reference's
+    checkpointed ``lax.scan``), and backward recomputes each chunk's
+    logits instead of saving them."""
+    B, S, D = x.shape
+    n = B * S
+    targets = targets.reshape(n).long()
+    if mask is None:
+        m = torch.ones(n, dtype=torch.float32, device=x.device)
+        denom = torch.tensor(float(n), device=x.device)
+    else:
+        m = mask.reshape(n).float()
+        denom = torch.clamp(m.sum(), min=1.0)
+    nll_sum = _ChunkedNLL.apply(x.reshape(n, D), head, targets, m,
+                                _chunk_rows(n), cfg.dtype)
+    return nll_sum, denom
+
+
+def loss_terms(params: dict, batch: dict, cfg: TransformerConfig,
+               attn_fn=None):
+    """(nll_sum, denom, aux) — the loss pieces gradient accumulation
+    sums across microbatches (``train/trainer.py``). The LM head runs
+    fused with the cross-entropy: full logits are never materialized."""
+    x, aux = hidden_with_aux(params, batch["tokens"], cfg, attn_fn)
+    nll_sum, denom = _chunked_nll(x, head_weight(params, cfg),
+                                  batch["targets"], batch.get("loss_mask"),
+                                  cfg)
+    return nll_sum, denom, aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
+            attn_fn=None) -> torch.Tensor:
+    """Mean next-token cross-entropy. ``batch``: tokens (B, S), targets
+    (B, S), optional loss_mask (B, S)."""
+    nll_sum, denom, _ = loss_terms(params, batch, cfg, attn_fn)
+    return nll_sum / denom

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each held against its plain
-PyTorch version, and the serving path's launch counts. Every test here
+PyTorch version, and the serving and training paths' launch counts.
+Every test here
 needs a CUDA device (a hand-written kernel has no CPU mode) and skips
 without one. The file imports neither JAX nor the reference package,
 so it runs on a machine that has only PyTorch:
@@ -15,6 +16,7 @@ from ptype_tpu_torch.ops import flash_attention as flash_mod
 from ptype_tpu_torch.ops import paged_attention as paged_mod
 from ptype_tpu_torch.serve import GeneratorActor
 from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+from ptype_tpu_torch.train import Trainer, default_optimizer, synthetic_batches
 
 pytestmark = pytest.mark.cuda
 #: Kernel vs plain: f32 at the reference tests' tolerances; bf16 within
@@ -23,6 +25,11 @@ pytestmark = pytest.mark.cuda
 #: does not).
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: Backward kernels vs plain, as max abs error over the largest reference
+#: magnitude: f32 sums the same terms in another order; bf16 rounds P
+#: and dS to bf16 (8-bit mantissa) before the tensor-core products, where
+#: the plain version keeps f32.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: A narrow config with the serving head width (Dh = 128) and GQA.
 NARROW = ttfm.TransformerConfig(vocab_size=256, d_model=512, n_layers=2,
                                 n_heads=4, n_kv_heads=2, d_ff=256,
@@ -51,6 +58,67 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, causal):
     assert flash_mod.flash_attention.launches == before + 1
     assert (o.float() - ro.float()).abs().max().item() < FLASH_TOL[dtype]
     assert (lse - rl).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,Dh,causal", [
+    (2, 320, 4, 2, 128, True), (2, 320, 4, 2, 128, False),
+    (1, 200, 6, 6, 128, True), (2, 256, 4, 1, 64, True)])
+def test_flash_backward_kernels_match_plain(cuda, dtype, B, S, H, K, Dh,
+                                            causal):
+    q = torch.randn(B, S, H, Dh, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, S, K, Dh, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, S, K, Dh, generator=cuda, device="cuda").to(dtype)
+    do = torch.randn(B, S, H, Dh, generator=cuda, device="cuda").to(dtype)
+    o, lse = flash_mod.flash_attention(q, k, v, causal, return_lse=True)
+    delta = flash_mod.bwd_delta(o, do)
+    before = (flash_mod.flash_attention_dq.launches,
+              flash_mod.flash_attention_dkv.launches)
+    got = (flash_mod.flash_attention_dq(q, k, v, do, lse, delta, causal),
+           *flash_mod.flash_attention_dkv(q, k, v, do, lse, delta, causal))
+    want = flash_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (flash_mod.flash_attention_dq.launches,
+            flash_mod.flash_attention_dkv.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+
+
+def test_flash_grad_goes_through_the_kernels(cuda):
+    q, k, v = (torch.randn(2, 128, 4, 128, generator=cuda, device="cuda",
+                           requires_grad=True) for _ in range(3))
+    counts = (flash_mod.flash_attention.launches,
+              flash_mod.flash_attention_dq.launches,
+              flash_mod.flash_attention_dkv.launches)
+    o = flash_mod.flash_attention(q, k, v)
+    assert o.grad_fn is not None
+    o.sum().backward()
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_attention_dq.launches,
+            flash_mod.flash_attention_dkv.launches) == tuple(
+                c + 1 for c in counts)
+    with torch.no_grad():
+        flash_mod.flash_attention(q, k, v)
+    assert flash_mod.flash_attention.launches == counts[0] + 2
+
+
+def test_trainer_step_launches_every_kernel_per_layer(cuda):
+    tr = Trainer(NARROW, device="cuda",
+                 optimizer=default_optimizer(lr=1e-3, warmup=1))
+    batch = next(synthetic_batches(256, 2, 128, seed=0, device="cuda"))
+    flash_mod.flash_attention.launches = 0
+    flash_mod.flash_attention_dq.launches = 0
+    flash_mod.flash_attention_dkv.launches = 0
+    losses = [float(tr.step(batch)["loss"]) for _ in range(3)]
+    want = 3 * NARROW.n_layers
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_attention_dq.launches,
+            flash_mod.flash_attention_dkv.launches) == (want, want, want)
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -66,6 +66,7 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
     from ptype_tpu_torch.models import transformer as ttfm
     from ptype_tpu_torch.serve import GeneratorActor
     from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+    from ptype_tpu_torch.train import Trainer, synthetic_batches
 
     cfg = ttfm.preset("tiny", dtype=torch.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -74,22 +75,30 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
         GeneratorActor(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedGeneratorActor(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(synthetic_batches(256, 2, 8))
     assert resolve_device("cpu") == torch.device("cpu")
+    assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_build_is_lazy_and_targets_hopper():
     from ptype_tpu_torch.ops import _build
 
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
-        "flash_fwd", "paged_decode"}
+        "flash_fwd", "flash_bwd", "paged_decode"}
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
-    # Each source exports its entry point and error_string (the
+    # Each source exports its entry points and error_string (the
     # ctypes contract the wrappers bind).
-    for name, fn in (("flash_fwd", "flash_fwd"),
-                     ("paged_decode", "paged_decode")):
+    for name, fns in (("flash_fwd", ["flash_fwd"]),
+                      ("flash_bwd", ["flash_bwd_dq", "flash_bwd_dkv"]),
+                      ("paged_decode", ["paged_decode"])):
         src = (_build.CSRC / f"{name}.cu").read_text()
-        assert f"int {fn}(" in src and "const char* error_string(" in src
+        assert "const char* error_string(" in src
+        for fn in fns:
+            assert f"int {fn}(" in src, (name, fn)
     # The target name hashes source and flags: stable until either moves.
     assert _build._target("flash_fwd") == _build._target("flash_fwd")
 
