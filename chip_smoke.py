@@ -7,16 +7,18 @@ Run from the root of a checkout. Phases, each printing its own lines:
 
 1. build — every CUDA kernel under ptype_tpu_torch/ops/csrc is compiled
    by nvcc for sm_90a (one nvcc per source, all at once); prints the
-   build seconds, each kernel's registers and spills, and the card's
-   name and power limit;
+   build seconds, each kernel's registers and spills, its counts of
+   HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions
+   from cuobjdump -sass, and the card's name and power limit. The bf16
+   flash forward and dk/dv kernels must contain HGMMA and UTMALDG;
 2. kernels — each kernel against its plain PyTorch version at the
    shapes the serving and training paths give it (bf16, plus f32), with
    the stated tolerance, its time, the plain version's time, one
    library call's time where one computes the same function (for the
    backward kernels: torch.autograd.grad through
-   F.scaled_dot_product_attention), and the least time the card could
-   take (the larger of bytes / 3.35 TB/s and operations / the peak rate
-   of their type);
+   F.scaled_dot_product_attention) and the ratio of the two
+   (vs_library), and the least time the card could take (the larger of
+   bytes / 3.35 TB/s and operations / the peak rate of their type);
 3. GeneratorActor.Generate at optimus-125m full width, prompt (4, 512),
    32 new tokens: the flash kernel must have been launched; per-step
    logits under teacher forcing are held against the same actor built
@@ -117,16 +119,14 @@ def bound(nbytes, ops, kind):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ptxas_summary(log):
-    """{kernel<type,Dh>: "N regs, S spill bytes"} from ptxas -v."""
+def ptxas_summary(build, log):
+    """{kernel<args>: "N regs, S spill bytes"} from ptxas -v. A kernel
+    that rebalances registers with setmaxnreg reports its launch count."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"\d([a-z][a-z_]*_kernel)I(f|13__nv_bfloat16)"
-                          r"Li(\d+)E", m.group(1))
-            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}"
-                    f",{k.group(3)}>" if k else m.group(1)[:60])
+            name = build.kernel_label(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
@@ -169,7 +169,8 @@ def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen):
     return {"kernel": "flash_fwd", "B": B, "S": S, "H": H, "K": K,
             "Dh": Dh, "dtype": kind, "max_abs_err": err,
             "tol": TOL["flash"][kind], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
+            "library_ms": lib_ms, "vs_library": ms / lib_ms,
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen):
@@ -232,12 +233,14 @@ def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen):
     return [
         {"kernel": "flash_bwd_dq", **base, "max_abs_err": err["dq"],
          "max_rel_err": rel["dq"], "ms": ms["dq"], "plain_ms": plain["dq"],
+         "vs_library": ms["dq"] / lib_ms,
          "bound_ms": bounds["dq"][0], "bound_by": bounds["dq"][1]},
         {"kernel": "flash_bwd_dkv", **base,
          "max_abs_err": max(err["dk"], err["dv"]),
          "max_rel_err": max(rel["dk"], rel["dv"]),
          "dk_max_abs_err": err["dk"], "dv_max_abs_err": err["dv"],
          "ms": ms["dkv"], "plain_ms": plain["dkv"],
+         "vs_library": ms["dkv"] / lib_ms,
          "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]}]
 
 
@@ -275,7 +278,7 @@ def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen):
     return {"kernel": "paged_decode", "B": B, "H": H, "Kh": Kh, "Dh": Dh,
             "bt": bt, "nb": nb, "pos": pos_list, "dtype": kind,
             "max_abs_err": err, "tol": TOL["paged"][kind], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "plain_ms": plain_ms, "library_ms": None, "vs_library": None,
             "bound_ms": bound_ms, "bound_by": by}
 
 
@@ -526,9 +529,19 @@ def main():
     # 1. build
     t0 = time.monotonic()
     built = _build.build_all()
-    regs = {n: ptxas_summary(log) for n, log in _build.build_logs.items()}
+    regs = {n: ptxas_summary(_build, log)
+            for n, log in _build.build_logs.items()}
+    sass = {p.stem: _build.sass_counts(p.stem)
+            for p in sorted(_build.CSRC.glob("*.cu"))}
     emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "built": built, "ptxas": regs, "card": card})
+          "built": built, "ptxas": regs, "sass": sass, "card": card})
+    for lib, kernel in (("flash_fwd", "flash_fwd_kernel_bf16"),
+                        ("flash_bwd", "flash_bwd_dkv_kernel_bf16")):
+        for dh in (64, 128):
+            ops = sass[lib].get(f"{kernel}<{dh}>", {})
+            check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
+                  f"{kernel}<{dh}> has no wgmma or TMA load in its SASS: "
+                  f"{ops}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -668,7 +681,8 @@ def main():
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "dtype": row["dtype"],
+                "library_ms": row["library_ms"],
+                "vs_library": row["vs_library"], "dtype": row["dtype"],
                 "shape": {k: row[k] for k in ("B", "S", "H", "K", "Kh")
                           if k in row},
                 **extra}
@@ -681,12 +695,15 @@ def main():
     bwd_src = "ptype_tpu_torch/ops/csrc/flash_bwd.cu"
     paged_row = next(c for c in cases if c["kernel"] == "paged_decode"
                      and c["H"] == 6 and c["dtype"] == "bf16")
+    fwd_src = "ptype_tpu_torch/ops/csrc/flash_fwd.cu"
+    fwd_launches = {"generator_actor": flash_launches, "trainer": fwd_n}
     emit({"kernels": [
-        main_row("flash_fwd", "ptype_tpu_torch/ops/csrc/flash_fwd.cu",
-                 "ptype_tpu/ops/flash_attention.py:160",
+        main_row("flash_fwd", fwd_src, "ptype_tpu/ops/flash_attention.py:160",
                  flash_launches + fwd_n, pick("flash_fwd", 512, 4),
-                 launches_by_path={"generator_actor": flash_launches,
-                                   "trainer": fwd_n}),
+                 launches_by_path=fwd_launches),
+        main_row("flash_fwd", fwd_src, "ptype_tpu/ops/flash_attention.py:160",
+                 flash_launches + fwd_n, pick("flash_fwd", 1024, 16),
+                 launches_by_path=fwd_launches),
         main_row("flash_bwd_dq", bwd_src,
                  "ptype_tpu/ops/flash_attention.py:320", dq_n,
                  pick("flash_bwd_dq", 1024, 16)),

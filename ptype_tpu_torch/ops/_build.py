@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface,
 loaded with :mod:`ctypes`. The build happens at first use, never at
 import, into ``build/kernels/`` at the repo root (listed in
-``.gitignore``), cached by a hash of the source and the flags: a
-checkout with nothing built builds on its first kernel call.
+``.gitignore``), cached by a hash of the source, of every shared header
+``csrc/*.cuh`` and of the flags: a checkout with nothing built builds on
+its first kernel call, and an edit to a header rebuilds every source.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`sass_counts` reads back what a build compiled to.
 
 The sources include no PyTorch header, so a build takes seconds. Every
 C entry point enqueues on the stream it is given and returns
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +48,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -95,6 +100,48 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             _libs[name] = lib
         return lib
+
+
+def kernel_label(symbol: str) -> str:
+    """A kernel's mangled symbol as ``name<args>``, e.g.
+    ``flash_fwd_kernel_bf16<128>`` or ``flash_bwd_dq_kernel<bf16,128>``."""
+    m = re.search(r"\d([a-z][a-z_]*_kernel(?:_[a-z0-9]+)?)I"
+                  r"((?:f|13__nv_bfloat16|Li\d+E)+)E", symbol)
+    if not m:
+        return symbol[:60]
+    args = [{"f": "f32", "13__nv_bfloat16": "bf16"}.get(a.group(0), a.group(1))
+            for a in re.finditer(r"f|13__nv_bfloat16|Li(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+#: Tensor-core and TMA instructions counted by :func:`sass_counts`:
+#: ``wgmma``, TMA loads, and the ``mma.sync`` path WMMA compiles to.
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(name: str) -> dict[str, dict[str, int]]:
+    """{kernel label: {instruction: count}} of :data:`SASS_OPS` in the
+    built library of ``csrc/<name>.cu``, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or str(Path(nvcc()).parent / "cuobjdump")
+    return count_sass(subprocess.run(
+        [tool, "-sass", str(_target(name))], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
+
+
+def count_sass(sass: str) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of a ``cuobjdump -sass`` listing."""
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function\s*:\s*(\S+)", line)
+        if m:
+            current = counts.setdefault(kernel_label(m.group(1)),
+                                        dict.fromkeys(SASS_OPS, 0))
+        elif current is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    current[op] += 1
+    return counts
 
 
 def check(code: int, what: str, lib: ctypes.CDLL) -> None:

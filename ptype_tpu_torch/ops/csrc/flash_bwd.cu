@@ -5,7 +5,7 @@
 // launched by _flash_bwd:
 // - flash_bwd_dq_kernel replaces _dq_kernel: dq for one q tile, K/V tiles
 //   streamed, P recomputed from the forward's LSE, dS = P (dP - delta);
-// - flash_bwd_dkv_kernel replaces _dkv_kernel: dk and dv for one kv tile
+// - flash_bwd_dkv_kernel_* replace _dkv_kernel: dk and dv for one kv tile
 //   of one KV head, summed over the query heads of its GQA group and over
 //   every q tile.
 // delta = rowsum(dO o O) comes in precomputed, as in the reference.
@@ -17,36 +17,48 @@
 // just over the card's ~295 flop/byte balance point, so both are bound by
 // the bf16 tensor-core rate (989 TFLOP/s dense) with the memory rate
 // (3.35 TB/s) close behind; longer sequences and GQA move them further
-// onto the tensor cores. What a kernel like this actually takes is set by
-// how well it keeps the tensor cores fed, which this first version does
-// not.
+// onto the tensor cores. What a kernel actually takes is set by how well
+// it keeps the tensor cores fed.
 //
-// What the design does about it (a first, simple version; TMA, wgmma and
-// pipelining are later work):
-// - bf16 products run on the tensor cores through WMMA 16x16x16 fragments
-//   with f32 accumulation; the f32 variant (kept so the CPU's f32 parity
-//   runs can be repeated on the card) does the same arithmetic with scalar
-//   f32 multiply-adds;
-// - one block of 4 warps per (q tile of 64 rows, head, batch row) for dq,
-//   and per (kv tile of 64 rows, KV head, batch row) for dk/dv; each warp
-//   owns 16 rows of the tile it accumulates, so the elementwise pass needs
-//   only warp-level synchronisation;
-// - the TPU grid's innermost sequential dimensions become loops inside the
-//   block: dq loops over K/V tiles up to the diagonal, dk/dv over the
-//   group's G query heads and the q tiles from the diagonal on; the GQA
-//   group sum stays inside the block, so there are no atomics and the
-//   result is deterministic;
-// - the gradient accumulators live in registers as WMMA accumulator
-//   fragments for the whole loop and are written once; S and dP go through
-//   shared memory in f32, and P / dS are rounded to bf16 in place over the
-//   S rows for the next products, which keeps a block at ~103 KB of shared
-//   memory so two fit on an SM;
-// - causal blocks skip every tile on the far side of the diagonal; dq
-//   walks its grid from the last q tile (the longest) to the first, and
-//   the dk/dv grid starts at kv tile 0 (the longest) by construction;
-// - all tensors are read and written in their (B, S, H|K, Dh) layout
-//   through strides: no head-major copies. lse is the forward's plain
-//   (B, H, S) f32 row and delta a (B, S, H) f32 row.
+// Shared by both: the TPU grid's innermost sequential dimensions become
+// loops inside the block. dq loops over K/V tiles up to the diagonal;
+// dk/dv over the group's G query heads and the q tiles from the diagonal
+// on, so the GQA group sum stays inside the block: no atomics, and the
+// result is deterministic. Causal blocks skip every tile on the far side
+// of the diagonal; dq walks its grid from the last q tile (the longest)
+// to the first, and the dk/dv grid starts at kv tile 0 (the longest). All
+// tensors are read and written in their (B, S, H|K, Dh) layout: no
+// head-major copies. lse is the forward's plain (B, H, S) f32 row and
+// delta a (B, S, H) f32 row.
+//
+// dq (a first, simple version): one block of 4 warps per (q tile of 64
+// rows, head, batch row), each warp owning 16 rows; bf16 products on WMMA
+// 16x16x16 fragments, the dq accumulator in registers, S and dP through
+// shared memory in f32, dS rounded to bf16 in place over the S rows.
+//
+// dk/dv in bf16, a Hopper design:
+// - one block per (kv tile of 128 rows, KV head, batch row): two consumer
+//   warpgroups of 64 kv rows each and one producer warpgroup, whose
+//   registers move to the consumers with setmaxnreg;
+// - K and V are loaded once with TMA; the producer streams (Q, dO) tiles
+//   of 64 rows through a ring of three shared-memory stages with TMA and
+//   stages their lse (pre-scaled by log2 e) and delta rows beside them,
+//   signalled by full and empty mbarriers;
+// - every product runs on wgmma with f32 accumulators in registers, in the
+//   transposed forms, so that P and dS land in registers already in the
+//   layout of a wgmma A operand: S^T = K Q^T and dP^T = V dO^T with both
+//   operands in shared memory (K-major), then P^T = exp2(S^T scale log2 e
+//   - lse log2 e) and dS^T = P^T (dP^T - delta) scale on the fragments,
+//   rounded to bf16, and dV += P^T dO, dK += dS^T Q with the register A
+//   operand and dO, Q as MN-major shared-memory B operands. Neither S, dP
+//   nor the dK, dV accumulators (64 + 64 registers a thread at Dh=128)
+//   touch shared memory;
+// - the epilogue stages dK and dV through the warpgroup's own K and V
+//   tiles and writes 16-byte rows.
+//
+// The f32 variants exist so that the CPU's f32 parity runs can be
+// repeated on the card; no main path runs them. They are simple scalar
+// code with the dq kernel's block shape.
 //
 // Numerics: the bf16 kernels round P and dS to bf16 before the tensor-core
 // products (the reference rounds dS, and computes dP and dV with dO in
@@ -61,6 +73,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -322,22 +336,258 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------------------- dk/dv
+// ------------------------------------------------------ dk/dv, bf16: TMA + wgmma
 
-template <typename T, int DH>
+// One block per (kv tile of 128 rows, KV head, batch row): two consumer
+// warpgroups of 64 kv rows each and one producer warpgroup.
+template <int DH>
+struct Dkv {
+  static constexpr int NC = 2;         // consumer warpgroups
+  static constexpr int BKV = 64 * NC;  // kv rows of a block
+  static constexpr int BQ = 64;        // q rows of a streamed tile
+  static constexpr int ST = 3;         // stages in the (Q, dO) ring
+  static constexpr int NSUB = DH / 64;
+  static constexpr int KV_BYTES = NC * NSUB * hopper::SLAB;  // [wg][slab]
+  static constexpr int QS_BYTES = NSUB * hopper::SLAB;       // one stage
+  static constexpr int k_off = 0;
+  static constexpr int v_off = KV_BYTES;
+  static constexpr int q_off = 2 * KV_BYTES;
+  static constexpr int do_off = q_off + ST * QS_BYTES;
+  static constexpr int lse_off = do_off + ST * QS_BYTES;
+  static constexpr int del_off = lse_off + ST * BQ * 4;
+  static constexpr int bar_off = del_off + ST * BQ * 4;
+  static constexpr int alloc = bar_off + 8 * (1 + 2 * ST) + 1024;
+  static constexpr int threads = 128 * (NC + 1);
+};
+
+// Write a warpgroup's 64 x DH f32 accumulator as bf16 rows row0.. of
+// (B, S, K, DH) through `stage` (64 x DH bf16 of shared memory, 16-byte
+// chunks swizzled by row).
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2],
+                                           bf16* stage, bf16* dst, int b,
+                                           int row0, int S, int K, int kvh,
+                                           int bar_id) {
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r_lo = 16 * (tid / 32) + lane / 4, qd = lane % 4;
+  hopper::fence_proxy_async();
+#pragma unroll
+  for (int jj = 0; jj < DH / 8; ++jj)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      *reinterpret_cast<uint32_t*>(stage + r * DH + (jj ^ (r & 7)) * 8 +
+                                   2 * qd) =
+          hopper::pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+    }
+  hopper::warpgroup_sync(bar_id);
+  constexpr int CPR = DH / 8;
+  for (int idx = tid; idx < 64 * CPR; idx += 128) {
+    const int r = idx / CPR, c = idx % CPR, row = row0 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(dst + (((size_t)b * S + row) * K + kvh) * DH +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * DH + (c ^ (r & 7)) * 8);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Dkv<DH>::threads, 1)
+flash_bwd_dkv_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                          int H, int K, int causal, float scale) {
+  using namespace hopper;
+  using L = Dkv<DH>;
+  constexpr int NC = L::NC, BQ = L::BQ, ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* s_lse = reinterpret_cast<float*>(smem + L::lse_off);
+  float* s_del = reinterpret_cast<float*>(smem + L::del_off);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int kt = blockIdx.x;  // tile 0 has the most causal q tiles
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / K;
+  const int k0 = kt * L::BKV;
+  const int nq = (S + BQ - 1) / BQ;
+  // Causal: q tile i holds a row at or past this block's first key iff
+  // (i + 1) BQ > k0, i.e. i >= k0 / BQ.
+  const int i0 = causal ? k0 / BQ : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], NC * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // Producer: the first warp's 32 lanes stage each tile's lse (in log2
+    // units) and delta rows; its lane 0 issues the TMA loads.
+    reg_dealloc<24>();
+    if (threadIdx.x / 32 == NC * 4) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_arrive_tx(kvbar, 2 * L::KV_BYTES);
+        for (int c = 0; c < NC; ++c)
+          for (int sub = 0; sub < L::NSUB; ++sub) {
+            const int off = (c * L::NSUB + sub) * SLAB;
+            tma_load_4d(smem + L::k_off + off, &tk, kvbar, sub * 64, kvh,
+                        k0 + 64 * c, b);
+            tma_load_4d(smem + L::v_off + off, &tv, kvbar, sub * 64, kvh,
+                        k0 + 64 * c, b);
+          }
+      }
+      int it = 0;
+      for (int g = 0; g < G; ++g) {
+        const int h = kvh * G + g;
+        for (int i = i0; i < nq; ++i, ++it) {
+          const int st = it % ST, q0 = i * BQ;
+          mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+          for (int r = lane; r < BQ; r += 32) {
+            const int row = q0 + r;
+            s_lse[st * BQ + r] =
+                row < S ? lse[((size_t)b * H + h) * S + row] * kLog2e : 0.f;
+            s_del[st * BQ + r] =
+                row < S ? delta[((size_t)b * S + row) * H + h] : 0.f;
+          }
+          // Each lane arrives after its own rows are written.
+          if (lane == 0) {
+            mbar_arrive_tx(&full[st], 2 * L::QS_BYTES);
+            for (int sub = 0; sub < L::NSUB; ++sub) {
+              const int off = st * L::QS_BYTES + sub * SLAB;
+              tma_load_4d(smem + L::q_off + off, &tq, &full[st], sub * 64, h,
+                          q0, b);
+              tma_load_4d(smem + L::do_off + off, &tdo, &full[st], sub * 64,
+                          h, q0, b);
+            }
+          } else {
+            mbar_arrive(&full[st]);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: kv rows k0 + 64 wg ... + 63.
+    reg_alloc<240>();
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int qd = lane % 4;
+    const int kr = k0 + 64 * wg + 16 * (tid / 32) + lane / 4;  // and kr + 8
+    unsigned char* sk = smem + L::k_off + wg * L::NSUB * SLAB;
+    unsigned char* sv = smem + L::v_off + wg * L::NSUB * SLAB;
+    const float sl2 = scale * kLog2e;
+
+    float acc_k[DH / 2], acc_v[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    int it = 0;
+    for (int g = 0; g < G; ++g) {
+      for (int i = i0; i < nq; ++i, ++it) {
+        const int st = it % ST, q0 = i * BQ;
+        mbar_wait(&full[st], (it / ST) & 1);
+        const unsigned char* sq = smem + L::q_off + st * L::QS_BYTES;
+        const unsigned char* sdo = smem + L::do_off + st * L::QS_BYTES;
+        const float* tl = s_lse + st * BQ;
+        const float* td = s_del + st * BQ;
+
+        // S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 kv rows.
+        float s[BQ / 2], dp[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss<BQ>(s, desc_k(sk + (kk / 4) * SLAB + (kk % 4) * 32),
+                       desc_k(sq + (kk / 4) * SLAB + (kk % 4) * 32), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss<BQ>(dp, desc_k(sv + (kk / 4) * SLAB + (kk % 4) * 32),
+                       desc_k(sdo + (kk / 4) * SLAB + (kk % 4) * 32), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale, on
+        // the fragments: element 4 jj + 2 i + c is kv row kr + 8 i and q
+        // column 8 jj + 2 qd + c of the tile.
+        const bool diag = causal && k0 + 64 * wg + 63 > q0;
+#pragma unroll
+        for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 8 * jj + 2 * qd + c;
+            const float lq = tl[col], dl = td[col];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 4 * jj + 2 * i + c;
+              float p = exp2f(fmaf(s[e], sl2, -lq));
+              if (diag && kr + 8 * i > q0 + col) p = 0.f;
+              s[e] = p;
+              dp[e] = p * (dp[e] - dl) * scale;
+            }
+          }
+
+        // dV += P^T dO and dK += dS^T Q, P^T and dS^T in registers as bf16.
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        to_a_operand(s, pa);
+        to_a_operand(dp, da);
+        fence_regs(acc_k);
+        fence_regs(acc_v);
+        fence_regs(pa);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          wgmma_rs<DH>(acc_v, pa[kk], desc_mn(sdo + kk * 2048, SLAB));
+          wgmma_rs<DH>(acc_k, da[kk], desc_mn(sq + kk * 2048, SLAB));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc_k);
+        fence_regs(acc_v);
+        mbar_arrive(&empty[st]);
+      }
+    }
+
+    // dk and dv through the warpgroup's own K and V tiles.
+    const int row0 = k0 + 64 * wg;
+    store_rows<DH>(acc_k, reinterpret_cast<bf16*>(sk), dk, b, row0, S, K, kvh,
+                   1 + wg);
+    store_rows<DH>(acc_v, reinterpret_cast<bf16*>(sv), dv, b, row0, S, K, kvh,
+                   1 + wg);
+  }
+}
+
+// --------------------------------------------------------- dk/dv, f32
+
+template <int DH>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dO,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, int K, int causal,
-                     float scale) {
-  using L = Tiles<T, DH>;
+flash_bwd_dkv_kernel_f32(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dO,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int S, int H, int K, int causal, float scale) {
+  using L = Tiles<float, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = reinterpret_cast<T*>(smem + L::tile);
-  T* sQ = reinterpret_cast<T*>(smem + 2 * L::tile);
-  T* sdO = reinterpret_cast<T*>(smem + 3 * L::tile);
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = reinterpret_cast<float*>(smem + L::tile);
+  float* sQ = reinterpret_cast<float*>(smem + 2 * L::tile);
+  float* sdO = reinterpret_cast<float*>(smem + 3 * L::tile);
   float* sS = reinterpret_cast<float*>(smem + 4 * L::tile);
   float* sdP = reinterpret_cast<float*>(smem + 4 * L::tile + L::scores);
   float* sLse = reinterpret_cast<float*>(smem + 4 * L::tile + 2 * L::scores);
@@ -350,24 +600,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's first kv row in the tile
 
-  load_tile<T, DH, L::LDT>(sK, k, b, k0, BK, S, K, kvh);
-  load_tile<T, DH, L::LDT>(sV, v, b, k0, BK, S, K, kvh);
+  load_tile<float, DH, L::LDT>(sK, k, b, k0, BK, S, K, kvh);
+  load_tile<float, DH, L::LDT>(sV, v, b, k0, BK, S, K, kvh);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acck[DH / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accv[DH / 16];
   float fk[16][DH / 32], fv[16][DH / 32];
-  if constexpr (L::kBf16) {
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::fill_fragment(acck[n], 0.f);
-      wmma::fill_fragment(accv[n], 0.f);
-    }
-  } else {
+  for (int rr = 0; rr < 16; ++rr)
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr)
-#pragma unroll
-      for (int i = 0; i < DH / 32; ++i) fk[rr][i] = fv[rr][i] = 0.f;
-  }
+    for (int i = 0; i < DH / 32; ++i) fk[rr][i] = fv[rr][i] = 0.f;
 
   const int nq = (S + BQ - 1) / BQ;
   // Causal: q tile i holds a row at or past this tile's first key iff
@@ -379,8 +619,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = i0; i < nq; ++i) {
       const int q0 = i * BQ;
       __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<T, DH, L::LDT>(sQ, q, b, q0, BQ, S, H, h);
-      load_tile<T, DH, L::LDT>(sdO, dO, b, q0, BQ, S, H, h);
+      load_tile<float, DH, L::LDT>(sQ, q, b, q0, BQ, S, H, h);
+      load_tile<float, DH, L::LDT>(sdO, dO, b, q0, BQ, S, H, h);
       for (int r = threadIdx.x; r < BQ; r += NT) {
         const int row = q0 + r;
         sLse[r] = row < S ? lse[((size_t)b * H + h) * S + row] : 0.f;
@@ -389,94 +629,39 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       // S^T = K Q^T and dP^T = V dO^T for the warp's 16 kv rows.
-      if constexpr (L::kBf16) {
-        warp_abt<DH, L::LDT>(sS + r0 * L::LDS, L::LDS,
-                             reinterpret_cast<const bf16*>(sK) + r0 * L::LDT,
-                             reinterpret_cast<const bf16*>(sQ));
-        warp_abt<DH, L::LDT>(sdP + r0 * L::LDS, L::LDS,
-                             reinterpret_cast<const bf16*>(sV) + r0 * L::LDT,
-                             reinterpret_cast<const bf16*>(sdO));
-      } else {
-        warp_abt_f32<DH, L::LDT>(sS + r0 * L::LDS, L::LDS,
-                                 reinterpret_cast<const float*>(sK) +
-                                     r0 * L::LDT,
-                                 reinterpret_cast<const float*>(sQ));
-        warp_abt_f32<DH, L::LDT>(sdP + r0 * L::LDS, L::LDS,
-                                 reinterpret_cast<const float*>(sV) +
-                                     r0 * L::LDT,
-                                 reinterpret_cast<const float*>(sdO));
-      }
+      warp_abt_f32<DH, L::LDT>(sS + r0 * L::LDS, L::LDS, sK + r0 * L::LDT,
+                               sQ);
+      warp_abt_f32<DH, L::LDT>(sdP + r0 * L::LDS, L::LDS, sV + r0 * L::LDT,
+                               sdO);
       __syncwarp();
 
-      // P^T and dS^T, one kv row at a time across the warp. bf16: P goes
-      // to the row's first 128 bytes and dS to the next 128, after every
-      // lane has read the row; f32: in place in S and dP.
+      // P^T and dS^T in place in S and dP, one kv row at a time.
       for (int rr = 0; rr < 16; ++rr) {
         const int r = r0 + rr, kcol = k0 + r;
-        float p[BQ / 32], ds[BQ / 32];
 #pragma unroll
         for (int e = 0; e < BQ / 32; ++e) {
           const int c = lane + 32 * e, row = q0 + c;
           const bool ok = row < S && kcol < S && (!causal || kcol <= row);
-          p[e] = ok ? __expf(sS[r * L::LDS + c] * scale - sLse[c]) : 0.f;
-          ds[e] = p[e] * (sdP[r * L::LDS + c] - sDel[c]) * scale;
-        }
-        if constexpr (L::kBf16) {
-          __syncwarp();
-          bf16* sb = reinterpret_cast<bf16*>(sS + r * L::LDS);
-#pragma unroll
-          for (int e = 0; e < BQ / 32; ++e) {
-            sb[lane + 32 * e] = __float2bfloat16(p[e]);
-            sb[BQ + lane + 32 * e] = __float2bfloat16(ds[e]);
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < BQ / 32; ++e) {
-            sS[r * L::LDS + lane + 32 * e] = p[e];
-            sdP[r * L::LDS + lane + 32 * e] = ds[e];
-          }
+          const float p =
+              ok ? __expf(sS[r * L::LDS + c] * scale - sLse[c]) : 0.f;
+          sS[r * L::LDS + c] = p;
+          sdP[r * L::LDS + c] = p * (sdP[r * L::LDS + c] - sDel[c]) * scale;
         }
       }
       __syncwarp();
 
       // dV += P^T dO and dK += dS^T Q for the warp's 16 kv rows.
-      if constexpr (L::kBf16) {
-        const bf16* sb = reinterpret_cast<const bf16*>(sS + r0 * L::LDS);
-        const bf16* qb = reinterpret_cast<const bf16*>(sQ);
-        const bf16* ob = reinterpret_cast<const bf16*>(sdO);
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-            pa[BQ / 16], da[BQ / 16];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          wmma::load_matrix_sync(pa[kk], sb + kk * 16, L::LDB);
-          wmma::load_matrix_sync(da[kk], sb + BQ + kk * 16, L::LDB);
-        }
-#pragma unroll
-        for (int n = 0; n < DH / 16; ++n) {
-#pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {
-            wmma::load_matrix_sync(fb, ob + kk * 16 * L::LDT + n * 16, L::LDT);
-            wmma::mma_sync(accv[n], pa[kk], fb, accv[n]);
-            wmma::load_matrix_sync(fb, qb + kk * 16 * L::LDT + n * 16, L::LDT);
-            wmma::mma_sync(acck[n], da[kk], fb, acck[n]);
-          }
-        }
-      } else {
-        const float* qf = reinterpret_cast<const float*>(sQ);
-        const float* of = reinterpret_cast<const float*>(sdO);
-#pragma unroll
-        for (int rr = 0; rr < 16; ++rr) {
-          const float* pr = sS + (r0 + rr) * L::LDS;
-          const float* dsr = sdP + (r0 + rr) * L::LDS;
+      for (int rr = 0; rr < 16; ++rr) {
+        const float* pr = sS + (r0 + rr) * L::LDS;
+        const float* dsr = sdP + (r0 + rr) * L::LDS;
 #pragma unroll 1
-          for (int c = 0; c < BQ; ++c) {
-            const float wp = pr[c], wd = dsr[c];
+        for (int c = 0; c < BQ; ++c) {
+          const float wp = pr[c], wd = dsr[c];
 #pragma unroll
-            for (int i = 0; i < DH / 32; ++i) {
-              fv[rr][i] += wp * of[c * L::LDT + lane + 32 * i];
-              fk[rr][i] += wd * qf[c * L::LDT + lane + 32 * i];
-            }
+          for (int i = 0; i < DH / 32; ++i) {
+            fv[rr][i] += wp * sdO[c * L::LDT + lane + 32 * i];
+            fk[rr][i] += wd * sQ[c * L::LDT + lane + 32 * i];
           }
         }
       }
@@ -484,49 +669,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // Write dk, dv (B, S, K, Dh).
-  if constexpr (L::kBf16) {
-    __syncthreads();  // the epilogue buffers span the Q, dO, S, dP tiles
-    float* bufk = reinterpret_cast<float*>(sQ);
-    float* bufv = bufk + 64 * L::LDA;
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::store_matrix_sync(bufk + r0 * L::LDA + n * 16, acck[n], L::LDA,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(bufv + r0 * L::LDA + n * 16, accv[n], L::LDA,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = k0 + r0 + rr;
-      if (row >= S) break;
+  for (int rr = 0; rr < 16; ++rr) {
+    const int row = k0 + r0 + rr;
+    if (row < S) {
       const size_t off = (((size_t)b * S + row) * K + kvh) * DH;
-      for (int d = lane; d < DH; d += 32) {
-        store(dk + off + d, bufk[(r0 + rr) * L::LDA + d]);
-        store(dv + off + d, bufv[(r0 + rr) * L::LDA + d]);
-      }
-    }
-  } else {
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = k0 + r0 + rr;
-      if (row < S) {
-        const size_t off = (((size_t)b * S + row) * K + kvh) * DH;
-#pragma unroll
-        for (int i = 0; i < DH / 32; ++i) {
-          store(dk + off + lane + 32 * i, fk[rr][i]);
-          store(dv + off + lane + 32 * i, fv[rr][i]);
-        }
+      for (int i = 0; i < DH / 32; ++i) {
+        dk[off + lane + 32 * i] = fk[rr][i];
+        dv[off + lane + 32 * i] = fv[rr][i];
       }
     }
   }
 }
 
-// The epilogue buffers must fit in the space they reuse.
+// The epilogue buffer must fit in the space it reuses.
 static_assert(64 * (128 + 4) * 4 <= 2 * Tiles<bf16, 128>::scores,
               "dq epilogue buffer exceeds the S and dP tiles");
-static_assert(2 * 64 * (128 + 4) * 4 <=
-                  2 * Tiles<bf16, 128>::tile + 2 * Tiles<bf16, 128>::scores,
-              "dk/dv epilogue buffers exceed the Q, dO, S and dP tiles");
 
 template <typename Kern>
 int set_smem(Kern kern, size_t bytes, bool* done) {
@@ -554,20 +713,42 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int B, int S, int H, int K, int causal, float scale,
-               cudaStream_t stream) {
-  using L = Tiles<T, DH>;
+template <int DH>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dO, const float* lse, const float* delta,
+                    void* dk, void* dv, int B, int S, int H, int K,
+                    int causal, float scale, cudaStream_t stream) {
+  using L = Dkv<DH>;
+  CUtensorMap tq, tk, tv, tdo;
+  int e = hopper::make_map(&tq, q, B, S, H, DH, L::BQ);
+  if (!e) e = hopper::make_map(&tdo, dO, B, S, H, DH, L::BQ);
+  if (!e) e = hopper::make_map(&tk, k, B, S, K, DH, 64);
+  if (!e) e = hopper::make_map(&tv, v, B, S, K, DH, 64);
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dkv_kernel<T, DH>, L::bytes, &attr_set);
+  if (!e) e = set_smem(flash_bwd_dkv_kernel_bf16<DH>, L::alloc, &attr_set);
+  if (e) return e;
+  const dim3 grid((S + L::BKV - 1) / L::BKV, K, B);
+  flash_bwd_dkv_kernel_bf16<DH><<<grid, L::threads, L::alloc, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, H, K, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dO, const float* lse, const float* delta,
+                   void* dk, void* dv, int B, int S, int H, int K, int causal,
+                   float scale, cudaStream_t stream) {
+  using L = Tiles<float, DH>;
+  static bool attr_set = false;
+  const int e = set_smem(flash_bwd_dkv_kernel_f32<DH>, L::bytes, &attr_set);
   if (e) return e;
   const dim3 grid((S + BK - 1) / BK, K, B);
-  flash_bwd_dkv_kernel<T, DH><<<grid, NT, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, K, causal, scale);
+  flash_bwd_dkv_kernel_f32<DH><<<grid, NT, L::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, K, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -606,17 +787,17 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && Dh == 128)
-    return launch_dkv<float, 128>(q, k, v, dO, lse, delta, dk, dv, B, S, H,
-                                  K, causal, scale, s);
+    return launch_dkv_f32<128>(q, k, v, dO, lse, delta, dk, dv, B, S, H, K,
+                               causal, scale, s);
   if (dtype == 0 && Dh == 64)
-    return launch_dkv<float, 64>(q, k, v, dO, lse, delta, dk, dv, B, S, H,
-                                 K, causal, scale, s);
+    return launch_dkv_f32<64>(q, k, v, dO, lse, delta, dk, dv, B, S, H, K,
+                              causal, scale, s);
   if (dtype == 1 && Dh == 128)
-    return launch_dkv<bf16, 128>(q, k, v, dO, lse, delta, dk, dv, B, S, H,
-                                 K, causal, scale, s);
-  if (dtype == 1 && Dh == 64)
-    return launch_dkv<bf16, 64>(q, k, v, dO, lse, delta, dk, dv, B, S, H, K,
+    return launch_dkv_bf16<128>(q, k, v, dO, lse, delta, dk, dv, B, S, H, K,
                                 causal, scale, s);
+  if (dtype == 1 && Dh == 64)
+    return launch_dkv_bf16<64>(q, k, v, dO, lse, delta, dk, dv, B, S, H, K,
+                               causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -43,13 +43,24 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+#: Shapes for both directions: the main paths' own, and the bf16
+#: kernels' tile edges (128-row q tiles in the forward, 128-row kv tiles
+#: and 64-row q tiles in dk/dv): one position, one short of and one past
+#: a tile, GQA 32/8 at S=2048, a grid under one wave of SMs (B=1, H=2),
+#: non-causal at S off the tile size, and Dh=64.
+EDGES = [(2, 320, 4, 2, 128, True), (2, 320, 4, 2, 128, False),
+         (1, 200, 6, 6, 128, True), (2, 256, 4, 1, 64, True),
+         (1, 1, 2, 2, 128, True), (1, 127, 2, 2, 128, True),
+         (1, 129, 2, 2, 128, True), (1, 129, 2, 2, 64, False),
+         (1, 2048, 32, 8, 128, True), (1, 256, 2, 2, 128, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,causal", [
-    (2, 320, 4, 2, True), (2, 320, 4, 2, False), (1, 200, 6, 6, True)])
-def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, causal):
-    q = torch.randn(B, S, H, 128, generator=cuda, device="cuda").to(dtype)
-    k = torch.randn(B, S, K, 128, generator=cuda, device="cuda").to(dtype)
-    v = torch.randn(B, S, K, 128, generator=cuda, device="cuda").to(dtype)
+@pytest.mark.parametrize("B,S,H,K,Dh,causal", EDGES)
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, Dh, causal):
+    q = torch.randn(B, S, H, Dh, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, S, K, Dh, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, S, K, Dh, generator=cuda, device="cuda").to(dtype)
     before = flash_mod.flash_attention.launches
     o, lse = flash_mod.flash_attention(q, k, v, causal, return_lse=True)
     ro, rl = flash_mod.flash_attention_plain(q, k, v, causal,
@@ -61,9 +72,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,Dh,causal", [
-    (2, 320, 4, 2, 128, True), (2, 320, 4, 2, 128, False),
-    (1, 200, 6, 6, 128, True), (2, 256, 4, 1, 64, True)])
+@pytest.mark.parametrize("B,S,H,K,Dh,causal", EDGES)
 def test_flash_backward_kernels_match_plain(cuda, dtype, B, S, H, K, Dh,
                                             causal):
     q = torch.randn(B, S, H, Dh, generator=cuda, device="cuda").to(dtype)
@@ -81,10 +90,14 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, B, S, H, K, Dh,
     assert (flash_mod.flash_attention_dq.launches,
             flash_mod.flash_attention_dkv.launches) == (before[0] + 1,
                                                         before[1] + 1)
+    # With one key, dS = P (dP - delta) is zero in exact arithmetic, so dq
+    # and dk are rounding noise: hold them to the scale of dv there.
+    floor = want[2].float().abs().max().item() if S == 1 else 0.0
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == dtype and a.shape == b.shape
         err = (a.float() - b.float()).abs().max().item()
-        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), name
+        assert err <= BWD_TOL[dtype] * max(b.float().abs().max().item(),
+                                           floor), name
 
 
 def test_flash_grad_goes_through_the_kernels(cuda):

@@ -6,6 +6,7 @@ chip_smoke.py fails without a card."""
 import ast
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -101,6 +102,61 @@ def test_kernel_build_is_lazy_and_targets_hopper():
             assert f"int {fn}(" in src, (name, fn)
     # The target name hashes source and flags: stable until either moves.
     assert _build._target("flash_fwd") == _build._target("flash_fwd")
+
+
+def test_kernel_target_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared header renames every source's library, so a
+    checkout never loads a build made against the old header."""
+    from ptype_tpu_torch.ops import _build
+
+    names = ("flash_fwd", "flash_bwd", "paged_decode")
+    assert [p.name for p in _build.CSRC.glob("*.cuh")] == ["hopper.cuh"]
+    want = {n: _build._target(n).name for n in names}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert {n: _build._target(n).name for n in names} == want
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: _build._target(n).name for n in names}
+    assert all(edited[n] != want[n] and edited[n].startswith(n + "-")
+               for n in names)
+
+
+@pytest.mark.parametrize("symbol,label", [
+    ("_ZN45_GLOBAL__N__8f93eff4_12_flash_fwd_cu_b294bfd021flash_fwd_kernel_"
+     "bf16ILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiif",
+     "flash_fwd_kernel_bf16<128>"),
+    ("_ZN45_GLOBAL__N__1402ade2_12_flash_bwd_cu_3c15cd2819flash_bwd_dq_"
+     "kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiif",
+     "flash_bwd_dq_kernel<bf16,64>"),
+    ("_ZN45_GLOBAL__N__1402ade2_12_flash_bwd_cu_3c15cd2824flash_bwd_dkv_"
+     "kernel_f32ILi128EEEvPKfS2_S2_S2_S2_S2_PfS3_iiiif",
+     "flash_bwd_dkv_kernel_f32<128>"),
+    ("_ZN48_GLOBAL__N__ca4ab589_15_paged_decode_cu_fed0b86b19paged_decode_"
+     "kernelIfLi128EEEvPKT_S3_S3_PKiS5_PS1_iiiif",
+     "paged_decode_kernel<f32,128>")])
+def test_kernel_label_reads_mangled_symbols(symbol, label):
+    from ptype_tpu_torch.ops import _build
+
+    assert _build.kernel_label(symbol) == label
+
+
+def test_count_sass_counts_instructions_per_kernel():
+    from ptype_tpu_torch.ops import _build
+
+    listing = """
+        Function : _ZN12_GLOBAL__N_121flash_fwd_kernel_bf16ILi128EEEv14CUtensorMap_st
+        /*0290*/  UTMALDG.4D [UR8], [UR4] ;
+        /*02a0*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*02b0*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li128EEEvPKT_
+        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+    """
+    assert _build.count_sass(listing) == {
+        "flash_fwd_kernel_bf16<128>": {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0},
+        "flash_bwd_dq_kernel<bf16,128>": {"HGMMA": 0, "UTMALDG": 0,
+                                          "HMMA": 1}}
 
 
 @pytest.mark.parametrize("alone", [False, True])
