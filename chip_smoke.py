@@ -10,7 +10,7 @@ Run from the root of a checkout. Phases, each printing its own lines:
    build seconds, each kernel's registers and spills, its counts of
    HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions
    from cuobjdump -sass, and the card's name and power limit. The bf16
-   flash forward and dk/dv kernels must contain HGMMA and UTMALDG;
+   flash forward, dq and dk/dv kernels must contain HGMMA and UTMALDG;
 2. kernels — each kernel against its plain PyTorch version at the
    shapes the serving and training paths give it (bf16, plus f32), with
    the stated tolerance, its time, the plain version's time, one
@@ -18,7 +18,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
    backward kernels: torch.autograd.grad through
    F.scaled_dot_product_attention) and the ratio of the two
    (vs_library), and the least time the card could take (the larger of
-   bytes / 3.35 TB/s and operations / the peak rate of their type);
+   bytes / 3.35 TB/s and operations / the peak rate of their type). The
+   paged rows also give the kernels' device time per call with no host
+   time in it (device_ms: calls queued behind a sleeping kernel, timed
+   by CUDA events) and the wrapper's host time per call (host_us);
 3. GeneratorActor.Generate at optimus-125m full width, prompt (4, 512),
    32 new tokens: the flash kernel must have been launched; per-step
    logits under teacher forcing are held against the same actor built
@@ -31,9 +34,16 @@ Run from the root of a checkout. Phases, each printing its own lines:
 5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
    one repeated batch: forward, dq and dk/dv kernels each launched
    steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
-   against the H100's bf16 peak, peak memory; and on one B=4 batch each
-   parameter's gradient through the kernels against the same gradient
-   through dense attention (attn_impl="xla").
+   against the H100's bf16 peak, peak memory; one more step under
+   torch.profiler; and on one B=4 batch each parameter's gradient
+   through the kernels against the same gradient through dense attention
+   (attn_impl="xla");
+6. after every host-timed phase (a process that has run a
+   torch.profiler session launches kernels more slowly afterwards): a
+   new engine of phase 4's configuration serves the same prompts (32 new
+   tokens) and its first decode iteration with every slot live runs
+   under torch.profiler (wall, device-busy and idle share, device time
+   by kernel family, top host ops).
 
 Then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -110,6 +120,48 @@ def time_ms(torch, fn, iters=10, flush=None):
         e.synchronize()
         total += s.elapsed_time(e)
     return total / iters
+
+
+def on_device(ev):
+    """A torch.profiler event of the card itself (a CPU op also reports
+    the device time of the kernels it launched)."""
+    return "CUDA" in str(getattr(ev, "device_type", ""))
+
+
+def device_ms(torch, fn, iters=20, flush=None):
+    """Device time per call of ``fn``, host time left out: a sleeping
+    kernel holds the stream (~25 ms) while ``iters`` calls, each after
+    the L2 flush, are queued behind it, so the card then runs them back
+    to back; the flushes alone, queued the same way, are subtracted."""
+    def queued(body):
+        body()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            body()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / iters
+
+    if flush is None:
+        return queued(fn)
+    return queued(lambda: (flush.zero_(), fn())) - queued(flush.zero_)
+
+
+def host_us(torch, fn, iters=200):
+    """Host time per call of ``fn`` in microseconds: ``iters`` calls
+    queued back to back, on the host clock, before the synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes, ops, kind):
@@ -266,8 +318,13 @@ def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen):
     check(err <= TOL["paged"][kind],
           f"paged H={H} Kh={Kh} {kind}: max err {err} > "
           f"{TOL['paged'][kind]}")
-    ms = time_ms(torch, lambda: paged_mod.paged_attention(
-        q, kc, vc, tables, pos), 20, flush)
+
+    def call():
+        return paged_mod.paged_attention(q, kc, vc, tables, pos)
+
+    ms = time_ms(torch, call, 20, flush)
+    dev_ms = device_ms(torch, call, 20, flush)
+    call_us = host_us(torch, call)
     plain_ms = time_ms(torch, lambda: paged_mod.paged_attention_plain(
         q, kc, vc, tables, pos), 5, flush)
     esz = q.element_size()
@@ -278,6 +335,7 @@ def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen):
     return {"kernel": "paged_decode", "B": B, "H": H, "Kh": Kh, "Dh": Dh,
             "bt": bt, "nb": nb, "pos": pos_list, "dtype": kind,
             "max_abs_err": err, "tol": TOL["paged"][kind], "ms": ms,
+            "device_ms": dev_ms, "host_us": call_us,
             "plain_ms": plain_ms, "library_ms": None, "vs_library": None,
             "bound_ms": bound_ms, "bound_by": by}
 
@@ -324,6 +382,34 @@ def run_requests(engine, prompts, max_new):
     check(not errs, f"engine requests failed: {errs}")
     check(all(o is not None for o in outs), "engine requests hung")
     return outs, wall
+
+
+def engine_iteration_profile(torch, eng, prompts, max_new):
+    """One decode iteration of the engine under torch.profiler, taken by
+    the engine's own thread: the instance's ``_plain_step`` is wrapped so
+    that the first step with every slot live runs under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, got = eng._plain_step, {}
+
+    def profiled():
+        if got or not eng._active.all():
+            return step()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        got.update(profile_summary(prof, wall_ms))
+
+    eng._plain_step = profiled
+    try:
+        run_requests(eng, prompts, max_new)
+    finally:
+        del eng._plain_step
+    return got or {"device_time": "not measured (no step had every slot "
+                                  "live)"}
 
 
 def paged_logits_pair(torch, gen_mod, params, cfg, prompts):
@@ -419,7 +505,8 @@ def trainer_phase(torch, tfm, flash_mod, train_mod, cfg):
 def kernel_family(name):
     low = name.lower()
     for key, fam in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_dq"),
-                     ("flash_bwd_dkv", "flash_dkv"), ("gemm", "matmul"),
+                     ("flash_bwd_dkv", "flash_dkv"),
+                     ("paged_decode", "paged"), ("gemm", "matmul"),
                      ("cutlass", "matmul"), ("xmma", "matmul"),
                      ("nvjet", "matmul"),
                      ("softmax", "softmax"), ("reduce", "reduction"),
@@ -444,11 +531,16 @@ def step_profile(torch, tr, batch):
         tr.step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    return profile_summary(prof, wall_ms)
+
+
+def profile_summary(prof, wall_ms):
+    """Device time by kernel family, the top kernels, the host ops with
+    the most self time, and the device's idle share of ``wall_ms`` (the
+    profiler's own overhead included)."""
     fams, kernels = {}, {}
     for ev in prof.key_averages():
-        # Device-side events only: a CPU op also reports the device time
-        # of the kernels it launched.
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
+        if not on_device(ev):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -462,11 +554,16 @@ def step_profile(torch, tr, batch):
     if busy == 0:
         return {"device_time": "not measured (profiler saw no device time)"}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count)
+                   for ev in prof.key_averages() if not on_device(ev)),
+                  key=lambda x: -x[1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms,
             "by_family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": n, "ms": t, "calls": c}
-                            for n, (t, c) in top]}
+                            for n, (t, c) in top],
+            "top_host_ops": [{"name": n[:80], "self_ms": t, "calls": c}
+                             for n, t, c in host]}
 
 
 def grad_parity(torch, tfm, train_mod, cfg):
@@ -536,6 +633,7 @@ def main():
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "built": built, "ptxas": regs, "sass": sass, "card": card})
     for lib, kernel in (("flash_fwd", "flash_fwd_kernel_bf16"),
+                        ("flash_bwd", "flash_bwd_dq_kernel_bf16"),
                         ("flash_bwd", "flash_bwd_dkv_kernel_bf16")):
         for dh in (64, 128):
             ops = sass[lib].get(f"{kernel}<{dh}>", {})
@@ -675,6 +773,15 @@ def main():
     emit(row)
     emit(grad_parity(torch, tfm, train_mod, cfg))
 
+    # 6. one engine decode iteration under the profiler, after every
+    # host-timed phase
+    eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+    try:
+        emit({"phase": "engine_iteration_profile",
+              **engine_iteration_profile(torch, eng, prompts, 32)})
+    finally:
+        eng.close()
+
     def main_row(name, source, replaces, launches, row, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -712,7 +819,9 @@ def main():
                  pick("flash_bwd_dkv", 1024, 16)),
         main_row("paged_decode", "ptype_tpu_torch/ops/csrc/paged_decode.cu",
                  "ptype_tpu/ops/paged_attention.py:149",
-                 paged_main_launches, paged_row)]})
+                 paged_main_launches, paged_row,
+                 device_ms=paged_row["device_ms"],
+                 host_us=paged_row["host_us"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

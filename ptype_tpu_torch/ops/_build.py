@@ -12,8 +12,9 @@ its first kernel call, and an edit to a header rebuilds every source.
 
 The sources include no PyTorch header, so a build takes seconds. Every
 C entry point enqueues on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception.
+``cudaGetLastError()``; :func:`bind` gives an entry point with its ctypes
+signature set (once per process), and :func:`check` turns a non-zero
+code into an exception.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 #: ptxas's report (registers, shared memory, spills) of each build.
 build_logs: dict[str, str] = {}
 
@@ -102,9 +104,23 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def bind(name: str, fn: str, argtypes, restype=ctypes.c_int):
+    """The C function ``fn`` of ``csrc/<name>.cu``, its ``argtypes`` and
+    ``restype`` set on the first call and kept: a launch pays one dict
+    lookup for it."""
+    f = _fns.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.restype = restype
+        f.argtypes = argtypes
+        _fns[(name, fn)] = f
+    return f
+
+
 def kernel_label(symbol: str) -> str:
     """A kernel's mangled symbol as ``name<args>``, e.g.
-    ``flash_fwd_kernel_bf16<128>`` or ``flash_bwd_dq_kernel<bf16,128>``."""
+    ``flash_fwd_kernel_bf16<128>`` or
+    ``paged_decode_split_kernel<bf16,128,1>``."""
     m = re.search(r"\d([a-z][a-z_]*_kernel(?:_[a-z0-9]+)?)I"
                   r"((?:f|13__nv_bfloat16|Li\d+E)+)E", symbol)
     if not m:
@@ -144,13 +160,13 @@ def count_sass(sass: str) -> dict[str, dict[str, int]]:
     return counts
 
 
-def check(code: int, what: str, lib: ctypes.CDLL) -> None:
-    """Raise for a non-zero ``cudaError_t`` a kernel's C entry point
-    returned (a refused launch never runs, and no later synchronize
-    reports it). Every source exports ``error_string`` for the name."""
+def check(code: int, what: str, name: str) -> None:
+    """Raise for a non-zero ``cudaError_t`` that a C entry point of
+    ``csrc/<name>.cu`` returned (a refused launch never runs, and no later
+    synchronize reports it). Every source exports ``error_string`` for
+    the code's name."""
     if code != 0:
-        lib.error_string.restype = ctypes.c_char_p
-        lib.error_string.argtypes = [ctypes.c_int]
-        msg = lib.error_string(code).decode()
+        msg = bind(name, "error_string", [ctypes.c_int],
+                   ctypes.c_char_p)(code).decode()
         raise RuntimeError(f"{what}: CUDA launch failed: cudaError "
                            f"{code} ({msg})")

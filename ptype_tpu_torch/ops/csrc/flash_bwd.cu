@@ -3,7 +3,7 @@
 //
 // Replace the Pallas TPU kernels of ptype_tpu/ops/flash_attention.py,
 // launched by _flash_bwd:
-// - flash_bwd_dq_kernel replaces _dq_kernel: dq for one q tile, K/V tiles
+// - flash_bwd_dq_kernel_* replace _dq_kernel: dq for one q tile, K/V tiles
 //   streamed, P recomputed from the forward's LSE, dS = P (dP - delta);
 // - flash_bwd_dkv_kernel_* replace _dkv_kernel: dk and dv for one kv tile
 //   of one KV head, summed over the query heads of its GQA group and over
@@ -18,7 +18,9 @@
 // the bf16 tensor-core rate (989 TFLOP/s dense) with the memory rate
 // (3.35 TB/s) close behind; longer sequences and GQA move them further
 // onto the tensor cores. What a kernel actually takes is set by how well
-// it keeps the tensor cores fed.
+// it keeps the tensor cores fed: every product on wgmma, fed by TMA loads
+// that overlap the math, with nothing but the operand tiles in shared
+// memory.
 //
 // Shared by both: the TPU grid's innermost sequential dimensions become
 // loops inside the block. dq loops over K/V tiles up to the diagonal;
@@ -31,10 +33,27 @@
 // head-major copies. lse is the forward's plain (B, H, S) f32 row and
 // delta a (B, S, H) f32 row.
 //
-// dq (a first, simple version): one block of 4 warps per (q tile of 64
-// rows, head, batch row), each warp owning 16 rows; bf16 products on WMMA
-// 16x16x16 fragments, the dq accumulator in registers, S and dP through
-// shared memory in f32, dS rounded to bf16 in place over the S rows.
+// dq in bf16, a Hopper design (the forward's structure with one more
+// product):
+// - one block per (q tile of 128 rows, head, batch row): two consumer
+//   warpgroups of 64 q rows each and one producer warpgroup, whose
+//   registers move to the consumers with setmaxnreg;
+// - the producer loads Q and dO once with TMA and streams (K, V) tiles of
+//   64 rows of kv head h / (H/K) through a ring of three shared-memory
+//   stages, signalled by full and empty mbarriers;
+// - a q row's lse (pre-scaled by log2 e) and delta are fixed for the
+//   block, so each consumer thread holds its two rows' values in
+//   registers: nothing to stage;
+// - per K/V tile: S = Q K^T and dP = dO V^T on wgmma with both operands in
+//   shared memory (K-major); P = exp2(S scale log2 e - lse log2 e) and
+//   dS = P (dP - delta) scale on the accumulator fragments, masked only
+//   on diagonal and ragged tiles; dS rounded to bf16 in registers as the
+//   A operand of dQ += dS K, with K the MN-major shared-memory B operand.
+//   Neither S, dP nor the dQ accumulator (64 registers a thread at
+//   Dh=128) touches shared memory; a warpgroup skips the products of a
+//   causal tile that lies wholly past its rows;
+// - the epilogue stages dQ through the warpgroup's own Q tile and writes
+//   16-byte rows.
 //
 // dk/dv in bf16, a Hopper design:
 // - one block per (kv tile of 128 rows, KV head, batch row): two consumer
@@ -58,7 +77,8 @@
 //
 // The f32 variants exist so that the CPU's f32 parity runs can be
 // repeated on the card; no main path runs them. They are simple scalar
-// code with the dq kernel's block shape.
+// code: one block of 4 warps per 64-row tile, each warp owning 16 rows,
+// scores in shared memory.
 //
 // Numerics: the bf16 kernels round P and dS to bf16 before the tensor-core
 // products (the reference rounds dS, and computes dP and dV with dO in
@@ -69,86 +89,52 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------------------- f32 tiles
 
 constexpr int BQ = 64;  // q rows of a tile
 constexpr int BK = 64;  // k rows of a tile (== BQ: score tiles are square)
 constexpr int NWARP = 4;
 constexpr int NT = NWARP * 32;
 
-template <typename T, int DH>
+template <int DH>
 struct Tiles {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int LDT = DH + (kBf16 ? 8 : 4);  // operand tile row
-  static constexpr int LDS = BK + 4;                // f32 score row
-  static constexpr int LDB = 2 * LDS;               // that row as bf16
-  static constexpr int LDA = DH + 4;                // f32 epilogue row
-  static constexpr size_t tile = sizeof(T) * 64 * LDT;
+  static constexpr int LDT = DH + 4;  // operand tile row
+  static constexpr int LDS = BK + 4;  // score row
+  static constexpr size_t tile = sizeof(float) * 64 * LDT;
   static constexpr size_t scores = sizeof(float) * 64 * LDS;
   // Four operand tiles, the S and dP tiles, the lse and delta rows.
   static constexpr size_t bytes = 4 * tile + 2 * scores + 2 * 64 * 4;
 };
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 // Stage `rows` rows of one head into a shared tile with 16-byte loads;
 // rows past the sequence end are zero-filled.
-template <typename T, int DH, int LDT>
-__device__ __forceinline__ void load_tile(T* tile, const T* src, int b,
-                                          int row0, int rows, int S,
+template <int DH, int LDT>
+__device__ __forceinline__ void load_tile(float* tile, const float* src,
+                                          int b, int row0, int rows, int S,
                                           int heads, int head) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = DH / VEC;
+  constexpr int CPR = DH / 4;
   for (int idx = threadIdx.x; idx < rows * CPR; idx += NT) {
     const int r = idx / CPR, c = idx % CPR;
-    uint4 val = make_uint4(0, 0, 0, 0);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     const int sr = row0 + r;
     if (sr < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * S + sr) * heads + head) * DH + c * VEC);
-    *reinterpret_cast<uint4*>(tile + r * LDT + c * VEC) = val;
+      val = *reinterpret_cast<const float4*>(
+          src + (((size_t)b * S + sr) * heads + head) * DH + c * 4);
+    *reinterpret_cast<float4*>(tile + r * LDT + c * 4) = val;
   }
 }
 
-// out (16 x 64 f32, row stride ldo) = a (16 x DH) . bt^T, with a and bt
-// (64 x DH) row-major bf16 tiles of row stride LDT: the warp's rows of
-// Q K^T, dO V^T, K Q^T or V dO^T.
-template <int DH, int LDT>
-__device__ __forceinline__ void warp_abt(float* out, int ldo, const bf16* a,
-                                         const bf16* bt) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-      fa[DH / 16];
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wmma::load_matrix_sync(fa[kk], a + kk * 16, LDT);
-#pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) {
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      wmma::load_matrix_sync(fb, bt + n * 16 * LDT + kk * 16, LDT);
-      wmma::mma_sync(c, fa[kk], fb, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, ldo, wmma::mem_row_major);
-  }
-}
-
-// The scalar f32 counterpart of warp_abt.
+// out (16 x 64, row stride ldo) = a (16 x DH) . bt^T, with a and bt
+// (64 x DH) row-major tiles of row stride LDT: the warp's rows of Q K^T,
+// dO V^T, K Q^T or V dO^T.
 template <int DH, int LDT>
 __device__ __forceinline__ void warp_abt_f32(float* out, int ldo,
                                              const float* a,
@@ -166,21 +152,24 @@ __device__ __forceinline__ void warp_abt_f32(float* out, int ldo,
   }
 }
 
-// ------------------------------------------------------------------- dq
+// ------------------------------------------------------------- dq, f32
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dO,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, int H, int K, int causal, float scale) {
-  using L = Tiles<T, DH>;
+flash_bwd_dq_kernel_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dO,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int S, int H, int K,
+                        int causal, float scale) {
+  using L = Tiles<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = reinterpret_cast<T*>(smem + L::tile);
-  T* sK = reinterpret_cast<T*>(smem + 2 * L::tile);
-  T* sV = reinterpret_cast<T*>(smem + 3 * L::tile);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sdO = reinterpret_cast<float*>(smem + L::tile);
+  float* sK = reinterpret_cast<float*>(smem + 2 * L::tile);
+  float* sV = reinterpret_cast<float*>(smem + 3 * L::tile);
   float* sS = reinterpret_cast<float*>(smem + 4 * L::tile);
   float* sdP = reinterpret_cast<float*>(smem + 4 * L::tile + L::scores);
   float* sLse = reinterpret_cast<float*>(smem + 4 * L::tile + 2 * L::scores);
@@ -193,27 +182,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's first row in the tile
 
-  load_tile<T, DH, L::LDT>(sQ, q, b, q0, BQ, S, H, h);
-  load_tile<T, DH, L::LDT>(sdO, dO, b, q0, BQ, S, H, h);
+  load_tile<DH, L::LDT>(sQ, q, b, q0, BQ, S, H, h);
+  load_tile<DH, L::LDT>(sdO, dO, b, q0, BQ, S, H, h);
   for (int r = threadIdx.x; r < BQ; r += NT) {
     const int row = q0 + r;
     sLse[r] = row < S ? lse[((size_t)b * H + h) * S + row] : 0.f;
     sDel[r] = row < S ? delta[((size_t)b * S + row) * H + h] : 0.f;
   }
 
-  // dQ accumulators for the warp's 16 rows: fragments (bf16) or one
-  // register per (row, column lane + 32 i) (f32).
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DH / 16];
+  // dQ for the warp's 16 rows: one register per (row, column lane + 32 i).
   float facc[16][DH / 32];
-  if constexpr (L::kBf16) {
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  } else {
+  for (int rr = 0; rr < 16; ++rr)
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr)
-#pragma unroll
-      for (int i = 0; i < DH / 32; ++i) facc[rr][i] = 0.f;
-  }
+    for (int i = 0; i < DH / 32; ++i) facc[rr][i] = 0.f;
 
   int n_kv = (S + BK - 1) / BK;
   if (causal) n_kv = min(n_kv, (min(q0 + BQ, S) - 1) / BK + 1);
@@ -221,118 +203,261 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, DH, L::LDT>(sK, k, b, k0, BK, S, K, kvh);
-    load_tile<T, DH, L::LDT>(sV, v, b, k0, BK, S, K, kvh);
+    load_tile<DH, L::LDT>(sK, k, b, k0, BK, S, K, kvh);
+    load_tile<DH, L::LDT>(sV, v, b, k0, BK, S, K, kvh);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for the warp's 16 rows.
-    if constexpr (L::kBf16) {
-      warp_abt<DH, L::LDT>(sS + r0 * L::LDS, L::LDS,
-                           reinterpret_cast<const bf16*>(sQ) + r0 * L::LDT,
-                           reinterpret_cast<const bf16*>(sK));
-      warp_abt<DH, L::LDT>(sdP + r0 * L::LDS, L::LDS,
-                           reinterpret_cast<const bf16*>(sdO) + r0 * L::LDT,
-                           reinterpret_cast<const bf16*>(sV));
-    } else {
-      warp_abt_f32<DH, L::LDT>(sS + r0 * L::LDS, L::LDS,
-                               reinterpret_cast<const float*>(sQ) +
-                                   r0 * L::LDT,
-                               reinterpret_cast<const float*>(sK));
-      warp_abt_f32<DH, L::LDT>(sdP + r0 * L::LDS, L::LDS,
-                               reinterpret_cast<const float*>(sdO) +
-                                   r0 * L::LDT,
-                               reinterpret_cast<const float*>(sV));
-    }
+    warp_abt_f32<DH, L::LDT>(sS + r0 * L::LDS, L::LDS, sQ + r0 * L::LDT, sK);
+    warp_abt_f32<DH, L::LDT>(sdP + r0 * L::LDS, L::LDS, sdO + r0 * L::LDT,
+                             sV);
     __syncwarp();
 
-    // dS = P (dP - delta) scale, P = exp(S scale - lse), one row at a
-    // time across the warp. bf16: dS overwrites the row's first 128
-    // bytes, after every lane has read the row.
+    // dS = P (dP - delta) scale, P = exp(S scale - lse), in place over S,
+    // one row at a time across the warp.
     for (int rr = 0; rr < 16; ++rr) {
       const int r = r0 + rr, row = q0 + r;
       const float l = sLse[r], dl = sDel[r];
-      float ds[BK / 32];
 #pragma unroll
       for (int e = 0; e < BK / 32; ++e) {
         const int c = lane + 32 * e, col = k0 + c;
         const bool ok = row < S && col < S && (!causal || col <= row);
         const float p = ok ? __expf(sS[r * L::LDS + c] * scale - l) : 0.f;
-        ds[e] = p * (sdP[r * L::LDS + c] - dl) * scale;
-      }
-      if constexpr (L::kBf16) {
-        __syncwarp();
-        bf16* sb = reinterpret_cast<bf16*>(sS + r * L::LDS);
-#pragma unroll
-        for (int e = 0; e < BK / 32; ++e)
-          sb[lane + 32 * e] = __float2bfloat16(ds[e]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < BK / 32; ++e) sS[r * L::LDS + lane + 32 * e] = ds[e];
+        sS[r * L::LDS + c] = p * (sdP[r * L::LDS + c] - dl) * scale;
       }
     }
     __syncwarp();
 
     // dQ += dS K for the warp's 16 rows.
-    if constexpr (L::kBf16) {
-      const bf16* sb = reinterpret_cast<const bf16*>(sS + r0 * L::LDS);
-      const bf16* kb = reinterpret_cast<const bf16*>(sK);
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          da[BK / 16];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(da[kk], sb + kk * 16, L::LDB);
-#pragma unroll
-      for (int n = 0; n < DH / 16; ++n) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::load_matrix_sync(fb, kb + kk * 16 * L::LDT + n * 16, L::LDT);
-          wmma::mma_sync(acc[n], da[kk], fb, acc[n]);
-        }
-      }
-    } else {
-      const float* kf = reinterpret_cast<const float*>(sK);
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        const float* dsr = sS + (r0 + rr) * L::LDS;
-        // Not unrolled: 64 x 16 x DH/32 unrolled FMAs tripled the build.
+    for (int rr = 0; rr < 16; ++rr) {
+      const float* dsr = sS + (r0 + rr) * L::LDS;
+      // Not unrolled: 64 x 16 x DH/32 unrolled FMAs tripled the build.
 #pragma unroll 1
-        for (int c = 0; c < BK; ++c) {
-          const float w = dsr[c];
+      for (int c = 0; c < BK; ++c) {
+        const float w = dsr[c];
 #pragma unroll
-          for (int i = 0; i < DH / 32; ++i)
-            facc[rr][i] += w * kf[c * L::LDT + lane + 32 * i];
-        }
+        for (int i = 0; i < DH / 32; ++i)
+          facc[rr][i] += w * sK[c * L::LDT + lane + 32 * i];
       }
     }
   }
 
   // Write dq (B, S, H, Dh).
-  if constexpr (L::kBf16) {
-    __syncthreads();  // the epilogue buffer spans other warps' S rows
-    float* buf = sS;
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n)
-      wmma::store_matrix_sync(buf + r0 * L::LDA + n * 16, acc[n], L::LDA,
-                              wmma::mem_row_major);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = q0 + r0 + rr;
-      if (row >= S) break;
-      T* dst = dq + (((size_t)b * S + row) * H + h) * DH;
-      for (int d = lane; d < DH; d += 32)
-        store(dst + d, buf[(r0 + rr) * L::LDA + d]);
+  for (int rr = 0; rr < 16; ++rr) {
+    const int row = q0 + r0 + rr;
+    if (row < S) {
+      float* dst = dq + (((size_t)b * S + row) * H + h) * DH;
+#pragma unroll
+      for (int i = 0; i < DH / 32; ++i) dst[lane + 32 * i] = facc[rr][i];
     }
-  } else {
+  }
+}
+
+// ------------------------------------------- bf16 epilogue (dq and dk/dv)
+
+// Write a warpgroup's 64 x DH f32 accumulator as bf16 rows row0.. of head
+// `head` of a (B, S, heads, DH) tensor, through `stage` (64 x DH bf16 of
+// shared memory, 16-byte chunks swizzled by row).
+template <int DH>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2],
+                                           bf16* stage, bf16* dst, int b,
+                                           int row0, int S, int heads,
+                                           int head, int bar_id) {
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int r_lo = 16 * (tid / 32) + lane / 4, qd = lane % 4;
+  hopper::fence_proxy_async();
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int row = q0 + r0 + rr;
-      if (row < S) {
-        T* dst = dq + (((size_t)b * S + row) * H + h) * DH;
+  for (int jj = 0; jj < DH / 8; ++jj)
 #pragma unroll
-        for (int i = 0; i < DH / 32; ++i) store(dst + lane + 32 * i, facc[rr][i]);
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      *reinterpret_cast<uint32_t*>(stage + r * DH + (jj ^ (r & 7)) * 8 +
+                                   2 * qd) =
+          hopper::pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+    }
+  hopper::warpgroup_sync(bar_id);
+  constexpr int CPR = DH / 8;
+  for (int idx = tid; idx < 64 * CPR; idx += 128) {
+    const int r = idx / CPR, c = idx % CPR, row = row0 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(dst +
+                                (((size_t)b * S + row) * heads + head) * DH +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * DH + (c ^ (r & 7)) * 8);
+  }
+}
+
+// ---------------------------------------------- dq, bf16: TMA + wgmma
+
+// One block per (q tile of 128 rows, head, batch row): two consumer
+// warpgroups of 64 q rows each and one producer warpgroup.
+template <int DH>
+struct Dq {
+  static constexpr int NC = 2;        // consumer warpgroups
+  static constexpr int BQ = 64 * NC;  // q rows of a block
+  static constexpr int BK = 64;       // kv rows of a streamed tile
+  static constexpr int ST = 3;        // stages in the (K, V) ring
+  static constexpr int NSUB = DH / 64;
+  static constexpr int Q_BYTES = NC * NSUB * hopper::SLAB;  // [wg][slab]
+  static constexpr int KV_BYTES = NSUB * hopper::SLAB;      // one stage
+  static constexpr int q_off = 0;
+  static constexpr int do_off = Q_BYTES;
+  static constexpr int k_off = 2 * Q_BYTES;
+  static constexpr int v_off = k_off + ST * KV_BYTES;
+  static constexpr int bar_off = v_off + ST * KV_BYTES;
+  static constexpr int alloc = bar_off + 8 * (1 + 2 * ST) + 1024;
+  static constexpr int threads = 128 * (NC + 1);
+};
+
+template <int DH>
+__global__ void __launch_bounds__(Dq<DH>::threads, 1)
+flash_bwd_dq_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int S, int H, int K,
+                         int causal, float scale) {
+  using namespace hopper;
+  using L = Dq<DH>;
+  constexpr int NC = L::NC, BK = L::BK, ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q0 = qt * L::BQ;
+  int n_kv = (S + BK - 1) / BK;
+  if (causal) n_kv = min(n_kv, (min(q0 + L::BQ, S) - 1) / BK + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // Producer: one thread issues every load.
+    reg_dealloc<24>();
+    if (threadIdx.x == NC * 128) {
+      mbar_arrive_tx(qbar, 2 * L::Q_BYTES);
+      for (int c = 0; c < NC; ++c)
+        for (int sub = 0; sub < L::NSUB; ++sub) {
+          const int off = (c * L::NSUB + sub) * SLAB;
+          tma_load_4d(smem + L::q_off + off, &tq, qbar, sub * 64, h,
+                      q0 + 64 * c, b);
+          tma_load_4d(smem + L::do_off + off, &tdo, qbar, sub * 64, h,
+                      q0 + 64 * c, b);
+        }
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % ST;
+        mbar_wait(&empty[st], ((j / ST) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], 2 * L::KV_BYTES);
+        for (int sub = 0; sub < L::NSUB; ++sub) {
+          const int off = st * L::KV_BYTES + sub * SLAB;
+          tma_load_4d(smem + L::k_off + off, &tk, &full[st], sub * 64, kvh,
+                      j * BK, b);
+          tma_load_4d(smem + L::v_off + off, &tv, &full[st], sub * 64, kvh,
+                      j * BK, b);
+        }
       }
     }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg ... + 63.
+    reg_alloc<240>();
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int qd = lane % 4;
+    const int row0 = q0 + 64 * wg + 16 * (tid / 32) + lane / 4;  // and + 8
+    unsigned char* sq = smem + L::q_off + wg * L::NSUB * SLAB;
+    const unsigned char* sdo = smem + L::do_off + wg * L::NSUB * SLAB;
+    const float sl2 = scale * kLog2e;
+
+    // The two rows' lse (in log2 units) and delta, fixed for the block.
+    float lq[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      lq[i] = row < S ? lse[((size_t)b * H + h) * S + row] * kLog2e : 0.f;
+      dl[i] = row < S ? delta[((size_t)b * S + row) * H + h] : 0.f;
+    }
+    float acc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % ST, k0 = j * BK;
+      mbar_wait(&full[st], (j / ST) & 1);
+      // A causal tile wholly past the warpgroup's last row adds nothing.
+      if (!causal || k0 <= q0 + 64 * wg + 63) {
+        const unsigned char* sk = smem + L::k_off + st * L::KV_BYTES;
+        const unsigned char* sv = smem + L::v_off + st * L::KV_BYTES;
+
+        // S = Q K^T and dP = dO V^T for the warpgroup's 64 rows.
+        float s[BK / 2], dp[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss<BK>(s, desc_k(sq + (kk / 4) * SLAB + (kk % 4) * 32),
+                       desc_k(sk + (kk / 4) * SLAB + (kk % 4) * 32), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk)
+          wgmma_ss<BK>(dp, desc_k(sdo + (kk / 4) * SLAB + (kk % 4) * 32),
+                       desc_k(sv + (kk / 4) * SLAB + (kk % 4) * 32), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // P = exp(S scale - lse), dS = P (dP - delta) scale, on the
+        // fragments: element 4 jj + e is row row0 + 8 (e >> 1) and column
+        // k0 + 8 jj + 2 qd + (e & 1).
+        const bool edge =
+            (causal && k0 + BK - 1 > q0 + 64 * wg) || k0 + BK > S;
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, el = 4 * jj + e;
+            float p = exp2f(fmaf(s[el], sl2, -lq[i]));
+            if (edge) {
+              const int col = k0 + 8 * jj + 2 * qd + (e & 1);
+              if (col >= S || (causal && col > row0 + 8 * i)) p = 0.f;
+            }
+            dp[el] = p * (dp[el] - dl[i]) * scale;
+          }
+
+        // dQ += dS K, dS in registers as bf16.
+        uint32_t da[BK / 16][4];
+        to_a_operand(dp, da);
+        fence_regs(acc);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<DH>(acc, da[kk], desc_mn(sk + kk * 2048, SLAB));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    // dq through the warpgroup's own Q tile.
+    store_rows<DH>(acc, reinterpret_cast<bf16*>(sq), dq, b, q0 + 64 * wg, S,
+                   H, h, 1 + wg);
   }
 }
 
@@ -359,37 +484,6 @@ struct Dkv {
   static constexpr int alloc = bar_off + 8 * (1 + 2 * ST) + 1024;
   static constexpr int threads = 128 * (NC + 1);
 };
-
-// Write a warpgroup's 64 x DH f32 accumulator as bf16 rows row0.. of
-// (B, S, K, DH) through `stage` (64 x DH bf16 of shared memory, 16-byte
-// chunks swizzled by row).
-template <int DH>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2],
-                                           bf16* stage, bf16* dst, int b,
-                                           int row0, int S, int K, int kvh,
-                                           int bar_id) {
-  const int tid = threadIdx.x % 128, lane = tid % 32;
-  const int r_lo = 16 * (tid / 32) + lane / 4, qd = lane % 4;
-  hopper::fence_proxy_async();
-#pragma unroll
-  for (int jj = 0; jj < DH / 8; ++jj)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r_lo + 8 * i;
-      *reinterpret_cast<uint32_t*>(stage + r * DH + (jj ^ (r & 7)) * 8 +
-                                   2 * qd) =
-          hopper::pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
-    }
-  hopper::warpgroup_sync(bar_id);
-  constexpr int CPR = DH / 8;
-  for (int idx = tid; idx < 64 * CPR; idx += 128) {
-    const int r = idx / CPR, c = idx % CPR, row = row0 + r;
-    if (row < S)
-      *reinterpret_cast<uint4*>(dst + (((size_t)b * S + row) * K + kvh) * DH +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * DH + (c ^ (r & 7)) * 8);
-  }
-}
 
 template <int DH>
 __global__ void __launch_bounds__(Dkv<DH>::threads, 1)
@@ -582,7 +676,7 @@ flash_bwd_dkv_kernel_f32(const float* __restrict__ q,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int S, int H, int K, int causal, float scale) {
-  using L = Tiles<float, DH>;
+  using L = Tiles<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
   float* sV = reinterpret_cast<float*>(smem + L::tile);
@@ -600,8 +694,8 @@ flash_bwd_dkv_kernel_f32(const float* __restrict__ q,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;  // this warp's first kv row in the tile
 
-  load_tile<float, DH, L::LDT>(sK, k, b, k0, BK, S, K, kvh);
-  load_tile<float, DH, L::LDT>(sV, v, b, k0, BK, S, K, kvh);
+  load_tile<DH, L::LDT>(sK, k, b, k0, BK, S, K, kvh);
+  load_tile<DH, L::LDT>(sV, v, b, k0, BK, S, K, kvh);
 
   float fk[16][DH / 32], fv[16][DH / 32];
 #pragma unroll
@@ -619,8 +713,8 @@ flash_bwd_dkv_kernel_f32(const float* __restrict__ q,
     for (int i = i0; i < nq; ++i) {
       const int q0 = i * BQ;
       __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<float, DH, L::LDT>(sQ, q, b, q0, BQ, S, H, h);
-      load_tile<float, DH, L::LDT>(sdO, dO, b, q0, BQ, S, H, h);
+      load_tile<DH, L::LDT>(sQ, q, b, q0, BQ, S, H, h);
+      load_tile<DH, L::LDT>(sdO, dO, b, q0, BQ, S, H, h);
       for (int r = threadIdx.x; r < BQ; r += NT) {
         const int row = q0 + r;
         sLse[r] = row < S ? lse[((size_t)b * H + h) * S + row] : 0.f;
@@ -683,33 +777,43 @@ flash_bwd_dkv_kernel_f32(const float* __restrict__ q,
   }
 }
 
-// The epilogue buffer must fit in the space it reuses.
-static_assert(64 * (128 + 4) * 4 <= 2 * Tiles<bf16, 128>::scores,
-              "dq epilogue buffer exceeds the S and dP tiles");
-
-template <typename Kern>
-int set_smem(Kern kern, size_t bytes, bool* done) {
-  if (*done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  *done = true;
-  return 0;
-}
-
-template <typename T, int DH>
-int launch_dq(const void* q, const void* k, const void* v, const void* dO,
-              const float* lse, const float* delta, void* dq, int B, int S,
-              int H, int K, int causal, float scale, cudaStream_t stream) {
-  using L = Tiles<T, DH>;
+template <int DH>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* dO,
+                  const float* lse, const float* delta, void* dq, int B,
+                  int S, int H, int K, int causal, float scale,
+                  cudaStream_t stream) {
+  using L = Tiles<DH>;
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dq_kernel<T, DH>, L::bytes, &attr_set);
+  const int e = hopper::allow_smem(flash_bwd_dq_kernel_f32<DH>,
+                                   (int)L::bytes, &attr_set);
   if (e) return e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, DH><<<grid, NT, L::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
-      static_cast<T*>(dq), S, H, K, causal, scale);
+  flash_bwd_dq_kernel_f32<DH><<<grid, NT, L::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO), lse, delta,
+      static_cast<float*>(dq), S, H, K, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dO, const float* lse, const float* delta,
+                   void* dq, int B, int S, int H, int K, int causal,
+                   float scale, cudaStream_t stream) {
+  using L = Dq<DH>;
+  CUtensorMap tq, tk, tv, tdo;
+  int e = hopper::make_map(&tq, q, B, S, H, DH, 64);
+  if (!e) e = hopper::make_map(&tdo, dO, B, S, H, DH, 64);
+  if (!e) e = hopper::make_map(&tk, k, B, S, K, DH, L::BK);
+  if (!e) e = hopper::make_map(&tv, v, B, S, K, DH, L::BK);
+  static bool attr_set = false;
+  if (!e)
+    e = hopper::allow_smem(flash_bwd_dq_kernel_bf16<DH>, L::alloc, &attr_set);
+  if (e) return e;
+  const dim3 grid((S + L::BQ - 1) / L::BQ, H, B);
+  flash_bwd_dq_kernel_bf16<DH><<<grid, L::threads, L::alloc, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), S, H, K, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -725,7 +829,8 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   if (!e) e = hopper::make_map(&tk, k, B, S, K, DH, 64);
   if (!e) e = hopper::make_map(&tv, v, B, S, K, DH, 64);
   static bool attr_set = false;
-  if (!e) e = set_smem(flash_bwd_dkv_kernel_bf16<DH>, L::alloc, &attr_set);
+  if (!e) e = hopper::allow_smem(flash_bwd_dkv_kernel_bf16<DH>, L::alloc,
+                                    &attr_set);
   if (e) return e;
   const dim3 grid((S + L::BKV - 1) / L::BKV, K, B);
   flash_bwd_dkv_kernel_bf16<DH><<<grid, L::threads, L::alloc, stream>>>(
@@ -739,9 +844,10 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
                    const void* dO, const float* lse, const float* delta,
                    void* dk, void* dv, int B, int S, int H, int K, int causal,
                    float scale, cudaStream_t stream) {
-  using L = Tiles<float, DH>;
+  using L = Tiles<DH>;
   static bool attr_set = false;
-  const int e = set_smem(flash_bwd_dkv_kernel_f32<DH>, L::bytes, &attr_set);
+  const int e = hopper::allow_smem(flash_bwd_dkv_kernel_f32<DH>,
+                                   (int)L::bytes, &attr_set);
   if (e) return e;
   const dim3 grid((S + BK - 1) / BK, K, B);
   flash_bwd_dkv_kernel_f32<DH><<<grid, NT, L::bytes, stream>>>(
@@ -765,17 +871,17 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K <= 0 || H % K != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && Dh == 128)
-    return launch_dq<float, 128>(q, k, v, dO, lse, delta, dq, B, S, H, K,
-                                 causal, scale, s);
+    return launch_dq_f32<128>(q, k, v, dO, lse, delta, dq, B, S, H, K,
+                              causal, scale, s);
   if (dtype == 0 && Dh == 64)
-    return launch_dq<float, 64>(q, k, v, dO, lse, delta, dq, B, S, H, K,
-                                causal, scale, s);
+    return launch_dq_f32<64>(q, k, v, dO, lse, delta, dq, B, S, H, K,
+                             causal, scale, s);
   if (dtype == 1 && Dh == 128)
-    return launch_dq<bf16, 128>(q, k, v, dO, lse, delta, dq, B, S, H, K,
-                                causal, scale, s);
-  if (dtype == 1 && Dh == 64)
-    return launch_dq<bf16, 64>(q, k, v, dO, lse, delta, dq, B, S, H, K,
+    return launch_dq_bf16<128>(q, k, v, dO, lse, delta, dq, B, S, H, K,
                                causal, scale, s);
+  if (dtype == 1 && Dh == 64)
+    return launch_dq_bf16<64>(q, k, v, dO, lse, delta, dq, B, S, H, K,
+                              causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -147,12 +147,12 @@ def _check_kernel(what: str, *tensors) -> None:
         raise ValueError(f"{what}: tensors on different devices")
 
 
-def _bind(lib, name: str, n_ptr: int):
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    return fn
+def _bind(source: str, name: str, n_ptr: int):
+    """C entry ``name`` of ``csrc/<source>.cu``: ``n_ptr`` pointers, then
+    (B, S, H, K, Dh, dtype, causal), the scale and the stream."""
+    return _build.bind(source, name, [ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * 7 + [ctypes.c_float,
+                                               ctypes.c_void_p])
 
 
 def _dims(q, k, causal):
@@ -174,11 +174,10 @@ def _forward(q, k, v, causal: bool, want_lse: bool):
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    lib = _build.load("flash_fwd")
-    code = _bind(lib, "flash_fwd", 5)(
+    code = _bind("flash_fwd", "flash_fwd", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None, *_dims(q, k, causal))
-    _build.check(code, "flash_fwd", lib)
+    _build.check(code, "flash_fwd", "flash_fwd")
     flash_attention.launches += 1
     return o, lse
 
@@ -205,12 +204,11 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True):
     q, k, v, lse, delta = (t.contiguous() for t in (q, k, v, lse, delta))
     do = do.to(q.dtype).contiguous()
     dq = torch.empty_like(q)
-    lib = _build.load("flash_bwd")
-    code = _bind(lib, "flash_bwd_dq", 7)(
+    code = _bind("flash_bwd", "flash_bwd_dq", 7)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *_dims(q, k, causal))
-    _build.check(code, "flash_bwd_dq", lib)
+    _build.check(code, "flash_bwd_dq", "flash_bwd")
     flash_attention_dq.launches += 1
     return dq
 
@@ -229,12 +227,11 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True):
     do = do.to(q.dtype).contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.load("flash_bwd")
-    code = _bind(lib, "flash_bwd_dkv", 8)(
+    code = _bind("flash_bwd", "flash_bwd_dkv", 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_dims(q, k, causal))
-    _build.check(code, "flash_bwd_dkv", lib)
+    _build.check(code, "flash_bwd_dkv", "flash_bwd")
     flash_attention_dkv.launches += 1
     return dk, dv
 

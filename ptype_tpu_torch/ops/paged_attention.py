@@ -1,9 +1,11 @@
 """Paged decode attention — the port of ``ptype_tpu/ops/paged_attention.py``.
 
 On CUDA tensors :func:`paged_attention` launches the hand-written
-Hopper kernel ``csrc/paged_decode.cu`` (it replaces the Pallas
-``_paged_kernel``; the source's header says what bounds it on the card
-and what its design does about that). On CPU tensors it runs
+Hopper kernels of ``csrc/paged_decode.cu`` (they replace the Pallas
+``_paged_kernel``; the source's header says what bounds them on the card
+and what the design does about that): a split-K pass over each row's
+pages into an f32 workspace this module allocates, then an ordered
+combine, one call and one count. On CPU tensors it runs
 :func:`paged_attention_plain`, the same function in plain PyTorch. No
 fallback between them: a CUDA input the kernel does not take raises.
 
@@ -16,6 +18,7 @@ attend positions ``<= pos`` (the gather path is given ``pos + 1``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -69,13 +72,24 @@ def kernel_geometry_problems(H: int, Kh: int, Dh: int,
     return bad
 
 
+@functools.lru_cache(maxsize=64)
+def _workspace_floats(device_index, B, H, Kh, Dh, nb) -> int:
+    """f32 elements of the workspace the kernels need for these shapes
+    (the split depends on the card's SM count, hence the device)."""
+    fn = _build.bind("paged_decode", "paged_decode_workspace",
+                     [ctypes.c_int] * 5, ctypes.c_longlong)
+    with torch.cuda.device(device_index):
+        return fn(B, H, Kh, Dh, nb) // 4
+
+
 def paged_attention(q, kc, vc, tables, pos):
     """Decode attention through block tables, one bank layer at a time.
 
     q: (B, 1, H, Dh); kc/vc: (n_blocks, bt, Kh, Dh) bank layer;
     tables: (B, nb) int32 position-ordered block ids; pos: (B,) int32
     current position (attend ``<= pos``). Returns (B, 1, H, Dh).
-    ``paged_attention.launches`` counts kernel launches."""
+    ``paged_attention.launches`` counts kernel calls (the split pass and
+    its combine count once)."""
     B, Q, H, Dh = q.shape
     n_blocks, bt, Kh, Dh2 = kc.shape
     if Q != 1 or Dh2 != Dh or vc.shape != kc.shape:
@@ -104,17 +118,17 @@ def paged_attention(q, kc, vc, tables, pos):
     pos = pos.to(torch.int32).contiguous()
     nb = tables.shape[1]
     out = torch.empty_like(q)
-    lib = _build.load("paged_decode")
-    fn = lib.paged_decode
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
+    ws = torch.empty(_workspace_floats(q.device.index, B, H, Kh, Dh, nb),
+                     dtype=torch.float32, device=q.device)
+    fn = _build.bind("paged_decode", "paged_decode",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
               tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-              B, H, Kh, Dh, bt, nb, _DTYPES[q.dtype],
+              ws.data_ptr(), B, H, Kh, Dh, bt, nb, _DTYPES[q.dtype],
               1.0 / math.sqrt(Dh), stream)
-    _build.check(code, "paged_decode", lib)
+    _build.check(code, "paged_decode", "paged_decode")
     paged_attention.launches += 1
     return out
 

@@ -44,15 +44,17 @@ def cuda():
 
 
 #: Shapes for both directions: the main paths' own, and the bf16
-#: kernels' tile edges (128-row q tiles in the forward, 128-row kv tiles
-#: and 64-row q tiles in dk/dv): one position, one short of and one past
-#: a tile, GQA 32/8 at S=2048, a grid under one wave of SMs (B=1, H=2),
-#: non-causal at S off the tile size, and Dh=64.
+#: kernels' tile edges (128-row q tiles and 64-row K/V tiles in the
+#: forward and dq, 128-row kv tiles and 64-row q tiles in dk/dv): one
+#: position, one short of and one past a tile, GQA 32/8 at S=2048, a grid
+#: under one wave of SMs (B=1, H=2), non-causal at S off the tile size and
+#: at the B=4, S=1024 shape chip_smoke.py times, and Dh=64.
 EDGES = [(2, 320, 4, 2, 128, True), (2, 320, 4, 2, 128, False),
          (1, 200, 6, 6, 128, True), (2, 256, 4, 1, 64, True),
          (1, 1, 2, 2, 128, True), (1, 127, 2, 2, 128, True),
          (1, 129, 2, 2, 128, True), (1, 129, 2, 2, 64, False),
-         (1, 2048, 32, 8, 128, True), (1, 256, 2, 2, 128, True)]
+         (1, 2048, 32, 8, 128, True), (1, 256, 2, 2, 128, True),
+         (4, 1024, 6, 6, 128, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -134,23 +136,35 @@ def test_trainer_step_launches_every_kernel_per_layer(cuda):
     assert losses[-1] < losses[0]
 
 
+#: Decode positions: one key (0), both sides of a page (15, 16), both
+#: sides of a split CTA's four pages (63, 64), and the last position of
+#: the reach (nb * bt - 1).
+PAGED_POS = [0, 15, 16, 63, 64, 100, 16 * 16 - 1]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Kh", [(6, 6), (32, 8)])
-def test_paged_kernel_matches_plain(cuda, dtype, H, Kh):
-    n_blocks, bt, nb = 80, 16, 16
-    kc = torch.randn(n_blocks, bt, Kh, 128, generator=cuda,
+@pytest.mark.parametrize("H,Kh,Dh", [(6, 6, 128), (32, 8, 128),
+                                     (16, 2, 128), (6, 6, 64)])
+def test_paged_kernel_matches_plain(cuda, dtype, H, Kh, Dh):
+    n_blocks, bt, nb = 200, 16, 16
+    B = len(PAGED_POS)
+    kc = torch.randn(n_blocks, bt, Kh, Dh, generator=cuda,
                      device="cuda").to(dtype)
     vc = torch.randn_like(kc)
-    q = torch.randn(4, 1, H, 128, generator=cuda, device="cuda").to(dtype)
-    tables = torch.randint(1, n_blocks, (4, nb), generator=cuda,
+    q = torch.randn(B, 1, H, Dh, generator=cuda, device="cuda").to(dtype)
+    tables = torch.randint(1, n_blocks, (B, nb), generator=cuda,
                            device="cuda", dtype=torch.int32)
-    pos = torch.tensor([0, 15, 16, 255], dtype=torch.int32, device="cuda")
+    tables[1] = tables[0]  # a shared prefix: two rows, one table
+    pos = torch.tensor(PAGED_POS, dtype=torch.int32, device="cuda")
     before = paged_mod.paged_attention.launches
     got = paged_mod.paged_attention(q, kc, vc, tables, pos)
+    again = paged_mod.paged_attention(q, kc, vc, tables, pos)
     want = paged_mod.paged_attention_plain(q, kc, vc, tables, pos)
     torch.cuda.synchronize()
-    assert paged_mod.paged_attention.launches == before + 1
+    assert paged_mod.paged_attention.launches == before + 2
     assert (got.float() - want.float()).abs().max().item() < PAGED_TOL[dtype]
+    # The combine merges the splits in a fixed order: bit for bit.
+    assert torch.equal(got, again)
 
 
 def test_generate_prefill_launches_flash_once_per_layer(cuda):

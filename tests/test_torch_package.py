@@ -1,7 +1,7 @@
 """Package rules of ptype_tpu_torch: it imports with JAX blocked, no
-module of it (nor chip_smoke.py) imports jax or the ptype_tpu package,
-its entry points raise rather than run on the CPU unasked, and
-chip_smoke.py fails without a card."""
+module of it (nor chip_smoke.py or chip_engine_ab.py) imports jax or
+the ptype_tpu package, its entry points raise rather than run on the
+CPU unasked, and chip_smoke.py fails without a card."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "ptype_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "chip_engine_ab.py"]
 
 
 def _modules():
@@ -135,11 +136,34 @@ def test_kernel_target_hashes_the_shared_headers(tmp_path, monkeypatch):
      "flash_bwd_dkv_kernel_f32<128>"),
     ("_ZN48_GLOBAL__N__ca4ab589_15_paged_decode_cu_fed0b86b19paged_decode_"
      "kernelIfLi128EEEvPKT_S3_S3_PKiS5_PS1_iiiif",
-     "paged_decode_kernel<f32,128>")])
+     "paged_decode_kernel<f32,128>"),
+    ("_ZN12_GLOBAL__N_125paged_decode_split_kernelI13__nv_bfloat16Li128ELi4E"
+     "EEvPKT_S4_S4_PKiS6_Pfiiiiif",
+     "paged_decode_split_kernel<bf16,128,4>")])
 def test_kernel_label_reads_mangled_symbols(symbol, label):
     from ptype_tpu_torch.ops import _build
 
     assert _build.kernel_label(symbol) == label
+
+
+def test_bind_sets_the_signature_once(monkeypatch):
+    """A C entry point is looked up and given its ctypes signature on the
+    first call only; later launches get the same bound function."""
+    import ctypes
+
+    from ptype_tpu_torch.ops import _build
+
+    libc = ctypes.CDLL(None)
+    loads = []
+    monkeypatch.setattr(_build, "_fns", {})
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loads.append(name) or libc)
+    fn = _build.bind("libc", "labs", [ctypes.c_long], ctypes.c_long)
+    assert fn(-7) == 7
+    assert _build.bind("libc", "labs", [ctypes.c_long],
+                       ctypes.c_long) is fn
+    assert loads == ["libc"]
+    assert fn.argtypes == [ctypes.c_long] and fn.restype is ctypes.c_long
 
 
 def test_count_sass_counts_instructions_per_kernel():
