@@ -12,7 +12,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    from cuobjdump -sass, and the card's name and power limit. The bf16
    flash forward, dq and dk/dv kernels must contain HGMMA and UTMALDG;
 2. kernels — each kernel against its plain PyTorch version at the
-   shapes the serving and training paths give it (bf16, plus f32), with
+   shapes the serving and training paths give it, at optimus-125m's
+   head width (Dh=128) and optimus-moe's (Dh=64) (bf16, plus f32), with
    the stated tolerance, its time, the plain version's time, one
    library call's time where one computes the same function (for the
    backward kernels: torch.autograd.grad through
@@ -23,9 +24,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
    time in it (device_ms: calls queued behind a sleeping kernel, timed
    by CUDA events) and the wrapper's host time per call (host_us);
 3. GeneratorActor.Generate at optimus-125m full width, prompt (4, 512),
-   32 new tokens: the flash kernel must have been launched; per-step
-   logits under teacher forcing are held against the same actor built
-   with attn_impl="xla" (dense attention);
+   32 new tokens: the flash kernel must have been launched once a layer;
+   per-step logits under teacher forcing reproduce the tokens and are
+   held against the same actor built with attn_impl="xla" (dense
+   attention);
 4. PagedGeneratorActor at optimus-125m full width, attn="kernel", 8
    concurrent requests of 100-700 tokens sharing a 96-token prefix,
    64 new tokens each: the paged kernel must run decode steps x 12
@@ -34,16 +36,28 @@ Run from the root of a checkout. Phases, each printing its own lines:
 5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
    one repeated batch: forward, dq and dk/dv kernels each launched
    steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
-   against the H100's bf16 peak, peak memory; one more step under
-   torch.profiler; and on one B=4 batch each parameter's gradient
-   through the kernels against the same gradient through dense attention
-   (attn_impl="xla");
+   against the H100's bf16 peak, peak memory; and on one B=4 batch each
+   parameter's gradient through the kernels against the same gradient
+   through dense attention (attn_impl="xla");
+   then phases 3-5 at optimus-moe full width (moe_generator: the
+   attention paths held to each other in f32, since a bf16 difference
+   flips some tokens' experts; moe_mlp_syncs: one decode-shape MoE MLP
+   makes no host sync; moe_paged_engine and moe_paged_parity: f32
+   engine tokens equal the contiguous path's; moe_trainer: a finite
+   router aux), and spec_engine: optimus-125m's engine with a 2-layer
+   truncated draft, k=4, beside a plain engine (bf16, attn="kernel":
+   plain, spec, spec, plain), then in f32 on the gather path the two
+   engines' greedy tokens must be identical and each window must
+   synchronize with the host exactly once;
 6. after every host-timed phase (a process that has run a
-   torch.profiler session launches kernels more slowly afterwards): a
-   new engine of phase 4's configuration serves the same prompts (32 new
-   tokens) and its first decode iteration with every slot live runs
+   torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
-   by kernel family, top host ops).
+   by kernel family, top host ops): a new engine's first decode
+   iteration with every slot live (phase 4's configuration, 32 new
+   tokens); one train step each of optimus-125m and optimus-moe, the
+   latter with its router, dispatch, experts and combine named apart;
+   one speculation window with every slot live, draft, verify and
+   accept named apart.
 
 Then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -52,6 +66,7 @@ outside a checkout, it exits non-zero and prints no result.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -78,6 +93,10 @@ GRAD_REL_TOL = 5e-2
 #: probabilities at different points through 12 layers, on logits of
 #: standard deviation ~0.5.
 LOGIT_TOL_BF16 = 0.1
+#: The same in f32 at optimus-moe: both paths sum the same terms in other
+#: orders (the f32 kernel is within 1e-6 of plain attention); a token
+#: whose top-2 experts flipped would move its logits by ~0.1 or more.
+LOGIT_TOL_F32 = 1e-3
 
 
 class SmokeError(Exception):
@@ -192,8 +211,7 @@ def ptxas_summary(build, log):
 # ----------------------------------------------------------- phase 2
 
 
-def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen):
-    Dh = 128
+def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen, Dh=128):
     q = torch.randn(B, S, H, Dh, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, K, Dh, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, K, Dh, generator=gen, device="cuda").to(dtype)
@@ -204,7 +222,7 @@ def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen):
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     check(torch.isfinite(got).all().item(), "flash output not finite")
     check(err <= TOL["flash"][kind],
-          f"flash {B}x{S}x{H}/{K} {kind}: max err {err} > "
+          f"flash {B}x{S}x{H}/{K} Dh={Dh} {kind}: max err {err} > "
           f"{TOL['flash'][kind]}")
     ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v), 10,
                  flush)
@@ -225,9 +243,9 @@ def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen):
             "bound_ms": bound_ms, "bound_by": by}
 
 
-def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen):
+def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen,
+             Dh=128):
     """The dq and dk/dv kernels against their plain versions: two rows."""
-    Dh = 128
 
     def rand(heads):
         return torch.randn(B, S, heads, Dh, generator=gen,
@@ -249,8 +267,9 @@ def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen):
         err[n] = (got[n].float() - want[n].float()).abs().max().item()
         rel[n] = err[n] / want[n].float().abs().max().item()
         check(rel[n] <= BWD_TOL[kind],
-              f"{n} {B}x{S}x{H}/{K} {kind} causal={causal}: max err "
-              f"{err[n]} is {rel[n]} of the largest value > {BWD_TOL[kind]}")
+              f"{n} {B}x{S}x{H}/{K} Dh={Dh} {kind} causal={causal}: max "
+              f"err {err[n]} is {rel[n]} of the largest value > "
+              f"{BWD_TOL[kind]}")
     del got, want
     ms = {"dq": time_ms(torch, lambda: flash_mod.flash_attention_dq(*args),
                         10, flush),
@@ -296,8 +315,8 @@ def bwd_case(torch, F, flash_mod, B, S, H, K, dtype, causal, flush, gen):
          "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1]}]
 
 
-def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen):
-    B, bt, nb, n_blocks, Dh = 8, 16, 64, 513, 128
+def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen, Dh=128):
+    B, bt, nb, n_blocks = 8, 16, 64, 513
     kc = torch.randn(n_blocks, bt, Kh, Dh, generator=gen,
                      device="cuda").to(dtype)
     vc = torch.randn(n_blocks, bt, Kh, Dh, generator=gen,
@@ -316,7 +335,7 @@ def paged_case(torch, paged_mod, H, Kh, dtype, flush, gen):
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     check(torch.isfinite(got).all().item(), "paged output not finite")
     check(err <= TOL["paged"][kind],
-          f"paged H={H} Kh={Kh} {kind}: max err {err} > "
+          f"paged H={H} Kh={Kh} Dh={Dh} {kind}: max err {err} > "
           f"{TOL['paged'][kind]}")
 
     def call():
@@ -358,6 +377,70 @@ def teacher_forced_logits(torch, gen_mod, params, cfg, prompt, toks):
     return torch.stack(out, dim=1)
 
 
+def generator_phase(torch, tfm, gen_mod, flash_mod, GeneratorActor, name,
+                    params, prompt, max_new, phase):
+    """``GeneratorActor.Generate`` at full width: the flash forward runs
+    once a layer (the prefill), the teacher-forced logits reproduce the
+    tokens, and they agree with dense attention's (attn_impl="xla"). In
+    an MoE model a bf16 difference in attention can flip a token's top-2
+    experts, which moves its logits by far more than the attention
+    difference: there the two paths are held to each other in f32 (the
+    bf16 difference is reported). Emits its row, then checks."""
+    cfg = tfm.preset(name)
+    actor = GeneratorActor(cfg, params=params, device="cuda")
+    flash_mod.flash_attention.launches = 0
+    t0 = time.monotonic()
+    out = actor.Generate(prompt, max_new)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = flash_mod.flash_attention.launches
+    B = prompt.shape[0]
+    tf_flash = teacher_forced_logits(torch, gen_mod, params, cfg, prompt,
+                                     out)
+    tf_xla = teacher_forced_logits(torch, gen_mod, params,
+                                   tfm.preset(name, attn_impl="xla"),
+                                   prompt, out)
+    diff = (tf_flash - tf_xla).abs()
+    row = {"phase": phase, "preset": name, "head_dim": cfg.head_dim,
+           "prompt": list(prompt.shape), "max_new": max_new,
+           "flash_launches": launches, "seconds": wall,
+           "tokens_per_s": B * max_new / wall,
+           "tf_logits_max_abs_diff": diff.max().item(),
+           "tf_logits_mean_abs_diff": diff.mean().item(),
+           "tf_logits_std": tf_xla.std().item(),
+           "argmax_agree": (tf_flash.argmax(-1) == tf_xla.argmax(-1))
+           .float().mean().item()}
+    if cfg.n_experts:
+        f32 = {impl: teacher_forced_logits(
+            torch, gen_mod, params,
+            tfm.preset(name, dtype=torch.float32, attn_impl=impl), prompt,
+            out) for impl in ("flash", "xla")}
+        d32 = (f32["flash"] - f32["xla"]).abs().max().item()
+        row.update({"f32_tf_logits_max_abs_diff": d32,
+                    "tol_f32": LOGIT_TOL_F32})
+        del f32
+    else:
+        row["tol"] = LOGIT_TOL_BF16
+    emit(row)
+    check(launches == cfg.n_layers, f"{phase}: {launches} flash launches, "
+          f"want one a layer ({cfg.n_layers})")
+    check(tuple(out.shape) == (B, max_new),
+          f"{phase}: Generate shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{phase}: Generate tokens out of range")
+    check(torch.equal(tf_flash.argmax(-1), out), f"{phase}: teacher-forced "
+          "flash logits do not reproduce Generate's tokens")
+    check(torch.isfinite(tf_flash).all().item(), f"{phase}: logits not "
+          "finite")
+    if cfg.n_experts:
+        check(d32 <= LOGIT_TOL_F32,
+              f"{phase}: f32 flash vs xla logits differ by {d32}")
+    else:
+        check(diff.max().item() <= LOGIT_TOL_BF16,
+              f"{phase}: flash vs xla logits differ by {diff.max().item()}")
+    return launches
+
+
 # ----------------------------------------------------------- phase 4
 
 
@@ -382,6 +465,58 @@ def run_requests(engine, prompts, max_new):
     check(not errs, f"engine requests failed: {errs}")
     check(all(o is not None for o in outs), "engine requests hung")
     return outs, wall
+
+
+def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
+                 prompts, lens, max_new, kw, phase):
+    """The paged engine with attn="kernel" serving ``prompts``: the
+    paged kernel runs once a decode step and layer."""
+    eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+    try:
+        paged_mod.paged_attention.launches = 0
+        steps0 = eng.Info()["engine_steps"]
+        outs, wall = run_requests(eng, prompts, max_new)
+        torch.cuda.synchronize()
+        launches = paged_mod.paged_attention.launches
+        info = eng.Info()
+        steps = info["engine_steps"] - steps0
+        check(steps > 0, f"{phase}: no decode step ran")
+        check(launches == steps * cfg.n_layers,
+              f"{phase}: paged launches {launches} != decode steps {steps} "
+              f"x {cfg.n_layers}")
+        check(all(tuple(o.shape) == (1, max_new) for o in outs),
+              f"{phase}: engine output shapes")
+        check(eng.pool.check_invariants() == [], f"{phase}: pool invariants")
+    finally:
+        eng.close()
+    row = {"phase": phase, "preset": name, "requests": len(prompts),
+           "prompt_lens": list(lens), "shared_prefix": 96,
+           "max_new": max_new, "decode_steps": steps,
+           "paged_launches": launches, "seconds": wall,
+           "tokens_per_s": len(prompts) * max_new / wall,
+           "prefix_hit_rate": info["prefix_hit_rate"],
+           "max_live_slots": info["max_live_slots"],
+           "prefill_stall_ms": info["prefill_stall_ms"]}
+    return row, launches, outs
+
+
+def first_divergence(torch, gen_mod, params, cfg, prompts, got, want):
+    """Where two greedy runs first part: the request, the position, both
+    tokens and the top-2 margin of ``want``'s own logits there (from the
+    contiguous path, teacher-forced). None when they agree."""
+    for r, (a, b) in enumerate(zip(got, want)):
+        a, b = a.reshape(-1), b.reshape(-1)
+        diff = (a != b).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            lg = teacher_forced_logits(torch, gen_mod, params, cfg,
+                                       prompts[r].to("cuda")[None],
+                                       b[None].to("cuda"))
+            top2 = lg[0, i].topk(2).values
+            return {"request": r, "position": i, "got": int(a[i]),
+                    "want": int(b[i]),
+                    "top2_margin": float(top2[0] - top2[1])}
+    return None
 
 
 def engine_iteration_profile(torch, eng, prompts, max_new):
@@ -450,16 +585,23 @@ def paged_logits_pair(torch, gen_mod, params, cfg, prompts):
 # ----------------------------------------------------------- phase 5
 
 
-def trainer_phase(torch, tfm, flash_mod, train_mod, cfg):
-    """Trainer at optimus-125m: launches, a falling loss, throughput."""
-    B, S, steps, warm = 16, 1024, 8, 2
+def new_trainer(torch, train_mod, cfg):
     tr = train_mod.Trainer(
         cfg, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(0),
         optimizer=train_mod.default_optimizer(lr=1e-3, warmup=2),
         sync_every=0)
-    batch = next(train_mod.synthetic_batches(cfg.vocab_size, B, S, seed=3,
-                                             device="cuda"))
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, 16, 1024,
+                                             seed=3, device="cuda"))
+    return tr, batch
+
+
+def trainer_phase(torch, tfm, flash_mod, train_mod, name, phase):
+    """Trainer at full width, B=16, S=1024: launches, a falling loss (and
+    for MoE a finite router aux), throughput."""
+    cfg = tfm.preset(name)
+    B, S, steps, warm = 16, 1024, 8, 2
+    tr, batch = new_trainer(torch, train_mod, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
@@ -479,16 +621,15 @@ def trainer_phase(torch, tfm, flash_mod, train_mod, cfg):
     losses = [float(x) for x in losses]
     want = steps * cfg.n_layers
     check(launches == [want] * 3,
-          f"trainer launches fwd/dq/dkv {launches} != {want} each")
-    check(all(x == x and abs(x) != float("inf") for x in losses),
-          f"trainer loss not finite: {losses}")
-    check(losses[-1] < losses[0], f"trainer loss did not fall: {losses}")
-    prof = step_profile(torch, tr, batch)
+          f"{phase}: launches fwd/dq/dkv {launches} != {want} each")
+    check(all(math.isfinite(x) for x in losses),
+          f"{phase}: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"{phase}: loss did not fall: {losses}")
     timed = steps - warm
     tok_s = timed * B * S / wall
     fpt = tfm.flops_per_token(cfg, S)
     peak = 989e12
-    row = {"phase": "trainer", "preset": "optimus-125m", "B": B, "S": S,
+    row = {"phase": phase, "preset": name, "B": B, "S": S,
            "steps": steps, "timed_steps": timed, "losses": losses,
            "launches": {"flash_fwd": launches[0], "flash_bwd_dq":
                         launches[1], "flash_bwd_dkv": launches[2]},
@@ -496,8 +637,14 @@ def trainer_phase(torch, tfm, flash_mod, train_mod, cfg):
            "tokens_per_s": tok_s, "flops_per_token": fpt,
            "mfu": tok_s * fpt / peak,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "trainer_throughput_all_steps": tr.throughput(),
-           "profile_one_step": prof}
+           "trainer_throughput_all_steps": tr.throughput()}
+    if cfg.n_experts:
+        with torch.no_grad():
+            _, aux = tfm.hidden_with_aux(tr.state.params,
+                                         batch["tokens"][:2], cfg)
+        row["router_aux_2_rows"] = float(aux)
+        check(math.isfinite(row["router_aux_2_rows"]),
+              f"{phase}: router aux not finite: {float(aux)}")
     del tr
     return row, launches
 
@@ -518,29 +665,29 @@ def kernel_family(name):
     return "other"
 
 
-def step_profile(torch, tr, batch):
-    """One more step (after the counted run) under torch.profiler:
-    device time by kernel family, and the device's idle share of the
-    step's wall time (the profiler's own overhead included)."""
+def profiled(torch, fn):
+    """``fn()`` under torch.profiler (CPU and CUDA), synchronized: the
+    profile and the wall time in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        tr.step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    return profile_summary(prof, wall_ms)
+    return prof, wall_ms
 
 
-def profile_summary(prof, wall_ms):
+def profile_summary(prof, wall_ms, ranges=()):
     """Device time by kernel family, the top kernels, the host ops with
     the most self time, and the device's idle share of ``wall_ms`` (the
-    profiler's own overhead included)."""
+    profiler's own overhead included). Named ``ranges`` also show on the
+    device's timeline as spans; they are not kernels and are left out."""
     fams, kernels = {}, {}
     for ev in prof.key_averages():
-        if not on_device(ev):
+        if not on_device(ev) or ev.key in ranges:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -564,6 +711,92 @@ def profile_summary(prof, wall_ms):
                             for n, (t, c) in top],
             "top_host_ops": [{"name": n[:80], "self_ms": t, "calls": c}
                              for n, t, c in host]}
+
+
+def device_ms_of(ev):
+    us = getattr(ev, "device_time_total", None)
+    if us is None:
+        us = getattr(ev, "cuda_time_total", 0.0)
+    return us / 1e3
+
+
+#: Autograd nodes run their backward under events of this prefix.
+BACKWARD = "autograd::engine::evaluate_function: "
+
+
+def range_summary(prof, labels):
+    """Device time of the kernels launched inside each named range
+    (summed over its calls; the ranges' own spans on the device's
+    timeline include idle gaps), and, for the backward, by autograd
+    node: the ranges cover the forward only."""
+    ranges = {label: 0.0 for label in labels}
+    calls = {label: 0 for label in labels}
+    backward = {}
+    for ev in prof.events():
+        if on_device(ev):
+            continue
+        if ev.name in ranges:
+            ranges[ev.name] += device_ms_of(ev)
+            calls[ev.name] += 1
+        elif ev.name.startswith(BACKWARD):
+            node = ev.name[len(BACKWARD):]
+            backward[node] = backward.get(node, 0.0) + device_ms_of(ev)
+    top = sorted(backward.items(), key=lambda kv: -kv[1])[:12]
+    return {"forward_ranges_ms": ranges, "forward_range_calls": calls,
+            "backward_nodes_ms": dict(top)}
+
+
+class named_ranges:
+    """Within the block, each listed function of ``module`` runs inside
+    ``torch.profiler.record_function(label)``, so a profile names it."""
+
+    def __init__(self, torch, module, names):
+        self.torch, self.module, self.names = torch, module, names
+        self.saved = {}
+
+    def __enter__(self):
+        for fn, label in self.names:
+            orig = getattr(self.module, fn)
+            self.saved[fn] = orig
+
+            def wrapped(*a, _orig=orig, _label=label, **k):
+                with self.torch.profiler.record_function(_label):
+                    return _orig(*a, **k)
+
+            setattr(self.module, fn, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for fn, orig in self.saved.items():
+            setattr(self.module, fn, orig)
+
+
+MOE_RANGES = (("_moe_route", "moe.router"),
+              ("_moe_dispatch", "moe.dispatch"),
+              ("_moe_experts", "moe.experts"),
+              ("_moe_combine", "moe.combine"))
+SPEC_RANGES = (("draft_propose_paged", "spec.draft"),
+               ("verify_step_paged", "spec.verify"),
+               ("spec_accept_rows", "spec.accept"))
+
+
+def trainer_profile(torch, tfm, train_mod, name, ranges=()):
+    """A fresh trainer, two steps, then one step under torch.profiler
+    (with ``ranges`` named): device time by family, idle share, and the
+    named ranges' device time."""
+    cfg = tfm.preset(name)
+    tr, batch = new_trainer(torch, train_mod, cfg)
+    for _ in range(2):
+        tr.step(batch)
+    labels = [label for _, label in ranges]
+    with named_ranges(torch, tfm, ranges):
+        prof, wall_ms = profiled(torch, lambda: tr.step(batch))
+    out = {"phase": "trainer_profile", "preset": name,
+           **profile_summary(prof, wall_ms, labels)}
+    if ranges:
+        out.update(range_summary(prof, labels))
+    del tr
+    return out
 
 
 def grad_parity(torch, tfm, train_mod, cfg):
@@ -597,6 +830,171 @@ def grad_parity(torch, tfm, train_mod, cfg):
             "tol": GRAD_REL_TOL}
 
 
+# --------------------------------------------------- speculative decoding
+
+
+#: The warning torch gives, in sync debug mode "warn", for each
+#: synchronizing CUDA call.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def count_syncs(torch, fn):
+    """The synchronizing CUDA calls torch reports while ``fn()`` runs in
+    this thread (``torch.cuda.set_sync_debug_mode("warn")``): a host read
+    of a device value, a pageable host-to-device copy, a stream
+    synchronize. Returns their number and the source lines that made
+    them. Other threads' calls in the meantime are not counted."""
+    import warnings
+
+    me, sites = threading.get_ident(), []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if threading.get_ident() == me and SYNC_WARNING in str(message):
+            sites.append(f"{os.path.relpath(filename)}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return len(sites), sites
+
+
+def count_window_syncs(torch, eng):
+    """Wrap ``eng``'s speculation windows to count, per window, its host
+    synchronizations (:func:`count_syncs`) and whether it first caught
+    the draft up. Returns the list the windows append ``(syncs,
+    caught_up, sites)`` to."""
+    step, catch_up = eng._spec_step, eng._draft_catch_up
+    rec, state = [], {"caught_up": False}
+
+    def counted_catch_up(slot, row):
+        if int(eng._dpos[slot]) < int(eng._pos[slot]):
+            state["caught_up"] = True
+        catch_up(slot, row)
+
+    def counted(k_eff):
+        state["caught_up"] = False
+        n, sites = count_syncs(torch, lambda: step(k_eff))
+        rec.append((n, state["caught_up"], sites))
+
+    eng._spec_step, eng._draft_catch_up = counted, counted_catch_up
+    return rec
+
+
+def spec_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
+               SpecConfig, params, prompts, max_new, kw):
+    """optimus-125m with a 2-layer truncated draft, k=4, fixed depth:
+    the bf16 kernel engine beside a plain one in this process (plain,
+    spec, spec, plain), then the f32 gather-path greedy identity with
+    TF32 off, counting each window's host synchronizations. Emits its
+    row, then checks."""
+    cfg = tfm.preset("optimus-125m")
+    dp, dc = gen_mod.truncated_draft_params(params, cfg, n_layers=2)
+    spec = SpecConfig(draft_params=dp, draft_cfg=dc, k=4, adaptive=False)
+    runs, outs, launches = [], {}, {}
+    for kind in ("plain", "spec", "spec", "plain"):
+        eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                                  spec=spec if kind == "spec" else None,
+                                  **kw)
+        try:
+            paged_mod.paged_attention.launches = 0
+            got, wall = run_requests(eng, prompts, max_new)
+            torch.cuda.synchronize()
+            n = paged_mod.paged_attention.launches
+            info = eng.Info()
+        finally:
+            eng.close()
+        windows = info.get("spec_windows", 0)
+        plain_steps = info["engine_steps"] - windows
+        check(n == plain_steps * cfg.n_layers,
+              f"spec_engine ({kind}): paged launches {n} != plain steps "
+              f"{plain_steps} x {cfg.n_layers}")
+        run = {"kind": kind, "seconds": wall, "engine_steps":
+               info["engine_steps"], "plain_steps": plain_steps,
+               "paged_launches": n,
+               "tokens_per_s": len(prompts) * max_new / wall}
+        if kind == "spec":
+            check(windows > 0, "spec_engine: no speculation window ran")
+            run.update({k: info[k] for k in (
+                "spec_windows", "spec_proposed", "spec_accepted",
+                "spec_tokens", "spec_accept_rate")})
+            # Tokens a window commits over all its live rows.
+            run["tokens_per_window"] = info["spec_tokens"] / windows
+        runs.append(run)
+        outs.setdefault(kind, got)
+        launches.setdefault(kind, n)
+    check(launches["plain"] > 0, "spec_engine: the plain engine launched "
+          "no paged kernel")
+    same = sum(int((a == b).sum()) for a, b in zip(outs["spec"],
+                                                   outs["plain"]))
+    share = same / (len(prompts) * max_new)
+
+    # f32 on the gather path, TF32 off: greedy tokens must be identical.
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    dp32, dc32 = gen_mod.truncated_draft_params(params, cfg32, n_layers=2)
+    got32 = {}
+    for kind in ("plain", "spec"):
+        eng = PagedGeneratorActor(
+            cfg32, params=params, attn="gather",
+            spec=(SpecConfig(dp32, dc32, k=4, adaptive=False)
+                  if kind == "spec" else None), **kw)
+        try:
+            syncs = count_window_syncs(torch, eng) if kind == "spec" else None
+            got32[kind], _ = run_requests(eng, prompts, max_new)
+        finally:
+            eng.close()
+    div = first_divergence(torch, gen_mod, params, cfg32, prompts,
+                           got32["spec"], got32["plain"])
+    steady = [n for n, caught_up, _ in syncs if not caught_up]
+    row = {"phase": "spec_engine", "preset": "optimus-125m",
+           "draft_layers": 2, "k": 4, "adaptive": False,
+           "requests": len(prompts), "max_new": max_new, "runs": runs,
+           "bf16_kernel_identical_token_share": share,
+           "f32_gather_greedy_identical": div is None,
+           "f32_first_divergence": div,
+           "f32_windows": len(syncs),
+           "host_syncs_per_window": sorted(set(steady)),
+           "host_syncs_after_catch_up": sorted(
+               {n for n, caught_up, _ in syncs if caught_up}),
+           "host_sync_sites": sorted({site for _, _, sites in syncs
+                                      for site in sites})}
+    emit(row)
+    check(div is None, f"spec_engine: f32 gather greedy tokens differ from "
+          f"the plain engine's: {div}")
+    check(steady and set(steady) == {1}, f"spec_engine: a window without "
+          f"catch-up made {sorted(set(steady))} host syncs, want 1")
+    return launches
+
+
+def spec_window_profile(torch, gen_mod, eng, prompts, max_new):
+    """The first speculation window with every slot live, under
+    torch.profiler, with the draft, the verify and the acceptance named
+    apart."""
+    step, got = eng._spec_step, {}
+
+    def window(k_eff):
+        if got or not eng._active.all():
+            return step(k_eff)
+        labels = [label for _, label in SPEC_RANGES]
+        with named_ranges(torch, gen_mod, SPEC_RANGES):
+            prof, wall_ms = profiled(torch, lambda: step(k_eff))
+        got.update({"k_eff": k_eff,
+                    **profile_summary(prof, wall_ms, labels),
+                    **range_summary(prof, labels)})
+
+    eng._spec_step = window
+    try:
+        run_requests(eng, prompts, max_new)
+    finally:
+        del eng._spec_step
+    return got or {"device_time": "not measured (no window had every "
+                                  "slot live)"}
+
+
 def main():
     import torch
 
@@ -616,7 +1014,7 @@ def main():
     from ptype_tpu_torch.ops import flash_attention as flash_mod
     from ptype_tpu_torch.ops import paged_attention as paged_mod
     from ptype_tpu_torch.serve import GeneratorActor
-    from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+    from ptype_tpu_torch.serve_engine import PagedGeneratorActor, SpecConfig
     import ptype_tpu_torch.train as train_mod
 
     card = card_line()
@@ -643,7 +1041,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions, at the shapes of
+    # optimus-125m (Dh=128) and optimus-moe (Dh=64)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
@@ -651,20 +1050,27 @@ def main():
         for H, Kh in ((6, 6), (32, 8)):
             cases.append(paged_case(torch, paged_mod, H, Kh, dt, flush, g))
             emit(cases[-1])
-    for B, S, H, K, dt in ((4, 512, 6, 6, torch.bfloat16),
-                           (4, 1024, 6, 6, torch.bfloat16),
-                           (16, 1024, 6, 6, torch.bfloat16),
-                           (1, 2048, 32, 8, torch.bfloat16),
-                           (4, 512, 6, 6, torch.float32)):
+    cases.append(paged_case(torch, paged_mod, 12, 12, torch.bfloat16, flush,
+                            g, Dh=64))
+    emit(cases[-1])
+    for B, S, H, K, dt, Dh in ((4, 512, 6, 6, torch.bfloat16, 128),
+                               (4, 1024, 6, 6, torch.bfloat16, 128),
+                               (16, 1024, 6, 6, torch.bfloat16, 128),
+                               (1, 2048, 32, 8, torch.bfloat16, 128),
+                               (4, 512, 6, 6, torch.float32, 128),
+                               (4, 512, 12, 12, torch.bfloat16, 64),
+                               (16, 1024, 12, 12, torch.bfloat16, 64)):
         cases.append(flash_case(torch, F, flash_mod, B, S, H, K, dt, flush,
-                                g))
+                                g, Dh=Dh))
         emit(cases[-1])
-    for B, S, H, K, dt, causal in ((16, 1024, 6, 6, torch.bfloat16, True),
-                                   (4, 512, 6, 6, torch.float32, True),
-                                   (1, 2048, 32, 8, torch.bfloat16, True),
-                                   (4, 1024, 6, 6, torch.bfloat16, False)):
+    for B, S, H, K, dt, causal, Dh in (
+            (16, 1024, 6, 6, torch.bfloat16, True, 128),
+            (4, 512, 6, 6, torch.float32, True, 128),
+            (1, 2048, 32, 8, torch.bfloat16, True, 128),
+            (4, 1024, 6, 6, torch.bfloat16, False, 128),
+            (16, 1024, 12, 12, torch.bfloat16, True, 64)):
         for row in bwd_case(torch, F, flash_mod, B, S, H, K, dt, causal,
-                            flush, g):
+                            flush, g, Dh=Dh):
             cases.append(row)
             emit(row)
     del flush
@@ -672,42 +1078,12 @@ def main():
     # 3. GeneratorActor at optimus-125m
     cfg = tfm.preset("optimus-125m")
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    actor = GeneratorActor(cfg, params=params, device="cuda")
     gc = torch.Generator().manual_seed(1)
     prompt = torch.randint(1, cfg.vocab_size, (4, 512), generator=gc)
     prompt = prompt.to("cuda")
-    flash_mod.flash_attention.launches = 0
-    paged_mod.paged_attention.launches = 0
-    t0 = time.monotonic()
-    out = actor.Generate(prompt, 32)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    flash_launches = flash_mod.flash_attention.launches
-    check(flash_launches > 0, "GeneratorActor.Generate launched no flash "
-          "kernel")
-    check(tuple(out.shape) == (4, 32), f"Generate shape {tuple(out.shape)}")
-    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-          "Generate tokens out of range")
-    tf_flash = teacher_forced_logits(torch, gen_mod, params, cfg, prompt,
-                                     out)
-    check(torch.equal(tf_flash.argmax(-1), out),
-          "teacher-forced flash logits do not reproduce Generate's tokens")
-    cfg_xla = tfm.preset("optimus-125m", attn_impl="xla")
-    tf_xla = teacher_forced_logits(torch, gen_mod, params, cfg_xla, prompt,
-                                   out)
-    diff = (tf_flash - tf_xla).abs()
-    check(torch.isfinite(tf_flash).all().item(), "logits not finite")
-    check(diff.max().item() <= LOGIT_TOL_BF16,
-          f"flash vs xla logits differ by {diff.max().item()}")
-    emit({"phase": "generator_actor", "prompt": [4, 512], "max_new": 32,
-          "flash_launches": flash_launches, "seconds": wall,
-          "tokens_per_s": 4 * 32 / wall,
-          "tf_logits_max_abs_diff": diff.max().item(),
-          "tf_logits_mean_abs_diff": diff.mean().item(),
-          "tf_logits_std": tf_xla.std().item(), "tol": LOGIT_TOL_BF16,
-          "argmax_agree": (tf_flash.argmax(-1) == tf_xla.argmax(-1))
-          .float().mean().item()})
-    del actor, tf_flash, tf_xla
+    flash_launches = generator_phase(
+        torch, tfm, gen_mod, flash_mod, GeneratorActor, "optimus-125m",
+        params, prompt, 32, "generator_actor")
 
     # 4. PagedGeneratorActor at optimus-125m
     gp = torch.Generator().manual_seed(2)
@@ -717,34 +1093,10 @@ def main():
         1, cfg.vocab_size, (n - 96,), generator=gp)]) for n in lens]
     max_new = 64
     kw = dict(device="cuda", n_slots=8, block_tokens=16, prefill_chunk=256)
-    eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
-    try:
-        flash_mod.flash_attention.launches = 0
-        paged_mod.paged_attention.launches = 0
-        steps0 = eng.Info()["engine_steps"]
-        outs_bf16, wall = run_requests(eng, prompts, max_new)
-        torch.cuda.synchronize()
-        paged_launches = paged_mod.paged_attention.launches
-        info = eng.Info()
-        steps = info["engine_steps"] - steps0
-        check(paged_launches == steps * cfg.n_layers,
-              f"paged launches {paged_launches} != decode steps {steps} x "
-              f"{cfg.n_layers}")
-        check(steps > 0, "no decode step ran")
-        check(all(tuple(o.shape) == (1, max_new) for o in outs_bf16),
-              "engine output shapes")
-        check(eng.pool.check_invariants() == [], "pool invariants")
-    finally:
-        eng.close()
-    emit({"phase": "paged_engine", "requests": len(prompts),
-          "prompt_lens": list(lens), "shared_prefix": 96,
-          "max_new": max_new, "decode_steps": steps,
-          "paged_launches": paged_launches, "seconds": wall,
-          "tokens_per_s": len(prompts) * max_new / wall,
-          "prefix_hit_rate": info["prefix_hit_rate"],
-          "max_live_slots": info["max_live_slots"],
-          "prefill_stall_ms": info["prefill_stall_ms"]})
-    paged_main_launches = paged_launches
+    row, paged_main_launches, _ = engine_phase(
+        torch, paged_mod, PagedGeneratorActor, "optimus-125m", cfg, params,
+        prompts, lens, max_new, kw, "paged_engine")
+    emit(row)
 
     # f32: greedy tokens of the kernel and gather engines are identical.
     cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
@@ -763,65 +1115,151 @@ def main():
     check(ldiff <= LOGIT_TOL_BF16, f"bf16 paged logits differ by {ldiff}")
     emit({"phase": "paged_parity", "f32_greedy_identical": same,
           "bf16_step_logits_max_abs_diff": ldiff, "tol": LOGIT_TOL_BF16})
-
-    del eng, e
+    del e
     torch.cuda.empty_cache()
 
     # 5. Trainer at optimus-125m
     row, (fwd_n, dq_n, dkv_n) = trainer_phase(torch, tfm, flash_mod,
-                                              train_mod, cfg)
+                                              train_mod, "optimus-125m",
+                                              "trainer")
     emit(row)
     emit(grad_parity(torch, tfm, train_mod, cfg))
+    torch.cuda.empty_cache()
 
-    # 6. one engine decode iteration under the profiler, after every
-    # host-timed phase
+    # MoE: GeneratorActor, paged engine and Trainer at optimus-moe
+    mcfg = tfm.preset("optimus-moe")
+    mparams = init_params(torch.Generator(device="cuda").manual_seed(0),
+                          mcfg)
+    moe_flash_launches = generator_phase(
+        torch, tfm, gen_mod, flash_mod, GeneratorActor, "optimus-moe",
+        mparams, prompt, 32, "moe_generator")
+    h = torch.randn(8, 1, mcfg.d_model, generator=g, device="cuda").to(
+        mcfg.dtype)
+    layer = tfm.layer_params(mparams, 0)
+    n, sites = count_syncs(torch, lambda: tfm._moe_mlp(h, layer, mcfg,
+                                                       capacity=8))
+    emit({"phase": "moe_mlp_syncs", "shape": [8, 1, mcfg.d_model],
+          "host_syncs": n, "sites": sites})
+    check(n == 0, f"the MoE MLP synchronized with the host {n} times: "
+          f"{sites}")
+    row, moe_paged_launches, _ = engine_phase(
+        torch, paged_mod, PagedGeneratorActor, "optimus-moe", mcfg,
+        mparams, prompts, lens, max_new, kw, "moe_paged_engine")
+    emit(row)
+    mcfg32 = tfm.preset("optimus-moe", dtype=torch.float32)
+    e = PagedGeneratorActor(mcfg32, params=mparams, attn="kernel", **kw)
+    try:
+        eng32, _ = run_requests(e, prompts, max_new)
+    finally:
+        e.close()
+    contiguous = [gen_mod.generate(mparams, mcfg32, p.to("cuda")[None],
+                                   max_new) for p in prompts]
+    div = first_divergence(torch, gen_mod, mparams, mcfg32, prompts, eng32,
+                           contiguous)
+    emit({"phase": "moe_paged_parity",
+          "f32_kernel_engine_equals_contiguous": div is None,
+          "first_divergence": div})
+    check(div is None, f"moe f32 engine tokens differ from the contiguous "
+          f"path's: {div}")
+    del e, eng32, contiguous
+    torch.cuda.empty_cache()
+    row, (moe_fwd_n, moe_dq_n, moe_dkv_n) = trainer_phase(
+        torch, tfm, flash_mod, train_mod, "optimus-moe", "moe_trainer")
+    emit(row)
+    torch.cuda.empty_cache()
+
+    # Speculative decoding on the paged engine at optimus-125m
+    spec_launches = spec_phase(torch, tfm, gen_mod, paged_mod,
+                               PagedGeneratorActor, SpecConfig, params,
+                               prompts, max_new, kw)
+    torch.cuda.empty_cache()
+
+    # 6. profiles, after every host-timed phase: one engine decode
+    # iteration, one train step of each model, one speculation window
     eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
     try:
         emit({"phase": "engine_iteration_profile",
               **engine_iteration_profile(torch, eng, prompts, 32)})
     finally:
         eng.close()
+    emit(trainer_profile(torch, tfm, train_mod, "optimus-125m"))
+    torch.cuda.empty_cache()
+    emit(trainer_profile(torch, tfm, train_mod, "optimus-moe", MOE_RANGES))
+    torch.cuda.empty_cache()
+    dp, dc = gen_mod.truncated_draft_params(params, cfg, n_layers=2)
+    eng = PagedGeneratorActor(
+        cfg, params=params, attn="kernel",
+        spec=SpecConfig(dp, dc, k=4, adaptive=False), **kw)
+    try:
+        emit({"phase": "spec_window_profile",
+              **spec_window_profile(torch, gen_mod, eng, prompts, 128)})
+    finally:
+        eng.close()
 
-    def main_row(name, source, replaces, launches, row, **extra):
+    def main_row(name, source, replaces, launches, row, by_path, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                "launches_by_path": by_path,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "vs_library": row["vs_library"], "dtype": row["dtype"],
-                "shape": {k: row[k] for k in ("B", "S", "H", "K", "Kh")
+                "shape": {k: row[k] for k in ("B", "S", "H", "K", "Kh", "Dh")
                           if k in row},
                 **extra}
 
-    def pick(kernel, S, B, dtype="bf16"):
+    def pick(kernel, B, H, Dh, S=None):
         return next(c for c in cases if c["kernel"] == kernel
-                    and c.get("S") == S and c["B"] == B
-                    and c["dtype"] == dtype and c.get("causal", True))
+                    and c.get("S") == S and c["B"] == B and c["H"] == H
+                    and c["Dh"] == Dh and c["dtype"] == "bf16"
+                    and c.get("causal", True))
 
-    bwd_src = "ptype_tpu_torch/ops/csrc/flash_bwd.cu"
-    paged_row = next(c for c in cases if c["kernel"] == "paged_decode"
-                     and c["H"] == 6 and c["dtype"] == "bf16")
     fwd_src = "ptype_tpu_torch/ops/csrc/flash_fwd.cu"
-    fwd_launches = {"generator_actor": flash_launches, "trainer": fwd_n}
+    bwd_src = "ptype_tpu_torch/ops/csrc/flash_bwd.cu"
+    paged_src = "ptype_tpu_torch/ops/csrc/paged_decode.cu"
+    fwd_ref = "ptype_tpu/ops/flash_attention.py:160"
+    dq_ref = "ptype_tpu/ops/flash_attention.py:320"
+    dkv_ref = "ptype_tpu/ops/flash_attention.py:342"
+    paged_ref = "ptype_tpu/ops/paged_attention.py:149"
+    fwd128 = {"generator_actor": flash_launches, "trainer": fwd_n}
+    fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
+    paged128 = {"paged_engine": paged_main_launches,
+                "spec_engine": spec_launches["spec"],
+                "spec_engine_plain_run": spec_launches["plain"]}
+    paged64 = {"moe_paged_engine": moe_paged_launches}
+
+    def rows(name, src, ref, row, by_path, **extra):
+        return main_row(name, src, ref, sum(by_path.values()), row, by_path,
+                        **extra)
+
+    paged_rows = [pick("paged_decode", 8, 6, 128),
+                  pick("paged_decode", 8, 12, 64)]
     emit({"kernels": [
-        main_row("flash_fwd", fwd_src, "ptype_tpu/ops/flash_attention.py:160",
-                 flash_launches + fwd_n, pick("flash_fwd", 512, 4),
-                 launches_by_path=fwd_launches),
-        main_row("flash_fwd", fwd_src, "ptype_tpu/ops/flash_attention.py:160",
-                 flash_launches + fwd_n, pick("flash_fwd", 1024, 16),
-                 launches_by_path=fwd_launches),
-        main_row("flash_bwd_dq", bwd_src,
-                 "ptype_tpu/ops/flash_attention.py:320", dq_n,
-                 pick("flash_bwd_dq", 1024, 16)),
-        main_row("flash_bwd_dkv", bwd_src,
-                 "ptype_tpu/ops/flash_attention.py:342", dkv_n,
-                 pick("flash_bwd_dkv", 1024, 16)),
-        main_row("paged_decode", "ptype_tpu_torch/ops/csrc/paged_decode.cu",
-                 "ptype_tpu/ops/paged_attention.py:149",
-                 paged_main_launches, paged_row,
-                 device_ms=paged_row["device_ms"],
-                 host_us=paged_row["host_us"])]})
+        rows("flash_fwd", fwd_src, fwd_ref,
+             pick("flash_fwd", 4, 6, 128, 512), fwd128),
+        rows("flash_fwd", fwd_src, fwd_ref,
+             pick("flash_fwd", 16, 6, 128, 1024), fwd128),
+        rows("flash_fwd", fwd_src, fwd_ref,
+             pick("flash_fwd", 4, 12, 64, 512), fwd64),
+        rows("flash_fwd", fwd_src, fwd_ref,
+             pick("flash_fwd", 16, 12, 64, 1024), fwd64),
+        rows("flash_bwd_dq", bwd_src, dq_ref,
+             pick("flash_bwd_dq", 16, 6, 128, 1024), {"trainer": dq_n}),
+        rows("flash_bwd_dq", bwd_src, dq_ref,
+             pick("flash_bwd_dq", 16, 12, 64, 1024),
+             {"moe_trainer": moe_dq_n}),
+        rows("flash_bwd_dkv", bwd_src, dkv_ref,
+             pick("flash_bwd_dkv", 16, 6, 128, 1024), {"trainer": dkv_n}),
+        rows("flash_bwd_dkv", bwd_src, dkv_ref,
+             pick("flash_bwd_dkv", 16, 12, 64, 1024),
+             {"moe_trainer": moe_dkv_n}),
+        rows("paged_decode", paged_src, paged_ref, paged_rows[0], paged128,
+             device_ms=paged_rows[0]["device_ms"],
+             host_us=paged_rows[0]["host_us"]),
+        rows("paged_decode", paged_src, paged_ref, paged_rows[1], paged64,
+             device_ms=paged_rows[1]["device_ms"],
+             host_us=paged_rows[1]["host_us"])]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -19,13 +19,23 @@ PyTorch idiom where JAX needed its own:
   not threefry's, so sampled tokens match the reference in
   distribution, not draw for draw; greedy tokens match exactly.
 
-The speculative-decoding functions are not ported yet (ROADMAP).
+Speculative decoding (:func:`truncated_draft_params`,
+:func:`draft_propose_paged`, :func:`verify_step_paged`,
+:func:`spec_accept_rows`) runs the draft and the verify through the
+gather path, as the reference does. Where the reference folds a domain
+constant into a row's key, a sampled row here carries two more
+generators (:func:`folded_generator`), one for draft draws and one for
+acceptance draws.
+
+Every MoE layer runs at a zero-drop capacity (the entry point's token
+count), as in the reference: dropping is a training regularizer, and
+a dropped token at decode would change greedy output silently.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -59,8 +69,7 @@ def _masked_softmax_attend(qg, ks, vs, mask, out_shape):
     Dh = qg.shape[-1]
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, ks).float()
     scores = scores / math.sqrt(Dh)
-    scores = torch.where(mask, scores,
-                         torch.tensor(NEG, device=scores.device))
+    scores = torch.where(mask, scores, NEG)
     probs = torch.softmax(scores, dim=-1).to(qg.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs, vs)
     return o.reshape(out_shape)
@@ -110,8 +119,10 @@ def prefill(params: dict, tokens: torch.Tensor,
             last_index: torch.Tensor | None = None):
     """Full-sequence forward, filling ``cache[:, :, :S]`` in place.
     Returns (logits (B, V) at the last column — or at ``last_index`` —
-    and the cache). ``prompt_lens`` (B,): LEFT-padded ragged prompts."""
-    tfm.check_dense(cfg)
+    and the cache). ``prompt_lens`` (B,): LEFT-padded ragged prompts.
+    MoE layers run at the zero-drop capacity ``B·S``: dropping is a
+    training regularizer, and here batch composition (left padding
+    first in token priority) would decide which tokens drop."""
     B, S = tokens.shape
     dev = tokens.device
     x = params["embed"][tokens].to(cfg.dtype)
@@ -138,7 +149,7 @@ def prefill(params: dict, tokens: torch.Tensor,
         layer = tfm.layer_params(params, i)
         q, k, v = tfm.qkv_proj(x, layer, cfg, sin, cos)
         x = tfm.attn_residual(x, attn(q, k, v), layer, cfg)
-        x = tfm.mlp_residual(x, layer, cfg)
+        x, _ = tfm.mlp_residual(x, layer, cfg, moe_capacity=B * S)
         cache.k[i, :, :S] = k
         cache.v[i, :, :S] = v
     x = tfm.rms_norm(x, params["final_norm"])
@@ -153,8 +164,10 @@ def decode_step(params: dict, token: torch.Tensor, pos: int,
                 valid_from: torch.Tensor | None = None):
     """One decode step: token (B,) at cache slot ``pos`` (int). Returns
     (logits (B, V), cache). Ragged prompts pass ``rope_pos`` (B,) token
-    positions and ``valid_from`` (B,) first valid slots."""
+    positions and ``valid_from`` (B,) first valid slots. MoE layers run
+    at capacity ``B`` (each token's k experts are distinct)."""
     dev = token.device
+    B = token.shape[0]
     x = params["embed"][token][:, None, :].to(cfg.dtype)
     if rope_pos is None:
         sin, cos = tfm.rope_tables(
@@ -170,7 +183,7 @@ def decode_step(params: dict, token: torch.Tensor, pos: int,
         o = _cached_attention(q, kc, vc, pos + 1, cfg,
                               valid_from=valid_from)
         x = tfm.attn_residual(x, o, layer, cfg)
-        x = tfm.mlp_residual(x, layer, cfg)
+        x, _ = tfm.mlp_residual(x, layer, cfg, moe_capacity=B)
     x = tfm.rms_norm(x, params["final_norm"])
     return _head_logits(params, x[:, 0], cfg), cache
 
@@ -207,13 +220,14 @@ def decode_step_paged(params: dict, token: torch.Tensor,
     ``(wr_blocks[b], wr_off[b])`` in place (the engine routes inactive
     rows to trash block 0) and attends through ``tables``.
     ``attn_impl="kernel"`` goes through :func:`ops.paged_attention`
-    (the Hopper kernel on CUDA), "gather" through the gather path.
-    Returns (logits (B, V), kb, vb)."""
+    (the Hopper kernel on CUDA), "gather" through the gather path. MoE
+    layers run at capacity ``B``. Returns (logits (B, V), kb, vb)."""
     if attn_impl not in ("gather", "kernel"):
         raise ValueError(f"attn_impl must be 'gather'|'kernel', "
                          f"got {attn_impl!r}")
     if attn_impl == "kernel":
         from ptype_tpu_torch.ops.paged_attention import paged_attention
+    B = token.shape[0]
     x = params["embed"][token][:, None, :].to(cfg.dtype)
     sin, cos = tfm.rope_tables(cfg, positions=pos[:, None])
     wr_blocks, wr_off = wr_blocks.long(), wr_off.long()
@@ -228,7 +242,7 @@ def decode_step_paged(params: dict, token: torch.Tensor,
         else:
             o = _paged_attention_gather(q, kc, vc, tables, pos + 1, cfg)
         x = tfm.attn_residual(x, o, layer, cfg)
-        x = tfm.mlp_residual(x, layer, cfg)
+        x, _ = tfm.mlp_residual(x, layer, cfg, moe_capacity=B)
     x = tfm.rms_norm(x, params["final_norm"])
     return _head_logits(params, x[:, 0], cfg), kb, vb
 
@@ -241,9 +255,9 @@ def prefill_paged_chunk(params: dict, tokens: torch.Tensor, start: int,
     holds positions ``[start, start + length)`` (right-padded past
     ``length``); ``table`` (nb,) its block table. K/V of real tokens
     are written in place into their blocks (pad columns to trash block
-    0); query c attends every position through ``start + c``. Returns
-    (logits (1, V) at the chunk's last real token, kb, vb)."""
-    tfm.check_dense(cfg)
+    0); query c attends every position through ``start + c``. MoE
+    layers run at the zero-drop capacity ``C``. Returns (logits (1, V)
+    at the chunk's last real token, kb, vb)."""
     B, C = tokens.shape
     dev = tokens.device
     bt = kb.shape[2]
@@ -266,9 +280,177 @@ def prefill_paged_chunk(params: dict, tokens: torch.Tensor, start: int,
         o = _paged_attention_gather(q, kc, vc, table[None], limits[None],
                                     cfg)
         x = tfm.attn_residual(x, o, layer, cfg)
-        x = tfm.mlp_residual(x, layer, cfg)
+        x, _ = tfm.mlp_residual(x, layer, cfg, moe_capacity=C)
     x = tfm.rms_norm(x, params["final_norm"])
     return _head_logits(params, x[:, int(length) - 1], cfg), kb, vb
+
+
+# ------------------------------------------------- speculative decoding
+
+#: RNG domain constants of the speculative path (the reference folds the
+#: same two into a row's key): a sampled row's draft draws and its
+#: acceptance draws come from generators seeded from the request's seed
+#: and these, so neither shares a stream with the row's plain sampling
+#: generator, which is seeded with the seed itself.
+_DRAFT_FOLD = 0x5bec
+_ACCEPT_FOLD = 0xacce
+
+
+def folded_generator(seed: int, fold: int, device) -> torch.Generator:
+    """The generator of one RNG domain of a request: seeded with a mix
+    of the request's ``seed`` and the domain's ``fold`` constant."""
+    mixed = (int(seed) * 0x100000001B3 + int(fold)) % (1 << 63)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def truncated_draft_params(params: dict, cfg: tfm.TransformerConfig,
+                           n_layers: int = 1):
+    """The shared-prefix-truncated draft: the target's embedding, final
+    norm, LM head and FIRST ``n_layers`` blocks. The stacked blocks are
+    sliced on their leading dim, so the draft's tensors are views of
+    the target's: zero extra memory. Returns ``(draft_params,
+    draft_cfg)`` for ``SpecConfig``."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"truncated draft needs 1 <= n_layers <= {cfg.n_layers}, "
+            f"got {n_layers}")
+    blocks = {name: w[:n_layers] for name, w in params["blocks"].items()}
+    return dict(params, blocks=blocks), replace(cfg, n_layers=n_layers)
+
+
+def verify_step_paged(params: dict, tokens: torch.Tensor,
+                      pos0: torch.Tensor, cfg: tfm.TransformerConfig,
+                      kb: torch.Tensor, vb: torch.Tensor,
+                      tables: torch.Tensor, wr_b: torch.Tensor,
+                      wr_o: torch.Tensor):
+    """Target verification of one speculation window in one batched
+    forward. ``tokens`` (B, W): each row's last committed token and its
+    draft proposals, at positions ``pos0 + [0, W)``; every position's
+    K/V is written in place at ``(wr_b, wr_o)`` (B, W) (the engine
+    routes inactive lanes and positions past a row's span to trash
+    block 0), and query ``j`` attends through position ``pos0 + j`` on
+    the gather path. MoE layers run at capacity ``B·W``. Returns
+    (logits (B, W, V) f32, kb, vb): ``logits[:, j]`` scores the token at
+    position ``pos0 + j + 1``. Rejected positions need no clean-up:
+    their writes sit in the row's own blocks, hidden by the position
+    limit until overwritten."""
+    B, W = tokens.shape
+    x = params["embed"][tokens].to(cfg.dtype)
+    pos = pos0.long()[:, None] + torch.arange(W, device=tokens.device)
+    sin, cos = tfm.rope_tables(cfg, positions=pos)
+    limits = pos + 1
+    wr_b, wr_o = wr_b.long(), wr_o.long()
+    for i in range(cfg.n_layers):
+        layer = tfm.layer_params(params, i)
+        q, k, v = tfm.qkv_proj(x, layer, cfg, sin, cos)
+        kc, vc = kb[i], vb[i]
+        kc[wr_b, wr_o] = k
+        vc[wr_b, wr_o] = v
+        o = _paged_attention_gather(q, kc, vc, tables, limits, cfg)
+        x = tfm.attn_residual(x, o, layer, cfg)
+        x, _ = tfm.mlp_residual(x, layer, cfg, moe_capacity=B * W)
+    x = tfm.rms_norm(x, params["final_norm"])
+    return _head_logits(params, x, cfg), kb, vb
+
+
+def draft_propose_paged(params: dict, tok: torch.Tensor,
+                        pos0: torch.Tensor, cfg: tfm.TransformerConfig,
+                        kb: torch.Tensor, vb: torch.Tensor,
+                        tables: torch.Tensor, wr_b: torch.Tensor,
+                        wr_o: torch.Tensor, generators, temps, top_ks,
+                        top_ps, n_steps: int, sampled: bool = True):
+    """``n_steps`` draft decode steps through the draft's own block
+    tables (:func:`decode_step_paged` on the gather path, capacity
+    ``B``). Step ``j`` feeds the previous token at position ``pos0 + j``,
+    writes its K/V at ``(wr_b[:, j], wr_o[:, j])`` and picks the next
+    token: the argmax for greedy rows, a draw from the row's draft
+    generator (``generators[b]``) over the same filtered, temperature-
+    scaled logits the acceptance test scores for sampled rows. The
+    engine runs ``n_steps = k + 1``: the last step's K/V covers the
+    all-accepted case and its proposal is discarded. Returns
+    (proposed (B, n_steps) int64, draft_logits (B, n_steps, V) f32, kb,
+    vb)."""
+    toks, lgs = [], []
+    for j in range(n_steps):
+        lg, kb, vb = decode_step_paged(params, tok, pos0 + j, cfg, kb, vb,
+                                       tables, wr_b[:, j], wr_o[:, j])
+        if sampled:
+            tok = sample_token_rows(lg, generators, temps, top_ks, top_ps)
+        else:
+            tok = torch.argmax(lg, dim=-1)
+        toks.append(tok)
+        lgs.append(lg)
+    return torch.stack(toks, dim=1), torch.stack(lgs, dim=1), kb, vb
+
+
+def _accept_sampled_row(d_toks, d_lg, t_lg, generator, temp, top_k,
+                        top_p):
+    """Residual acceptance for one sampled row: token ``j`` is accepted
+    with probability ``min(1, p_j(d_j) / q_j(d_j))``; the first
+    rejection draws from ``max(p − q, 0)`` renormalised, and a window
+    accepted whole draws its bonus token from ``p_k``. Two draws from
+    ``generator``: k uniforms, then one Gumbel vector. Returns (out
+    (k+1,), n_acc ()), both on the device."""
+    k = d_toks.shape[0]
+    dev = d_toks.device
+    p = torch.softmax(_filter_logits(t_lg.float() / temp, top_k, top_p),
+                      dim=-1)                                  # (k+1, V)
+    q = torch.softmax(_filter_logits(d_lg.float() / temp, top_k, top_p),
+                      dim=-1)                                  # (k, V)
+    idx = torch.arange(k, device=dev)
+    ratio = p[idx, d_toks] / torch.clamp(q[idx, d_toks], min=1e-30)
+    u = torch.rand(k, generator=generator, device=dev,
+                   dtype=torch.float32)
+    ok = (u < torch.clamp(ratio, max=1.0)).long()
+    n_acc = torch.cumprod(ok, dim=0).sum().view(1)
+    q_pad = torch.cat([q, torch.zeros_like(q[:1])])
+    p_at = p[n_acc][0]
+    res = torch.clamp(p_at - q_pad[n_acc][0], min=0.0)
+    rs = res.sum()
+    # A numerically empty residual (p == q to float precision, yet the
+    # ratio test rejected) falls back to p itself.
+    res = torch.where(rs > 0, res / torch.clamp(rs, min=1e-30), p_at)
+    g = _gumbel(res.shape, generator, dev)
+    c = torch.argmax(torch.log(torch.clamp(res, min=1e-38)) + g)
+    out = torch.cat([d_toks, torch.zeros_like(d_toks[:1])])
+    out[n_acc] = c.view(1)
+    return out, n_acc[0]
+
+
+def spec_accept_rows(draft_toks: torch.Tensor, draft_logits: torch.Tensor,
+                     target_logits: torch.Tensor, generators, temps,
+                     top_ks, top_ps, sampled: bool = True):
+    """Acceptance over one speculation window. ``draft_toks`` (B, k),
+    ``draft_logits`` (B, k, V) and ``target_logits`` (B, k+1, V) raw
+    f32.
+
+    Greedy rows (``temps[b] == 0``): accept the longest draft prefix
+    matching the target's argmax chain, then emit the target argmax at
+    the first mismatch — the tokens sequential greedy decode gives,
+    whatever the draft proposed. Sampled rows: residual acceptance
+    with the row's acceptance generator (``generators[b]``), so the
+    emitted stream is distributed as sampling the target directly. All
+    rows are computed on the device; sampled rows take a host loop, as
+    :func:`sample_token_rows` does. Returns (out (B, k+1) int64, n_acc
+    (B,)): row ``b`` emits ``out[b, :n_acc[b] + 1]``."""
+    B, k = draft_toks.shape
+    rows = torch.arange(B, device=draft_toks.device)
+    gt = torch.argmax(target_logits, dim=-1)                   # (B, k+1)
+    match = (draft_toks == gt[:, :k]).long()
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+    out = torch.cat([draft_toks, torch.zeros_like(draft_toks[:, :1])],
+                    dim=1)
+    out[rows, n_acc] = gt[rows, n_acc]
+    if not sampled:
+        return out, n_acc
+    for b in range(B):
+        t = float(temps[b])
+        if t <= 0.0:
+            continue
+        out[b], n_acc[b] = _accept_sampled_row(
+            draft_toks[b], draft_logits[b], target_logits[b],
+            generators[b], t, int(top_ks[b]), float(top_ps[b]))
+    return out, n_acc
 
 
 # ---------------------------------------------------------------- sampling
@@ -371,7 +553,6 @@ def generate(params: dict, cfg: tfm.TransformerConfig,
     a row's first stop token become ``pad_token``. ``prompt_lens``
     (B,): LEFT-padded ragged batch (:func:`pad_prompts`). Returns
     (B, max_new_tokens) int64."""
-    tfm.check_dense(cfg)
     B, S = prompt.shape
     dev = prompt.device
     if S + max_new_tokens > cfg.max_seq:

@@ -19,9 +19,13 @@ backward rather than saved. With ``attn_impl`` "flash" (the default on
 CUDA) attention is differentiable through the flash kernels
 (``ops/flash_attention.py``).
 
-Not ported yet (ROADMAP): mixture-of-experts (``_moe_mlp``),
-``param_specs``, remat, ring/Ulysses attention. A config with
-``n_experts > 0`` raises ``NotImplementedError``.
+Mixture-of-experts MLPs (``n_experts > 0``) route each token to its
+top-k experts with the reference's static capacity and inverse-index
+dispatch (:func:`_moe_mlp`); every shape is fixed by the config and the
+token count, so no step reads a value back from the device.
+
+Not ported yet (ROADMAP): ``param_specs`` and expert parallelism, remat,
+ring/Ulysses attention.
 """
 
 from __future__ import annotations
@@ -51,9 +55,15 @@ class TransformerConfig:
     #: "auto" (the port's flash kernel on CUDA, dense elsewhere),
     #: "xla" (dense; the reference's name for it), "flash".
     attn_impl: str = "auto"
-    #: Mixture-of-experts width; the port raises for n_experts > 0 (the
-    #: reference's other training and MoE knobs arrive with those slices).
+    #: Mixture-of-experts: experts per MLP (0 = dense).
     n_experts: int = 0
+    #: Experts routed per token (top-k, GShard-style).
+    expert_top_k: int = 2
+    #: Expert capacity = ceil(top_k · tokens/expert · this factor);
+    #: overflow tokens fall back to the residual stream (dropped).
+    capacity_factor: float = 1.25
+    #: Coefficient of the router load-balancing aux loss.
+    moe_aux_coef: float = 0.01
 
     @property
     def kv_heads(self) -> int:
@@ -83,10 +93,12 @@ PRESETS: dict[str, TransformerConfig] = {
         n_kv_heads=8, d_ff=14336, max_seq=8192, rope_theta=500000.0,
         tie_embeddings=False,
     ),
-    "optimus-moe": TransformerConfig(d_ff=1024, n_experts=8),
+    "optimus-moe": TransformerConfig(
+        d_ff=1024, n_experts=8, expert_top_k=2,
+    ),
     "tiny-moe": TransformerConfig(
         vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=64,
-        max_seq=128, n_experts=4,
+        max_seq=128, n_experts=4, expert_top_k=2,
     ),
 }
 
@@ -95,14 +107,6 @@ def preset(name: str, **overrides) -> TransformerConfig:
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return replace(PRESETS[name], **overrides)
-
-
-def check_dense(cfg: TransformerConfig) -> None:
-    """Refuse what the port does not run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts is not ported yet (ROADMAP.md, port "
-            "queue: MoE)")
 
 
 def count_params(params) -> int:
@@ -115,11 +119,16 @@ def flops_per_token(cfg: TransformerConfig, seq_len: int,
                     n_params: int | None = None) -> float:
     """Fwd+bwd training FLOPs per token (PaLM appendix B convention):
     ``6·N_matmul + 12·L·D·S`` — the MFU denominator. ``N_matmul``
-    counts matmul parameters only (norms excluded)."""
+    counts ACTIVE matmul parameters only (norms excluded; for MoE the
+    top-k routed experts and the router, not the whole bank)."""
     if n_params is None:
         L, D = cfg.n_layers, cfg.d_model
         H, K, Dh, F = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff
-        per_layer = D * Dh * (H + 2 * K) + H * Dh * D + 3 * D * F
+        if cfg.n_experts:
+            mlp = cfg.expert_top_k * 3 * D * F + D * cfg.n_experts
+        else:
+            mlp = 3 * D * F
+        per_layer = D * Dh * (H + 2 * K) + H * Dh * D + mlp
         n_params = cfg.vocab_size * D + L * per_layer
         if not cfg.tie_embeddings:
             n_params += D * cfg.vocab_size
@@ -146,8 +155,10 @@ def rope_tables(cfg: TransformerConfig, seq_len: int | None = None,
     if positions is None:
         positions = torch.arange(seq_len, device=device)
     dev = positions.device
+    # A Python base: no scalar tensor is copied to the device (a
+    # pageable host-to-device copy waits for the stream).
     inv_freq = 1.0 / (
-        torch.tensor(cfg.rope_theta, dtype=torch.float32, device=dev)
+        cfg.rope_theta
         ** (torch.arange(0, half, dtype=torch.float32, device=dev) / half)
     )
     angles = positions.to(torch.float32)[..., None] * inv_freq
@@ -249,14 +260,112 @@ def attn_residual(x, o, layer, cfg: TransformerConfig):
     return x + o.reshape(B, S, H * Dh) @ wo
 
 
-def mlp_residual(x, layer, cfg: TransformerConfig):
-    """Pre-norm dense SwiGLU + residual."""
-    check_dense(cfg)
+def _moe_route(x, router, cfg: TransformerConfig):
+    """Router in f32: softmax over experts, top-k, gates renormalised
+    over the k picks, and the Switch load-balancing aux
+    ``E · Σ_e frac_tokens_e · frac_prob_e``. x: (T, D) → (gate_w (T, k)
+    f32, gate_e (T, k) int64, aux f32 scalar)."""
+    E, topk = cfg.n_experts, cfg.expert_top_k
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)  # (T, E)
+    gate_w, gate_e = torch.topk(probs, topk, dim=-1)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    experts = torch.arange(E, device=x.device)
+    dispatched = (gate_e[..., None] == experts).float().sum(1)  # (T, E)
+    ce = dispatched.mean(0) / topk
+    aux = E * (probs.mean(0) * ce).sum()
+    return gate_w, gate_e, aux
+
+
+def _moe_dispatch(x, gate_e, C: int, cfg: TransformerConfig):
+    """Token-priority slots and the inverse-index gather. Each (token,
+    pick) assignment, flattened t-major as ``(T, k) → (T·k)``, takes
+    the next slot of its expert; slots ≥ ``C`` overflow and drop. Each
+    kept assignment scatters its token id (one integer) into an
+    ``(E, C)`` map, overflow into a trash column; token rows are then
+    GATHERED into the ``(E, C, D)`` expert buffer in the compute dtype.
+    Returns (X (E, C, D), flat_e (T·k,), slot (T·k,), keep (T·k,))."""
+    T, D = x.shape
+    E = cfg.n_experts
+    dev = x.device
+    flat_e = gate_e.reshape(-1)
+    n = flat_e.shape[0]
+    # A running count per expert, as ONE scan over the (E, T·k) one-hot
+    # laid end to end, less each expert row's start: on CUDA a scan
+    # along the long dim of a (T·k, E) tensor runs one thread a column.
+    onehot = (torch.arange(E, device=dev)[:, None] == flat_e).to(torch.int32)
+    run = torch.cumsum(onehot.reshape(-1), dim=0).reshape(E, n)
+    start = torch.cat([run.new_zeros(1), run[:-1, -1]])
+    pos = (run - start[:, None]).gather(0, flat_e[None])[0] - 1
+    keep = pos < C
+    tok = torch.arange(n, device=dev) // cfg.expert_top_k
+    inv = torch.zeros((E, C + 1), dtype=torch.int64, device=dev)
+    inv[flat_e, torch.where(keep, pos, C)] = tok + 1  # 0 = empty
+    inv = inv[:, :C]
+    # Empty slots read rows spread over the tokens and are zeroed, so the
+    # gather's backward (an index_add_) adds into any row a few times at
+    # most, and only exact zeros beyond a token's k real picks.
+    spread = torch.arange(E * C, device=dev).reshape(E, C) % T
+    src = torch.where(inv > 0, inv - 1, spread)
+    rows = x.index_select(0, src.reshape(-1)).reshape(E, C, D)
+    X = torch.where((inv > 0)[..., None], rows.to(cfg.dtype), 0.0)
+    return X, flat_e, torch.clamp(pos, 0, C - 1), keep
+
+
+def _moe_experts(X, layer, cfg: TransformerConfig):
+    """The stacked experts' SwiGLUs as three batched products over the
+    expert dim: (E, C, D) → (E, C, D)."""
+    dt = cfg.dtype
+    g = torch.bmm(X, layer["w_gate"].to(dt))
+    u = torch.bmm(X, layer["w_up"].to(dt))
+    return torch.bmm(torch.nn.functional.silu(g) * u, layer["w_down"].to(dt))
+
+
+def _moe_combine(Y, flat_e, slot, keep, gate_w, cfg: TransformerConfig):
+    """Gather each assignment's expert output back, zero the dropped
+    ones, weight by the gates and sum a token's k picks: → (T, D)."""
+    dt = cfg.dtype
+    E, C, D = Y.shape
+    y_tok = Y.reshape(E * C, D).index_select(0, flat_e * C + slot)
+    y_tok = y_tok * keep[:, None].to(dt)
+    y_tok = y_tok * gate_w.reshape(-1)[:, None].to(dt)
+    return y_tok.reshape(-1, cfg.expert_top_k, D).sum(1)
+
+
+def _moe_mlp(h, layer, cfg: TransformerConfig, capacity: int | None = None):
+    """GShard-style top-k MoE MLP (the reference's ``_moe_mlp``).
+    h: (B, S, D) → (y, aux).
+
+    Static expert capacity ``C = ceil(k·T/E · capacity_factor)``, or
+    ``capacity`` when given (generation passes a zero-drop bound, the
+    exact per-call token count, so no decode token is dropped). Every
+    shape follows from the config, ``T`` and ``C``: nothing is read back
+    from the device, so a step stays capturable in a CUDA graph."""
+    B, S, D = h.shape
+    T = B * S
+    E, topk = cfg.n_experts, cfg.expert_top_k
+    x = h.reshape(T, D)
+    gate_w, gate_e, aux = _moe_route(x, layer["router"], cfg)
+    C = (capacity if capacity is not None
+         else max(math.ceil(topk * T / E * cfg.capacity_factor), 1))
+    X, flat_e, slot, keep = _moe_dispatch(x, gate_e, C, cfg)
+    Y = _moe_experts(X, layer, cfg)
+    y = _moe_combine(Y, flat_e, slot, keep, gate_w, cfg)
+    return y.reshape(B, S, D), aux
+
+
+def mlp_residual(x, layer, cfg: TransformerConfig,
+                 moe_capacity: int | None = None):
+    """Pre-norm MLP (dense SwiGLU or MoE) + residual → (x, aux); a dense
+    MLP's aux is the float 0.0 (no device work)."""
     dt = cfg.dtype
     h = rms_norm(x, layer["mlp_norm"])
+    if cfg.n_experts:
+        y, aux = _moe_mlp(h, layer, cfg, capacity=moe_capacity)
+        return x + y, aux
     gate = h @ layer["w_gate"].to(dt)
     up = h @ layer["w_up"].to(dt)
-    return x + (torch.nn.functional.silu(gate) * up) @ layer["w_down"].to(dt)
+    x = x + (torch.nn.functional.silu(gate) * up) @ layer["w_down"].to(dt)
+    return x, 0.0
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -267,19 +376,20 @@ def layer_params(params: dict, i: int) -> dict:
 def hidden_with_aux(params: dict, tokens: torch.Tensor,
                     cfg: TransformerConfig, attn_fn=None):
     """Backbone through the final norm: (x (B,S,D) in compute dtype,
-    aux). aux is 0.0 — the port runs dense MLPs only."""
-    check_dense(cfg)
+    aux) — aux is the MoE router loss summed over layers (0.0 dense)."""
     attn_fn = attn_fn or resolve_attn_fn(cfg, tokens.device)
     S = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.dtype)
     sin, cos = rope_tables(cfg, S, device=tokens.device)
+    aux = torch.zeros((), device=tokens.device)
     for i in range(cfg.n_layers):
         layer = layer_params(params, i)
         q, k, v = qkv_proj(x, layer, cfg, sin, cos)
         x = attn_residual(x, attn_fn(q, k, v, cfg), layer, cfg)
-        x = mlp_residual(x, layer, cfg)
-    return (rms_norm(x, params["final_norm"]),
-            torch.zeros((), device=tokens.device))
+        x, layer_aux = mlp_residual(x, layer, cfg)
+        if cfg.n_experts:
+            aux = aux + layer_aux
+    return rms_norm(x, params["final_norm"]), aux
 
 
 def head_weight(params: dict, cfg: TransformerConfig) -> torch.Tensor:
@@ -294,7 +404,8 @@ def head_logits(x: torch.Tensor, head: torch.Tensor,
 
 def forward_with_aux(params: dict, tokens: torch.Tensor,
                      cfg: TransformerConfig, attn_fn=None):
-    """(logits (B, S, V) f32, aux) — aux is 0.0 (dense MLPs only)."""
+    """(logits (B, S, V) f32, aux) — aux is the summed MoE router loss
+    (0.0 for dense MLPs)."""
     x, aux = hidden_with_aux(params, tokens, cfg, attn_fn)
     return head_logits(x, head_weight(params, cfg), cfg), aux
 
@@ -425,7 +536,11 @@ def loss_terms(params: dict, batch: dict, cfg: TransformerConfig,
 
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
             attn_fn=None) -> torch.Tensor:
-    """Mean next-token cross-entropy. ``batch``: tokens (B, S), targets
-    (B, S), optional loss_mask (B, S)."""
-    nll_sum, denom, _ = loss_terms(params, batch, cfg, attn_fn)
-    return nll_sum / denom
+    """Mean next-token cross-entropy, plus ``moe_aux_coef · aux`` for
+    an MoE config. ``batch``: tokens (B, S), targets (B, S), optional
+    loss_mask (B, S)."""
+    nll_sum, denom, aux = loss_terms(params, batch, cfg, attn_fn)
+    loss = nll_sum / denom
+    if cfg.n_experts:
+        loss = loss + cfg.moe_aux_coef * aux
+    return loss

@@ -3,10 +3,12 @@
 The reference parameter tree (``ptype_tpu/models/transformer.py``
 ``init_params``) is a nested dict whose block leaves are stacked on a
 leading ``n_layers`` dim: ``wq (L,D,H,Dh)``, ``wk/wv (L,D,K,Dh)``,
-``wo (L,H,Dh,D)``, ``w_gate/w_up (L,D,F)``, ``w_down (L,F,D)``, the
-norms, ``embed (V,D)``, ``final_norm (D,)`` and, untied,
-``lm_head (D,V)``. The port keeps exactly that layout and those names,
-so a tree moves between the packages as numpy arrays, bit for bit.
+``wo (L,H,Dh,D)``, ``w_gate/w_up (L,D,F)``, ``w_down (L,F,D)`` — for
+mixture-of-experts ``router (L,D,E)``, ``w_gate/w_up (L,E,D,F)`` and
+``w_down (L,E,F,D)`` — the norms, ``embed (V,D)``, ``final_norm (D,)``
+and, untied, ``lm_head (D,V)``. The port keeps exactly that layout and
+those names, so a tree moves between the packages as numpy arrays, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from ptype_tpu_torch.models.transformer import TransformerConfig, check_dense
+from ptype_tpu_torch.models.transformer import TransformerConfig
 
 
 def params_from_numpy(tree: dict, cfg: TransformerConfig,
@@ -24,7 +26,6 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
     """A reference parameter tree (numpy arrays, or anything
     ``np.asarray`` takes) → the port's dict of tensors on ``device``,
     in ``cfg.param_dtype``."""
-    check_dense(cfg)
 
     def conv(x):
         if isinstance(x, dict):
@@ -51,7 +52,6 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     draws are torch's, not JAX's: for identical weights in both
     packages, carry a reference tree across with
     :func:`params_from_numpy`."""
-    check_dense(cfg)
     L, D, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads
     Dh, F, V = cfg.head_dim, cfg.d_ff, cfg.vocab_size
     pd = cfg.param_dtype
@@ -67,6 +67,22 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         return torch.ones(shape, device=device, dtype=pd)
 
     resid = 0.02 / math.sqrt(2.0 * L)
+    E = cfg.n_experts
+    if E:
+        mlp = {
+            "mlp_norm": ones((L, D)),
+            "router": norm((L, D, E), 0.02),
+            "w_gate": norm((L, E, D, F), 0.02),
+            "w_up": norm((L, E, D, F), 0.02),
+            "w_down": norm((L, E, F, D), resid),
+        }
+    else:
+        mlp = {
+            "mlp_norm": ones((L, D)),
+            "w_gate": norm((L, D, F), 0.02),
+            "w_up": norm((L, D, F), 0.02),
+            "w_down": norm((L, F, D), resid),
+        }
     params = {
         "embed": norm((V, D), 0.02),
         "blocks": {
@@ -75,10 +91,7 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
             "wk": norm((L, D, K, Dh), 0.02),
             "wv": norm((L, D, K, Dh), 0.02),
             "wo": norm((L, H, Dh, D), resid),
-            "mlp_norm": ones((L, D)),
-            "w_gate": norm((L, D, F), 0.02),
-            "w_up": norm((L, D, F), 0.02),
-            "w_down": norm((L, F, D), resid),
+            **mlp,
         },
         "final_norm": ones((D,)),
     }

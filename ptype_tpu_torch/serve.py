@@ -56,7 +56,6 @@ class GeneratorActor:
 
     def __init__(self, cfg: tfm.TransformerConfig, params=None,
                  generator: torch.Generator | None = None, device=None):
-        tfm.check_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:

@@ -197,10 +197,26 @@ class BlockPool:
                 if self.capacity else 0.0,
             }
 
-    def check_invariants(self) -> list[str]:
+    def check_invariants(self, spec_rows=()) -> list[str]:
         """Consistency audit: every block in exactly one lifetime, the
-        hash index bijective, the reservation covered."""
+        hash index bijective, the reservation covered.
+
+        ``spec_rows`` (speculative decoding): per live row ``(pos,
+        nalloc, reserve_left, advance)``; each row's remaining
+        reservation must cover the blocks of its worst-case
+        ``advance``-token window from ``pos`` (block crossings inside
+        the window included), so a verify step never finds the pool
+        empty. ``PagedGeneratorActor.check_spec_reservations`` builds
+        them."""
         bad: list[str] = []
+        bt = self.block_tokens
+        for i, (pos, nalloc, reserve_left, advance) in enumerate(spec_rows):
+            need = -(-(int(pos) + int(advance)) // bt) - int(nalloc)
+            if need > int(reserve_left):
+                bad.append(
+                    f"row {i}: reservation does not cover a {advance}-token "
+                    f"advance from pos {pos} (needs {need} new blocks past "
+                    f"its {nalloc} allocated, holds {reserve_left} reserved)")
         with self._lock:
             free, cached, active = (set(self._free), set(self._cached),
                                     set(self._ref))

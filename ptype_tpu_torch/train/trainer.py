@@ -13,9 +13,10 @@ returns the loss and grad norm as device scalars, and reading them is
 what waits. ``Trainer`` drains the queue every ``sync_every`` steps so
 its throughput counts completed work only.
 
-Out of scope here (ROADMAP): ``param_specs`` and shardings, the ZeRO
-``shard_update``, ``store_dp``, ``param_server``, ``actor_pipeline``
-and remat.
+Mixture-of-experts configs train on one device, their experts
+unsharded. Out of scope here (ROADMAP): ``param_specs`` and shardings,
+expert parallelism, the ZeRO ``shard_update``, ``store_dp``,
+``param_server``, ``actor_pipeline`` and remat.
 """
 
 from __future__ import annotations
@@ -227,7 +228,8 @@ def grads_of(params: dict, batch: dict, cfg: tfm.TransformerConfig,
     microbatches and sums their grads; the normalizer is the whole
     batch's token count (or mask sum), computed up front, so loss and
     grads match ``grad_accum=1`` even when microbatches hold different
-    numbers of valid tokens."""
+    numbers of valid tokens. An MoE config's microbatch also adds
+    ``moe_aux_coef · aux / grad_accum``, as the reference's does."""
     paths, leaves = zip(*_flatten(params))
     if grad_accum == 1:
         loss = tfm.loss_fn(params, batch, cfg, attn_fn)
@@ -243,8 +245,10 @@ def grads_of(params: dict, batch: dict, cfg: tfm.TransformerConfig,
     loss, grads = 0.0, None
     for i in range(grad_accum):
         mb = {k: v.chunk(grad_accum)[i] for k, v in batch.items()}
-        nll_sum, _, _ = tfm.loss_terms(params, mb, cfg, attn_fn)
+        nll_sum, _, aux = tfm.loss_terms(params, mb, cfg, attn_fn)
         part = nll_sum / denom
+        if cfg.n_experts:
+            part = part + cfg.moe_aux_coef * aux / grad_accum
         g = torch.autograd.grad(part, leaves)
         grads = g if grads is None else [a + b for a, b in zip(grads, g)]
         loss = loss + part.detach()
@@ -257,7 +261,6 @@ def make_train_step(cfg: tfm.TransformerConfig, optimizer=None,
     """The train step: ``(state, batch) → (state, metrics)``, metrics
     holding the loss, the pre-clip ``grad_norm`` (device scalars) and
     the step count. The state is updated in place."""
-    tfm.check_dense(cfg)
     optimizer = optimizer or default_optimizer()
     device = resolve_device(device)
     attn_fn = attn_fn or tfm.resolve_attn_fn(cfg, device)
@@ -320,7 +323,6 @@ class Trainer:
                  optimizer=None, generator: torch.Generator | None = None,
                  params: dict | None = None, attn_fn=None,
                  sync_every: int = 16):
-        tfm.check_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.optimizer = optimizer or default_optimizer()

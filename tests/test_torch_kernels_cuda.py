@@ -11,11 +11,12 @@ so it runs on a machine that has only PyTorch:
 import pytest
 import torch
 
+from ptype_tpu_torch.models import generate as gen_mod
 from ptype_tpu_torch.models import transformer as ttfm
 from ptype_tpu_torch.ops import flash_attention as flash_mod
 from ptype_tpu_torch.ops import paged_attention as paged_mod
 from ptype_tpu_torch.serve import GeneratorActor
-from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+from ptype_tpu_torch.serve_engine import PagedGeneratorActor, SpecConfig
 from ptype_tpu_torch.train import Trainer, default_optimizer, synthetic_batches
 
 pytestmark = pytest.mark.cuda
@@ -34,6 +35,11 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 NARROW = ttfm.TransformerConfig(vocab_size=256, d_model=512, n_layers=2,
                                 n_heads=4, n_kv_heads=2, d_ff=256,
                                 max_seq=256, dtype=torch.float32)
+#: A narrow mixture-of-experts config with optimus-moe's head width
+#: (Dh = 64), 4 experts, top-2.
+NARROW_MOE = ttfm.TransformerConfig(vocab_size=256, d_model=256, n_layers=2,
+                                    n_heads=4, d_ff=128, max_seq=256,
+                                    n_experts=4, dtype=torch.float32)
 
 
 @pytest.fixture
@@ -48,13 +54,16 @@ def cuda():
 #: forward and dq, 128-row kv tiles and 64-row q tiles in dk/dv): one
 #: position, one short of and one past a tile, GQA 32/8 at S=2048, a grid
 #: under one wave of SMs (B=1, H=2), non-causal at S off the tile size and
-#: at the B=4, S=1024 shape chip_smoke.py times, and Dh=64.
+#: at the B=4, S=1024 shape chip_smoke.py times, Dh=64, and optimus-moe's
+#: serving prefill (B=4, S=512) and training (B=16, S=1024) shapes, 12
+#: heads of 64.
 EDGES = [(2, 320, 4, 2, 128, True), (2, 320, 4, 2, 128, False),
          (1, 200, 6, 6, 128, True), (2, 256, 4, 1, 64, True),
          (1, 1, 2, 2, 128, True), (1, 127, 2, 2, 128, True),
          (1, 129, 2, 2, 128, True), (1, 129, 2, 2, 64, False),
          (1, 2048, 32, 8, 128, True), (1, 256, 2, 2, 128, True),
-         (4, 1024, 6, 6, 128, False)]
+         (4, 1024, 6, 6, 128, False), (4, 512, 12, 12, 64, True),
+         (16, 1024, 12, 12, 64, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -144,7 +153,8 @@ PAGED_POS = [0, 15, 16, 63, 64, 100, 16 * 16 - 1]
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,Kh,Dh", [(6, 6, 128), (32, 8, 128),
-                                     (16, 2, 128), (6, 6, 64)])
+                                     (16, 2, 128), (6, 6, 64),
+                                     (12, 12, 64)])
 def test_paged_kernel_matches_plain(cuda, dtype, H, Kh, Dh):
     n_blocks, bt, nb = 200, 16, 16
     B = len(PAGED_POS)
@@ -192,3 +202,60 @@ def test_engine_launches_paged_kernel_per_step_and_layer(cuda):
     finally:
         a.close()
         b.close()
+
+
+def test_moe_paths_launch_every_kernel_per_layer(cuda):
+    """The MoE prefill, engine and trainer at Dh=64: flash forward once a
+    layer in prefill, paged decode once a step and layer, the three flash
+    kernels once a layer a train step; engine tokens equal the
+    contiguous path's."""
+    actor = GeneratorActor(NARROW_MOE, device="cuda")
+    prompt = torch.randint(1, 256, (2, 128), generator=cuda, device="cuda")
+    flash_mod.flash_attention.launches = 0
+    assert actor.Generate(prompt, 4).shape == (2, 4)
+    assert flash_mod.flash_attention.launches == NARROW_MOE.n_layers
+    eng = PagedGeneratorActor(NARROW_MOE, params=actor.params,
+                              device="cuda", n_slots=2, attn="kernel")
+    try:
+        p = torch.randint(1, 256, (1, 37), generator=cuda, device="cuda")
+        paged_mod.paged_attention.launches = 0
+        got = eng.Generate(p, 12)
+        steps = eng.Info()["engine_steps"]
+        assert paged_mod.paged_attention.launches == (steps
+                                                      * NARROW_MOE.n_layers)
+        assert torch.equal(got, actor.Generate(p, 12))
+    finally:
+        eng.close()
+    tr = Trainer(NARROW_MOE, device="cuda",
+                 optimizer=default_optimizer(lr=1e-3, warmup=1))
+    batch = next(synthetic_batches(256, 2, 128, seed=0, device="cuda"))
+    for c in (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+              flash_mod.flash_attention_dkv):
+        c.launches = 0
+    losses = [float(tr.step(batch)["loss"]) for _ in range(3)]
+    want = 3 * NARROW_MOE.n_layers
+    assert (flash_mod.flash_attention.launches,
+            flash_mod.flash_attention_dq.launches,
+            flash_mod.flash_attention_dkv.launches) == (want, want, want)
+    assert losses[-1] < losses[0]
+
+
+def test_spec_engine_greedy_identical_to_plain_on_card(cuda):
+    """f32, gather path, TF32 off: the speculative engine's greedy tokens
+    equal the plain engine's."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = PagedGeneratorActor(NARROW, device="cuda", n_slots=2)
+    dp, dc = gen_mod.truncated_draft_params(plain.params, NARROW, 1)
+    spec = PagedGeneratorActor(NARROW, params=plain.params, device="cuda",
+                               n_slots=2,
+                               spec=SpecConfig(dp, dc, k=3, adaptive=False))
+    try:
+        for n in (9, 40):
+            p = torch.randint(1, 256, (1, n), generator=cuda, device="cuda")
+            assert torch.equal(spec.Generate(p, 20), plain.Generate(p, 20))
+        assert spec.Info()["spec_windows"] > 0
+    finally:
+        plain.close()
+        spec.close()
+        torch.backends.cuda.matmul.allow_tf32 = prev

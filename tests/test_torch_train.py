@@ -95,7 +95,8 @@ def assert_trees_close(got: dict, want, **tol):
 
 
 def test_flops_per_token_matches_reference():
-    for name in ("tiny", "optimus-125m", "bert-base", "llama-3-8b"):
+    for name in ("tiny", "optimus-125m", "bert-base", "llama-3-8b",
+                 "tiny-moe", "optimus-moe"):
         for S in (128, 1024):
             assert ttfm.flops_per_token(ttfm.preset(name), S) == \
                 jtfm.flops_per_token(jtfm.preset(name), S)
@@ -109,7 +110,8 @@ def test_chunk_rows_rule():
 
 
 @pytest.mark.parametrize("name,masked", [
-    ("tiny", False), ("tiny", True), ("narrow", True)])
+    ("tiny", False), ("tiny", True), ("narrow", True), ("tiny-moe", False),
+    ("tiny-moe", True)])
 def test_loss_terms_match_reference(name, masked):
     jc, tc = configs(name, attn_impl="xla")
     pj, pt, _ = param_pair(jc, tc)
@@ -184,7 +186,7 @@ def test_schedule_matches_optax(warmup):
         ttr.warmup_cosine_decay(0.0, 1e-3, 10, 10, 1e-4)
 
 
-@pytest.mark.parametrize("name", ["tiny", "llama-3-8b"])
+@pytest.mark.parametrize("name", ["tiny", "llama-3-8b", "tiny-moe"])
 def test_decay_mask_matches_reference(name):
     jc = jtfm.preset(name)
     shapes = jax.eval_shape(lambda: jtfm.init_params(jax.random.PRNGKey(0),

@@ -134,9 +134,3 @@ def test_resolve_attn_fn_policy():
     assert ttfm.resolve_attn_fn(tc, "cuda") is ttfm._flash_attn_fn
     with pytest.raises(ValueError, match="attn_impl"):
         ttfm.resolve_attn_fn(dataclasses.replace(tc, attn_impl="ring"))
-
-
-def test_moe_config_raises_not_implemented():
-    cfg = ttfm.preset("tiny-moe", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.forward({}, torch.zeros((1, 4), dtype=torch.int64), cfg)
