@@ -48,7 +48,26 @@ Run from the root of a checkout. Phases, each printing its own lines:
    truncated draft, k=4, beside a plain engine (bf16, attn="kernel":
    plain, spec, spec, plain), then in f32 on the gather path the two
    engines' greedy tokens must be identical and each window must
-   synchronize with the host exactly once;
+   synchronize with the host exactly once; then, at optimus-125m:
+   sampled_engine: phase 4's requests sampled (temperature 0.8, top-k
+   50, top-p 0.95, seeds 1-8) on the kernel engine and on the
+   speculative one, queued in a fixed order: two bf16 runs in fresh
+   engines give the same tokens, in f32 a co-batched row equals its
+   solo run (on the speculative engine while the row has k+1 tokens to
+   go), a sampled window reads the host once; serving_ledger: phase 4's
+   run as its ServingLedger saw it (TTFT, TPOT and e2e percentiles, 8
+   records retired complete, one TPOT sample a token after the first,
+   the seams' cost), and no host sync from the ledger's modules in a
+   plain step; disagg_engine: a prefill-class and a decode-class kernel
+   engine migrating phase 4's requests one after another, f32 over the
+   exact wire equal to a unified engine's tokens, bf16 over the exact
+   and the q8 wire (q8 at (1 + 4/512)/2 of the exact bytes, residuals
+   on the prefill side), 42 dedup hits, paged launches = the decode
+   engine's steps x 12 and none from the prefill engine, both pools'
+   invariants; batching_generator: BatchingGeneratorActor with 8
+   concurrent greedy requests, equal lengths (8 x 512: one batch, the
+   flash kernel once a layer) and phase 4's mixed lengths (one batch,
+   no flash launch), tokens equal to solo runs in f32;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -487,6 +506,9 @@ def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
         check(all(tuple(o.shape) == (1, max_new) for o in outs),
               f"{phase}: engine output shapes")
         check(eng.pool.check_invariants() == [], f"{phase}: pool invariants")
+        ledger = {"summary": eng.ledger.summary(),
+                  "records": eng.ledger.records(),
+                  "iterations": eng.ledger.iteration_summary()}
     finally:
         eng.close()
     row = {"phase": phase, "preset": name, "requests": len(prompts),
@@ -497,7 +519,7 @@ def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
            "prefix_hit_rate": info["prefix_hit_rate"],
            "max_live_slots": info["max_live_slots"],
            "prefill_stall_ms": info["prefill_stall_ms"]}
-    return row, launches, outs
+    return row, launches, outs, ledger
 
 
 def first_divergence(torch, gen_mod, params, cfg, prompts, got, want):
@@ -967,7 +989,7 @@ def spec_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
           f"the plain engine's: {div}")
     check(steady and set(steady) == {1}, f"spec_engine: a window without "
           f"catch-up made {sorted(set(steady))} host syncs, want 1")
-    return launches
+    return launches, sorted(set(steady))
 
 
 def spec_window_profile(torch, gen_mod, eng, prompts, max_new):
@@ -995,6 +1017,425 @@ def spec_window_profile(torch, gen_mod, eng, prompts, max_new):
                                   "slot live)"}
 
 
+# ------------------------------------------- sampled, ledger, disagg, batch
+
+
+#: The sampled phase's request parameters (request i draws from seed i+1).
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def run_in_order(engine, prompts, max_new, seeds=None):
+    """``prompts`` from one thread each, queued in order while the
+    engine's dispatch lock is held, so the engine admits and batches
+    them the same way in every run (a bf16 row's numerics depend on its
+    prefill chunks, which depend on the queue). ``seeds``: one sampling
+    seed a request (``SAMPLING``), else greedy. Returns the outputs."""
+    outs, errs = [None] * len(prompts), []
+
+    def call(i):
+        try:
+            kw = ({} if seeds is None
+                  else dict(SAMPLING, seed=seeds[i]))
+            outs[i] = engine.Generate(prompts[i][None], max_new, **kw)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(repr(e))
+
+    threads = []
+    with engine._lock:
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=call, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 60
+            while (len(engine._queue) + (engine._admitting is not None)
+                   < i + 1 and time.monotonic() < deadline and not errs):
+                time.sleep(0.001)
+    for t in threads:
+        t.join(timeout=600)
+    check(not errs, f"engine requests failed: {errs}")
+    check(all(o is not None for o in outs), "engine requests hung")
+    return outs
+
+
+def same_tokens(a, b):
+    return sum(int((x.cpu() == y.cpu()).sum()) for x, y in zip(a, b))
+
+
+def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
+                  SpecConfig, params, prompts, max_new, kw):
+    """Sampled requests on the card (temperature 0.8, top-k 50, top-p
+    0.95, seeds 1-8), on the plain kernel engine and on the speculative
+    one (2-layer draft, k=4): two bf16 runs in fresh engines give the
+    same tokens; in f32 every co-batched row equals its solo run — the
+    whole row on the plain engine, and on the speculative one the tokens
+    committed while the row had at least k+1 to go (past that a window's
+    depth follows the deepest live row, so a co-batched row's last
+    window draws more than its solo one); and each sampled window reads
+    the host as often as a greedy one. Emits its row, then checks."""
+    cfg = tfm.preset("optimus-125m")
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    seeds = list(range(1, len(prompts) + 1))
+    k = 4
+    row = {"phase": "sampled_engine", "preset": "optimus-125m",
+           "sampling": SAMPLING, "seeds": seeds, "max_new": max_new,
+           "requests": len(prompts)}
+    launches, checks = 0, {}
+    for kind in ("plain", "spec"):
+        def spec(c):
+            if kind == "plain":
+                return None
+            dp, dc = gen_mod.truncated_draft_params(params, c, n_layers=2)
+            return SpecConfig(dp, dc, k=k, adaptive=False)
+
+        runs, syncs = [], None
+        for rep in range(2):
+            eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                                      spec=spec(cfg), **kw)
+            try:
+                if kind == "spec" and rep == 0:
+                    syncs = count_window_syncs(torch, eng)
+                paged_mod.paged_attention.launches = 0
+                t0 = time.monotonic()
+                runs.append(run_in_order(eng, prompts, max_new, seeds))
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                n = paged_mod.paged_attention.launches
+                info = eng.Info()
+            finally:
+                eng.close()
+            plain_steps = info["engine_steps"] - info.get("spec_windows", 0)
+            check(n == plain_steps * cfg.n_layers,
+                  f"sampled_engine ({kind}): paged launches {n} != plain "
+                  f"steps {plain_steps} x {cfg.n_layers}")
+            if kind == "plain":
+                launches += n
+            row[f"{kind}_bf16_run{rep}"] = {
+                "seconds": wall, "engine_steps": info["engine_steps"],
+                "paged_launches": n,
+                **{key: info[key] for key in ("spec_windows",
+                                              "spec_accept_rate")
+                   if key in info}}
+        same = same_tokens(runs[0], runs[1])
+        row[f"{kind}_bf16_reproduced_tokens"] = same
+        row[f"{kind}_bf16_distinct_tokens"] = len(
+            {int(t) for o in runs[0] for t in o.reshape(-1)})
+        # f32: co-batched against solo.
+        eng = PagedGeneratorActor(cfg32, params=params,
+                                  attn="kernel" if kind == "plain"
+                                  else "gather", spec=spec(cfg32), **kw)
+        try:
+            batched = run_in_order(eng, prompts, max_new, seeds)
+            solo = [run_in_order(eng, [p], max_new, [s])[0]
+                    for p, s in zip(prompts, seeds)]
+        finally:
+            eng.close()
+        cut = max_new if kind == "plain" else max_new - k
+        held = all(torch.equal(a[:, :cut].cpu(), b[:, :cut].cpu())
+                   for a, b in zip(batched, solo))
+        row[f"{kind}_f32_cobatched_equals_solo_first_tokens"] = cut
+        row[f"{kind}_f32_cobatched_equals_solo"] = held
+        row[f"{kind}_f32_identical_share"] = same_tokens(batched, solo) / (
+            len(prompts) * max_new)
+        if kind == "spec":
+            steady = sorted({n for n, up, _ in syncs if not up})
+            row.update({"sampled_windows": len(syncs),
+                        "sampled_window_host_syncs": steady,
+                        "sampled_window_host_syncs_after_catch_up": sorted(
+                            {n for n, up, _ in syncs if up}),
+                        "sampled_window_sync_sites": sorted(
+                            {x for _, _, sites in syncs for x in sites})})
+        checks[kind] = (same, held)
+    emit(row)
+    for kind, (same, held) in checks.items():
+        check(same == len(prompts) * max_new,
+              f"sampled_engine ({kind}): a second bf16 run reproduced "
+              f"{same} of {len(prompts) * max_new} tokens")
+        check(held, f"sampled_engine ({kind}): an f32 co-batched row differs "
+              f"from its solo run in its first "
+              f"{row[kind + '_f32_cobatched_equals_solo_first_tokens']} "
+              f"tokens")
+    check(row["sampled_window_host_syncs"] == [1],
+          f"sampled_engine: a sampled window without catch-up made "
+          f"{row['sampled_window_host_syncs']} host syncs, want 1")
+    return launches
+
+
+def count_step_syncs(torch, eng):
+    """Wrap ``eng``'s plain steps to record each one's synchronizing
+    calls (:func:`count_syncs`)."""
+    step, rec = eng._plain_step, []
+
+    def counted():
+        rec.append(count_syncs(torch, step))
+
+    eng._plain_step = counted
+    return rec
+
+
+def ledger_phase(torch, serving_mod, PagedGeneratorActor, cfg, params,
+                 prompts, max_new, kw, ledger, spec_syncs):
+    """The serving ledger of the paged_engine phase's run: TTFT, TPOT and
+    e2e from its histograms; every record retired complete with a TTFT
+    and one TPOT sample a token after the first; the seams' cost on
+    this host; and, on a fresh engine, the host syncs of a plain step
+    with the ledger wired (none from the ledger's modules). Emits its
+    row, then checks."""
+    s, recs = ledger["summary"], ledger["records"]
+    eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+    try:
+        steps = count_step_syncs(torch, eng)
+        run_requests(eng, prompts[:2], 8)
+    finally:
+        eng.close()
+    sites = sorted({x for _, ss in steps for x in ss})
+    row = {"phase": "serving_ledger", "preset": "optimus-125m",
+           "requests": len(recs),
+           **{key: s[key] for key in ("ttft_p50_ms", "ttft_p99_ms",
+                                      "tpot_p50_ms", "tpot_p99_ms",
+                                      "e2e_p50_ms", "e2e_p99_ms",
+                                      "queue_wait_p99_ms",
+                                      "retire_reasons")},
+           "iterations": ledger["iterations"],
+           "ttft_ms": [r.get("ttft_ms") for r in recs],
+           "tpot_ms": [r.get("tpot_ms") for r in recs],
+           "tokens_out": [r["tokens_out"] for r in recs],
+           "tpot_samples": [len(r.get("decode_deltas_ms", ()))
+                            for r in recs],
+           "seam_cost": serving_mod.measure_seam_cost_us(),
+           "plain_step_host_syncs": sorted({n for n, _ in steps}),
+           "plain_step_sync_sites": sites,
+           "spec_window_host_syncs": spec_syncs}
+    emit(row)
+    check(len(recs) == len(prompts)
+          and all(r["reason"] == "complete" for r in recs),
+          f"serving_ledger: records {[r['reason'] for r in recs]}")
+    check(all((r.get("ttft_ms") or 0) > 0 for r in recs),
+          "serving_ledger: a record has no TTFT")
+    check(all(r["tokens_out"] == max_new
+              and len(r["decode_deltas_ms"]) == max_new - 1 for r in recs),
+          "serving_ledger: TPOT samples != tokens - 1")
+    check(s["ttft_p99_ms"] >= s["ttft_p50_ms"] > 0
+          and s["tpot_p99_ms"] >= s["tpot_p50_ms"] > 0,
+          f"serving_ledger: summary {s}")
+    check(not any(("health" in x or "metrics.py" in x or "trace.py" in x)
+                  for x in sites),
+          f"serving_ledger: the ledger's modules synchronized: {sites}")
+    check(spec_syncs == [1], f"serving_ledger: a spec window made "
+          f"{spec_syncs} host syncs with the ledger wired, want 1")
+
+
+def disagg_run(torch, PagedGeneratorActor, cfg, params, prompts, max_new,
+               kw, wire):
+    """A prefill-class and a decode-class kernel engine in this process:
+    each request is prefilled, planned, exported, imported and released
+    one after another (each plan after the previous import), its decode
+    started in a thread of its own. Returns (tokens, a summary dict)."""
+    pre = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                              serve_class="prefill", **kw)
+    dec = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                              serve_class="decode", **kw)
+    outs, errs, threads, legs = [None] * len(prompts), [], [], []
+    try:
+        t0 = time.monotonic()
+        for i, p in enumerate(prompts):
+            rep = pre.Prefill(p[None], max_new)
+            plan = dec.MigratePlan(p[None], max_new)
+            t1 = time.monotonic()
+            w = pre.ExportBlocks(rep["export_id"], plan["need"], wire)
+            t2 = time.monotonic()
+            dec.ImportBlocks(plan["ticket"], w)
+            t3 = time.monotonic()
+            check(pre.ReleaseExport(rep["export_id"]),
+                  "disagg_engine: export not released")
+            legs.append({"blocks": len(w["blocks"]), "bytes": w["nbytes"],
+                         "need": len(plan["need"]),
+                         "resident": plan["resident"],
+                         "export_ms": (t2 - t1) * 1e3,
+                         "import_ms": (t3 - t2) * 1e3})
+
+            def decode(i=i, ticket=plan["ticket"], first=rep["first_token"]):
+                try:
+                    outs[i] = torch.tensor(
+                        dec.MigrateDecode(ticket, first))[None]
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append(repr(e))
+
+            threads.append(threading.Thread(target=decode))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        check(not errs, f"disagg_engine ({wire}): {errs}")
+        check(all(o is not None for o in outs),
+              f"disagg_engine ({wire}): a migrated decode hung")
+        pi, di = pre.Info(), dec.Info()
+        recs = dec.ledger.records()
+        bad = pre.pool.check_invariants() + dec.pool.check_invariants()
+        out = {"wire": wire, "seconds": wall, "legs": legs,
+               "prefill_engine_steps": pi["engine_steps"],
+               "decode_engine_steps": di["engine_steps"],
+               "migrations": di["migrations"],
+               "migrate_bytes": di["migrate_bytes"],
+               "migrate_dedup_hits": di["migrate_dedup_hits"],
+               "ledger_migrate_ms": [r.get("migrate_ms") for r in recs],
+               "ledger_migrate_bytes": [r.get("migrate_bytes")
+                                        for r in recs],
+               "ttft_p50_ms": di["ttft_p50_ms"],
+               "tpot_p50_ms": di["tpot_p50_ms"],
+               "residuals_prefill": pre._migrator.residual_count(),
+               "residuals_decode": dec._migrator.residual_count(),
+               "pool_invariants": bad}
+    finally:
+        pre.close()
+        dec.close()
+    return outs, out
+
+
+def disagg_phase(torch, tfm, paged_mod, PagedGeneratorActor, params,
+                 prompts, max_new, kw):
+    """Disaggregated prefill/decode at optimus-125m: f32 over the exact
+    wire equals a unified engine token for token; bf16 over the exact
+    wire (identical-token share printed) and over the q8 wire (every
+    request decodes, at (1 + 4/512)/2 of the exact bytes, residuals on
+    the prefill side); dedup of the shared prefix; paged launches only
+    on the decode engine. Emits its row, then checks."""
+    cfg = tfm.preset("optimus-125m")
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    runs, toks = {}, {}
+    for name, c, wire in (("f32_exact", cfg32, "exact"),
+                          ("bf16_exact", cfg, "exact"),
+                          ("bf16_q8", cfg, "q8")):
+        paged_mod.paged_attention.launches = 0
+        toks[name], runs[name] = disagg_run(
+            torch, PagedGeneratorActor, c, params, prompts, max_new, kw,
+            wire)
+        runs[name]["paged_launches"] = paged_mod.paged_attention.launches
+    uni = {}
+    for name, c in (("f32", cfg32), ("bf16", cfg)):
+        e = PagedGeneratorActor(c, params=params, attn="kernel", **kw)
+        try:
+            uni[name], _ = run_requests(e, prompts, max_new)
+        finally:
+            e.close()
+    total = len(prompts) * max_new
+    f32_same = same_tokens(toks["f32_exact"], uni["f32"])
+    ex, q8 = runs["bf16_exact"], runs["bf16_q8"]
+    ratio = q8["migrate_bytes"] / ex["migrate_bytes"]
+    n_prefix = 96 // kw["block_tokens"]
+    want_hits = (len(prompts) - 1) * n_prefix
+    row = {"phase": "disagg_engine", "preset": "optimus-125m",
+           "requests": len(prompts), "max_new": max_new,
+           "block_pair_bytes_exact_bf16": ex["legs"][0]["bytes"]
+           // ex["legs"][0]["blocks"],
+           "f32_exact_identical_to_unified": f32_same == total,
+           "bf16_exact_identical_share": same_tokens(
+               toks["bf16_exact"], uni["bf16"]) / total,
+           "bf16_q8_identical_share": same_tokens(
+               toks["bf16_q8"], uni["bf16"]) / total,
+           "q8_over_exact_bytes": ratio, "want_ratio": (1 + 4 / 512) / 2,
+           "want_dedup_hits": want_hits, "runs": runs}
+    emit(row)
+    check(f32_same == total, f"disagg_engine: f32 exact-wire tokens equal "
+          f"the unified engine's at {f32_same} of {total}")
+    for name, r in runs.items():
+        check(r["migrations"] == len(prompts),
+              f"disagg_engine ({name}): {r['migrations']} migrations")
+        check(r["migrate_dedup_hits"] == want_hits,
+              f"disagg_engine ({name}): dedup hits "
+              f"{r['migrate_dedup_hits']} != {want_hits}")
+        check(r["prefill_engine_steps"] == 0,
+              f"disagg_engine ({name}): the prefill engine decoded")
+        check(r["paged_launches"] == r["decode_engine_steps"] * cfg.n_layers,
+              f"disagg_engine ({name}): paged launches "
+              f"{r['paged_launches']} != decode steps "
+              f"{r['decode_engine_steps']} x {cfg.n_layers}")
+        check(r["pool_invariants"] == [],
+              f"disagg_engine ({name}): {r['pool_invariants']}")
+    check(all(tuple(o.shape) == (1, max_new)
+              and bool(((o >= 0) & (o < cfg.vocab_size)).all())
+              for o in toks["bf16_q8"]),
+          "disagg_engine: a q8-wire request did not decode in full")
+    check(q8["migrate_bytes"] * 512 * 2 == ex["migrate_bytes"] * 516,
+          f"disagg_engine: q8 bytes {q8['migrate_bytes']} are {ratio} of "
+          f"exact {ex['migrate_bytes']}, want {(1 + 4 / 512) / 2}")
+    check(q8["residuals_prefill"] > 0 and q8["residuals_decode"] == 0,
+          "disagg_engine: q8 residuals not on the prefill side")
+    return runs["bf16_exact"]["paged_launches"] + q8["paged_launches"]
+
+
+def batching_phase(torch, tfm, flash_mod, BatchingGeneratorActor,
+                   GeneratorActor, params, mixed, max_new):
+    """``BatchingGeneratorActor`` with 8 concurrent greedy requests:
+    equal-length prompts (8 x 512) coalesce into one batch whose prefill
+    launches the flash kernel once a layer; mixed lengths (100-700)
+    coalesce, left-padded, and launch none; in f32 every request's
+    tokens equal its solo run. Emits its row, then checks."""
+    gp = torch.Generator().manual_seed(5)
+    cfg = tfm.preset("optimus-125m")
+    equal = [torch.randint(1, cfg.vocab_size, (512,), generator=gp)
+             for _ in range(8)]
+    row = {"phase": "batching_generator", "preset": "optimus-125m",
+           "requests": 8, "max_new": max_new}
+    launches, flags = 0, []
+    for dt in ("bf16", "f32"):
+        c = tfm.preset("optimus-125m", **({} if dt == "bf16"
+                                          else {"dtype": torch.float32}))
+        actor = BatchingGeneratorActor(c, params=params, device="cuda",
+                                       window_ms=500.0)
+        solo = GeneratorActor(c, params=params, device="cuda")
+        try:
+            for name, prompts in (("equal", equal), ("mixed", mixed)):
+                b0 = actor.Info()["batches"]
+                flash_mod.flash_attention.launches = 0
+                outs = [None] * len(prompts)
+                barrier = threading.Barrier(len(prompts))
+
+                def call(i, prompts=prompts, outs=outs, barrier=barrier):
+                    barrier.wait()
+                    outs[i] = actor.Generate(prompts[i][None].to("cuda"),
+                                             max_new)
+
+                ts = [threading.Thread(target=call, args=(i,))
+                      for i in range(len(prompts))]
+                t0 = time.monotonic()
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=600)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                n = flash_mod.flash_attention.launches
+                check(all(o is not None for o in outs),
+                      f"batching_generator ({dt}, {name}): a request hung")
+                r = {"seconds": wall, "flash_launches": n,
+                     "batches": actor.Info()["batches"] - b0,
+                     "prompt_lens": sorted({len(p) for p in prompts})}
+                if dt == "bf16" and name == "equal":
+                    launches = n
+                if dt == "f32":
+                    same = same_tokens(outs, [solo.Generate(
+                        p[None].to("cuda"), max_new) for p in prompts])
+                    r["identical_to_solo"] = same == len(prompts) * max_new
+                    flags.append((name, r["identical_to_solo"]))
+                row[f"{dt}_{name}"] = r
+        finally:
+            actor.close()
+    emit(row)
+    want = {"equal": cfg.n_layers, "mixed": 0}
+    for dt in ("bf16", "f32"):
+        for name in ("equal", "mixed"):
+            r = row[f"{dt}_{name}"]
+            check(r["batches"] == 1, f"batching_generator ({dt}, {name}): "
+                  f"{r['batches']} batches, want 1")
+            check(r["flash_launches"] == want[name],
+                  f"batching_generator ({dt}, {name}): "
+                  f"{r['flash_launches']} flash launches, want {want[name]}")
+    for name, ok in flags:
+        check(ok, f"batching_generator (f32, {name}): tokens differ from "
+              f"the solo runs")
+    return launches
+
+
 def main():
     import torch
 
@@ -1013,7 +1454,8 @@ def main():
     from ptype_tpu_torch.ops import _build
     from ptype_tpu_torch.ops import flash_attention as flash_mod
     from ptype_tpu_torch.ops import paged_attention as paged_mod
-    from ptype_tpu_torch.serve import GeneratorActor
+    from ptype_tpu_torch.health import serving as serving_mod
+    from ptype_tpu_torch.serve import BatchingGeneratorActor, GeneratorActor
     from ptype_tpu_torch.serve_engine import PagedGeneratorActor, SpecConfig
     import ptype_tpu_torch.train as train_mod
 
@@ -1093,7 +1535,7 @@ def main():
         1, cfg.vocab_size, (n - 96,), generator=gp)]) for n in lens]
     max_new = 64
     kw = dict(device="cuda", n_slots=8, block_tokens=16, prefill_chunk=256)
-    row, paged_main_launches, _ = engine_phase(
+    row, paged_main_launches, _, paged_ledger = engine_phase(
         torch, paged_mod, PagedGeneratorActor, "optimus-125m", cfg, params,
         prompts, lens, max_new, kw, "paged_engine")
     emit(row)
@@ -1142,7 +1584,7 @@ def main():
           "host_syncs": n, "sites": sites})
     check(n == 0, f"the MoE MLP synchronized with the host {n} times: "
           f"{sites}")
-    row, moe_paged_launches, _ = engine_phase(
+    row, moe_paged_launches, _, _ = engine_phase(
         torch, paged_mod, PagedGeneratorActor, "optimus-moe", mcfg,
         mparams, prompts, lens, max_new, kw, "moe_paged_engine")
     emit(row)
@@ -1169,9 +1611,25 @@ def main():
     torch.cuda.empty_cache()
 
     # Speculative decoding on the paged engine at optimus-125m
-    spec_launches = spec_phase(torch, tfm, gen_mod, paged_mod,
+    spec_launches, spec_syncs = spec_phase(torch, tfm, gen_mod, paged_mod,
                                PagedGeneratorActor, SpecConfig, params,
                                prompts, max_new, kw)
+    torch.cuda.empty_cache()
+
+    # Sampled requests, the serving ledger, disaggregated prefill/decode
+    # and the batching actor, at optimus-125m
+    sampled_launches = sampled_phase(torch, tfm, gen_mod, paged_mod,
+                                     PagedGeneratorActor, SpecConfig, params,
+                                     prompts, max_new, kw)
+    torch.cuda.empty_cache()
+    ledger_phase(torch, serving_mod, PagedGeneratorActor, cfg, params,
+                 prompts, max_new, kw, paged_ledger, spec_syncs)
+    disagg_launches = disagg_phase(torch, tfm, paged_mod, PagedGeneratorActor,
+                                   params, prompts, max_new, kw)
+    torch.cuda.empty_cache()
+    batch_launches = batching_phase(torch, tfm, flash_mod,
+                                    BatchingGeneratorActor, GeneratorActor,
+                                    params, prompts, 32)
     torch.cuda.empty_cache()
 
     # 6. profiles, after every host-timed phase: one engine decode
@@ -1222,11 +1680,14 @@ def main():
     dq_ref = "ptype_tpu/ops/flash_attention.py:320"
     dkv_ref = "ptype_tpu/ops/flash_attention.py:342"
     paged_ref = "ptype_tpu/ops/paged_attention.py:149"
-    fwd128 = {"generator_actor": flash_launches, "trainer": fwd_n}
+    fwd128 = {"generator_actor": flash_launches, "trainer": fwd_n,
+              "batching_generator": batch_launches}
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
     paged128 = {"paged_engine": paged_main_launches,
                 "spec_engine": spec_launches["spec"],
-                "spec_engine_plain_run": spec_launches["plain"]}
+                "spec_engine_plain_run": spec_launches["plain"],
+                "sampled_engine": sampled_launches,
+                "disagg_engine": disagg_launches}
     paged64 = {"moe_paged_engine": moe_paged_launches}
 
     def rows(name, src, ref, row, by_path, **extra):

@@ -17,13 +17,20 @@ counterpart is easy to find:
 - :mod:`ptype_tpu_torch.ops.paged_attention` — paged decode attention;
   each kernel is hand-written CUDA C++ for Hopper under ``ops/csrc/``,
   beside its plain PyTorch version;
-- :mod:`ptype_tpu_torch.serve` — ``GeneratorActor``;
+- :mod:`ptype_tpu_torch.serve` — ``GeneratorActor`` and the dynamic
+  batching ``BatchingGeneratorActor``;
 - :mod:`ptype_tpu_torch.serve_engine` — the paged continuous-batching
-  ``PagedGeneratorActor`` and its ``BlockPool``;
+  ``PagedGeneratorActor``, its ``BlockPool``, and the KV wire of
+  disaggregated prefill/decode (``KVMigrator``);
+- :mod:`ptype_tpu_torch.health` — the ``ServingLedger`` (TTFT, TPOT,
+  e2e, iteration composition, KV pressure);
+- :mod:`ptype_tpu_torch.parallel` — the block-scaled int8 leaf codec;
+- host modules copied from the reference: ``lockcheck``, ``chaos``,
+  ``trace``, ``logs``, ``codec``;
 - :mod:`ptype_tpu_torch.train` — the AdamW ``Trainer``, its train and
   eval steps, and token streams;
 - :mod:`ptype_tpu_torch.metrics` — throughput and MFU against the card's
-  peak.
+  peak, the metrics registry, memory gauges and profiler ranges.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no device named they raise.

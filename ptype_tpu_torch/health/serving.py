@@ -1,0 +1,659 @@
+"""Serving observability: the request-lifecycle ledger — the port's
+copy of ``ptype_tpu/health/serving.py``.
+
+A :class:`ServingLedger` is fed from metering seams inside the paged
+engine (``serve_engine/engine.py``):
+
+- **Request lifecycle**: every prompt row gets a
+  :class:`RequestRecord` — queue wait (enqueue → head of line),
+  reservation wait (head of line → pool reservation), every prefill
+  chunk (wall start + duration + tokens), the first-token stamp, a
+  per-token decode delta trail, and the retire reason (``complete`` /
+  ``stop`` / ``cancelled`` / ``shed`` / ``error``). Retired records
+  fold into **TTFT / TPOT / e2e histograms** (``serve.ttft_ms``,
+  ``serve.tpot_ms``, ``serve.e2e_ms``).
+- **Engine-iteration composition**: one record per engine iteration —
+  active slots, decode-vs-prefill token split, per-iteration wall and
+  the co-batched stall — published as ``serve.step_ms`` /
+  ``serve.active_slots`` / ``serve.stall_ms`` gauges and
+  ``serve.steps`` / ``serve.decode_tokens`` / ``serve.prefill_tokens``
+  counters.
+- **KV-pool pressure**: :meth:`ServingLedger.kv_sample` turns
+  :meth:`~ptype_tpu_torch.serve_engine.blocks.BlockPool.stats` into the
+  ``kv.free_blocks`` / ``kv.cached_blocks`` / ``kv.total_blocks`` /
+  ``kv.prefix_hit_rate`` gauges and the ``kv.evictions`` counter.
+- **Span tree**: when tracing is armed and the request carried a
+  traceparent, :meth:`ServingLedger.retired` synthesizes the request's
+  span tree into the flight recorder — ``serve.admit`` (queue +
+  reservation wait), one ``serve.prefill.chunk[i]`` per chunk, and
+  ``serve.decode`` carrying the ``first_token`` event and the retire
+  reason — all children of the caller's span. Spans are synthesized
+  from the record's own stamps at retire (the lifecycle crosses the
+  caller thread and the engine thread, so no single ``with`` scope
+  could cover it).
+
+Timer discipline: every stamp the engine needs comes from a seam on
+this ledger (``enqueued`` / ``head_refused`` / ``admitted`` /
+``chunk`` / ``first_token`` / ``tokens_emitted`` / ``iteration`` /
+``retired``), so latency math has exactly one home, and
+:func:`measure_seam_cost_us` prices it. The seams stamp the host
+clock and take host ints only: they never read a device tensor, so on
+an asynchronous device a stamp lands where the engine already waited
+for the device (the first token's ``int(...)``, a step's one host
+read).
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+
+from ptype_tpu_torch import lockcheck
+
+from ptype_tpu_torch import metrics as metrics_mod
+from ptype_tpu_torch import trace
+
+#: Retired request records a ledger keeps.
+REQUEST_WINDOW = 256
+#: Engine-iteration records a ledger keeps.
+ITER_WINDOW = 512
+#: Recent per-request (seq, ttft_ms) samples served in ``Info()`` —
+#: a fleet probe drains new ones into its own SLO tracker.
+TTFT_RECENT = 32
+
+#: Retire reasons a record can close with.
+RETIRE_REASONS = ("complete", "stop", "cancelled", "shed", "error")
+
+
+class RequestRecord:
+    """One prompt row's lifecycle stamps, engine-thread owned.
+
+    Monotonic (``t_*``) stamps drive every duration; wall-clock
+    (``w_*``) twins, taken at the same instants, anchor the
+    synthesized spans on the cluster's shared timeline.
+    """
+
+    __slots__ = ("tp", "prompt_tokens", "max_new", "reused_blocks",
+                 "t_enqueue", "w_enqueue", "t_head", "t_admit",
+                 "chunks", "t_first", "w_first", "tok_t",
+                 "t_done", "reason", "closed", "t_mig0", "w_mig0",
+                 "t_mig1", "migrate_blocks", "migrate_bytes")
+
+    def __init__(self, prompt_tokens: int, max_new: int,
+                 tp: str | None):
+        self.tp = tp
+        self.prompt_tokens = int(prompt_tokens)
+        self.max_new = int(max_new)
+        self.reused_blocks = 0
+        self.t_enqueue = time.perf_counter()
+        self.w_enqueue = time.time()
+        self.t_head: float | None = None
+        self.t_admit: float | None = None
+        #: [(wall_start, dur_s, tokens), ...] — one per prefill chunk.
+        self.chunks: list[tuple[float, float, int]] = []
+        self.t_first: float | None = None
+        self.w_first: float | None = None
+        #: Monotonic stamp per emitted token (first token included).
+        self.tok_t: list[float] = []
+        self.t_done: float | None = None
+        self.reason: str | None = None
+        self.closed = False
+        #: Migration leg (decode-side records only): plan →
+        #: import-complete stamps plus the transfer's block/byte
+        #: totals — its own TTFT attribution inside the request.
+        self.t_mig0: float | None = None
+        self.w_mig0: float | None = None
+        self.t_mig1: float | None = None
+        self.migrate_blocks = 0
+        self.migrate_bytes = 0
+
+    # ------------------------------------------------------- durations
+
+    def queue_wait_s(self) -> float:
+        """Enqueue → head of line (or admission, when the reservation
+        never refused)."""
+        anchor = (self.t_head if self.t_head is not None
+                  else self.t_admit)
+        return max(0.0, (anchor - self.t_enqueue)
+                   if anchor is not None else 0.0)
+
+    def reserve_wait_s(self) -> float:
+        """Head-of-line reservation wait (0 when the pool covered the
+        worst case on the first try)."""
+        if self.t_head is None or self.t_admit is None:
+            return 0.0
+        return max(0.0, self.t_admit - self.t_head)
+
+    def ttft_s(self) -> float | None:
+        if self.t_first is None:
+            return None
+        return max(0.0, self.t_first - self.t_enqueue)
+
+    def tpot_s(self) -> float | None:
+        """Mean inter-token time after the first token."""
+        if self.t_first is None or self.t_done is None:
+            return None
+        n = len(self.tok_t)
+        if n < 2:
+            return None
+        return max(0.0, (self.tok_t[-1] - self.t_first) / (n - 1))
+
+    def decode_deltas_ms(self) -> list[float]:
+        """Per-token decode gaps (ms) — the raw TPOT trail."""
+        return [round((b - a) * 1e3, 3)
+                for a, b in zip(self.tok_t, self.tok_t[1:])]
+
+    def migrate_s(self) -> float | None:
+        """Migration-leg wall (plan → import complete); None when the
+        request never migrated or the transfer never finished."""
+        if self.t_mig0 is None or self.t_mig1 is None:
+            return None
+        return max(0.0, self.t_mig1 - self.t_mig0)
+
+    def to_dict(self) -> dict:
+        ttft = self.ttft_s()
+        tpot = self.tpot_s()
+        d = {
+            "t": round(self.w_enqueue, 3),
+            "prompt_tokens": self.prompt_tokens,
+            "max_new": self.max_new,
+            "reused_blocks": self.reused_blocks,
+            "queue_wait_ms": round(self.queue_wait_s() * 1e3, 3),
+            "reserve_wait_ms": round(self.reserve_wait_s() * 1e3, 3),
+            "prefill_chunks": len(self.chunks),
+            "prefill_tokens": sum(c[2] for c in self.chunks),
+            "prefill_ms": round(
+                sum(c[1] for c in self.chunks) * 1e3, 3),
+            "tokens_out": len(self.tok_t),
+            "reason": self.reason,
+        }
+        if ttft is not None:
+            d["ttft_ms"] = round(ttft * 1e3, 3)
+        mig = self.migrate_s()
+        if mig is not None:
+            d["migrate_ms"] = round(mig * 1e3, 3)
+            d["migrate_blocks"] = self.migrate_blocks
+            d["migrate_bytes"] = self.migrate_bytes
+        if tpot is not None:
+            d["tpot_ms"] = round(tpot * 1e3, 3)
+            d["decode_deltas_ms"] = self.decode_deltas_ms()
+        if self.t_done is not None:
+            d["e2e_ms"] = round(
+                max(0.0, self.t_done - self.t_enqueue) * 1e3, 3)
+        return d
+
+
+class _ChunkMeter:
+    """Times one prefill chunk into its record + the ledger's
+    per-iteration prefill accumulator."""
+
+    __slots__ = ("_led", "_rec", "tokens", "dur_s", "_t0", "_w0")
+
+    def __init__(self, led: "ServingLedger", rec: RequestRecord,
+                 tokens: int):
+        self._led = led
+        self._rec = rec
+        self.tokens = int(tokens)
+        self.dur_s = 0.0
+
+    def __enter__(self) -> "_ChunkMeter":
+        self._w0 = time.time()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.dur_s = time.perf_counter() - self._t0
+        self._rec.chunks.append((self._w0, self.dur_s, self.tokens))
+        led = self._led
+        with led._lock:
+            led._iter_prefill_s += self.dur_s
+            led._iter_prefill_tokens += self.tokens
+        return False
+
+
+class _IterMeter:
+    """Times one engine iteration (the batched decode step) and folds
+    the iteration record: active slots, decode/prefill token split,
+    the co-batched stall the engine charged to this step."""
+
+    __slots__ = ("_led", "active", "stall_ms", "decode_tokens", "_t0")
+
+    def __init__(self, led: "ServingLedger", active: int,
+                 stall_ms: float):
+        self._led = led
+        self.active = int(active)
+        self.stall_ms = float(stall_ms)
+        #: Tokens this iteration actually decoded. Defaults to the
+        #: active-slot count (one token per live row); a speculative
+        #: window overwrites it with its emitted total before the
+        #: scope closes, so ``serve.decode_tokens`` stays the real
+        #: throughput counter either way.
+        self.decode_tokens: int | None = None
+
+    def __enter__(self) -> "_IterMeter":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        led = self._led
+        dur_ms = (time.perf_counter() - self._t0) * 1e3
+        dtoks = (self.active if self.decode_tokens is None
+                 else int(self.decode_tokens))
+        with led._lock:
+            prefill_s, led._iter_prefill_s = led._iter_prefill_s, 0.0
+            ptoks, led._iter_prefill_tokens = \
+                led._iter_prefill_tokens, 0
+            rec = {"step_ms": round(dur_ms, 3),
+                   "active": self.active,
+                   "decode_tokens": dtoks,
+                   "prefill_tokens": ptoks,
+                   "prefill_ms": round(prefill_s * 1e3, 3),
+                   "stall_ms": round(self.stall_ms, 3)}
+            led._iters.append(rec)
+        led.c_steps.add(1)
+        led.c_decode_tokens.add(dtoks)
+        if ptoks:
+            led.c_prefill_tokens.add(ptoks)
+        led.g_step_ms.set(rec["step_ms"])
+        led.g_active.set(self.active)
+        led.g_stall.set(rec["stall_ms"])
+        return False
+
+
+class ServingLedger:
+    """Per-engine request-lifecycle + iteration + KV-pressure ledger.
+
+    One per :class:`~ptype_tpu_torch.serve_engine.engine
+    .PagedGeneratorActor`; publishes into that engine's metrics
+    registry (the process default, or a per-node registry in drills /
+    simulated fleets), which the health sampler turns into the series
+    the serving alert rules evaluate.
+    """
+
+    def __init__(self,
+                 registry: metrics_mod.MetricsRegistry | None = None,
+                 window: int = REQUEST_WINDOW):
+        self.registry = (registry if registry is not None
+                         else metrics_mod.metrics)
+        reg = self.registry
+        self.h_ttft = reg.histogram("serve.ttft_ms")
+        self.h_tpot = reg.histogram("serve.tpot_ms")
+        self.h_e2e = reg.histogram("serve.e2e_ms")
+        self.h_queue_wait = reg.histogram("serve.queue_wait_ms")
+        # Per-iteration families resolved once: the iteration meter
+        # runs on the hot decode path, and six locked registry name
+        # lookups per engine step is exactly the kind of avoidable
+        # cost the seam-cost probe would price into the overhead bar.
+        self.c_steps = reg.counter("serve.steps")
+        self.c_decode_tokens = reg.counter("serve.decode_tokens")
+        self.c_prefill_tokens = reg.counter("serve.prefill_tokens")
+        self.g_step_ms = reg.gauge("serve.step_ms")
+        self.g_active = reg.gauge("serve.active_slots")
+        self.g_stall = reg.gauge("serve.stall_ms")
+        self._lock = lockcheck.lock("health.serving.ledger")
+        self._records: collections.deque = collections.deque(
+            maxlen=int(window))
+        self._iters: collections.deque = collections.deque(
+            maxlen=ITER_WINDOW)
+        self._reasons: dict[str, int] = {}
+        self._retired = 0
+        self._svc_ewma_s = 0.0
+        self._ttft_seq = 0
+        self._ttft_recent: collections.deque = collections.deque(
+            maxlen=TTFT_RECENT)
+        self._iter_prefill_s = 0.0
+        self._iter_prefill_tokens = 0
+        self._evictions_last = 0.0
+        # Speculative decoding: cumulative window totals
+        # behind the summary's spec_accept_rate / spec_tokens; the
+        # counter/gauge families resolved lazily in spec_window so a
+        # non-speculative engine's registry stays spec-free.
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_tokens = 0
+        #: Requests whose KV arrived by migration; the
+        #: migrate histogram/summary keys stay absent until > 0, so
+        #: a non-disaggregated replica's Info() is migration-free.
+        self._migrated = 0
+
+    # --------------------------------------------------- request seams
+
+    def enqueued(self, prompt_tokens: int, max_new: int,
+                 tp: str | None = None) -> RequestRecord:
+        """A row entered the waiting room; ``tp`` is the caller's
+        traceparent (captured inside the actor handler span) the
+        synthesized span tree will parent under."""
+        self.registry.counter("serve.requests").add(1)
+        return RequestRecord(prompt_tokens, max_new, tp)
+
+    def head_refused(self, rec: RequestRecord) -> float:
+        """The head-of-line reservation was refused; returns seconds
+        spent AT THE HEAD so far (the engine's admit-timeout input).
+        First refusal stamps the head arrival."""
+        now = time.perf_counter()
+        if rec.t_head is None:
+            rec.t_head = now
+        return now - rec.t_head
+
+    def admitted(self, rec: RequestRecord) -> None:
+        rec.t_admit = time.perf_counter()
+
+    def chunk(self, rec: RequestRecord, tokens: int) -> _ChunkMeter:
+        """Meter one prefill chunk (wrap exactly the chunk compute)."""
+        return _ChunkMeter(self, rec, tokens)
+
+    def first_token(self, rec: RequestRecord) -> None:
+        rec.w_first = time.time()
+        rec.t_first = time.perf_counter()
+        rec.tok_t.append(rec.t_first)
+
+    def migrate_begin(self, rec: RequestRecord) -> None:
+        """Decode-side migration plan accepted (blocks reserved,
+        resident refs taken): the migration leg opens here."""
+        rec.w_mig0 = time.time()
+        rec.t_mig0 = time.perf_counter()
+
+    def migrate_done(self, rec: RequestRecord, blocks: int,
+                     nbytes: int) -> None:
+        """The migration wire landed (imported + sealed): close the
+        leg, fold ``serve.migrate_ms`` — the histogram behind the
+        migration leg's own TTFT attribution (a slow transfer shows
+        up HERE before it shows up in ttft_p99)."""
+        rec.t_mig1 = time.perf_counter()
+        rec.migrate_blocks = int(blocks)
+        rec.migrate_bytes = int(nbytes)
+        mig = rec.migrate_s()
+        if mig is not None:
+            self.registry.histogram("serve.migrate_ms").observe(
+                mig * 1e3)
+        with self._lock:
+            self._migrated += 1
+
+    def tokens_emitted(self, recs, counts=None) -> None:
+        """One decode step emitted a token on each of ``recs`` — one
+        shared stamp (the step boundary), appended per row.
+        ``counts`` (speculative windows): per-rec emitted-token counts
+        — the window's tokens share the commit stamp, so TPOT stays
+        the mean inter-token time of what the caller actually saw."""
+        now = time.perf_counter()
+        if counts is None:
+            for rec in recs:
+                rec.tok_t.append(now)
+            return
+        for rec, n in zip(recs, counts):
+            rec.tok_t.extend([now] * int(n))
+
+    def shed_untracked(self) -> None:
+        """A shed before any record existed (the chaos admit seam)."""
+        self.registry.counter("serve.sheds").add(1)
+
+    def retired(self, rec: RequestRecord | None, reason: str) -> None:
+        """Close a row's lifecycle: fold histograms/counters, update
+        the service-time EWMA, emit the span tree. Idempotent — engine
+        teardown may sweep rows whose shed path already closed them."""
+        if rec is None or rec.closed:
+            return
+        rec.closed = True
+        rec.t_done = time.perf_counter()
+        rec.reason = reason if reason in RETIRE_REASONS else "error"
+        reg = self.registry
+        reg.counter("serve.retired").add(1)
+        reg.counter(f"serve.retired.{rec.reason}").add(1)
+        if rec.reason == "shed":
+            reg.counter("serve.sheds").add(1)
+        ttft = rec.ttft_s()
+        tpot = rec.tpot_s()
+        if rec.reason in ("complete", "stop"):
+            e2e = rec.t_done - rec.t_enqueue
+            self.h_e2e.observe(e2e * 1e3)
+            self.h_queue_wait.observe(rec.queue_wait_s() * 1e3)
+            if ttft is not None:
+                self.h_ttft.observe(ttft * 1e3)
+            if tpot is not None:
+                self.h_tpot.observe(tpot * 1e3)
+            with self._lock:
+                self._svc_ewma_s = (
+                    e2e if self._svc_ewma_s == 0.0
+                    else 0.3 * e2e + 0.7 * self._svc_ewma_s)
+                if ttft is not None:
+                    self._ttft_seq += 1
+                    self._ttft_recent.append(
+                        (self._ttft_seq, round(ttft * 1e3, 3)))
+        with self._lock:
+            self._retired += 1
+            self._reasons[rec.reason] = \
+                self._reasons.get(rec.reason, 0) + 1
+            self._records.append(rec.to_dict())
+        self._emit_spans(rec)
+
+    # ------------------------------------------------- iteration seams
+
+    def iteration(self, active: int, stall_ms: float = 0.0) -> _IterMeter:
+        """Meter one engine iteration (wrap the batched decode step)."""
+        return _IterMeter(self, active, stall_ms)
+
+    def spec_window(self, proposed: int, accepted: int, emitted: int,
+                    rate: float) -> None:
+        """One committed speculative-decoding window:
+        ``proposed`` draft tokens scored, ``accepted`` of them kept,
+        ``emitted`` tokens committed (accepted prefixes + one
+        corrected/bonus token per live row). ``rate`` is the engine's
+        accept-rate EWMA — published as the ``serve.spec_accept_rate``
+        gauge the gateway probes, ``obs serve``, and a fleet-wide
+        collapse diagnosis all read; the counters
+        (``serve.spec_windows`` / ``spec_proposed`` / ``spec_accepted``
+        / ``spec_tokens``) carry the cumulative totals behind the
+        summary's measured speedup accounting."""
+        reg = self.registry
+        reg.counter("serve.spec_windows").add(1)
+        if proposed:
+            reg.counter("serve.spec_proposed").add(int(proposed))
+        if accepted:
+            reg.counter("serve.spec_accepted").add(int(accepted))
+        if emitted:
+            reg.counter("serve.spec_tokens").add(int(emitted))
+        reg.gauge("serve.spec_accept_rate").set(round(float(rate), 4))
+        with self._lock:
+            self._spec_proposed += int(proposed)
+            self._spec_accepted += int(accepted)
+            self._spec_tokens += int(emitted)
+
+    def kv_sample(self, stats: dict, prefix_hit_rate: float) -> None:
+        """Publish one KV-pool pressure sample from
+        ``BlockPool.stats()`` — the ``kv.*`` names the serving alert
+        rules key on; the eviction counter carries deltas so the
+        sampler's ``kv.evictions.rate`` series is a real rate."""
+        reg = self.registry
+        reg.gauge("kv.free_blocks").set(stats["kv_free_blocks"])
+        reg.gauge("kv.cached_blocks").set(stats["kv_cached_blocks"])
+        reg.gauge("kv.used_blocks").set(stats["kv_used_blocks"])
+        reg.gauge("kv.total_blocks").set(stats["kv_total_blocks"])
+        reg.gauge("kv.util_pct").set(stats["kv_util_pct"])
+        reg.gauge("kv.prefix_hit_rate").set(float(prefix_hit_rate))
+        ev = float(stats.get("kv_evictions", 0))
+        with self._lock:
+            delta, self._evictions_last = \
+                ev - self._evictions_last, ev
+        if delta > 0:
+            reg.counter("kv.evictions").add(delta)
+
+    # ------------------------------------------------------- readouts
+
+    def spec_totals(self) -> tuple[int, int, int]:
+        """Cumulative (proposed, accepted, emitted) speculative
+        totals — the ONE accumulation home (the engine derives its
+        Info() surface from this; a second engine-side copy would be
+        a drift surface)."""
+        with self._lock:
+            return (self._spec_proposed, self._spec_accepted,
+                    self._spec_tokens)
+
+    def svc_ewma_s(self) -> float:
+        """EWMA of completed-request service seconds — the engine's
+        backlog-proportional retry-after hint."""
+        with self._lock:
+            return self._svc_ewma_s
+
+    def ttft_recent(self) -> list[list[float]]:
+        """Recent (seq, ttft_ms) samples for ``Info()`` — the gateway
+        probe feeds NEW ones (seq above its high-water mark) into the
+        fleet-level SLO tracker, so its ttft percentiles are fed from
+        real per-request samples, never percentile-of-percentile."""
+        with self._lock:
+            return [[s, ms] for s, ms in self._ttft_recent]
+
+    def records(self, limit: int | None = None) -> list[dict]:
+        with self._lock:
+            out = list(self._records)
+        if limit is not None and len(out) > limit:
+            out = out[-limit:]
+        return out
+
+    def summary(self) -> dict:
+        with self._lock:
+            retired = self._retired
+            reasons = dict(self._reasons)
+            spec_prop = self._spec_proposed
+            spec_acc = self._spec_accepted
+            spec_toks = self._spec_tokens
+            migrated = self._migrated
+        out = {}
+        if spec_prop:
+            # Only once speculation actually ran: a non-speculative
+            # replica's Info() stays spec-free, so fleet views can
+            # tell "no speculation" from "accept rate 0".
+            out["spec_accept_rate"] = round(spec_acc / spec_prop, 4)
+            out["spec_tokens"] = spec_toks
+        if migrated:
+            # Same contract for migration: only once a wire actually
+            # landed here.
+            out["migrated_requests"] = migrated
+            out["migrate_p99_ms"] = round(
+                self.registry.histogram("serve.migrate_ms")
+                .percentile(99), 3)
+        return {
+            **out,
+            "requests_retired": retired,
+            "retire_reasons": reasons,
+            "ttft_p50_ms": round(self.h_ttft.percentile(50), 3),
+            "ttft_p99_ms": round(self.h_ttft.percentile(99), 3),
+            "tpot_p50_ms": round(self.h_tpot.percentile(50), 3),
+            "tpot_p99_ms": round(self.h_tpot.percentile(99), 3),
+            "e2e_p50_ms": round(self.h_e2e.percentile(50), 3),
+            "e2e_p99_ms": round(self.h_e2e.percentile(99), 3),
+            "queue_wait_p99_ms": round(
+                self.h_queue_wait.percentile(99), 3),
+        }
+
+    def iteration_summary(self) -> dict:
+        with self._lock:
+            iters = list(self._iters)
+        if not iters:
+            return {"iterations": 0, "step_ms_mean": 0.0,
+                    "active_mean": 0.0, "prefill_token_share": 0.0}
+        n = len(iters)
+        dtoks = sum(r["decode_tokens"] for r in iters)
+        ptoks = sum(r["prefill_tokens"] for r in iters)
+        return {
+            "iterations": n,
+            "step_ms_mean": round(
+                sum(r["step_ms"] for r in iters) / n, 3),
+            "active_mean": round(
+                sum(r["active"] for r in iters) / n, 2),
+            "stall_ms_max": round(
+                max(r["stall_ms"] for r in iters), 3),
+            "prefill_token_share": round(
+                ptoks / (ptoks + dtoks), 4) if ptoks + dtoks else 0.0,
+        }
+
+    # ----------------------------------------------------- span trees
+
+    def _emit_spans(self, rec: RequestRecord) -> None:
+        """Synthesize the request's span tree into the flight recorder
+        (no-op unless tracing is armed AND the request carried a
+        traceparent). Children of the actor handler span that carried
+        the request, anchored at the record's own wall stamps."""
+        recd = trace.recorder()
+        if recd is None or rec.tp is None:
+            return
+        parent = trace.parse_traceparent(rec.tp)
+        if parent is None:
+            return
+        trace_id, parent_id = parent
+        admit = trace.Span("serve.admit", trace_id, parent_id)
+        admit.start_s = rec.w_enqueue
+        anchor = (rec.t_admit if rec.t_admit is not None
+                  else rec.t_done)
+        admit.dur_s = max(0.0, (anchor or rec.t_enqueue)
+                          - rec.t_enqueue)
+        admit.attrs = {
+            "queue_wait_ms": round(rec.queue_wait_s() * 1e3, 3),
+            "reserve_wait_ms": round(rec.reserve_wait_s() * 1e3, 3),
+            "prompt_tokens": rec.prompt_tokens,
+            "reused_blocks": rec.reused_blocks,
+            # Forensics stage tag: an admit wait on a decode-class
+            # engine (KV arrived over the wire) is decode-queue time,
+            # not front-door queue-wait.
+            "stage": ("decode-queue" if rec.t_mig0 is not None
+                      else "queue-wait"),
+        }
+        if rec.reason == "shed":
+            admit.status = "shed"
+        elif rec.reason not in ("complete", "stop"):
+            admit.status = rec.reason or "error"
+        recd.record(admit)
+        mig = rec.migrate_s()
+        if mig is not None:
+            sp = trace.Span("serve.migrate", trace_id, parent_id)
+            sp.start_s = rec.w_mig0
+            sp.dur_s = mig
+            sp.attrs = {"blocks": rec.migrate_blocks,
+                        "bytes": rec.migrate_bytes,
+                        "dedup_blocks": rec.reused_blocks,
+                        "stage": "migrate"}
+            recd.record(sp)
+        for i, (w0, dur, tokens) in enumerate(rec.chunks):
+            sp = trace.Span(f"serve.prefill.chunk[{i}]", trace_id,
+                            parent_id)
+            sp.start_s = w0
+            sp.dur_s = dur
+            sp.attrs = {"tokens": tokens, "stage": "prefill"}
+            recd.record(sp)
+        if rec.t_first is not None:
+            dec = trace.Span("serve.decode", trace_id, parent_id)
+            dec.start_s = rec.w_first
+            dec.dur_s = max(0.0, rec.t_done - rec.t_first)
+            dec.attrs = {"tokens": len(rec.tok_t),
+                         "reason": rec.reason,
+                         "stage": "decode",
+                         "ttft_ms": round(rec.ttft_s() * 1e3, 3)}
+            tpot = rec.tpot_s()
+            if tpot is not None:
+                dec.attrs["tpot_ms"] = round(tpot * 1e3, 3)
+            # The acceptance event: where the request's first token
+            # materialized on the shared timeline.
+            dec.events.append({"name": "first_token", "t": 0.0})
+            recd.record(dec)
+
+
+# ----------------------------------------------------------- cost probe
+
+
+def measure_seam_cost_us(iters: int = 5000) -> dict:
+    """Direct cost of the ledger seams one engine iteration pays (one
+    ``iteration`` scope + one shared ``tokens_emitted`` stamp): a tight
+    loop over the real calls, because the signal is microseconds
+    against a multi-millisecond engine step, and a wall-clock A/B on a
+    shared host reports scheduler jitter, not the seam."""
+    led = ServingLedger(registry=metrics_mod.MetricsRegistry())
+    rec = led.enqueued(8, 8)
+    led.admitted(rec)
+    led.first_token(rec)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        with led.iteration(active=1, stall_ms=0.0):
+            pass
+        led.tokens_emitted((rec,))
+        rec.tok_t.clear()
+    cost_s = (time.perf_counter() - t0) / iters
+    return {"seam_cost_us": round(cost_s * 1e6, 3), "iters": iters}

@@ -19,10 +19,10 @@ collision is a miss, never silent reuse.
 from __future__ import annotations
 
 import collections
-import threading
 
 import torch
 
+from ptype_tpu_torch import lockcheck
 from ptype_tpu_torch.models import transformer as tfm
 
 #: block_tokens must divide by this (the reference's sublane alignment;
@@ -81,7 +81,7 @@ class BlockPool:
         #: The banks, written in place by the engine's steps.
         self.k = torch.zeros(shape, dtype=cfg.dtype, device=device)
         self.v = torch.zeros(shape, dtype=cfg.dtype, device=device)
-        self._lock = threading.Lock()
+        self._lock = lockcheck.lock("serve_engine.pool")
         self._free: list[int] = list(range(1, n_blocks))
         self._cached: collections.OrderedDict[int, None] = \
             collections.OrderedDict()

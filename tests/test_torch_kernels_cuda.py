@@ -15,8 +15,10 @@ from ptype_tpu_torch.models import generate as gen_mod
 from ptype_tpu_torch.models import transformer as ttfm
 from ptype_tpu_torch.ops import flash_attention as flash_mod
 from ptype_tpu_torch.ops import paged_attention as paged_mod
-from ptype_tpu_torch.serve import GeneratorActor
-from ptype_tpu_torch.serve_engine import PagedGeneratorActor, SpecConfig
+from ptype_tpu_torch.parallel import collectives as coll
+from ptype_tpu_torch.serve import BatchingGeneratorActor, GeneratorActor
+from ptype_tpu_torch.serve_engine import (KVMigrator, PagedGeneratorActor,
+                                          SpecConfig)
 from ptype_tpu_torch.train import Trainer, default_optimizer, synthetic_batches
 
 pytestmark = pytest.mark.cuda
@@ -259,3 +261,122 @@ def test_spec_engine_greedy_identical_to_plain_on_card(cuda):
         plain.close()
         spec.close()
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ------------------------------------------- KV wire and host surface
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_leaf_round_trip_on_card_equals_the_cpu(cuda, dtype):
+    """The q8 codec on CUDA tensors: the same q, s and residual as on
+    the CPU (the same f32 division and half-to-even rounding), and the
+    round trip within half a scale step of the input."""
+    x = (torch.randn(12, 16, 6, 128, generator=cuda, device="cuda")
+         * 3).to(dtype)
+    r = (torch.randn(x.shape, generator=cuda, device="cuda") * 0.01).to(dtype)
+    w, nr = coll.quantize_leaf(x, 512, r)
+    wc, nrc = coll.quantize_leaf(x.cpu(), 512, r.cpu())
+    assert torch.equal(w["q"].cpu(), wc["q"])
+    assert torch.equal(w["s"].cpu(), wc["s"])
+    assert torch.equal(nr.cpu(), nrc)
+    back = coll.dequantize_leaf(w)
+    assert back.dtype == dtype and back.device.type == "cuda"
+    step = w["s"].repeat_interleave(512)[:x.numel()].reshape(x.shape)
+    err = ((x.float() + r.float()) - back.float()).abs()
+    # Half a step, plus the bank dtype's rounding of the output.
+    slack = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    assert bool((err <= step / 2 + slack * back.float().abs() + 1e-6)
+                .all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exact_wire_moves_a_block_pair_between_card_banks(cuda, dtype):
+    """Exact wire: a block pair packed from one set of CUDA banks lands
+    bit for bit in another, written in place (the banks keep their
+    storage); a q8 block lands within its scale step."""
+    shape = (2, 9, 16, 2, 128)
+    kb = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    vb = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    mig = KVMigrator((2, 16, 2, 128), dtype)
+    payload, nbytes = mig.pack_block(kb, vb, 3, None, "exact")
+    assert nbytes == 2 * 2 * 16 * 2 * 128 * kb.element_size()
+    k2, v2 = torch.zeros_like(kb), torch.zeros_like(vb)
+    ptrs = (k2.data_ptr(), v2.data_ptr())
+    mig.unpack_block(k2, v2, payload, 5, "exact")
+    torch.cuda.synchronize()
+    assert (k2.data_ptr(), v2.data_ptr()) == ptrs
+    assert torch.equal(k2[:, 5], kb[:, 3]) and torch.equal(v2[:, 5], vb[:, 3])
+    assert k2[:, :5].abs().sum() == 0 and k2[:, 6:].abs().sum() == 0
+    payload, nq = mig.pack_block(kb, vb, 3, 77, "q8")
+    assert nq == 2 * (8192 + 4 * 16)
+    mig.unpack_block(k2, v2, payload, 6, "q8")
+    assert (k2.data_ptr(), v2.data_ptr()) == ptrs
+    assert float((k2[:, 6].float() - kb[:, 3].float()).abs().max()) < 0.05
+    assert mig.residual_count() == 1
+
+
+def test_engine_migration_on_card_matches_unified(cuda):
+    """f32, TF32 off: a request migrated between two card engines over
+    the exact wire emits the unified engine's tokens; the decode side
+    launches the paged kernel a step and layer, the prefill side none."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(device="cuda", n_slots=2, attn="kernel")
+    uni = PagedGeneratorActor(NARROW, **kw)
+    pre = PagedGeneratorActor(NARROW, params=uni.params,
+                              serve_class="prefill", **kw)
+    dec = PagedGeneratorActor(NARROW, params=uni.params,
+                              serve_class="decode", **kw)
+    try:
+        p = torch.randint(1, 256, (1, 40), generator=cuda, device="cuda")
+        want = uni.Generate(p, 12)[0].tolist()
+        paged_mod.paged_attention.launches = 0
+        rep = pre.Prefill(p, 12)
+        assert paged_mod.paged_attention.launches == 0
+        plan = dec.MigratePlan(p, 12)
+        dec.ImportBlocks(plan["ticket"], pre.ExportBlocks(
+            rep["export_id"], plan["need"], "exact"))
+        pre.ReleaseExport(rep["export_id"])
+        steps0 = dec.Info()["engine_steps"]
+        got = dec.MigrateDecode(plan["ticket"], rep["first_token"])
+        steps = dec.Info()["engine_steps"] - steps0
+        assert got == want
+        assert paged_mod.paged_attention.launches == steps * NARROW.n_layers
+        info = dec.Info()
+        assert info["migrations"] == 1 and info["requests_retired"] == 1
+        assert dec.pool.check_invariants() == []
+        assert pre.pool.check_invariants() == []
+    finally:
+        for e in (uni, pre, dec):
+            e.close()
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_batching_actor_equal_length_batch_launches_flash(cuda):
+    """An equal-length batch with S a multiple of 128 prefills through
+    the flash kernel once a layer; a mixed-length one never."""
+    actor = BatchingGeneratorActor(NARROW, device="cuda", window_ms=500.0)
+    try:
+        import threading
+
+        for lens, want in (((128, 128, 128), NARROW.n_layers),
+                           ((100, 128, 60), 0)):
+            flash_mod.flash_attention.launches = 0
+            outs = [None] * len(lens)
+            ps = [torch.randint(1, 256, (1, n), generator=cuda,
+                                device="cuda") for n in lens]
+
+            def call(i):
+                outs[i] = actor.Generate(ps[i], 4)
+
+            ts = [threading.Thread(target=call, args=(i,))
+                  for i in range(len(lens))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=120)
+            assert flash_mod.flash_attention.launches == want
+            for p, o in zip(ps, outs):
+                assert o.shape == (1, 4)
+    finally:
+        actor.close()
