@@ -68,6 +68,21 @@ Run from the root of a checkout. Phases, each printing its own lines:
    concurrent greedy requests, equal lengths (8 x 512: one batch, the
    flash kernel once a layer) and phase 4's mixed lengths (one batch,
    no flash launch), tokens equal to solo runs in f32;
+   store_dp: StoreDPTrainer through the TensorStore on a world-1 NCCL
+   group (file rendezvous), optimus-125m, phase 5's batch and
+   optimizer, 4 steps from one init on each rung of STORE_DP_RUNGS
+   (overlap False/"drain"/True, the bf16 and int8+EF wires, ZeRO 1/2/3,
+   ZeRO-2 on int8): the first rung equal to the Trainer, drain to the
+   first elementwise, overlap=True (its own per-bucket apply) and ZeRO
+   in loss and in each leaf's movement, the compressed wires within
+   5e-3 of it and falling, the flash kernels steps x 12 times a rung,
+   ZeRO-3 holding no replicated leaves, no host sync from the data
+   plane in a steady step; per rung the step time against the
+   Trainer's, tokens/s, MFU, peak memory, buckets, collective calls and
+   wire bytes a step, the optimizer state's bytes; the planted faults'
+   readings; the ladder and overlap probes (S=128); then in f32 compute
+   at B=4 every zero-0 overlap mode and ZeRO 1/2/3 held to the first
+   elementwise, and each planted fault rejected by that check;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -76,7 +91,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    tokens); one train step each of optimus-125m and optimus-moe, the
    latter with its router, dispatch, experts and combine named apart;
    one speculation window with every slot live, draft, verify and
-   accept named apart.
+   accept named apart; one StoreDPTrainer step each of (ZeRO 0,
+   overlap) and (ZeRO-2, exact), NCCL and the bucket pack (cat) among
+   the families.
 
 Then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -88,8 +105,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -673,7 +692,8 @@ def trainer_phase(torch, tfm, flash_mod, train_mod, name, phase):
 
 def kernel_family(name):
     low = name.lower()
-    for key, fam in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_dq"),
+    for key, fam in (("nccl", "nccl"), ("catarraybatchedcopy", "cat"),
+                     ("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_dq"),
                      ("flash_bwd_dkv", "flash_dkv"),
                      ("paged_decode", "paged"), ("gemm", "matmul"),
                      ("cutlass", "matmul"), ("xmma", "matmul"),
@@ -850,6 +870,375 @@ def grad_parity(torch, tfm, train_mod, cfg):
             "loss_flash": float(lf), "loss_dense": float(lx),
             "grad_rel_norm_diff": rel, "worst": worst,
             "tol": GRAD_REL_TOL}
+
+
+# ------------------------------------------------------- store_dp phase
+
+#: (zero, overlap, wire) of each StoreDPTrainer rung, the first the base.
+STORE_DP_RUNGS = ((0, False, "exact"), (0, "drain", "exact"),
+                  (0, True, "exact"), (0, False, "bf16"), (0, False, "int8"),
+                  (1, False, "exact"), (2, False, "exact"),
+                  (3, False, "exact"), (2, False, "int8"))
+#: An exact rung against the base rung, and the base against the
+#: Trainer: the reference's own tolerances for its rungs
+#: (tests/test_zero_train.py): the same gradients, the optimizer's sums
+#: and clip scale in another order.
+STORE_DP_LOSS_RTOL = 1e-5
+STORE_DP_PARAM_TOL = (2e-5, 1e-6)   # rtol, atol
+#: A rung that scales its gradients by clip/||g|| with the norm summed
+#: over bucket flats (ZeRO, overlap=True: the reference's arithmetic for
+#: them) against the base rung in bf16 compute: the loss at
+#: STORE_DP_LOSS_RTOL and each leaf's movement from the init within this
+#: (relative L2) of the base's. Their moments start 1 ulp off the base's
+#: and bf16 compute grows that to O(lr) in some elements, so their
+#: elementwise check is made in f32 compute (STORE_DP_F32_RUNGS).
+STORE_DP_MOVE_RTOL = 2e-2
+#: The same rungs again in f32 compute (TF32 off) at B=4, each held to
+#: the first at the reference's elementwise tolerance.
+STORE_DP_F32_RUNGS = ((0, False), (0, "drain"), (0, True), (1, False),
+                      (2, False), (3, False))
+#: Planted faults, a ZeRO-2 rung with one hyperparameter off: the f32
+#: check must reject each; in bf16 their readings are printed beside the
+#: movement limit's.
+STORE_DP_FAULTS = {"no_weight_decay": {"weight_decay": 0.0},
+                   "lr_x1.05": {"lr": 1.05e-3}}
+#: A compressed wire's loss curve against exact (the reference's bound,
+#: tests/test_quantized_train.py).
+STORE_DP_WIRE_RTOL = 5e-3
+STORE_DP_OPT = dict(lr=1e-3, warmup=2)
+COLLECTIVE_COUNTERS = ("collectives.bucket_launches", "collectives.calls",
+                       "collectives.wire_bytes")
+
+
+def flat_params(torch, tree):
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+
+    return torch.cat([p.detach().reshape(-1).float()
+                      for _, p in tree_flatten(tree)])
+
+
+def params_close(torch, a, b, p0=None, sizes=None):
+    """(all within STORE_DP_PARAM_TOL, max abs difference, the largest
+    difference over its element's tolerance, and with the initial
+    params ``p0`` and the leaves' ``sizes``: the share of elements
+    outside the tolerance and the largest per-leaf
+    ||a - b|| / ||b - p0||)."""
+    rtol, atol = STORE_DP_PARAM_TOL
+    d = (a - b).abs()
+    tol = atol + rtol * b.abs()
+    out = d <= tol
+    res = [bool(out.all()), d.max().item(), (d / tol).max().item()]
+    if p0 is not None:
+        res.append(1.0 - out.float().mean().item())
+        rel = [((x - y).norm() / (y - z).norm().clamp_min(1e-30)).item()
+               for x, y, z in zip(a.split(sizes), b.split(sizes),
+                                  p0.split(sizes))]
+        res.append(max(rel))
+    return tuple(res)
+
+
+def store_dp_trainer(torch, train_mod, sd, mesh, cfg, params, zero, overlap,
+                     wire, **opt):
+    """A StoreDPTrainer rung with the trainer phase's optimizer, ``opt``
+    overriding its hyperparameters: ZeRO rungs take them as
+    zero_hparams, overlap=True's own per-bucket apply from the recipe's
+    pieces patched to them (the returned context, held over its steps),
+    the other rungs as one whole-tree AdamW."""
+    import functools
+    from unittest import mock
+
+    from ptype_tpu_torch.parallel.collectives import WireConfig
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+
+    hp = {**STORE_DP_OPT, **opt}
+    kw = ({"zero_hparams": train_mod.OptHParams(**hp)} if zero
+          else {} if overlap is True
+          else {"optimizer": train_mod.default_optimizer(**hp)})
+    store = TensorStore(mesh, wire=(None if wire == "exact"
+                                    else WireConfig(compress=wire)))
+    pieces = mock.patch.object(sd, "default_optimizer_pieces",
+                               functools.partial(
+                                   train_mod.trainer.default_optimizer_pieces,
+                                   **hp))
+    return sd.StoreDPTrainer(cfg, store, params=params, overlap=overlap,
+                             zero=zero, **kw), pieces
+
+
+def check_bucket_apply(tr, name):
+    """overlap=True must have run its per-bucket apply, not the
+    whole-tree fallback kept for a caller's own optimizer."""
+    check(tr.overlap is not True or (not tr._custom_opt
+                                     and tr._bucket_opts is not None),
+          f"store_dp {name}: overlap=True did not apply per bucket")
+
+
+def vs_base(torch, losses, flat, base, p0, sizes):
+    """A rung's readings against the base rung's (losses, params): the
+    losses within STORE_DP_LOSS_RTOL, and params_close's readings."""
+    ok, diff, over, share, rel = params_close(torch, flat, base[1], p0,
+                                              sizes)
+    return {"loss_ok": all(abs(a - b) <= STORE_DP_LOSS_RTOL * abs(b)
+                           for a, b in zip(losses, base[0])),
+            "params_within_tol": ok, "param_max_abs_diff": diff,
+            "max_diff_over_tol": over, "share_outside_tol": share,
+            "worst_leaf_rel_movement_diff": rel}
+
+
+def run_rung(torch, train_mod, sd, mesh, cfg, params, batch, counters,
+             steps, zero, overlap, **opt):
+    """``steps`` steps of an exact-wire rung: (losses, flat params,
+    flash launches)."""
+    name = f"zero{zero}/overlap={overlap}/{opt or ''}"
+    tr, pieces = store_dp_trainer(torch, train_mod, sd, mesh, cfg, params,
+                                  zero, overlap, "exact", **opt)
+    with pieces:
+        for c in counters:
+            c.launches = 0
+        losses = [float(tr.step(batch)["loss"]) for _ in range(steps)]
+        launches = [c.launches for c in counters]
+    check_bucket_apply(tr, name)
+    flat = flat_params(torch, tr.params())
+    del tr
+    torch.cuda.empty_cache()
+    check(launches == [steps * cfg.n_layers] * 3,
+          f"store_dp {name}: launches fwd/dq/dkv {launches}")
+    check(all(math.isfinite(x) for x in losses),
+          f"store_dp {name}: loss not finite: {losses}")
+    return losses, flat, launches
+
+
+def opt_state_bytes(tr):
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+
+    if tr.zero:
+        return tr.zero_state().moment_bytes_per_replica()
+    states = tr._bucket_states or [tr.opt_state]
+    return sum(t.numel() * t.element_size() for st in states
+               for tree in (st.mu, st.nu) for _, t in tree_flatten(tree))
+
+
+def store_dp_phase(torch, tfm, flash_mod, train_mod, mesh):
+    """StoreDPTrainer at optimus-125m full width on a world-1 NCCL mesh,
+    B=16, S=1024, each rung of STORE_DP_RUNGS for 4 steps from the same
+    params: the exact rungs' losses and params against the first rung
+    (the scaled rungs' movement), the first against the port's Trainer,
+    the compressed wires' curves against exact; kernel launches, host
+    syncs, step time, buckets, collective calls and wire bytes a step,
+    optimizer-state bytes. Then the planted faults' readings and the
+    ladder and overlap probes (S=128). Returns the rungs' flash launches
+    (fwd, dq, dkv)."""
+    import statistics
+
+    from ptype_tpu_torch.metrics import metrics
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.train import store_dp as sd
+
+    cfg = tfm.preset("optimus-125m")
+    B, S, steps = 16, 1024, 4
+    fpt = tfm.flops_per_token(cfg, S)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    p0 = flat_params(torch, params)
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+    sizes = [p.numel() for _, p in tree_flatten(params)]
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, B, S, seed=3,
+                                             device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    src = sd.__file__
+    loss_line = next(i for i, ln in enumerate(open(src).read().splitlines(),
+                                              1) if "float(mean)" in ln)
+    loss_site = f"{os.path.relpath(src)}:{loss_line}"
+
+    def timed_steps(step):
+        losses, ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses.append(float(step()))
+            ms.append((time.monotonic() - t0) * 1e3)
+        return losses, ms
+
+    tr = train_mod.Trainer(cfg, device="cuda", params=params, sync_every=0,
+                           optimizer=train_mod.default_optimizer(
+                               **STORE_DP_OPT))
+    trainer_losses, ms = timed_steps(lambda: tr.step(batch)["loss"])
+    trainer_ms = statistics.median(ms[1:])
+    trainer_params = flat_params(torch, tr.state.params)
+    del tr
+    torch.cuda.empty_cache()
+    emit({"phase": "store_dp_trainer_base", "losses": trainer_losses,
+          "step_ms": trainer_ms, "step_ms_all": ms})
+
+    base, totals = None, [0, 0, 0]
+    for zero, overlap, wire in STORE_DP_RUNGS:
+        name = f"zero{zero}/overlap={overlap}/{wire}"
+        held = torch.cuda.memory_allocated()  # this phase's own copies
+        tr, pieces = store_dp_trainer(torch, train_mod, sd, mesh, cfg,
+                                      params, zero, overlap, wire)
+        with pieces:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            m0 = [metrics.counter(k).value for k in COLLECTIVE_COUNTERS]
+            losses, ms = timed_steps(lambda: tr.step(batch)["loss"])
+            launches = [c.launches for c in counters]
+            m1 = [metrics.counter(k).value for k in COLLECTIVE_COUNTERS]
+            flat = flat_params(torch, tr.params())
+            # One more steady step, its host syncs counted.
+            _, sites = count_syncs(torch, lambda: tr.step(batch))
+        check_bucket_apply(tr, name)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        own = peak - held / 2**30
+        want = steps * cfg.n_layers
+        check(launches == [want] * 3,
+              f"store_dp {name}: launches fwd/dq/dkv {launches} != {want}")
+        totals = [t + n for t, n in zip(totals, launches)]
+        check(all(math.isfinite(x) for x in losses),
+              f"store_dp {name}: loss not finite: {losses}")
+        ours = [x for x in sites if "ptype_tpu_torch/parallel/" in x
+                or "train/store_dp.py" in x]
+        check(all(x == loss_site for x in ours),
+              f"store_dp {name}: host syncs from the data plane: {ours}")
+        med = statistics.median(ms[1:])
+        row = {"phase": "store_dp", "rung": name, "zero": zero,
+               "overlap": overlap, "wire": wire, "B": B, "S": S,
+               "losses": losses, "step_ms": med, "step_ms_all": ms,
+               "tokens_per_s": B * S / med * 1e3,
+               "mfu": B * S / med * 1e3 * fpt / 989e12,
+               "peak_mem_gib": peak, "rung_peak_mem_gib": own,
+               "vs_trainer_step": med / trainer_ms,
+               "launches": {"flash_fwd": launches[0],
+                            "flash_bwd_dq": launches[1],
+                            "flash_bwd_dkv": launches[2]},
+               "buckets_per_step": (m1[0] - m0[0]) / steps,
+               "collective_calls_per_step": (m1[1] - m0[1]) / steps,
+               "wire_bytes_per_step": (m1[2] - m0[2]) / steps,
+               "opt_state_bytes": opt_state_bytes(tr),
+               "last_grad_bytes": tr.last_grad_bytes,
+               "host_sync_sites": sites}
+        if zero == 3:
+            keys = [k for k in tr.store.keys() if k.startswith("params/")]
+            check(tr._param_leaves is None and all(
+                k.startswith("params/bucket") for k in keys),
+                f"store_dp {name}: replicated leaves remain: {keys[:3]}")
+            row["param_keys"] = len(keys)
+        if base is None:
+            base = (losses, flat)
+            ok, diff = params_close(torch, flat, trainer_params)[:2]
+            row.update(vs_trainer_losses=trainer_losses,
+                       vs_trainer_param_max_abs_diff=diff)
+            check(ok and all(abs(a - b) <= STORE_DP_LOSS_RTOL * abs(b)
+                             for a, b in zip(losses, trainer_losses)),
+                  f"store_dp {name}: differs from the Trainer: {losses} vs "
+                  f"{trainer_losses}, params max diff {diff}")
+        elif wire == "exact":
+            got = vs_base(torch, losses, flat, base, p0, sizes)
+            row["vs_base"] = got
+            ok = (got["worst_leaf_rel_movement_diff"] <= STORE_DP_MOVE_RTOL
+                  if zero or overlap is True else got["params_within_tol"])
+            check(ok and got["loss_ok"],
+                  f"store_dp {name}: differs from the base rung: {losses} "
+                  f"vs {base[0]}, {got}")
+        else:
+            check(all(abs(a - b) <= STORE_DP_WIRE_RTOL * abs(b)
+                      for a, b in zip(losses, base[0]))
+                  and losses[-1] < losses[0],
+                  f"store_dp {name}: does not track exact: {losses} vs "
+                  f"{base[0]}")
+        emit(row)
+        del tr, flat
+        torch.cuda.empty_cache()
+    check(base[0][-1] < base[0][0], f"store_dp: loss did not fall: {base[0]}")
+    for fault, opt in STORE_DP_FAULTS.items():
+        losses, flat, _ = run_rung(torch, train_mod, sd, mesh, cfg, params,
+                                   batch, counters, steps, 2, False, **opt)
+        emit({"phase": "store_dp_fault", "fault": fault, "zero": 2,
+              "losses": losses,
+              "vs_base": vs_base(torch, losses, flat, base, p0, sizes),
+              "move_rtol": STORE_DP_MOVE_RTOL})
+        del flat
+    t0 = time.monotonic()
+    ladder = sd.measure_zero_ladder(mesh, "optimus-125m", steps=2, batch=16)
+    overlap = sd.measure_overlap(mesh, "optimus-125m", steps=3, batch=16,
+                                 bucket_bytes=4 << 20)
+    emit({"phase": "store_dp_probes", "S": 128, "zero_ladder": ladder,
+          "overlap": overlap, "seconds": time.monotonic() - t0})
+    torch.cuda.empty_cache()
+    return totals
+
+
+def store_dp_f32_phase(torch, tfm, flash_mod, train_mod, mesh):
+    """The rungs of STORE_DP_F32_RUNGS in f32 compute (TF32 off),
+    optimus-125m at B=4, S=1024, 4 steps from one init: each within the
+    reference's elementwise tolerance of the first (losses and params),
+    and each planted fault of STORE_DP_FAULTS (on ZeRO-2) outside it."""
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+    from ptype_tpu_torch.train import store_dp as sd
+
+    cfg = tfm.preset("optimus-125m", dtype=torch.float32)
+    B, S, steps = 4, 1024, 4
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    p0 = flat_params(torch, params)
+    sizes = [p.numel() for _, p in tree_flatten(params)]
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, B, S, seed=3,
+                                             device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    rungs = ([(z, o, None, {}) for z, o in STORE_DP_F32_RUNGS]
+             + [(2, False, f, o) for f, o in STORE_DP_FAULTS.items()])
+    base = None
+    for zero, overlap, fault, opt in rungs:
+        name = f"f32 zero{zero}/overlap={overlap}/{fault or 'sound'}"
+        t0 = time.monotonic()
+        losses, flat, _ = run_rung(torch, train_mod, sd, mesh, cfg, params,
+                                   batch, counters, steps, zero, overlap,
+                                   **opt)
+        row = {"phase": "store_dp_f32", "zero": zero, "overlap": overlap,
+               "fault": fault, "B": B, "S": S, "losses": losses,
+               "seconds": time.monotonic() - t0}
+        if base is None:
+            base = (losses, flat)
+        else:
+            got = vs_base(torch, losses, flat, base, p0, sizes)
+            row["vs_base"] = got
+            held = got["loss_ok"] and got["params_within_tol"]
+            check(held if fault is None else not held,
+                  f"store_dp {name}: " + ("differs from the base rung"
+                                          if fault is None else
+                                          "fault not seen") + f": {got}")
+        emit(row)
+        del flat
+    check(base[0][-1] < base[0][0],
+          f"store_dp f32: loss did not fall: {base[0]}")
+
+
+def store_dp_profile(torch, tfm, train_mod, mesh, zero, overlap):
+    """One profiled step of a StoreDPTrainer rung after two warm steps:
+    device time by family (NCCL and the bucket pack among them), idle
+    share."""
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.train import store_dp as sd
+
+    cfg = tfm.preset("optimus-125m")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, 16, 1024,
+                                             seed=3, device="cuda"))
+    tr, pieces = store_dp_trainer(torch, train_mod, sd, mesh, cfg, params,
+                                  zero, overlap, "exact")
+    with pieces:
+        for _ in range(2):
+            tr.step(batch)
+        prof, wall_ms = profiled(torch, lambda: tr.step(batch))
+    del tr
+    # The trainer's and the store's annotate regions (train.*, store.*)
+    # are ranges, not kernels: their device time is their kernels'.
+    labels = sorted({ev.key for ev in prof.key_averages()
+                     if ev.key.startswith(("train.", "store."))})
+    return {"phase": "store_dp_profile", "zero": zero, "overlap": overlap,
+            **profile_summary(prof, wall_ms, labels),
+            **range_summary(prof, labels)}
 
 
 # --------------------------------------------------- speculative decoding
@@ -1454,6 +1843,7 @@ def main():
     from ptype_tpu_torch.ops import _build
     from ptype_tpu_torch.ops import flash_attention as flash_mod
     from ptype_tpu_torch.ops import paged_attention as paged_mod
+    from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
     from ptype_tpu_torch.health import serving as serving_mod
     from ptype_tpu_torch.serve import BatchingGeneratorActor, GeneratorActor
     from ptype_tpu_torch.serve_engine import PagedGeneratorActor, SpecConfig
@@ -1632,8 +2022,17 @@ def main():
                                     params, prompts, 32)
     torch.cuda.empty_cache()
 
+    # store_dp: StoreDPTrainer through the Store, world 1 over NCCL
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    init_distributed(f"file://{rdv}/rdv", 0, 1)
+    mesh = build_mesh({"data": 1})
+    store_launches = store_dp_phase(torch, tfm, flash_mod, train_mod, mesh)
+    store_dp_f32_phase(torch, tfm, flash_mod, train_mod, mesh)
+    torch.cuda.empty_cache()
+
     # 6. profiles, after every host-timed phase: one engine decode
-    # iteration, one train step of each model, one speculation window
+    # iteration, one train step of each model, one speculation window,
+    # one StoreDPTrainer step each of two rungs
     eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
     try:
         emit({"phase": "engine_iteration_profile",
@@ -1653,6 +2052,12 @@ def main():
               **spec_window_profile(torch, gen_mod, eng, prompts, 128)})
     finally:
         eng.close()
+    torch.cuda.empty_cache()
+    for zero, overlap in ((0, True), (2, False)):
+        emit(store_dp_profile(torch, tfm, train_mod, mesh, zero, overlap))
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(rdv, ignore_errors=True)
 
     def main_row(name, source, replaces, launches, row, by_path, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -1681,7 +2086,8 @@ def main():
     dkv_ref = "ptype_tpu/ops/flash_attention.py:342"
     paged_ref = "ptype_tpu/ops/paged_attention.py:149"
     fwd128 = {"generator_actor": flash_launches, "trainer": fwd_n,
-              "batching_generator": batch_launches}
+              "batching_generator": batch_launches,
+              "store_dp": store_launches[0]}
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
     paged128 = {"paged_engine": paged_main_launches,
                 "spec_engine": spec_launches["spec"],
@@ -1706,12 +2112,14 @@ def main():
         rows("flash_fwd", fwd_src, fwd_ref,
              pick("flash_fwd", 16, 12, 64, 1024), fwd64),
         rows("flash_bwd_dq", bwd_src, dq_ref,
-             pick("flash_bwd_dq", 16, 6, 128, 1024), {"trainer": dq_n}),
+             pick("flash_bwd_dq", 16, 6, 128, 1024),
+             {"trainer": dq_n, "store_dp": store_launches[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
              {"moe_trainer": moe_dq_n}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
-             pick("flash_bwd_dkv", 16, 6, 128, 1024), {"trainer": dkv_n}),
+             pick("flash_bwd_dkv", 16, 6, 128, 1024),
+             {"trainer": dkv_n, "store_dp": store_launches[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
              {"moe_trainer": moe_dkv_n}),

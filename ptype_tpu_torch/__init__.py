@@ -24,11 +24,14 @@ counterpart is easy to find:
   disaggregated prefill/decode (``KVMigrator``);
 - :mod:`ptype_tpu_torch.health` — the ``ServingLedger`` (TTFT, TPOT,
   e2e, iteration composition, KV pressure);
-- :mod:`ptype_tpu_torch.parallel` — the block-scaled int8 leaf codec;
+- :mod:`ptype_tpu_torch.parallel` — the data plane on
+  ``torch.distributed``: meshes, collectives with the int8+EF wire and
+  the bucket planner, the ``TensorStore``, the ZeRO ladder;
 - host modules copied from the reference: ``lockcheck``, ``chaos``,
   ``trace``, ``logs``, ``codec``;
 - :mod:`ptype_tpu_torch.train` — the AdamW ``Trainer``, its train and
-  eval steps, and token streams;
+  eval steps, token streams, and ``store_dp.StoreDPTrainer``
+  (data-parallel training through the Store);
 - :mod:`ptype_tpu_torch.metrics` — throughput and MFU against the card's
   peak, the metrics registry, memory gauges and profiler ranges.
 

@@ -513,7 +513,9 @@ def _chunked_nll(x, head, targets, mask, cfg: TransformerConfig):
     targets = targets.reshape(n).long()
     if mask is None:
         m = torch.ones(n, dtype=torch.float32, device=x.device)
-        denom = torch.tensor(float(n), device=x.device)
+        # A fill, not torch.tensor: a pageable upload waits for the stream.
+        denom = torch.full((), float(n), dtype=torch.float32,
+                           device=x.device)
     else:
         m = mask.reshape(n).float()
         denom = torch.clamp(m.sum(), min=1.0)

@@ -14,8 +14,10 @@ what waits. ``Trainer`` drains the queue every ``sync_every`` steps so
 its throughput counts completed work only.
 
 Mixture-of-experts configs train on one device, their experts
-unsharded. Out of scope here (ROADMAP): ``param_specs`` and shardings,
-expert parallelism, the ZeRO ``shard_update``, ``store_dp``,
+unsharded. Data-parallel training through the Store, with the ZeRO
+ladder, is ``train/store_dp.py``; it applies the same AdamW arithmetic
+(:func:`adamw_leaf_`). Out of scope here (ROADMAP): ``param_specs`` and
+shardings, expert parallelism, the GSPMD ``shard_update``,
 ``param_server``, ``actor_pipeline`` and remat.
 """
 
@@ -147,6 +149,42 @@ class AdamWState:
     nu: dict
 
 
+@torch.no_grad()
+def adamw_leaf_(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                n: torch.Tensor, decay, count: int, hp: OptHParams,
+                lr: float) -> None:
+    """One AdamW update of one tensor, IN PLACE on ``p``, ``m`` and
+    ``n`` — the recipe's one elementwise arithmetic, which the
+    whole-tree :class:`AdamW`, the per-bucket applies and the ZeRO
+    shard-local applies (``parallel/zero.py``) all run.
+
+    ``g`` is the clipped gradient in f32, ``count`` the update count
+    before this one, ``lr`` the schedule's value at it. ``decay``: a
+    bool for a whole leaf, or an f32 0/1 mask tensor for a flat of many
+    leaves (``wd·mask·p``: the same values as the per-leaf rule)."""
+    f32 = np.float32
+    m.mul_(hp.b1).add_(g * (1 - hp.b1))
+    n.mul_(hp.b2).add_((g * g) * (1 - hp.b2))
+    t = count + 1
+    bc1 = float(f32(1) - f32(hp.b1) ** f32(t))
+    bc2 = float(f32(1) - f32(hp.b2) ** f32(t))
+    u = (m / bc1) / (_sqrt(n / bc2) + hp.eps)
+    if torch.is_tensor(decay):
+        u = u + hp.weight_decay * decay * p
+    elif decay:
+        u = u + hp.weight_decay * p
+    p.add_((-lr * u).to(p.dtype))
+
+
+def clip_scale(sqnorm: torch.Tensor, clip: float) -> torch.Tensor:
+    """The global-norm clip as one scale, a device value: 1 below
+    ``clip``, else ``clip / ||g||`` (divided by a tensor, as XLA
+    divides)."""
+    gnorm = torch.sqrt(sqnorm)
+    return torch.where(gnorm < clip, torch.ones_like(gnorm),
+                       torch.full_like(gnorm, clip) / gnorm)
+
+
 class AdamW:
     """``optax.chain(clip_by_global_norm(clip), adamw(schedule, b1, b2,
     eps, weight_decay, mask))`` written out elementwise.
@@ -155,8 +193,12 @@ class AdamW:
     after this one and ``lr = schedule(t - 1)``:
     ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``,
     ``u = (mu/(1-b1^t)) / (sqrt(nu/(1-b2^t)) + eps)``, plus
-    ``weight_decay·p`` where the mask says so, then ``p += -lr·u``.
-    The global norm is taken over the raw gradients and returned."""
+    ``weight_decay·p`` where the mask says so, then ``p += -lr·u``
+    (:func:`adamw_leaf_`). The global norm is taken over the raw
+    gradients and returned.
+
+    ``mask``: a function of the params giving the decay tree, or the
+    tree itself."""
 
     def __init__(self, hp: OptHParams | None = None, mask=_decay_mask):
         self.hp = hp or OptHParams()
@@ -171,36 +213,38 @@ class AdamW:
         return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, params: dict, grads: dict,
-               state: AdamWState) -> torch.Tensor:
+    def update(self, params: dict, grads: dict, state: AdamWState,
+               scale: torch.Tensor | None = None):
         """Apply one update to ``params`` and ``state`` IN PLACE (the
         counterpart of the reference's donated buffers: no second copy
         of the parameters or moments exists). Returns the global norm of
-        the raw ``grads``."""
+        the raw ``grads``.
+
+        With ``scale`` (a clip scale coordinated across buckets, as the
+        overlap trainer's per-bucket apply passes it) the gradients are
+        multiplied by it instead of clipped here, and nothing is
+        returned: the reference's ``adamw`` without the clip."""
         hp = self.hp
-        f32 = np.float32
         p_leaves = [p for _, p in _flatten(params)]
         g_leaves = [g for _, g in _flatten(grads)]
         mu = [m for _, m in _flatten(state.mu)]
         nu = [n for _, n in _flatten(state.nu)]
-        decay = [d for _, d in _flatten(self.mask(params))]
-        gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                               for g in g_leaves))
-        keep = gnorm < hp.clip
-        count = state.count + 1
-        bc1 = float(f32(1) - f32(hp.b1) ** f32(count))
-        bc2 = float(f32(1) - f32(hp.b2) ** f32(count))
-        step_size = float(-self.schedule(state.count))
+        mask = self.mask(params) if callable(self.mask) else self.mask
+        decay = [d for _, d in _flatten(mask)]
+        gnorm = None
+        if scale is None:
+            gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                                   for g in g_leaves))
+            keep = gnorm < hp.clip
+        lr = float(self.schedule(state.count))
         for p, g, m, n, d in zip(p_leaves, g_leaves, mu, nu, decay):
-            g = g.float()
-            g = torch.where(keep, g, (g / gnorm) * hp.clip)
-            m.mul_(hp.b1).add_(g * (1 - hp.b1))
-            n.mul_(hp.b2).add_((g * g) * (1 - hp.b2))
-            u = (m / bc1) / (_sqrt(n / bc2) + hp.eps)
-            if d:
-                u = u + hp.weight_decay * p
-            p.add_((step_size * u).to(p.dtype))
-        state.count = count
+            if scale is None:
+                g = g.float()
+                g = torch.where(keep, g, (g / gnorm) * hp.clip)
+            else:
+                g = (g.float() * scale).to(g.dtype).float()
+            adamw_leaf_(p, g, m, n, d, state.count, hp, lr)
+        state.count += 1
         return gnorm
 
 
@@ -211,6 +255,19 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
     on matmul weights only — the reference's default recipe."""
     return AdamW(OptHParams(lr=lr, weight_decay=weight_decay, warmup=warmup,
                             decay_steps=decay_steps, clip=clip))
+
+
+def default_optimizer_pieces(lr: float = 3e-4, weight_decay: float = 0.1,
+                             warmup: int = 100, decay_steps: int = 100_000,
+                             clip: float = 1.0):
+    """The default recipe split at its one cross-leaf coupling, the
+    global-norm clip: ``(clip, make_inner)``, where ``make_inner(mask)``
+    builds the AdamW for any sub-tree (``update`` with the coordinated
+    ``scale``). The overlap trainer runs it per gradient bucket as each
+    bucket lands (``train/store_dp.py``)."""
+    hp = OptHParams(lr=lr, weight_decay=weight_decay, warmup=warmup,
+                    decay_steps=decay_steps, clip=clip)
+    return hp.clip, lambda mask: AdamW(hp, mask=mask)
 
 
 def _batch_on(batch: dict, device) -> dict:

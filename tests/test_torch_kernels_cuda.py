@@ -380,3 +380,90 @@ def test_batching_actor_equal_length_batch_launches_flash(cuda):
                 assert o.shape == (1, 4)
     finally:
         actor.close()
+
+
+# ------------------------------------------------------------ data plane
+
+
+@pytest.fixture(scope="module")
+def meshes(tmp_path_factory):
+    """A world-1 NCCL mesh on the card and a world-1 gloo mesh on the
+    CPU, in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL runs on the card)")
+    import torch.distributed as dist
+
+    from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
+
+    rdv = tmp_path_factory.mktemp("pg") / "rdv"
+    init_distributed(f"file://{rdv}", 0, 1)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        yield (build_mesh({"data": 1}),
+               build_mesh({"data": 1}, group=gloo, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _store_calls(mesh, device):
+    """push, push_scatter, pull(gather=True), the int8 allreduce and an
+    int8+EF tree push twice (the second folds the first's residual),
+    on tensors made on the CPU from one seed and moved to ``device``."""
+    from ptype_tpu_torch.parallel.collectives import (WireConfig,
+                                                      quantized_all_reduce)
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 48, generator=g)
+    tree = {"a": torch.randn(4096, generator=g) * 3,
+            "b": {"c": torch.randn(96, 33, generator=g)}}
+    x[::7] *= 30  # outliers
+    ts = TensorStore(mesh, device=device.type)
+    out = {"push": ts.push("k", x.to(device)),
+           "scatter": ts.push_scatter("s", x.to(device), op="sum"),
+           "pull": ts.pull("s", gather=True),
+           "q8": quantized_all_reduce(x.to(device), mesh, op="mean")}
+    ef = TensorStore(mesh, device=device.type, wire=WireConfig(
+        compress="int8", int8_min_bytes=0, bucket_bytes=8192))
+    dev_tree = {"a": tree["a"].to(device),
+                "b": {"c": tree["b"]["c"].to(device)}}
+    for i in range(2):
+        for k, v in ef.push_tree("g", dev_tree, op="mean").items():
+            out[f"ef{i}/{k}"] = v
+    out.update({f"res/{k}": v for k, v in ef._residuals.items()})
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def test_store_on_nccl_equals_the_store_on_gloo(meshes):
+    """World 1: the same Store calls on CUDA tensors over NCCL and on
+    CPU tensors over gloo give the same bits (the int8 wire divides by
+    tensors on both, so its scales and quantized values match)."""
+    nccl, gloo = meshes
+    assert nccl.backend == "nccl" and gloo.backend == "gloo"
+    got = _store_calls(nccl, torch.device("cuda"))
+    want = _store_calls(gloo, torch.device("cpu"))
+    assert sorted(got) == sorted(want)
+    assert any(k.startswith("res/") for k in got)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_store_dp_trainer_with_no_device_runs_on_the_card_only(meshes):
+    """With no device named, the trainer and the store are CUDA entry
+    points: over a gloo CPU mesh they raise, and a cuda mesh refuses a
+    gloo group."""
+    from ptype_tpu_torch.errors import ClusterError
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    nccl, gloo = meshes
+    cfg = ttfm.preset("tiny", dtype=torch.float32)
+    with pytest.raises(ClusterError, match="mesh"):
+        TensorStore(gloo)
+    with pytest.raises(ClusterError, match="store"):
+        StoreDPTrainer(cfg, TensorStore(gloo, device="cpu"))
+    with pytest.raises(ClusterError, match="nccl"):
+        build_mesh({"data": 1}, group=gloo.group, device="cuda")
+    tr = StoreDPTrainer(cfg, TensorStore(nccl))
+    assert tr.device.type == "cuda"

@@ -1,7 +1,8 @@
 """Package rules of ptype_tpu_torch: it imports with JAX blocked, no
-module of it (nor chip_smoke.py or chip_engine_ab.py) imports jax or
-the ptype_tpu package, its entry points raise rather than run on the
-CPU unasked, and chip_smoke.py fails without a card."""
+module of it (nor chip_smoke.py, chip_engine_ab.py or the rank bodies
+of tests/torch_ranks.py) imports jax or the ptype_tpu package, its
+entry points raise rather than run on the CPU unasked, and
+chip_smoke.py fails without a card."""
 
 import ast
 import os
@@ -16,7 +17,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "ptype_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "chip_engine_ab.py"]
+                                       ROOT / "chip_engine_ab.py",
+                                       ROOT / "tests" / "torch_ranks.py"]
 
 
 def _modules():
@@ -81,6 +83,13 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
         Trainer(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         next(synthetic_batches(256, 2, 8))
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TensorStore(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StoreDPTrainer(cfg, None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
