@@ -83,6 +83,22 @@ Run from the root of a checkout. Phases, each printing its own lines:
    readings; the ladder and overlap probes (S=128); then in f32 compute
    at B=4 every zero-0 overlap mode and ZeRO 1/2/3 held to the first
    elementwise, and each planted fault rejected by that check;
+   checkpoint: at optimus-125m (B=16, S=1024) a Trainer saves step 2
+   in the background while steps 3-4 run, and a fresh Trainer restored
+   from it runs steps 3-4 with the same losses, params and moments bit
+   for bit; the same for ZeRO-2 on the world-1 NCCL mesh through
+   ZeroCheckpoint + StoreCheckpoint; a ZeroCheckpoint of seeded moments
+   (optimus-125m's plan) written by 2 gloo CPU rank processes of this
+   script (``--zero-writer``, started at the phase's start) restores on
+   the card byte for byte; bytes written, save, snapshot (first and
+   with its pinned buffers reused), background write and restore ms,
+   the step while the write runs and without;
+   elastic: ElasticZeroTrainer (ZeRO-2) with rank 0 registered and a
+   second simulated registration of the same rank on a local
+   coordinator (lease TTL 0.5 s); inject_loss on it, MembershipChanged,
+   recover (a 1 -> 1 reshard), the retried step: losses and params
+   equal to a run without the fault; the detection time, reshard_ms,
+   and measure_reshard's live and checkpoint recoveries in step units;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -1825,6 +1841,376 @@ def batching_phase(torch, tfm, flash_mod, BatchingGeneratorActor,
     return launches
 
 
+# ------------------------------------------- checkpoint and elastic
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def tensors_equal(torch, a, b):
+    """Two trees (dicts of tensors, or lists) equal bit for bit."""
+    from ptype_tpu_torch.checkpoint import _flatten
+
+    def same(x, y):
+        if torch.is_tensor(x) and torch.is_tensor(y):
+            return torch.equal(x.detach(), y.detach())
+        return x == y
+
+    fa, fb = _flatten(a), _flatten(b)
+    return ([p for p, _ in fa] == [p for p, _ in fb]
+            and all(same(x, y) for (_, x), (_, y) in zip(fa, fb)))
+
+
+def zero_writer_plan(torch, tfm):
+    """The optimus-125m ZeRO plan's leaves (meta tensors, store-sorted
+    key order) and decay masks — what the 2-rank writer and the card's
+    restore both build."""
+    from ptype_tpu_torch.models.weights import param_shapes
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+
+    cfg = tfm.preset("optimus-125m")
+    pairs = sorted(((("params",) + path, shape) for path, shape in
+                    tree_flatten(param_shapes(cfg))),
+                   key=lambda kv: "/".join(kv[0]))
+    leaves = [torch.empty(shape, device="meta", dtype=cfg.param_dtype)
+              for _, shape in pairs]
+    masks = ["norm" not in path[-1] and len(shape) > 1
+             for path, shape in pairs]
+    return leaves, masks
+
+
+def zero_writer_moments(torch, b, i):
+    """Bucket i's whole (unpadded) mu and nu, drawn from a seeded CPU
+    generator: the source the card's restore is held to."""
+    total = b.elems - b.pad
+    g = torch.Generator().manual_seed(1000 + i)
+    return (torch.randn(total, generator=g),
+            torch.rand(total, generator=g))
+
+
+def zero_writer(rank, world, workdir):
+    """Helper mode (``--zero-writer RANK WORLD DIR``): one of ``world``
+    gloo CPU ranks writing the optimus-125m ZeroCheckpoint of seeded
+    moments into DIR/zero (the checkpoint phase restores it on the
+    card)."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from ptype_tpu_torch.checkpoint import ZeroCheckpoint
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
+    from ptype_tpu_torch.parallel.zero import ShardPlan, ZeroState
+    from ptype_tpu_torch.train.trainer import default_optimizer_hparams
+
+    torch.set_num_threads(2)
+    init_distributed(f"file://{workdir}/rdv", rank, world, device="cpu")
+    try:
+        mesh = build_mesh({"data": world}, device="cpu")
+        leaves, masks = zero_writer_plan(torch, tfm)
+        plan = ShardPlan.for_leaves(leaves, world)
+        zs = ZeroState.create(plan, mesh, "data",
+                              default_optimizer_hparams(), masks)
+        for i, b in enumerate(plan.buckets):
+            mu, nu = zero_writer_moments(torch, b, i)
+            s = plan.shard_elems(b)
+            for acc, src in ((zs.mu, mu), (zs.nu, nu)):
+                full = torch.zeros(b.elems)
+                full[:src.numel()] = src
+                acc[i] = full[rank * s:(rank + 1) * s].clone()
+        zs.count = 7
+        ZeroCheckpoint(os.path.join(workdir, "zero")).save(7, zs)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_zero_writers(world):
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_zero_")
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, "--zero-writer",
+                               str(r), str(world), workdir],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+             for r in range(world)]
+    return workdir, procs
+
+
+def join_zero_writers(procs, timeout=300):
+    deadline = time.monotonic() + timeout
+    try:
+        for r, p in enumerate(procs):
+            left = max(1.0, deadline - time.monotonic())
+            out, _ = p.communicate(timeout=left)
+            check(p.returncode == 0,
+                  f"zero writer rank {r} exited {p.returncode}: "
+                  f"{out.decode(errors='replace')[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh):
+    """The checkpoint tier at optimus-125m (B=16, S=1024, bf16 compute,
+    f32 params, seed 0): a Trainer saves step 2 in the background while
+    steps 3-4 run, and a fresh Trainer restored from it runs steps 3-4
+    bit for bit; the same for ZeRO-2 (ZeroCheckpoint + StoreCheckpoint)
+    on the world-1 NCCL mesh; a ZeroCheckpoint of seeded moments written
+    by 2 gloo CPU rank processes restores on the card byte for byte.
+    Returns the phase's flash launches (fwd, dq, dkv)."""
+    from ptype_tpu_torch.checkpoint import (Checkpointer, StoreCheckpoint,
+                                            ZeroCheckpoint)
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.parallel.zero import ShardPlan, ZeroState
+    from ptype_tpu_torch.train import store_dp as sd
+    from ptype_tpu_torch.train import trainer as tr_mod
+
+    writers_dir, writers = start_zero_writers(2)
+    cfg = tfm.preset("optimus-125m")
+    stream = train_mod.synthetic_batches(cfg.vocab_size, 16, 1024, seed=3,
+                                         device="cuda")
+    batches = [next(stream) for _ in range(4)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    row = {"phase": "checkpoint", "preset": "optimus-125m", "B": 16,
+           "S": 1024}
+    try:
+        for c in counters:
+            c.launches = 0
+        # The Trainer: async save of step 2 while steps 3-4 run.
+        a, _ = new_trainer(torch, train_mod, cfg)
+        ck = Checkpointer(os.path.join(root, "trainer"))
+        la = [float(a.step(b)["loss"]) for b in batches[:2]]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        a.save(ck, background=True)
+        row["async_call_ms"] = (time.monotonic() - t0) * 1e3
+        row["snapshot_ms"] = ck.last_snapshot_s * 1e3
+        t0 = time.monotonic()
+        la += [float(a.step(b)["loss"]) for b in batches[2:]]
+        row["step_ms_while_writing"] = (time.monotonic() - t0) / 2 * 1e3
+        ck.wait()
+        row["background_write_ms"] = ck.last_write_s * 1e3
+        copy = lambda t: tr_mod.tree_map(torch.clone, t)  # noqa: E731
+        opt = a.state.opt_state
+        a_at_4 = tr_mod.TrainState(
+            copy(a.state.params),
+            tr_mod.AdamWState(opt.count, copy(opt.mu), copy(opt.nu)),
+            a.state.step)
+        row["bytes_written"] = dir_bytes(ck._step_dir(2))
+        t0 = time.monotonic()
+        a.save(ck)
+        row["save_ms"] = (time.monotonic() - t0) * 1e3
+        row["snapshot_ms_buffers_reused"] = ck.last_snapshot_s * 1e3
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for b in batches[:2]:  # steps 5-6, no write running
+            a.step(b)
+        torch.cuda.synchronize()
+        row["step_ms_without_write"] = (time.monotonic() - t0) / 2 * 1e3
+        b_ = train_mod.Trainer(
+            cfg, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1),
+            optimizer=train_mod.default_optimizer(lr=1e-3, warmup=2),
+            sync_every=0)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        b_.restore(ck, 2)
+        torch.cuda.synchronize()
+        row["restore_ms"] = (time.monotonic() - t0) * 1e3
+        lb = [float(b_.step(b)["loss"]) for b in batches[2:]]
+        row["losses"], row["resumed_losses"] = la, lb
+        same = tensors_equal(torch, tr_mod.state_tree(a_at_4),
+                             tr_mod.state_tree(b_.state))
+        row["trainer_resume_bit_exact"] = lb == la[2:] and same
+        check(row["trainer_resume_bit_exact"],
+              f"checkpoint: the restored Trainer differs: {lb} vs {la[2:]},"
+              f" state equal {same}")
+        del a, b_, a_at_4
+        torch.cuda.empty_cache()
+
+        # ZeRO-2 on the world-1 NCCL mesh: ZeroCheckpoint + StoreCheckpoint.
+        def z2(seed):
+            return sd.StoreDPTrainer(
+                cfg, TensorStore(mesh), zero=2,
+                generator=torch.Generator(device="cuda").manual_seed(seed),
+                zero_hparams=train_mod.OptHParams(lr=1e-3, warmup=2))
+
+        t1 = z2(0)
+        l1 = [t1.step(b)["loss"] for b in batches[:2]]
+        t0 = time.monotonic()
+        ZeroCheckpoint(os.path.join(root, "zero")).save(2, t1.zero_state())
+        StoreCheckpoint(t1.store, os.path.join(root, "store"),
+                        keys_prefix="params/").save(2)
+        row["zero_save_ms"] = (time.monotonic() - t0) * 1e3
+        row["zero_bytes_written"] = (
+            dir_bytes(os.path.join(root, "zero"))
+            + dir_bytes(os.path.join(root, "store")))
+        l1 += [t1.step(b)["loss"] for b in batches[2:]]
+        t2 = z2(1)
+        t0 = time.monotonic()
+        StoreCheckpoint(t2.store, os.path.join(root, "store"),
+                        keys_prefix="params/").resume()
+        ZeroCheckpoint(os.path.join(root, "zero")).restore_into(
+            t2.zero_state())
+        torch.cuda.synchronize()
+        row["zero_restore_ms"] = (time.monotonic() - t0) * 1e3
+        l2 = [t2.step(b)["loss"] for b in batches[2:]]
+        z1, z2_ = t1.zero_state(), t2.zero_state()
+        same = (tensors_equal(torch, t1.params(), t2.params())
+                and tensors_equal(torch, z1.mu, z2_.mu)
+                and tensors_equal(torch, z1.nu, z2_.nu)
+                and z1.count == z2_.count)
+        row["zero2_losses"], row["zero2_resumed_losses"] = l1, l2
+        row["zero2_resume_bit_exact"] = l2 == l1[2:] and same
+        check(row["zero2_resume_bit_exact"],
+              f"checkpoint: the restored ZeRO-2 trainer differs: {l2} vs "
+              f"{l1[2:]}, state equal {same}")
+        del t1, t2, z1, z2_
+        torch.cuda.empty_cache()
+        launches = [c.launches for c in counters]
+        want = (6 + 2 + 4 + 2) * cfg.n_layers  # A, B, ZeRO-2's two runs
+        check(launches == [want] * 3,
+              f"checkpoint: launches fwd/dq/dkv {launches} != {want} each")
+
+        # The 2-rank CPU ZeroCheckpoint, restored at world 1 on the card.
+        join_zero_writers(writers)
+        leaves, masks = zero_writer_plan(torch, tfm)
+        plan = ShardPlan.for_leaves(leaves, 1)
+        zs = ZeroState.create(plan, mesh, "data",
+                              train_mod.OptHParams(), masks)
+        zdir = os.path.join(writers_dir, "zero")
+        t0 = time.monotonic()
+        step = ZeroCheckpoint(zdir).restore_into(zs)
+        torch.cuda.synchronize()
+        row["cross_rank_restore_ms"] = (time.monotonic() - t0) * 1e3
+        row["cross_rank_bytes"] = dir_bytes(zdir)
+        manifests = sorted(f for f in os.listdir(os.path.join(
+            zdir, "step_7")) if f.startswith("manifest"))
+        ok = step == 7 and zs.count == 7 and manifests == [
+            "manifest.p0.json", "manifest.p1.json"]
+        for i, b in enumerate(plan.buckets):
+            mu, nu = zero_writer_moments(torch, b, i)
+            ok = ok and torch.equal(zs.mu[i].cpu(), mu) and torch.equal(
+                zs.nu[i].cpu(), nu)
+        row["cross_rank_buckets"] = len(plan.buckets)
+        row["cross_rank_restore_byte_exact"] = ok
+        check(ok, "checkpoint: the 2-rank ZeroCheckpoint did not restore "
+              "byte for byte on the card")
+        del zs
+        emit(row)
+        return launches
+    finally:
+        for p in writers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(writers_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def elastic_phase(torch, tfm, flash_mod, train_mod, mesh):
+    """ElasticZeroTrainer (ZeRO-2) at optimus-125m on the world-1 NCCL
+    mesh: rank 0 registered, and a second simulated registration on a
+    local coordinator (lease TTL 0.5 s) advertising the same rank.
+    inject_loss on it → MembershipChanged → recover (a 1 → 1 reshard) →
+    the retried step; the losses and params must equal a run without
+    the fault. Then measure_reshard at world 1. Returns the phase's
+    flash launches (fwd, dq, dkv)."""
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.elastic import (ElasticZeroTrainer,
+                                         MembershipChanged, inject_loss)
+    from ptype_tpu_torch.registry import CoordRegistry
+    from ptype_tpu_torch.train import store_dp as sd
+
+    cfg = tfm.preset("optimus-125m")
+    stream = train_mod.synthetic_batches(cfg.vocab_size, 16, 1024, seed=4,
+                                         device="cuda")
+    batches = [next(stream) for _ in range(4)]
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    state = CoordState(sweep_interval=0.05)
+    reg = CoordRegistry(LocalCoord(state), lease_ttl=0.5)
+    hp = train_mod.OptHParams(lr=1e-3, warmup=2)
+    row = {"phase": "elastic", "preset": "optimus-125m", "B": 16,
+           "S": 1024, "zero": 2, "lease_ttl_s": 0.5}
+
+    def trainer(service):
+        return ElasticZeroTrainer(
+            cfg, reg, service, mesh, zero=2, zero_hparams=hp,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+
+    regs = []
+    try:
+        for c in counters:
+            c.launches = 0
+        regs.append(reg.register("base", "w0", "127.0.0.1", 9100,
+                                 process_id=0))
+        base = trainer("base")
+        lb = [base.step(b)["loss"] for b in batches]
+        pb = base.params()
+        base.close()
+        del base
+        torch.cuda.empty_cache()
+        regs.append(reg.register("elastic", "w0", "127.0.0.1", 9100,
+                                 process_id=0))
+        sim = reg.register("elastic", "w1", "127.0.0.1", 9101, process_id=0)
+        regs.append(sim)
+        t = trainer("elastic")
+        lf = [t.step(b)["loss"] for b in batches[:2]]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        inject_loss(sim)
+        while not t.detector.changed and time.monotonic() - t0 < 10:
+            time.sleep(0.0005)
+        row["detect_ms"] = (time.monotonic() - t0) * 1e3
+        raised = None
+        try:
+            lf.append(t.step(batches[2])["loss"])
+        except MembershipChanged as e:
+            raised = e
+        check(raised is not None and raised.lost == ["127.0.0.1:9101"],
+              f"elastic: no MembershipChanged for the lost registration "
+              f"({raised}, losses {lf})")
+        info = t.recover()
+        row["recover"] = info
+        row["reshard_ms"] = info["reshard_ms"]
+        lf += [t.step(b)["loss"] for b in batches[2:]]
+        row["losses"], row["faulted_losses"] = lb, lf
+        same = tensors_equal(torch, t.params(), pb)
+        row["equal_to_run_without_fault"] = lf == lb and same
+        check(row["equal_to_run_without_fault"],
+              f"elastic: the recovered run differs: {lf} vs {lb}, params "
+              f"equal {same}")
+        t.close()
+        del t
+        torch.cuda.empty_cache()
+        launches = [c.launches for c in counters]
+        want = 8 * cfg.n_layers
+        check(launches == [want] * 3,
+              f"elastic: launches fwd/dq/dkv {launches} != {want} each")
+        t0 = time.monotonic()
+        row["measure_reshard"] = sd.measure_reshard(
+            mesh, preset="optimus-125m", steps=3, batch=16, seq=1024,
+            zero=2)
+        row["measure_reshard_s"] = time.monotonic() - t0
+        emit(row)
+        return launches
+    finally:
+        for h in regs:
+            h.close()
+        state.close()
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2030,6 +2416,10 @@ def main():
     store_dp_f32_phase(torch, tfm, flash_mod, train_mod, mesh)
     torch.cuda.empty_cache()
 
+    # checkpoint and elastic: save/resume and live reshard at optimus-125m
+    ckpt_launches = checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh)
+    elastic_launches = elastic_phase(torch, tfm, flash_mod, train_mod, mesh)
+
     # 6. profiles, after every host-timed phase: one engine decode
     # iteration, one train step of each model, one speculation window,
     # one StoreDPTrainer step each of two rungs
@@ -2087,7 +2477,9 @@ def main():
     paged_ref = "ptype_tpu/ops/paged_attention.py:149"
     fwd128 = {"generator_actor": flash_launches, "trainer": fwd_n,
               "batching_generator": batch_launches,
-              "store_dp": store_launches[0]}
+              "store_dp": store_launches[0],
+              "checkpoint": ckpt_launches[0],
+              "elastic": elastic_launches[0]}
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
     paged128 = {"paged_engine": paged_main_launches,
                 "spec_engine": spec_launches["spec"],
@@ -2113,13 +2505,17 @@ def main():
              pick("flash_fwd", 16, 12, 64, 1024), fwd64),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 6, 128, 1024),
-             {"trainer": dq_n, "store_dp": store_launches[1]}),
+             {"trainer": dq_n, "store_dp": store_launches[1],
+              "checkpoint": ckpt_launches[1],
+              "elastic": elastic_launches[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
              {"moe_trainer": moe_dq_n}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 6, 128, 1024),
-             {"trainer": dkv_n, "store_dp": store_launches[2]}),
+             {"trainer": dkv_n, "store_dp": store_launches[2],
+              "checkpoint": ckpt_launches[2],
+              "elastic": elastic_launches[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
              {"moe_trainer": moe_dkv_n}),
@@ -2135,6 +2531,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--zero-writer"]:
+        zero_writer(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     try:
         main()
     except SmokeError as e:

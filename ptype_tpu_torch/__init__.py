@@ -27,8 +27,14 @@ counterpart is easy to find:
 - :mod:`ptype_tpu_torch.parallel` — the data plane on
   ``torch.distributed``: meshes, collectives with the int8+EF wire and
   the bucket planner, the ``TensorStore``, the ZeRO ladder;
+- :mod:`ptype_tpu_torch.checkpoint` — sharded, async checkpoints in
+  the reference's step-directory layout (``Checkpointer``,
+  ``ZeroCheckpoint``, ``StoreCheckpoint``);
+- :mod:`ptype_tpu_torch.elastic` — the ``FailureDetector`` and
+  ``ElasticZeroTrainer``'s live reshard onto survivors;
 - host modules copied from the reference: ``lockcheck``, ``chaos``,
-  ``trace``, ``logs``, ``codec``;
+  ``trace``, ``logs``, ``codec``, ``retry``, ``registry``, ``store``
+  and the in-process coordinator (``coord/``);
 - :mod:`ptype_tpu_torch.train` — the AdamW ``Trainer``, its train and
   eval steps, token streams, and ``store_dp.StoreDPTrainer``
   (data-parallel training through the Store);

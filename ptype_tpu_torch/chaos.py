@@ -18,6 +18,19 @@ site                    actions
                         iteration falls back to the plain decode step:
                         correct tokens, just slower) / ``delay`` (stall
                         the draft forward) (serve_engine)
+``store.push``          ``delay`` (straggler) / ``timeout``
+                        (parallel/tensorstore)
+``store.pull``          ``delay`` (straggler) (parallel/tensorstore)
+``train.reshard``       ``drop`` (abort the live reshard at one bucket;
+                        decided on rank 0 for every rank, the old plan
+                        kept everywhere) / ``delay`` (parallel/zero)
+``checkpoint.shard``    ``corrupt`` — flip bytes in one shard on disk
+                        after its crc32 was taken (checkpoint)
+``checkpoint.commit``   ``crash`` — between the shard writes and the
+                        commit marker (checkpoint)
+``coord.keepalive``     ``revoke`` — lease-revoke a member (coord/core)
+``coord.wal_append``    ``delay`` — wedge the coordinator under its lock
+                        (coord/core)
 ======================  =====================================================
 
 Zero-cost contract: every seam calls ``chaos.hit(site, key)``, which is

@@ -44,6 +44,25 @@ def params_to_numpy(params: dict) -> dict:
     return params.detach().cpu().numpy()
 
 
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The parameter tree of ``cfg`` with each leaf's shape in place of
+    its value — the layout :func:`init_params` fills (a template for
+    reading a checkpoint without drawing weights)."""
+    L, D, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads
+    Dh, F, V, E = cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.n_experts
+    mlp = ({"router": (L, D, E), "w_gate": (L, E, D, F),
+            "w_up": (L, E, D, F), "w_down": (L, E, F, D)} if E else
+           {"w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D)})
+    tree = {"embed": (V, D),
+            "blocks": {"attn_norm": (L, D), "wq": (L, D, H, Dh),
+                       "wk": (L, D, K, Dh), "wv": (L, D, K, Dh),
+                       "wo": (L, H, Dh, D), "mlp_norm": (L, D), **mlp},
+            "final_norm": (D,)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (D, V)
+    return tree
+
+
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
                 device=None) -> dict:
     """Seeded random parameters with the reference's shapes and scales

@@ -17,17 +17,27 @@ Placements are the reference's partition specs written as tuples:
 ``()`` replicated, ``(axis,)`` dim 0 split into contiguous shards, rank
 r holding shard r (:func:`replicated`).
 
+Elastic resharding builds a **survivor mesh** (:func:`survivor_mesh`):
+one data axis over a ``dist.new_group`` of the surviving ranks, made by
+every rank of the current mesh (the leavers included). Host-side
+decisions that every rank must share (the elastic membership view, a
+reshard's chaos fault) travel over the mesh's **control group**: the
+group itself on gloo, a gloo group beside it on NCCL (:func:`with_control`),
+so agreeing on one costs no device synchronization.
+
 Not ported: ``mesh_from_registry`` (the cluster plane, ROADMAP A8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
 
+from ptype_tpu_torch import chaos
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.errors import ClusterError
 
@@ -45,6 +55,9 @@ class Mesh:
     group: object
     rank: int
     device: torch.device
+    #: A gloo group over the same ranks for host-side agreement (the
+    #: group itself on gloo; None on NCCL until :func:`with_control`).
+    control: object = None
 
     @property
     def size(self) -> int:
@@ -107,7 +120,83 @@ def build_mesh(axes: dict[str, int], axis_names: tuple[str, ...] | None = None,
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return Mesh(tuple(n for n, _ in pairs), dict(pairs), group,
-                dist.get_rank(group), device)
+                dist.get_rank(group), device,
+                group if backend == "gloo" else None)
+
+
+def group_ranks(mesh: Mesh) -> list[int]:
+    """The global ranks of the mesh's group, in group order."""
+    return dist.get_process_group_ranks(mesh.group)
+
+
+def with_control(mesh: Mesh) -> Mesh:
+    """``mesh`` with a control group: a gloo group over its ranks (a
+    no-op on a gloo mesh). Every rank of the mesh calls, together."""
+    if mesh.control is not None:
+        return mesh
+    ctrl = dist.new_group(group_ranks(mesh), backend="gloo")
+    return dataclasses.replace(mesh, control=ctrl)
+
+
+def survivor_mesh(mesh: Mesh, ranks, axis: str = "data",
+                  device=None) -> Mesh | None:
+    """A one-axis mesh over the global ``ranks`` (the survivors of an
+    elastic membership change), with its control group; None on a rank
+    of ``mesh`` that is not among them.
+
+    Every rank of the CURRENT ``mesh`` calls, the leavers included, in
+    the same order: ``dist.new_group`` names a group by a per-process
+    count of the groups made so far, so the survivors agree on the name
+    only if all of them made the same groups (a rank that left in an
+    earlier reshard never joins a group again, and need not call)."""
+    ranks = sorted(int(r) for r in ranks)
+    if not ranks:
+        raise ClusterError("survivor_mesh: no surviving ranks")
+    have = group_ranks(mesh)
+    if not set(ranks) <= set(have):
+        raise ClusterError(f"survivor_mesh: ranks {ranks} are not all in "
+                           f"the current group {have}")
+    device = resolve_device(device)
+    backend = BACKENDS.get(device.type)
+    group = dist.new_group(ranks, backend=backend)
+    ctrl = (group if backend == "gloo"
+            else dist.new_group(ranks, backend="gloo"))
+    if dist.get_rank() not in ranks:
+        return None
+    return dataclasses.replace(
+        build_mesh({axis: len(ranks)}, group=group, device=device),
+        control=ctrl)
+
+
+def host_broadcast(mesh: Mesh, value: int) -> int:
+    """Rank 0's ``value`` (an int) on every rank of the mesh: over the
+    control group when there is one (no device sync), else over the
+    data group through a device scalar."""
+    if mesh.size == 1:
+        return int(value)
+    group = mesh.control if mesh.control is not None else mesh.group
+    on = (torch.device("cpu") if mesh.control is not None
+          else mesh.device)
+    t = torch.tensor([int(value)], dtype=torch.int64, device=on)
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return int(t.item())
+
+
+def agreed_drop(mesh: Mesh, site: str, key: str) -> bool:
+    """A chaos seam decided ONCE for every rank of ``mesh``: rank 0
+    consults the armed plan (a ``delay`` sleeps there) and every rank
+    learns whether the fault is a ``drop``, before any rank enters the
+    guarded collective — a fault that fired on one rank only would
+    leave the others blocked in it."""
+    drop = 0
+    if mesh.rank == 0:
+        f = chaos.hit(site, key)
+        if f is not None:
+            if f.action == "drop":
+                drop = 1
+            else:
+                f.sleep()  # delay / wedge: stall this step
+    return bool(host_broadcast(mesh, drop))
 
 
 def local_mesh(device=None, **axes: int) -> Mesh:

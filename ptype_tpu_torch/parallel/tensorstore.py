@@ -34,8 +34,11 @@ before any other access. The reference commits at dispatch, with the
 value still in flight; a torch tensor cannot be read before its
 collective is waited, so the port commits at the wait.
 
-Not ported yet (ROADMAP): ``reshard`` (elastic, the first later
-slice), and the hierarchical wire (a ``topology`` raises).
+:meth:`TensorStore.reshard` re-homes the store on a survivor mesh (the
+live elastic reshard's store leg).
+
+Not ported yet (ROADMAP A7(b)): the hierarchical wire (a ``topology``
+raises).
 """
 
 from __future__ import annotations
@@ -75,6 +78,13 @@ def _store_fault(site: str, key: str) -> None:
 
 def spec_to_json(spec: tuple) -> str:
     return json.dumps([list(p) if isinstance(p, tuple) else p for p in spec])
+
+
+def spec_from_json(raw: str) -> tuple:
+    """Inverse of :func:`spec_to_json`; reads the reference's specs too
+    (``["data", null]``: dim 0 sharded, the rest whole)."""
+    return tuple(tuple(p) if isinstance(p, list) else p
+                 for p in json.loads(raw))
 
 
 @dataclass
@@ -298,6 +308,51 @@ class TensorStore:
             value = self._gathered(entry) if gather else entry.value
             chaos.note_ok("store.pull", key)
             return value
+
+    def shard_leaf(self, key: str):
+        """The key's value as a checkpoint leaf: the tensor itself when
+        replicated, this rank's block as a
+        :class:`~ptype_tpu_torch.checkpoint.Shard` when sharded."""
+        from ptype_tpu_torch.checkpoint import Shard
+
+        self._settle()
+        with self._lock:
+            entry = self._entries.get(key)
+        if entry is None:
+            raise NoKeyError(key)
+        v = entry.value
+        if not entry.binding.spec:
+            return v
+        r = axis_index(self.mesh, self.axis)
+        return Shard(v, (r * v.shape[0],) + (0,) * (v.dim() - 1),
+                     (self.n * v.shape[0],) + tuple(v.shape[1:]))
+
+    def reshard(self, mesh: Mesh, axis: str | None = None) -> None:
+        """Re-home the store on a new (survivor) mesh — the live elastic
+        reshard's store leg, on each surviving rank. Replicated entries
+        stay (every rank holds the same value) with their epochs;
+        axis-SHARDED entries (scatter-path grad flats, ZeRO-3 param
+        flats) are dropped, their payloads being padded for the OLD rank
+        count: their owner re-commits them in the new layout. The
+        error-feedback residuals reset for the same reason."""
+        if mesh.device != self.device:
+            raise ClusterError(f"TensorStore.reshard: mesh device "
+                               f"{mesh.device} is not the store's "
+                               f"{self.device}")
+        axis = axis or self.axis
+        axis_group(mesh, axis)
+        self._settle()
+        with self._lock:
+            for key, entry in list(self._entries.items()):
+                seq = self._stamp_locked(key)  # a re-home is a mutation
+                if entry.binding.spec:
+                    del self._entries[key]
+                else:
+                    self._entries[key] = _Entry(entry.value, entry.epoch,
+                                                entry.binding, seq)
+            self._residuals.clear()
+            self.mesh = mesh
+            self.axis = axis
 
     def delete(self, key: str) -> None:
         self._settle()

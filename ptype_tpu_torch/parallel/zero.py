@@ -30,7 +30,16 @@ are PARTIAL sums, allreduced (summed over ranks) into the global norm,
 a device value the host never reads. The reference gets the same sum
 from XLA, a ``jnp.sum`` over a sharded flat being global.
 
-Not ported yet (ROADMAP, elastic): ``ZeroState.reshard``.
+Live elasticity rides the same math: :meth:`ZeroState.reshard` applies
+the ``ZeroCheckpoint`` re-pad in memory (strip the old tail pad, re-pad
+for the survivor count, keep this rank's new shard), staged and swapped
+in only after the last bucket lands, with the ``train.reshard`` chaos
+seam decided once, on rank 0, for every rank. The move runs over the
+OLD group while every old rank still answers; a rank whose process is
+gone cannot hand over its shard, and then the way back is
+``ZeroCheckpoint`` (the reshard raises ``ClusterError``).
+
+Not ported yet (ROADMAP): ``compiled_cost`` (with the profiling module).
 """
 
 from __future__ import annotations
@@ -40,12 +49,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from ptype_tpu_torch.errors import CheckpointError
+from ptype_tpu_torch import chaos
+from ptype_tpu_torch.checkpoint import Shard
+from ptype_tpu_torch.errors import CheckpointError, ClusterError
 from ptype_tpu_torch.parallel import collectives
 from ptype_tpu_torch.parallel.collectives import (DEFAULT_BUCKET_BYTES,
                                                   Bucket, _unpack,
                                                   plan_buckets, torch_dtype)
-from ptype_tpu_torch.parallel.mesh import axis_group, axis_index, axis_n
+from ptype_tpu_torch.parallel.mesh import (agreed_drop, axis_group,
+                                           axis_index, axis_n)
 from ptype_tpu_torch.train.trainer import adamw_leaf_, clip_scale
 
 #: zero_plan.json schema version.
@@ -302,6 +314,74 @@ class ZeroState:
             return 0
         return sum(t.numel() * t.element_size() for t in self.pflat)
 
+    # ------------------------------------------------- live resharding
+
+    @torch.no_grad()
+    def reshard(self, mesh, axis: str | None = None) -> None:
+        """Re-place the WHOLE resident state (moments, masks, and the
+        ZeRO-3 param flats) onto the survivor ``mesh`` — the
+        ``ZeroCheckpoint`` reshard math in memory. Every rank of the OLD
+        mesh calls, in step; a rank that leaves passes ``mesh=None``: it
+        hands its shards over and keeps its old state. Each bucket's
+        flats are allgathered over the old group, and a survivor keeps
+        the rows of its new shard: values in ``[:total]`` are byte
+        copies, so the moments are bit-preserved.
+
+        ATOMIC: everything is staged and swapped in only after the last
+        bucket lands. The ``train.reshard`` seam fires once a bucket on
+        rank 0, and its decision reaches every rank before the bucket's
+        collective, so a ``drop`` raises ``ClusterError`` on all of them
+        with the old plan, group and shards intact (the caller retries).
+        A collective that fails (a rank whose process is gone) raises
+        ``ClusterError`` too: the way back is ``ZeroCheckpoint``."""
+        axis = axis or self.axis
+        old_group, old_n = axis_group(self.mesh, self.axis), self.plan.n
+        new_plan = (None if mesh is None
+                    else self.plan.with_n(axis_n(mesh, axis)))
+        groups = [("mu", self.mu), ("nu", self.nu), ("mask", self._masks)]
+        if self.pflat is not None:
+            groups.append(("p", self.pflat))
+        staged = {name: [] for name, _ in groups}
+        for i, old_b in enumerate(self.plan.buckets):
+            key = f"bucket{i:05d}"
+            if agreed_drop(self.mesh, "train.reshard", key):
+                raise ClusterError(f"chaos: reshard dropped at bucket {i} "
+                                   "(plan unchanged; retry)")
+            total = old_b.elems - old_b.pad
+            for name, acc in groups:
+                try:
+                    full = collectives._gather(acc[i], old_group,
+                                               old_n).reshape(-1)
+                except RuntimeError as e:
+                    raise ClusterError(
+                        f"reshard: bucket {i} {name} could not be "
+                        f"gathered from the old group ({e}); a rank "
+                        "that is gone cannot hand over its shard — "
+                        "restore from a ZeroCheckpoint") from e
+                if new_plan is None:
+                    continue
+                s = new_plan.shard_elems(new_plan.buckets[i])
+                lo = axis_index(mesh, axis) * s
+                hi = min(lo + s, total)
+                out = torch.zeros(s, dtype=full.dtype, device=mesh.device)
+                if hi > lo:
+                    out[:hi - lo].copy_(full[lo:hi])
+                staged[name].append(out)
+            # Per-bucket recovery beacon, paired with the bucket's hit.
+            chaos.note_ok("train.reshard", key)
+        if new_plan is None:
+            return
+        # -- atomic swap: nothing above mutated self.
+        self.plan = new_plan
+        self.mesh = mesh
+        self.axis = axis
+        self.mu = staged["mu"]
+        self.nu = staged["nu"]
+        self._masks = staged["mask"]
+        if self.pflat is not None:
+            self.pflat = staged["p"]
+        chaos.note_ok("train.reshard", f"n={new_plan.n}")
+
     # ------------------------------------------------------- checkpoint
 
     def _full(self, shard: torch.Tensor) -> np.ndarray:
@@ -313,7 +393,8 @@ class ZeroState:
         """The checkpointable tree in the reference's layout, each flat
         whole (allgathered to the host: every rank must call): per-bucket
         moments, the ZeRO-3 param flats, and the schedule count. Masks
-        are derived state, rebuilt from the params."""
+        are derived state, rebuilt from the params. A checkpoint writes
+        :meth:`shard_tree` instead."""
         nb = len(self.plan.buckets)
         tree = {"buckets": {f"{i:05d}": {"mu": self._full(self.mu[i]),
                                          "nu": self._full(self.nu[i])}
@@ -324,29 +405,81 @@ class ZeroState:
                                 for i in range(nb)}
         return tree
 
+    def shard_tree(self) -> dict:
+        """:meth:`state_tree`'s layout with each flat as this rank's own
+        :class:`~ptype_tpu_torch.checkpoint.Shard` (``start = rank ·
+        shard_len``) — what ``ZeroCheckpoint`` writes: no flat is ever
+        gathered whole."""
+        r = axis_index(self.mesh, self.axis)
+
+        def own(shard, b):
+            return Shard(shard, (r * shard.shape[0],), (b.elems,))
+
+        buckets = self.plan.buckets
+        tree = {"buckets": {f"{i:05d}": {"mu": own(self.mu[i], b),
+                                         "nu": own(self.nu[i], b)}
+                            for i, b in enumerate(buckets)},
+                "count": np.int32(self.count)}
+        if self.pflat is not None:
+            tree["pbuckets"] = {f"{i:05d}": {"p": own(self.pflat[i], b)}
+                                for i, b in enumerate(buckets)}
+        return tree
+
     def load_state_tree(self, tree: dict, saved_plan: dict) -> None:
         """Install a saved state (whole host flats: this package's
         :meth:`state_tree`, or the reference's as numpy), RE-SHARDING
         when the saved rank count differs: strip the old tail pad, pad
         for this plan, keep this rank's shard."""
+
+        def read(path, lo, hi):
+            node = tree
+            for k in path:
+                node = node[k]
+            full = (node if torch.is_tensor(node)
+                    else torch.from_numpy(np.array(node)))
+            return full.reshape(-1), full[lo:hi]
+
+        self._load(read, saved_plan, "pbuckets" in tree)
+        # reshape(-1)[0]: a checkpointer may round-trip 0-d as (1,).
+        self.count = int(np.asarray(tree["count"]).reshape(-1)[0])
+
+    def load_shards(self, reader, saved_plan: dict) -> None:
+        """Install a saved step from a checkpoint ``StepReader``, reading
+        only the rows of this rank's new shards (the re-pad of
+        :meth:`load_state_tree`, without materializing any flat)."""
+
+        def read(path, lo, hi):
+            key = ".".join(path)
+            return reader.entry(key), reader.read(key, lo, hi)
+
+        has_p = "pbuckets.00000.p" in reader.manifest["leaves"]
+        self._load(read, saved_plan, has_p)
+        self.count = int(reader.read("count").reshape(-1)[0])
+
+    def _load(self, read, saved_plan: dict, has_p: bool) -> None:
+        """The restore re-pad: for each bucket and flat, ``read(path, lo,
+        hi)`` gives (the saved flat or its manifest entry, its rows
+        ``[lo, hi)``); rows past the saved total are the new tail pad."""
         check_plan_compatible(saved_plan, self.plan.manifest())
         saved_buckets = saved_plan["buckets"]
+        r = axis_index(self.mesh, self.axis)
+        groups = [("mu", "buckets", self.mu), ("nu", "buckets", self.nu)]
+        if self.pflat is not None and has_p:
+            groups.append(("p", "pbuckets", self.pflat))
         for i, b in enumerate(self.plan.buckets):
             total = b.elems - b.pad
             want = total + int(saved_buckets[i]["pad"])
-            node = tree["buckets"][f"{i:05d}"]
-            groups = [("mu", self.mu, node), ("nu", self.nu, node)]
-            if self.pflat is not None and "pbuckets" in tree:
-                groups.append(("p", self.pflat,
-                               tree["pbuckets"][f"{i:05d}"]))
-            for name, acc, node in groups:
-                full = np.asarray(node[name])
-                if full.shape != (want,):
+            s = self.plan.shard_elems(b)
+            lo = min(r * s, total)
+            hi = max(lo, min((r + 1) * s, total))
+            for name, top, acc in groups:
+                whole, rows = read((top, f"{i:05d}", name), lo, hi)
+                shape = (tuple(whole["shape"]) if isinstance(whole, dict)
+                         else tuple(whole.shape))
+                if shape != (want,):
                     raise CheckpointError(
                         f"zero restore: bucket {i} {name} has "
-                        f"{full.shape} elements, manifest says {want}")
-                out = torch.zeros(b.elems, dtype=acc[i].dtype)
-                out[:total] = torch.from_numpy(np.array(full[:total]))
-                acc[i] = self._shard(out).to(self.device).clone()
-        # reshape(-1)[0]: a checkpointer may round-trip 0-d as (1,).
-        self.count = int(np.asarray(tree["count"]).reshape(-1)[0])
+                        f"{shape} elements, manifest says {want}")
+                out = torch.zeros(s, dtype=acc[i].dtype)
+                out[:rows.shape[0]] = rows.to(out.dtype)
+                acc[i] = out.to(self.device)

@@ -39,8 +39,12 @@ the AdamW moments 1/n:
 Entry point: runs on ``cuda`` unless ``device`` names another (the
 store's mesh's device); with no CUDA device and none named it raises.
 
-Not ported yet (ROADMAP): ``reshard`` and ``measure_reshard`` (elastic),
-``compiled_cost`` (with the profiling module).
+Live elasticity: :meth:`StoreDPTrainer.reshard` moves a ZeRO trainer
+onto a survivor mesh in memory (``ZeroState.reshard``, the store
+re-homed, params re-committed); :func:`measure_reshard` sets it against
+the checkpoint round trip it replaces, in step units.
+
+Not ported yet (ROADMAP): ``compiled_cost`` (with the profiling module).
 """
 
 from __future__ import annotations
@@ -384,6 +388,55 @@ class StoreDPTrainer:
                              "with zero=True")
         return self._zero
 
+    # ---------------------------------------------- live resharding
+
+    def reshard(self, mesh, axis: str | None = None) -> dict:
+        """LIVE reshard onto a survivor mesh — no checkpoint round trip.
+        Every rank of the current mesh calls in step: a survivor passes
+        the survivor mesh (:func:`~ptype_tpu_torch.parallel.mesh.
+        survivor_mesh`), a rank that leaves passes None and only hands
+        its shards over. Re-pads and re-places the resident ZeRO state
+        (``ZeroState.reshard``: atomic, moments bit-preserved), re-homes
+        the store and re-commits the params; the next :meth:`step` runs
+        on the survivors.
+
+        The move runs as a ``train.reshard`` region with the
+        ``train.reshard_inflight`` gauge and the ``train.reshards``
+        counter (the ``reshard-stall`` health rule's series). On a raise
+        (the ``train.reshard`` seam's drop, a rank that cannot answer)
+        everything is left intact and the inflight gauge stays up: that
+        IS the stall signal, and the caller retries."""
+        if not self.zero:
+            raise ValueError(
+                "StoreDPTrainer.reshard: live resharding needs the "
+                "sharded ZeRO state — construct with zero=True/1/2/3 "
+                "(replicated modes restart from a checkpoint instead)")
+        axis = axis or self.axis
+        old_n = self.n_workers
+        new_n = None if mesh is None else axis_n(mesh, axis)
+        t0 = _time.perf_counter()
+        metrics.gauge("train.reshard_inflight").set(1.0)
+        with annotate("train.reshard"):
+            self.store._settle()
+            self._zero.reshard(mesh, axis)
+            if mesh is not None:
+                self.store.reshard(mesh, axis)
+                self.mesh = mesh
+                self.axis = axis
+                self.n_workers = new_n
+                if self.zero_stage == 3:
+                    for bi, flat in enumerate(self._zero.pflat):
+                        self.store.commit_sharded(f"params/bucket{bi:05d}",
+                                                  flat)
+                    self._params_seq = self.store.tree_seq("params")
+                else:
+                    self._params_seq = self.store.put_tree("params",
+                                                           self._tree())
+        metrics.gauge("train.reshard_inflight").set(0.0)
+        metrics.counter("train.reshards").add(1)
+        return {"old_n": old_n, "new_n": new_n,
+                "reshard_ms": (_time.perf_counter() - t0) * 1e3}
+
     # ---------------------------------------------- fine-grained overlap
 
     def _reduce_apply_overlapped(self, grads) -> None:
@@ -556,4 +609,108 @@ def measure_zero_ladder(mesh, preset: str = "tiny", steps: int = 4,
         "repl_param_mem_mb": rows["repl"]["param_mem_mb"],
         "n_replicas": axis_n(mesh, "data"),
         "steps": steps,
+    }
+
+
+def measure_reshard(mesh, survivors=None, preset: str = "tiny",
+                    steps: int = 3, batch: int = 16, seq: int | None = None,
+                    zero: int = 2, device=None,
+                    workdir: str | None = None) -> dict:
+    """Live reshard vs the checkpoint round trip it replaces: train on
+    ``mesh``, move to the ``survivors`` (global ranks; default all of
+    them) both ways, and report each recovery in STEP units
+    (``reshard_resume_steps``: wall time until the first survivor step
+    is done, over the steady step time; ``new_group_ms`` the part spent
+    making the survivor group and running its first collective). The live path is
+    :meth:`StoreDPTrainer.reshard`; the baseline is ``ZeroCheckpoint`` +
+    ``StoreCheckpoint`` save → a fresh trainer on the survivors →
+    restore → the first step. Every rank of ``mesh`` calls; a rank not
+    among the survivors leaves after handing over its shards (its
+    numbers are None). ``workdir``: where the checkpoints go (a shared
+    directory), a temporary one when None."""
+    import shutil
+    import tempfile
+
+    from ptype_tpu_torch.checkpoint import StoreCheckpoint, ZeroCheckpoint
+    from ptype_tpu_torch.parallel.mesh import group_ranks, survivor_mesh
+
+    device = resolve_device(device)
+    if workdir is None and mesh.size > 1:
+        raise ValueError("measure_reshard: ranks write one checkpoint "
+                         "together; pass a shared workdir")
+    cfg = tfm.preset(preset)
+    seq = seq or min(cfg.max_seq, 128)
+    ranks = group_ranks(mesh) if survivors is None else sorted(survivors)
+    stays = torch.distributed.get_rank() in ranks
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def trained():
+        tr = _probe_trainer(cfg, mesh, device, zero=zero)
+        stream = _batches(cfg, batch, seq, device, seed=5)
+        tr.step(next(stream))
+        sync()
+        t0 = _time.perf_counter()
+        for _ in range(steps):
+            tr.step(next(stream))
+        sync()
+        return tr, (_time.perf_counter() - t0) / steps, stream
+
+    # Live path: the survivor group, reshard, the first survivor step.
+    tr, step_s, stream = trained()
+    t0 = _time.perf_counter()
+    new = survivor_mesh(mesh, ranks, device=device)
+    if stays:
+        # The new group's first collective: NCCL builds its
+        # communicator here, timed apart from the move.
+        collectives.all_reduce(torch.zeros(1, device=device), new)
+        sync()
+    group_s = _time.perf_counter() - t0
+    info = tr.reshard(new)
+    if stays:
+        tr.step(next(stream))
+        sync()
+    live_s = _time.perf_counter() - t0
+    del tr
+
+    # The checkpoint path on an identical twin: save, a fresh trainer on
+    # the survivors, restore, the first step.
+    twin, _, stream2 = trained()
+    root = workdir or tempfile.mkdtemp(prefix="reshard-")
+    try:
+        t0 = _time.perf_counter()
+        ZeroCheckpoint(root + "/zero").save(steps, twin.zero_state())
+        StoreCheckpoint(twin.store, root + "/store",
+                        keys_prefix="params/").save(steps)
+        new2 = survivor_mesh(mesh, ranks, device=device)
+        if stays:
+            fresh = _probe_trainer(cfg, new2, device, zero=zero)
+            StoreCheckpoint(fresh.store, root + "/store",
+                            keys_prefix="params/").resume()
+            ZeroCheckpoint(root + "/zero").restore_into(fresh.zero_state())
+            if zero == 3:
+                for bi, flat in enumerate(fresh.zero_state().pflat):
+                    fresh.store.commit_sharded(f"params/bucket{bi:05d}",
+                                               flat)
+            fresh.step(next(stream2))
+            sync()
+        ckpt_s = _time.perf_counter() - t0
+    finally:
+        if workdir is None:
+            shutil.rmtree(root, ignore_errors=True)
+    if not stays:
+        return {"zero_stage": zero, "left": True, "old_n": info["old_n"]}
+    return {
+        "zero_stage": zero,
+        "old_n": info["old_n"], "new_n": info["new_n"],
+        "step_ms": step_s * 1e3,
+        "new_group_ms": group_s * 1e3,
+        "reshard_ms": info["reshard_ms"],
+        "live_resume_ms": live_s * 1e3,
+        "ckpt_resume_ms": ckpt_s * 1e3,
+        "reshard_resume_steps": live_s / step_s,
+        "ckpt_resume_steps": ckpt_s / step_s,
+        "resume_speedup": ckpt_s / live_s,
     }

@@ -33,7 +33,7 @@ import torch
 from ptype_tpu_torch import metrics
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.models import transformer as tfm
-from ptype_tpu_torch.models.weights import init_params
+from ptype_tpu_torch.models.weights import init_params, param_shapes
 
 #: Batch keys the loss reads; other keys of a stream are dropped.
 BATCH_KEYS = ("tokens", "targets", "loss_mask")
@@ -270,6 +270,56 @@ def default_optimizer_pieces(lr: float = 3e-4, weight_decay: float = 0.1,
     return hp.clip, lambda mask: AdamW(hp, mask=mask)
 
 
+# ------------------------------------------------------- checkpoints
+
+
+def state_tree(state: TrainState) -> dict:
+    """``state`` in the reference ``TrainState``'s checkpoint layout: a
+    ``Checkpointer`` writes the reference's flat keys — ``0.<param>``,
+    ``1.1.0..count``, ``1.1.0..mu.<param>``, ``1.1.0..nu.<param>``,
+    ``1.1.2..count`` (the schedule's count) and ``2`` (the step) — so a
+    step directory moves between the packages either way. (The
+    reference's state is ``(params, optax chain state, step)``: the
+    chain's clip state and the mask wrapper hold no arrays.)"""
+    opt = state.opt_state
+    count = np.int32(opt.count)
+    return {"0": state.params,
+            "1": {"1": {"0": {".count": count, ".mu": opt.mu, ".nu": opt.nu},
+                        "2": {".count": count}}},
+            "2": np.int32(state.step)}
+
+
+def read_state(reader, state: TrainState) -> TrainState:
+    """Copy a saved step in the reference's ``TrainState`` layout
+    (:func:`state_tree`) into ``state``'s tensors in place, from a
+    checkpoint ``StepReader``: this package's saves, or the reference
+    ``Checkpointer``'s of its ``TrainState`` (params, the default
+    recipe's optax state, step). Returns ``state``."""
+    with torch.no_grad():
+        for path, leaf in _flatten(state_tree(state)):
+            if torch.is_tensor(leaf):
+                leaf.copy_(reader.read(".".join(path)))
+    state.opt_state.count = int(reader.read("1.1.0..count"))
+    state.step = int(reader.read("2"))
+    return state
+
+
+def load_reference_state(directory: str, cfg: tfm.TransformerConfig,
+                         step: int | None = None, device=None) -> TrainState:
+    """The ``TrainState`` a reference ``Checkpointer`` saved under
+    ``directory`` (latest complete step by default) as the port's, on
+    ``device``: params in ``cfg.param_dtype``, AdamW moments in f32.
+    Entry point: ``cuda`` unless ``device`` names another."""
+    from ptype_tpu_torch.checkpoint import Checkpointer
+
+    device = resolve_device(device)
+    params = _unflatten((path, torch.zeros(shape, dtype=cfg.param_dtype,
+                                           device=device))
+                        for path, shape in _flatten(param_shapes(cfg)))
+    state = TrainState(params, AdamW().init(params), 0)
+    return read_state(Checkpointer(directory).reader(step), state)
+
+
 def _batch_on(batch: dict, device) -> dict:
     out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()
            if k in BATCH_KEYS}
@@ -446,6 +496,28 @@ class Trainer:
         """Drain the device queue (call before reading final stats)."""
         self._drain()
         self._fold_pending()
+
+    def save(self, ckpt, background: bool = False) -> int:
+        """Checkpoint the state at its current step with ``ckpt`` (a
+        :class:`~ptype_tpu_torch.checkpoint.Checkpointer`) in the
+        reference's layout; ``background`` snapshots now and writes on
+        the checkpointer's thread (``ckpt.wait()`` joins it). Returns
+        the step."""
+        step = int(self.state.step)
+        if background:
+            ckpt.async_save(step, state_tree(self.state))
+        else:
+            ckpt.save(step, state_tree(self.state))
+        return step
+
+    def restore(self, ckpt, step: int | None = None) -> int:
+        """Load a saved step (latest by default) into this trainer's
+        state in place: this package's :meth:`save`, or a reference
+        ``TrainState`` saved by the reference's ``Checkpointer``.
+        Returns the step."""
+        self.sync()
+        read_state(ckpt.reader(step), self.state)
+        return int(self.state.step)
 
     def evaluate(self, batches, steps: int) -> dict:
         """Held-out mean loss and perplexity at the current parameters,

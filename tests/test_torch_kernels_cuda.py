@@ -467,3 +467,91 @@ def test_store_dp_trainer_with_no_device_runs_on_the_card_only(meshes):
         build_mesh({"data": 1}, group=gloo.group, device="cuda")
     tr = StoreDPTrainer(cfg, TensorStore(nccl))
     assert tr.device.type == "cuda"
+
+
+# ------------------------------------------------- checkpoint and elastic
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """Card tensors (f32, bf16, a Shard of a card tensor) saved and
+    restored onto the card bit for bit; restore with no device named
+    lands on cuda."""
+    from ptype_tpu_torch.checkpoint import Checkpointer, Shard
+
+    w = torch.randn(64, 32, generator=cuda, device="cuda")
+    tree = {"w": w, "b": w[:4].to(torch.bfloat16), "n": 3,
+            "half": Shard(w[:32], (0, 0), (32, 32))}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, tree)
+    got = ck.restore({"w": 0, "b": 0, "n": 0, "half": 0})
+    assert all(v.device.type == "cuda" for v in got.values())
+    assert torch.equal(got["w"], w) and torch.equal(got["b"], tree["b"])
+    assert torch.equal(got["half"], w[:32]) and int(got["n"]) == 3
+
+
+def test_async_save_races_an_in_place_adamw_step(cuda, tmp_path):
+    """The snapshot is a copy enqueued on the step's stream: the next
+    step, dispatched right after ``async_save`` returns and updating
+    params and moments in place, cannot reach the saved bytes."""
+    from ptype_tpu_torch.checkpoint import Checkpointer
+    from ptype_tpu_torch.train import trainer as tr_mod
+
+    tr = Trainer(NARROW, device="cuda", sync_every=0,
+                 optimizer=default_optimizer(lr=1e-2, warmup=1))
+    stream = synthetic_batches(256, 4, 64, seed=1, device="cuda")
+    batches = [next(stream) for _ in range(2)]
+    tr.step(batches[0])
+    ck = Checkpointer(str(tmp_path))
+    tr.save(ck, background=True)
+    tr.step(batches[1])  # in place, right behind the snapshot's copies
+    torch.cuda.synchronize()
+    want = Trainer(NARROW, device="cuda", sync_every=0,
+                   optimizer=default_optimizer(lr=1e-2, warmup=1))
+    want.step(batches[0])
+    ck.wait()
+    got = Trainer(NARROW, device="cuda", sync_every=0,
+                  generator=torch.Generator().manual_seed(3))
+    assert got.restore(ck) == 1
+    from ptype_tpu_torch.checkpoint import _flatten
+
+    for (p, a), (_, b) in zip(_flatten(tr_mod.state_tree(got.state)),
+                              _flatten(tr_mod.state_tree(want.state))):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b), p
+    moved = tr_mod.state_tree(tr.state)["0"]["embed"]
+    assert not torch.equal(moved, got.state.params["embed"])
+
+
+@pytest.mark.parametrize("zero", [2, 3])
+def test_live_reshard_at_world_1_on_nccl(meshes, zero):
+    """StoreDPTrainer.reshard onto a new world-1 NCCL group (with its
+    gloo control group) mid-run: the next steps equal an uninterrupted
+    trainer's bit for bit."""
+    from ptype_tpu_torch.parallel.mesh import survivor_mesh
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    nccl, _ = meshes
+    cfg = NARROW
+    stream = synthetic_batches(cfg.vocab_size, 4, 64, seed=2, device="cuda")
+    batches = [next(stream) for _ in range(4)]
+
+    def trainer():
+        return StoreDPTrainer(
+            cfg, TensorStore(nccl), zero=zero,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+
+    a, b = trainer(), trainer()
+    la = [a.step(x)["loss"] for x in batches]
+    lb = [b.step(x)["loss"] for x in batches[:2]]
+    new = survivor_mesh(nccl, [0])
+    assert new.backend == "nccl" and new.control is not None
+    info = b.reshard(new)
+    assert (info["old_n"], info["new_n"]) == (1, 1)
+    lb += [b.step(x)["loss"] for x in batches[2:]]
+    assert la == lb
+    pa, pb = a.params(), b.params()
+    from ptype_tpu_torch.checkpoint import _flatten
+
+    for (p, x), (_, y) in zip(_flatten(pa), _flatten(pb)):
+        assert torch.equal(x, y), p

@@ -63,7 +63,7 @@ def test_no_source_imports_jax_or_the_reference_package(path):
             assert root not in ("jax", "jaxlib", "ptype_tpu"), (path, n)
 
 
-def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
+def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from ptype_tpu_torch.device import resolve_device
@@ -90,6 +90,18 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu():
         TensorStore(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StoreDPTrainer(cfg, None)
+    from ptype_tpu_torch.checkpoint import Checkpointer
+    from ptype_tpu_torch.elastic import ElasticZeroTrainer
+    from ptype_tpu_torch.train.trainer import load_reference_state
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticZeroTrainer(cfg, None, "svc", None)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore({"w": 0})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_reference_state(str(tmp_path), cfg)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 

@@ -350,7 +350,258 @@ def store_dp_suite(mesh, inp: dict) -> dict:
     return _np(out)
 
 
-SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite}
+def _zero_state(mesh, n, leaves, inp, count=0):
+    """A ZeroState over ``leaves`` whose moments hold recognizable values
+    (``arange + 1`` and half of it over each bucket's payload)."""
+    from ptype_tpu_torch.parallel.zero import ShardPlan, ZeroState
+    from ptype_tpu_torch.train.trainer import default_optimizer_hparams
+
+    plan = ShardPlan.for_leaves(leaves, n, inp["bucket_bytes"])
+    zs = ZeroState.create(plan, mesh, "data", default_optimizer_hparams(),
+                          inp["mask"])
+    for i, b in enumerate(plan.buckets):
+        v = torch.zeros(b.elems)
+        v[:b.elems - b.pad] = torch.arange(b.elems - b.pad,
+                                           dtype=torch.float32) + 1.0
+        zs.mu[i] = zs._shard(v).clone()
+        zs.nu[i] = zs._shard(v * 0.5).clone()
+    zs.count = count
+    return zs
+
+
+def _zero_view(zs) -> dict:
+    """Every flat of a ZeroState whole (all its ranks call together)."""
+    out = {"mu": [zs._full(x) for x in zs.mu],
+           "nu": [zs._full(x) for x in zs.nu],
+           "mask": [zs._full(x) for x in zs._masks],
+           "count": zs.count, "plan": zs.plan.manifest(),
+           "shard_elems": [int(x.numel()) for x in zs.mu]}
+    if zs.pflat is not None:
+        out["p"] = [zs._full(x) for x in zs.pflat]
+        out["params"] = zs.gather_params()
+    return out
+
+
+def _elastic_trainer_runs(mesh, inp, out) -> None:
+    """``ElasticZeroTrainer`` on every rank, rank 0 holding the registry
+    (the workers' registrations simulated in its process): a run without
+    a fault; every worker revoked (no survivors); a duplicate
+    registration lost (a 4 → 4 reshard); a worker lost (4 → 3)."""
+    import time
+
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.elastic import (ElasticZeroTrainer,
+                                         MembershipChanged, inject_loss)
+    from ptype_tpu_torch.errors import ClusterError
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.registry import CoordRegistry
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    r, n = mesh.rank, mesh.size
+    cfg = tfm.preset("tiny", dtype=torch.float32, attn_impl="xla")
+    batches = inp["batches12"]
+    kw = dict(zero=2, params=inp["params"], device="cpu")
+    reg = None
+    if r == 0:
+        reg = CoordRegistry(LocalCoord(CoordState(sweep_interval=0.05)),
+                            lease_ttl=0.5)
+
+    def workers(service, extra=()):
+        if r != 0:
+            return []
+        regs = [reg.register(service, f"w{i}", "127.0.0.1", 9100 + i,
+                             process_id=i) for i in range(n)]
+        for j, pid in enumerate(extra):
+            regs.append(reg.register(service, f"dup{j}", "127.0.0.1",
+                                     9200 + j, process_id=pid))
+        return regs
+
+    def wait_for(pred):
+        deadline = time.monotonic() + 10
+        while not pred() and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    def losses(t, idxs):
+        return [t.step(batches[i])["loss"] for i in idxs]
+
+    base = StoreDPTrainer(cfg, TensorStore(mesh, device="cpu"), **kw)
+    out["no_fault"] = {"losses": losses(base, range(4)),
+                       "params": base.params()}
+    del base
+
+    # No survivors: every registration revoked.
+    regs = workers("zsvc")
+    t = ElasticZeroTrainer(cfg, reg, "zsvc", mesh, **kw)
+    for h in regs:
+        inject_loss(h)
+    if r == 0:
+        wait_for(lambda: not t.detector.current())
+    try:
+        t.recover()
+        out["no_survivors"] = None
+    except ClusterError as e:
+        out["no_survivors"] = str(e)
+    t.close()
+
+    def faulted(service, extra, victim):
+        regs = workers(service, extra)
+        t = ElasticZeroTrainer(cfg, reg, service, mesh, **kw)
+        got = losses(t, [0, 1])
+        t0 = time.perf_counter()
+        if r == 0:
+            inject_loss(regs[victim])
+            wait_for(lambda: t.detector.changed)
+        row = {"detect_s": time.perf_counter() - t0}
+        try:
+            t.step(batches[2])
+            row["raised"] = None
+        except MembershipChanged as e:
+            row["raised"] = {"lost": e.lost, "joined": e.joined}
+        row["recover"] = t.recover()
+        row["left"] = t.left
+        if not t.left:
+            got += losses(t, [2, 3])
+            row["params"] = t.params()
+            row["n_workers"] = t.trainer.n_workers
+        row["losses"] = got
+        t.close()
+        for h in regs:
+            h.close()
+        return row
+
+    out["dup_lost"] = faulted("dupsvc", [0], n)
+    out["worker_lost"] = faulted("elsvc", [], n - 1)
+
+
+def elastic_suite(mesh, inp: dict) -> dict:
+    """Live resharding on n ranks: ``ZeroState.reshard`` onto survivor
+    meshes (moments, masks, ZeRO-3 flats), a chaos drop mid-move, the
+    ``ZeroCheckpoint`` across rank counts and packages, and
+    ``StoreDPTrainer.reshard`` and ``ElasticZeroTrainer`` runs."""
+    from ptype_tpu_torch import chaos
+    from ptype_tpu_torch.checkpoint import StoreCheckpoint, ZeroCheckpoint
+    from ptype_tpu_torch.errors import ClusterError
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel.mesh import survivor_mesh
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    r, n = mesh.rank, mesh.size
+    out: dict = {"moves": {}}
+    leaves = [_t(x) for x in inp["leaves"]]
+
+    def sub(ranks):
+        """The mesh over ``ranks`` (None off it); every rank calls."""
+        return (mesh if list(ranks) == list(range(n))
+                else survivor_mesh(mesh, ranks, device="cpu"))
+
+    # ZeroState.reshard onto survivors.
+    for name, (src, dst) in inp["moves"].items():
+        old, new = sub(src), sub(dst)
+        if old is None:
+            continue
+        zs = _zero_state(old, len(src), leaves, inp, count=7)
+        zs.scatter_params(leaves)
+        zs.reshard(new)
+        if new is not None:
+            out["moves"][name] = _zero_view(zs)
+
+    # A drop at the middle bucket: the old plan on every rank, then a
+    # retry that lands.
+    zs = _zero_state(mesh, n, leaves, inp, count=5)
+    before_plan, before_mu = zs.plan, [x.clone() for x in zs.mu]
+    keep = [0, 1]
+    drop = {}
+    if r == 0:
+        chaos.arm(chaos.FaultPlan([chaos.FaultSpec(
+            site="train.reshard", action="drop", match="bucket00001",
+            times=1)], name="reshard-drop"))
+    new = sub(keep)
+    try:
+        zs.reshard(new)
+        drop["raised"] = None
+    except ClusterError as e:
+        drop["raised"] = str(e)
+    drop["old_plan_kept"] = (zs.plan is before_plan and zs.mesh is mesh
+                             and all(torch.equal(a, b) for a, b in
+                                     zip(zs.mu, before_mu)))
+    drop["unrecovered_after_drop"] = chaos.unrecovered()
+    zs.reshard(new)
+    drop["unrecovered_after_retry"] = chaos.unrecovered()
+    chaos.disarm()
+    if new is not None:
+        drop["after"] = _zero_view(zs)
+    out["drop"] = drop
+
+    # ZeroCheckpoint across rank counts and packages: written here at n,
+    # and the reference's (written at n) restored at 2.
+    zs = _zero_state(mesh, n, leaves, inp, count=7)
+    zs.scatter_params(leaves)
+    ZeroCheckpoint(inp["port_zero_dir"]).save(3, zs)
+    m2 = sub([0, 1])
+    if m2 is not None:
+        restored = {}
+        for which in ("ref_zero_dir", "port_zero_dir"):
+            dst = _zero_state(m2, 2, leaves, inp)
+            dst.scatter_params([torch.zeros_like(x) for x in leaves])
+            for i in range(len(dst.mu)):
+                dst.mu[i].zero_()
+                dst.nu[i].zero_()
+            step = ZeroCheckpoint(inp[which]).restore_into(dst)
+            restored[which] = dict(_zero_view(dst), step=step)
+        out["zero_restore"] = restored
+
+    # StoreDPTrainer.reshard n → 2 mid-run, and the checkpoint drill.
+    cfg = tfm.preset("tiny", dtype=torch.float32, attn_impl="xla")
+    batches = inp["batches"]
+    for stage in (2, 3):
+        t = StoreDPTrainer(cfg, TensorStore(mesh, device="cpu"), zero=stage,
+                           params=inp["params"], device="cpu")
+        row = {"losses": [t.step(batches[i])["loss"] for i in range(3)]}
+        new = sub([0, 1])
+        row["info"] = t.reshard(new)
+        if new is not None:
+            row["losses"] += [t.step(batches[i])["loss"]
+                              for i in range(3, 6)]
+            row["params"] = t.params()
+            row["moment_elems"] = [int(x.numel())
+                                   for x in t.zero_state().mu]
+        out[f"live_zero{stage}"] = row
+    t = StoreDPTrainer(cfg, TensorStore(mesh, device="cpu"), zero=2,
+                       params=inp["params"], device="cpu")
+    for i in range(3):
+        t.step(batches[i])
+    ZeroCheckpoint(inp["drill_dir"] + "/zero").save(3, t.zero_state())
+    StoreCheckpoint(t.store, inp["drill_dir"] + "/store",
+                    keys_prefix="params/").save(3)
+    drill = {"uninterrupted": [t.step(batches[i])["loss"]
+                               for i in range(3, 6)]}
+    m2 = sub([0, 1])
+    if m2 is not None:
+        t2 = StoreDPTrainer(cfg, TensorStore(m2, device="cpu"), zero=2,
+                            device="cpu")
+        StoreCheckpoint(t2.store, inp["drill_dir"] + "/store",
+                        keys_prefix="params/").resume()
+        drill["step"] = ZeroCheckpoint(inp["drill_dir"] + "/zero"
+                                       ).restore_into(t2.zero_state())
+        drill["count"] = t2.zero_state().count
+        drill["resumed"] = [t2.step(batches[i])["loss"]
+                            for i in range(3, 6)]
+    out["drill"] = drill
+
+    from ptype_tpu_torch.train.store_dp import measure_reshard
+
+    out["measure_reshard"] = measure_reshard(
+        mesh, survivors=[0, 1], steps=2, batch=8, seq=32, zero=2,
+        device="cpu", workdir=inp["measure_dir"])
+    _elastic_trainer_runs(mesh, inp, out)
+    return _np(out)
+
+
+SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite,
+          "elastic": elastic_suite}
 
 
 def main(argv: list[str]) -> None:
