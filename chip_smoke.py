@@ -89,10 +89,11 @@ Run from the root of a checkout. Phases, each printing its own lines:
    for bit; the same for ZeRO-2 on the world-1 NCCL mesh through
    ZeroCheckpoint + StoreCheckpoint; a ZeroCheckpoint of seeded moments
    (optimus-125m's plan) written by 2 gloo CPU rank processes of this
-   script (``--zero-writer``, started at the phase's start) restores on
-   the card byte for byte; bytes written, save, snapshot (first and
-   with its pinned buffers reused), background write and restore ms,
-   the step while the write runs and without;
+   script (``--zero-writer``, started at the phase's start and joined
+   before its first timed figure) restores on the card byte for byte;
+   bytes written, save, snapshot (first and with its pinned buffers
+   reused), background write and restore ms, the step while the write
+   runs and without;
    elastic: ElasticZeroTrainer (ZeRO-2) with rank 0 registered and a
    second simulated registration of the same rank on a local
    coordinator (lease TTL 0.5 s); inject_loss on it, MembershipChanged,
@@ -1987,6 +1988,8 @@ def checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh):
         a, _ = new_trainer(torch, train_mod, cfg)
         ck = Checkpointer(os.path.join(root, "trainer"))
         la = [float(a.step(b)["loss"]) for b in batches[:2]]
+        # The writers' disk traffic must not overlap any timed figure.
+        join_zero_writers(writers)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         a.save(ck, background=True)
@@ -2080,7 +2083,6 @@ def checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh):
               f"checkpoint: launches fwd/dq/dkv {launches} != {want} each")
 
         # The 2-rank CPU ZeroCheckpoint, restored at world 1 on the card.
-        join_zero_writers(writers)
         leaves, masks = zero_writer_plan(torch, tfm)
         plan = ShardPlan.for_leaves(leaves, 1)
         zs = ZeroState.create(plan, mesh, "data",

@@ -75,22 +75,16 @@ class CoordBackend(abc.ABC):
     def close(self) -> None: ...
 
 
-def connect(
-    address: str | list[str],
-    *,
-    dial_timeout: float = 5.0,
-    in_process: bool = False,
-    discovery_interval: float = 0.0,
-) -> CoordBackend:
+def connect(address: str | list[str], *,
+            in_process: bool = False) -> CoordBackend:
     """Dial a coordination backend.
 
     ``in_process=True`` (or an address of the form ``local:<name>``) returns
     the shared in-process backend — the embedded-etcd-style test tier.
     The reference dials any other address over TCP (its ``RemoteCoord``);
     the port has no TCP client yet, so any other address raises
-    :class:`CoordinationError` rather than pretend to dial.
-    ``dial_timeout`` and ``discovery_interval`` are the reference's knobs,
-    accepted for the same signature and unused in-process.
+    :class:`CoordinationError` rather than pretend to dial (its
+    ``dial_timeout`` and ``discovery_interval`` come with that client).
     """
     from ptype_tpu_torch.coord.local import local_coord
     from ptype_tpu_torch.errors import CoordinationError

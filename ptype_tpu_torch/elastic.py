@@ -47,7 +47,7 @@ from ptype_tpu_torch import chaos, lockcheck, logs
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.errors import ClusterError
 from ptype_tpu_torch.parallel.mesh import (group_ranks, host_broadcast,
-                                           survivor_mesh, with_control)
+                                           survivor_mesh)
 from ptype_tpu_torch.parallel.topology import DATA_AXIS
 
 log = logs.get_logger("elastic")
@@ -149,7 +149,10 @@ def inject_loss(registration) -> None:
 
 def survivor_ranks(detector: FailureDetector, mesh) -> list[int]:
     """The survivor rank set: every registered worker's ``process_id``,
-    each of which must be a rank of ``mesh``'s current group."""
+    each of which must be a rank of ``mesh``'s current group. The
+    group's rank 0 must be among them: its process holds the detector
+    and the workers' registrations (until the cluster plane, ROADMAP
+    A8), so a live reshard cannot leave it behind."""
     ranks = sorted({int(n.process_id) for n in detector.current()})
     if not ranks:
         raise ClusterError("elastic: no surviving workers are registered")
@@ -158,6 +161,12 @@ def survivor_ranks(detector: FailureDetector, mesh) -> list[int]:
     if missing:
         raise ClusterError(f"elastic: registered ranks {missing} are not "
                            f"in the current group {group}")
+    if group[0] not in ranks:
+        raise ClusterError(
+            f"elastic: rank {group[0]}, which holds the failure detector "
+            f"and the registrations, is not among the survivors {ranks}; "
+            "a live reshard cannot go on without it, restore the "
+            "survivors from a ZeroCheckpoint instead")
     return ranks
 
 
@@ -192,7 +201,6 @@ class ElasticZeroTrainer:
         self.cfg = cfg
         self.mesh_axis = mesh_axis
         self.service_name = service_name
-        mesh = with_control(mesh)
         self.detector = None
         err = None
         if mesh.rank == 0:

@@ -22,15 +22,14 @@ one data axis over a ``dist.new_group`` of the surviving ranks, made by
 every rank of the current mesh (the leavers included). Host-side
 decisions that every rank must share (the elastic membership view, a
 reshard's chaos fault) travel over the mesh's **control group**: the
-group itself on gloo, a gloo group beside it on NCCL (:func:`with_control`),
-so agreeing on one costs no device synchronization.
+group itself on gloo, a gloo group beside it on NCCL (made by
+:func:`build_mesh`), so agreeing on one costs no device synchronization.
 
 Not ported: ``mesh_from_registry`` (the cluster plane, ROADMAP A8).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from dataclasses import dataclass, field
 
@@ -56,8 +55,8 @@ class Mesh:
     rank: int
     device: torch.device
     #: A gloo group over the same ranks for host-side agreement (the
-    #: group itself on gloo; None on NCCL until :func:`with_control`).
-    control: object = None
+    #: group itself on gloo).
+    control: object
 
     @property
     def size(self) -> int:
@@ -93,7 +92,24 @@ def build_mesh(axes: dict[str, int], axis_names: tuple[str, ...] | None = None,
     whose axis product is the group's size. ``axes`` is ordered (outer
     → inner); ``axis_names`` reorders or subsets it. ``device`` is this
     rank's device (cuda unless named; on cuda, the current card), and
-    must match the group's backend: a cuda mesh never runs on gloo."""
+    must match the group's backend: a cuda mesh never runs on gloo.
+
+    On NCCL it also makes the mesh's gloo control group, so every rank
+    of the default group calls, as for any ``dist.new_group``."""
+    if not dist.is_initialized():
+        raise ClusterError("build_mesh: no process group; call "
+                           "init_distributed first")
+    group = group if group is not None else dist.group.WORLD
+    names, shape, device = _layout(axes, axis_names, group, device)
+    control = group
+    if dist.get_backend(group) != "gloo":
+        control = dist.new_group(dist.get_process_group_ranks(group),
+                                 backend="gloo")
+    return Mesh(names, shape, group, dist.get_rank(group), device, control)
+
+
+def _layout(axes, axis_names, group, device):
+    """The checked (axis names, shape, device) of a mesh over ``group``."""
     if not axes:
         raise ClusterError("build_mesh: no mesh axes configured")
     pairs = [(name, int(size)) for name, size in axes.items()]
@@ -103,10 +119,6 @@ def build_mesh(axes: dict[str, int], axis_names: tuple[str, ...] | None = None,
         if missing:
             raise ClusterError(f"build_mesh: unknown axes {missing}")
         pairs = [(n, by_name[n]) for n in axis_names]
-    if not dist.is_initialized():
-        raise ClusterError("build_mesh: no process group; call "
-                           "init_distributed first")
-    group = group if group is not None else dist.group.WORLD
     need, have = math.prod(s for _, s in pairs), dist.get_world_size(group)
     if need != have:
         raise ClusterError(f"build_mesh: axes {dict(pairs)} need {need} "
@@ -119,23 +131,12 @@ def build_mesh(axes: dict[str, int], axis_names: tuple[str, ...] | None = None,
                            f"runs {backend}")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(tuple(n for n, _ in pairs), dict(pairs), group,
-                dist.get_rank(group), device,
-                group if backend == "gloo" else None)
+    return tuple(n for n, _ in pairs), dict(pairs), device
 
 
 def group_ranks(mesh: Mesh) -> list[int]:
     """The global ranks of the mesh's group, in group order."""
     return dist.get_process_group_ranks(mesh.group)
-
-
-def with_control(mesh: Mesh) -> Mesh:
-    """``mesh`` with a control group: a gloo group over its ranks (a
-    no-op on a gloo mesh). Every rank of the mesh calls, together."""
-    if mesh.control is not None:
-        return mesh
-    ctrl = dist.new_group(group_ranks(mesh), backend="gloo")
-    return dataclasses.replace(mesh, control=ctrl)
 
 
 def survivor_mesh(mesh: Mesh, ranks, axis: str = "data",
@@ -163,22 +164,18 @@ def survivor_mesh(mesh: Mesh, ranks, axis: str = "data",
             else dist.new_group(ranks, backend="gloo"))
     if dist.get_rank() not in ranks:
         return None
-    return dataclasses.replace(
-        build_mesh({axis: len(ranks)}, group=group, device=device),
-        control=ctrl)
+    names, shape, device = _layout({axis: len(ranks)}, None, group, device)
+    return Mesh(names, shape, group, dist.get_rank(group), device, ctrl)
 
 
 def host_broadcast(mesh: Mesh, value: int) -> int:
-    """Rank 0's ``value`` (an int) on every rank of the mesh: over the
-    control group when there is one (no device sync), else over the
-    data group through a device scalar."""
+    """Rank 0's ``value`` (an int) on every rank of the mesh, over the
+    control group (no device sync)."""
     if mesh.size == 1:
         return int(value)
-    group = mesh.control if mesh.control is not None else mesh.group
-    on = (torch.device("cpu") if mesh.control is not None
-          else mesh.device)
-    t = torch.tensor([int(value)], dtype=torch.int64, device=on)
-    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.broadcast(t, src=dist.get_global_rank(mesh.control, 0),
+                   group=mesh.control)
     return int(t.item())
 
 

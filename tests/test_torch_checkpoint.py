@@ -43,7 +43,8 @@ def fake_mesh(rank=0, size=1) -> Mesh:
     """A mesh that says "rank r of n" with no process group: enough for
     the checkpoint writers and the store's placement, which run no
     collective."""
-    return Mesh(("data",), {"data": size}, None, rank, torch.device("cpu"))
+    return Mesh(("data",), {"data": size}, None, rank, torch.device("cpu"),
+                None)
 
 
 def np_tree(seed=0) -> dict:

@@ -360,6 +360,20 @@ def test_elastic_recover_without_survivors_raises(run):
         assert "no surviving workers" in out["no_survivors"]
 
 
+def test_elastic_recover_without_rank_0_raises_on_every_rank(run):
+    """inject_loss on worker 0, whose process holds the detector and the
+    registrations: every rank raises MembershipChanged at the same step,
+    then ClusterError from recover naming the checkpoint way back, and
+    no rank leaves."""
+    outs, _ = run
+    for out in outs:
+        row = out["rank0_lost"]
+        assert row["raised"] == {"lost": ["127.0.0.1:9100"], "joined": []}
+        assert "not among the survivors" in row["recover"]
+        assert "ZeroCheckpoint" in row["recover"]
+        assert not row["left"]
+
+
 def test_measure_reshard_reports_both_recoveries_in_steps(run):
     """``measure_reshard`` 4 → 2 on the ranks: the survivors report the
     live reshard and the checkpoint round trip in step units; the

@@ -386,7 +386,8 @@ def _elastic_trainer_runs(mesh, inp, out) -> None:
     """``ElasticZeroTrainer`` on every rank, rank 0 holding the registry
     (the workers' registrations simulated in its process): a run without
     a fault; every worker revoked (no survivors); a duplicate
-    registration lost (a 4 → 4 reshard); a worker lost (4 → 3)."""
+    registration lost (a 4 → 4 reshard); a worker lost (4 → 3); rank 0's
+    worker lost (refused on every rank)."""
     import time
 
     from ptype_tpu_torch.coord.core import CoordState
@@ -473,6 +474,30 @@ def _elastic_trainer_runs(mesh, inp, out) -> None:
 
     out["dup_lost"] = faulted("dupsvc", [0], n)
     out["worker_lost"] = faulted("elsvc", [], n - 1)
+
+    # Rank 0 lost: it holds the detector and the registrations, so every
+    # rank refuses the live reshard (the way back is ZeroCheckpoint).
+    regs = workers("ctlsvc")
+    t = ElasticZeroTrainer(cfg, reg, "ctlsvc", mesh, **kw)
+    if r == 0:
+        inject_loss(regs[0])
+        wait_for(lambda: t.detector.changed)
+    row = {}
+    try:
+        t.step(batches[0])
+        row["raised"] = None
+    except MembershipChanged as e:
+        row["raised"] = {"lost": e.lost, "joined": e.joined}
+    try:
+        t.recover()
+        row["recover"] = None
+    except ClusterError as e:
+        row["recover"] = str(e)
+    row["left"] = t.left
+    t.close()
+    for h in regs:
+        h.close()
+    out["rank0_lost"] = row
 
 
 def elastic_suite(mesh, inp: dict) -> dict:
