@@ -33,6 +33,22 @@ Run from the root of a checkout. Phases, each printing its own lines:
    64 new tokens each: the paged kernel must run decode steps x 12
    layers times; greedy tokens in f32 equal the attn="gather" engine's;
    one bf16 decode step's logits agree between the two paths;
+   cluster_rpc: phases 3 and 4 served over the port's cluster plane.
+   The script seeds a TCP coordinator with ``join`` (lease TTL 1 s)
+   and starts a server process of itself (``--actor-server COORD``:
+   a GeneratorActor and an 8-slot PagedGeneratorActor at optimus-125m
+   from seed 0, joined as service ``llm``); ``new_client("llm")``
+   calls Generate on the (4, 512) int32 CUDA prompt, 32 new tokens (rpc,
+   in-process, in-process, rpc), and sends phase 4's requests queued in
+   a fixed order behind the server's dispatch lock: every reply lands
+   on the card equal to in-process actors' tokens, and the server's
+   counters show 24 flash launches (two prefills) and decode steps x
+   12 paged ones. It prints the empty-call round trip (p50/p99 us)
+   over TCP and through _LocalConn, GB/s each way for a 256 MB f32
+   CUDA tensor, the ms from the server's join to the client's first
+   connection, and after SIGKILL of the server the ms to the
+   registry's empty snapshot (at most TTL + sweep + 0.25 s) and to
+   NoClientAvailableError. The native wire must load on both sides;
 5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
    one repeated batch: forward, dq and dk/dv kernels each launched
    steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
@@ -123,6 +139,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2213,6 +2230,391 @@ def elastic_phase(torch, tfm, flash_mod, train_mod, mesh):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- cluster_rpc phase
+
+
+#: The cluster_rpc phase's lease TTL (s): a SIGKILLed server's
+#: registration lapses within it, and the seed's sweeper (its
+#: ``CoordState`` sweep interval) then deletes it.
+CLUSTER_TTL = 1.0
+#: Allowance on top of TTL + sweep for the watch push to reach the
+#: client (a relist and one frame on loopback).
+CLUSTER_DELIVERY_S = 0.25
+#: Empty calls timed a transport, and the size of the bulk tensor.
+RTT_CALLS = 2000
+BULK_ELEMS = 64 * 2**20          # 256 MB of f32
+
+
+class ServerProbe:
+    """The cluster_rpc server's own endpoints: its kernel launch
+    counters, an empty call, bulk transfers, and a gate that holds the
+    paged engine's dispatch lock while requests queue in a fixed order
+    (as ``run_in_order`` does in process)."""
+
+    def __init__(self, torch, flash_mod, paged_mod, native, engine):
+        self.torch, self.flash, self.paged = torch, flash_mod, paged_mod
+        self.native, self.engine = native, engine
+        self._held = threading.Event()
+        self._release = threading.Event()
+        self._holder = None
+
+    def Counters(self):
+        return {"flash_fwd": self.flash.flash_attention.launches,
+                "paged_decode": self.paged.paged_attention.launches,
+                "engine_steps": self.engine.Info()["engine_steps"],
+                "native": self.native.available()}
+
+    def Reset(self):
+        self.flash.flash_attention.launches = 0
+        self.paged.paged_attention.launches = 0
+
+    def Nop(self):
+        return None
+
+    def Recv(self, x):
+        """Where the tensor landed and its ends (the client checks them
+        against what it sent)."""
+        return [str(x.device), x.numel(), float(x[0]), float(x[-1])]
+
+    def Send(self, n):
+        return self.torch.arange(n, dtype=self.torch.float32, device="cuda")
+
+    def Echo(self, x):
+        return x
+
+    def Hold(self):
+        def hold():
+            with self.engine._lock:
+                self._held.set()
+                self._release.wait(600)
+
+        self._release.clear()
+        self._held.clear()
+        self._holder = threading.Thread(target=hold, daemon=True)
+        self._holder.start()
+        return self._held.wait(60)
+
+    def Queued(self):
+        return len(self.engine._queue) + (self.engine._admitting is not None)
+
+    def Release(self):
+        self._release.set()
+        self._holder.join(timeout=60)
+        return not self._holder.is_alive()
+
+
+def actor_server(coord):
+    """Helper mode (``--actor-server COORD``): the cluster_rpc phase's
+    server process. Builds a ``GeneratorActor`` and an 8-slot
+    ``PagedGeneratorActor`` (attn="kernel") at optimus-125m from seed-0
+    weights on the card, serves them as ``Generator`` and ``Paged`` and
+    a ``ServerProbe`` as ``Probe`` on an ``ActorServer`` (tensor
+    arguments decode onto ``cuda``), then joins the TCP coordinator at
+    COORD as service ``llm`` (lease TTL ``CLUSTER_TTL``). Prints one
+    JSON line (when it called ``join``, whether the native wire
+    loaded) and serves until killed."""
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from ptype_tpu_torch import (ActorServer, Config, PlatformConfig, join,
+                                 native)
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import flash_attention as flash_mod
+    from ptype_tpu_torch.ops import paged_attention as paged_mod
+    from ptype_tpu_torch.serve import GeneratorActor
+    from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tfm.preset("optimus-125m")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    engine = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                                 device="cuda", n_slots=8, block_tokens=16,
+                                 prefill_chunk=256)
+    server = ActorServer()
+    server.register(GeneratorActor(cfg, params=params, device="cuda"),
+                    "Generator")
+    server.register(engine, "Paged")
+    server.register(ServerProbe(torch, flash_mod, paged_mod, native,
+                                engine), "Probe")
+    server.serve()
+    join_called_at = time.time()
+    cluster = join(Config(
+        service_name="llm", node_name="actor-server", port=server.port,
+        initial_cluster_client_urls=[coord],
+        platform=PlatformConfig(name="actor-server", coordinator_address=coord,
+                                lease_ttl=CLUSTER_TTL)))
+    print(json.dumps({"join_called_at": join_called_at,
+                      "native": native.available()}), flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    finally:
+        cluster.close()
+        server.close()
+        engine.close()
+
+
+def wait_child_line(proc, path, log, timeout):
+    """The first line the child writes to ``path`` (JSON), or fail with
+    its log if it exits or stays silent past ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(path) as f:
+            line = f.readline()
+        if line.endswith("\n"):
+            return json.loads(line)
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    with open(log) as f:
+        tail = f.read()[-4000:]
+    raise SmokeError(f"cluster_rpc: the actor server wrote no ready line "
+                     f"(exit {proc.poll()}):\n{tail}")
+
+
+def percentiles_us(samples):
+    s = sorted(samples)
+    return {"p50_us": s[len(s) // 2] * 1e6,
+            "p99_us": s[min(len(s) - 1, int(len(s) * 0.99))] * 1e6}
+
+
+def rtt(client, n=RTT_CALLS):
+    for _ in range(50):
+        client.call("Probe.Nop")
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        client.call("Probe.Nop")
+        out.append(time.perf_counter() - t0)
+    return percentiles_us(out)
+
+
+def cluster_rpc_phase(torch, flash_mod, paged_mod, GeneratorActor,
+                      PagedGeneratorActor, params, prompt, gen_new, prompts,
+                      max_new, kw, card):
+    """The serving path through the port's cluster plane: a server
+    process (``--actor-server``) found through a TCP coordinator that
+    this process seeds with ``join``; ``new_client("llm")`` calls its
+    ``Generator`` and ``Paged`` with CUDA prompts, and the replies land
+    on the card equal, token for token, to in-process actors built from
+    the same seed. Returns the server's (flash, paged) launches."""
+    from ptype_tpu_torch import (ActorServer, Config, ConnConfig,
+                                 PlatformConfig, join, native, rpc)
+    from ptype_tpu_torch.errors import NoClientAvailableError
+    from ptype_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.preset("optimus-125m")
+    check(native.available(), "cluster_rpc: the native wire did not build")
+    local = ActorServer()
+    local.register(ServerProbe(torch, flash_mod, paged_mod, native, None),
+                   "Probe")
+    local.serve()
+    seed = join(Config(
+        service_name="local", node_name="smoke-seed", port=local.port,
+        platform=PlatformConfig(name="smoke-seed",
+                                coordinator_address="127.0.0.1:0",
+                                is_coordinator=True, lease_ttl=CLUSTER_TTL)))
+    addr = seed._owned_server.address
+    sweep = seed._owned_server.state._sweep_interval
+    work = tempfile.mkdtemp(prefix="chip_smoke_rpc_")
+    out_path, log_path = (os.path.join(work, n) for n in ("out", "log"))
+    with open(out_path, "w") as out_f, open(log_path, "w") as log_f:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--actor-server",
+             addr], stdout=out_f, stderr=log_f)
+    row = {"phase": "cluster_rpc", "preset": "optimus-125m", "card": card,
+           "lease_ttl_s": CLUSTER_TTL, "sweep_s": sweep}
+    client = local_client = engine = None
+    try:
+        conn_cfg = ConnConfig(initial_node_timeout=300, debounce_time=0.1,
+                              retries=0, call_timeout=600)
+        # new_client waits for the server's registration and dials it;
+        # meanwhile this thread watches the child, so a server that dies
+        # while it builds fails the phase at once.
+        dialed = {}
+
+        def dial():
+            try:
+                dialed["client"] = seed.new_client("llm", conn_cfg)
+                dialed["at"] = time.time()
+            except Exception as e:  # noqa: BLE001 — reported below
+                dialed["error"] = e
+
+        dialer = threading.Thread(target=dial, daemon=True)
+        dialer.start()
+        while dialer.is_alive() and child.poll() is None:
+            dialer.join(timeout=0.05)
+        ready = wait_child_line(child, out_path, log_path, 60)
+        dialer.join(timeout=300)
+        check("client" in dialed, f"cluster_rpc: no client: {dialed}")
+        client = dialed["client"]
+        row["join_to_first_connection_ms"] = (
+            (dialed["at"] - ready["join_called_at"]) * 1e3)
+        check(isinstance(client._conns.get(), rpc._Conn),
+              "cluster_rpc: the client did not dial the server over TCP")
+        row["native_wire"] = {"client": native.available(),
+                              "server": ready["native"]}
+        check(ready["native"], "cluster_rpc: the server's native wire "
+              "did not build")
+
+        # Generate: warm both sides, then rpc, in-process, in-process,
+        # rpc (the server's launches counted over the two rpc calls).
+        actor = GeneratorActor(cfg, params=params, device="cuda")
+        wire_prompt = prompt.to(torch.int32)  # the reference's token type
+        client.call("Generator.Generate", wire_prompt, gen_new)
+        actor.Generate(prompt, gen_new)
+        torch.cuda.synchronize()
+        client.call("Probe.Reset")
+        walls = {"rpc": [], "in_process": []}
+        outs = []
+        for side in ("rpc", "in_process", "in_process", "rpc"):
+            t0 = time.monotonic()
+            if side == "rpc":
+                outs.append(client.call("Generator.Generate", wire_prompt,
+                                        gen_new))
+            else:
+                want = actor.Generate(prompt, gen_new)
+            torch.cuda.synchronize()
+            walls[side].append(time.monotonic() - t0)
+        gen_counts = client.call("Probe.Counters")
+        del actor
+        check(all(o.device.type == "cuda" for o in outs),
+              f"cluster_rpc: Generate's reply landed on {outs[0].device}")
+        check(all(torch.equal(o, want) for o in outs), "cluster_rpc: "
+              "Generate over RPC differs from the in-process actor's tokens")
+        check(gen_counts["flash_fwd"] == 2 * cfg.n_layers,
+              f"cluster_rpc: {gen_counts['flash_fwd']} flash launches for "
+              f"two prefills, want {2 * cfg.n_layers}")
+        row.update({"generate_prompt": list(prompt.shape),
+                    "generate_max_new": gen_new,
+                    "generate_rpc_s": walls["rpc"],
+                    "generate_in_process_s": walls["in_process"],
+                    "generate_server_counters": gen_counts})
+
+        # Paged: phase 4's requests queued in a fixed order behind the
+        # server's dispatch lock, against an in-process engine's.
+        client.call("Probe.Reset")
+        steps0 = client.call("Probe.Counters")["engine_steps"]
+        check(client.call("Probe.Hold"), "cluster_rpc: gate not taken")
+        futs = []
+        for i, p in enumerate(prompts):
+            futs.append(client.go("Paged.Generate",
+                                  p.to("cuda", torch.int32)[None], max_new))
+            deadline = time.monotonic() + 60
+            while (client.call("Probe.Queued") < i + 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+        t0 = time.monotonic()
+        check(client.call("Probe.Release"), "cluster_rpc: gate stuck")
+        paged_got = [f.result(timeout=600) for f in futs]
+        row["paged_rpc_s"] = time.monotonic() - t0
+        paged_counts = client.call("Probe.Counters")
+        steps = paged_counts["engine_steps"] - steps0
+        engine = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+        t0 = time.monotonic()
+        paged_want = run_in_order(engine, [p.to("cuda") for p in prompts],
+                                  max_new)
+        row["paged_in_process_s"] = time.monotonic() - t0
+        engine.close()
+        engine = None
+        same = sum(int(torch.equal(a, b))
+                   for a, b in zip(paged_got, paged_want))
+        row.update({"paged_requests": len(prompts), "paged_decode_steps":
+                    steps, "paged_server_counters": paged_counts,
+                    "paged_rows_equal": same})
+        check(all(o.device.type == "cuda" for o in paged_got),
+              "cluster_rpc: paged replies not on the card")
+        check(same == len(prompts), f"cluster_rpc: {len(prompts) - same} "
+              "paged rows over RPC differ from the in-process engine's")
+        check(steps > 0 and paged_counts["paged_decode"]
+              == steps * cfg.n_layers,
+              f"cluster_rpc: paged launches {paged_counts['paged_decode']} "
+              f"!= decode steps {steps} x {cfg.n_layers}")
+
+        # Round trips of an empty call: TCP, and _LocalConn in process.
+        local_client = seed.new_client("local", conn_cfg)
+        check(isinstance(local_client._conns.get(), rpc._LocalConn),
+              "cluster_rpc: the in-process client did not take _LocalConn")
+        row["rtt_tcp"] = rtt(client)
+        row["rtt_local"] = rtt(local_client)
+
+        # Bulk: a 256 MB f32 CUDA tensor each way, then echoed.
+        x = torch.arange(BULK_ELEMS, dtype=torch.float32, device="cuda")
+        nbytes = x.numel() * 4
+        up, down = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            seen = client.call("Probe.Recv", x)
+            up.append(time.monotonic() - t0)
+            check(seen[0].startswith("cuda") and seen[1:] == [
+                x.numel(), float(x[0]), float(x[-1])],
+                f"cluster_rpc: the bulk tensor arrived as {seen}")
+            t0 = time.monotonic()
+            y = client.call("Probe.Send", BULK_ELEMS)
+            torch.cuda.synchronize()
+            down.append(time.monotonic() - t0)
+            check(y.device.type == "cuda" and torch.equal(y, x),
+                  "cluster_rpc: the bulk tensor came back different")
+            del y
+        echoed = client.call("Probe.Echo", x)
+        check(echoed.device.type == "cuda" and torch.equal(echoed, x),
+              "cluster_rpc: the echoed bulk tensor differs")
+        del echoed, x
+        row.update({"bulk_bytes": nbytes,
+                    "to_server_GBps": [nbytes / t / 1e9 for t in up],
+                    "to_client_GBps": [nbytes / t / 1e9 for t in down]})
+
+        # Loss: SIGKILL the server; the registry watch must deliver the
+        # empty snapshot within TTL + sweep, then calls find no node.
+        watch = seed.registry.watch_service("llm")
+        check(len(watch.get(timeout=5) or []) == 1,
+              "cluster_rpc: the server is not registered")
+        t0 = time.monotonic()
+        os.kill(child.pid, signal.SIGKILL)
+        snap = None
+        while snap != [] and time.monotonic() - t0 < 10:
+            snap = watch.get(timeout=10 - (time.monotonic() - t0))
+        empty_s = time.monotonic() - t0
+        watch.cancel()
+        refused = None
+        while time.monotonic() - t0 < 20:
+            try:
+                client.call("Probe.Nop")
+            except NoClientAvailableError as e:
+                refused = e
+                break
+            except Exception:  # noqa: BLE001 — a dying connection first
+                pass
+            time.sleep(0.01)
+        nca_s = time.monotonic() - t0
+        row.update({"kill_to_empty_snapshot_ms": empty_s * 1e3,
+                    "kill_to_no_client_ms": nca_s * 1e3,
+                    "detect_bound_ms": (CLUSTER_TTL + sweep
+                                        + CLUSTER_DELIVERY_S) * 1e3})
+        emit(row)
+        check(snap == [], "cluster_rpc: no empty snapshot after the kill")
+        check(empty_s <= CLUSTER_TTL + sweep + CLUSTER_DELIVERY_S,
+              f"cluster_rpc: the loss took {empty_s:.3f} s to detect")
+        check(refused is not None, "cluster_rpc: calls after the kill did "
+              "not raise NoClientAvailableError")
+        return gen_counts["flash_fwd"], paged_counts["paged_decode"]
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait(timeout=60)
+        for h in (client, local_client, engine):
+            if h is not None:
+                h.close()
+        seed.close()
+        local.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2337,6 +2739,11 @@ def main():
           "bf16_step_logits_max_abs_diff": ldiff, "tol": LOGIT_TOL_BF16})
     del e
     torch.cuda.empty_cache()
+
+    # cluster_rpc: phases 3 and 4 served over the port's cluster plane
+    rpc_flash, rpc_paged = cluster_rpc_phase(
+        torch, flash_mod, paged_mod, GeneratorActor, PagedGeneratorActor,
+        params, prompt, 32, prompts, max_new, kw, card)
 
     # 5. Trainer at optimus-125m
     row, (fwd_n, dq_n, dkv_n) = trainer_phase(torch, tfm, flash_mod,
@@ -2477,13 +2884,15 @@ def main():
     dq_ref = "ptype_tpu/ops/flash_attention.py:320"
     dkv_ref = "ptype_tpu/ops/flash_attention.py:342"
     paged_ref = "ptype_tpu/ops/paged_attention.py:149"
-    fwd128 = {"generator_actor": flash_launches, "trainer": fwd_n,
+    fwd128 = {"generator_actor": flash_launches, "cluster_rpc": rpc_flash,
+              "trainer": fwd_n,
               "batching_generator": batch_launches,
               "store_dp": store_launches[0],
               "checkpoint": ckpt_launches[0],
               "elastic": elastic_launches[0]}
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
     paged128 = {"paged_engine": paged_main_launches,
+                "cluster_rpc": rpc_paged,
                 "spec_engine": spec_launches["spec"],
                 "spec_engine_plain_run": spec_launches["plain"],
                 "sampled_engine": sampled_launches,
@@ -2535,6 +2944,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--zero-writer"]:
         zero_writer(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--actor-server"]:
+        actor_server(sys.argv[2])
         sys.exit(0)
     try:
         main()

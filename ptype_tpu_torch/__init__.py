@@ -32,9 +32,13 @@ counterpart is easy to find:
   ``ZeroCheckpoint``, ``StoreCheckpoint``);
 - :mod:`ptype_tpu_torch.elastic` — the ``FailureDetector`` and
   ``ElasticZeroTrainer``'s live reshard onto survivors;
+- the cluster plane, copied from the reference: ``join`` and
+  :class:`Cluster` (``cluster``), the TCP coordinator and its client
+  (``coord/``), ``ActorServer`` (``actor``), the balanced RPC
+  ``Client`` (``rpc``) over the native wire (``native``), the two-level
+  ``Config`` (``config``), the ``registry`` and the ``store``;
 - host modules copied from the reference: ``lockcheck``, ``chaos``,
-  ``trace``, ``logs``, ``codec``, ``retry``, ``registry``, ``store``
-  and the in-process coordinator (``coord/``);
+  ``trace``, ``logs``, ``codec``, ``retry``;
 - :mod:`ptype_tpu_torch.train` — the AdamW ``Trainer``, its train and
   eval steps, token streams, and ``store_dp.StoreDPTrainer``
   (data-parallel training through the Store);
@@ -43,6 +47,45 @@ counterpart is easy to find:
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no device named they raise.
+
+The names the reference exports at its top level are exported here too,
+each imported at its first use (PEP 562), so ``import ptype_tpu_torch``
+loads nothing and a control-plane-only process never imports torch.
 """
 
-__all__ = ["errors", "device"]
+import importlib
+
+#: Exported name → the module that defines it.
+_EXPORTS = {
+    "ActorServer": "actor",
+    "Client": "rpc",
+    "ConnConfig": "rpc",
+    "DEFAULT_CONN_CONFIG": "rpc",
+    "Cluster": "cluster",
+    "join": "cluster",
+    "Config": "config",
+    "PlatformConfig": "config",
+    "config_from_env": "config",
+    "config_from_file": "config",
+    "ClusterError": "errors",
+    "ConfigError": "errors",
+    "ErrNoClientAvailable": "errors",
+    "ErrNoKey": "errors",
+    "NoClientAvailableError": "errors",
+    "NoKeyError": "errors",
+    "RPCError": "errors",
+    "KVStore": "store",
+    "Node": "registry",
+    "Registry": "registry",
+}
+
+__all__ = sorted(_EXPORTS) + ["errors", "device"]
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(
+            f"{__name__}.{_EXPORTS[name]}"), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

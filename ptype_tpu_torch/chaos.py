@@ -28,9 +28,15 @@ site                    actions
                         after its crc32 was taken (checkpoint)
 ``checkpoint.commit``   ``crash`` — between the shard writes and the
                         commit marker (checkpoint)
+``rpc.dial``            ``drop`` / ``timeout`` / ``delay`` (rpc.py ``_dial``)
+``rpc.send``            ``drop`` / ``truncate`` / ``delay`` (socket send)
+``rpc.recv``            ``delay`` — slow reply (rpc.py read loop)
+``coord.wire_send``     ``drop`` / ``truncate`` / ``delay`` (coord/wire)
+``coord.wire_recv``     ``drop`` / ``delay`` (coord/wire)
 ``coord.keepalive``     ``revoke`` — lease-revoke a member (coord/core)
 ``coord.wal_append``    ``delay`` — wedge the coordinator under its lock
                         (coord/core)
+``coord.put``           ``kill_primary`` — die mid-write (coord/service)
 ======================  =====================================================
 
 Zero-cost contract: every seam calls ``chaos.hit(site, key)``, which is

@@ -131,8 +131,10 @@ def decode(frame: bytes | memoryview, device: Any = None) -> Any:
     """Deserialize a frame.
 
     ``device``: the torch device that tensors (``kind`` "torch" or
-    "jax") are placed on; None leaves them on the CPU. NumPy arrays stay
-    on the host either way.
+    "jax") are placed on; None leaves them on the CPU. A callable is
+    called once, at the first tensor, for the device (so a frame with
+    no tensors never resolves one). NumPy arrays stay on the host
+    either way.
     """
     frame = memoryview(frame)
     (header_len,) = _LEN.unpack(frame[: _LEN.size])
@@ -143,6 +145,12 @@ def decode(frame: bytes | memoryview, device: Any = None) -> Any:
     for blen in blob_lens:
         blobs.append(frame[offset : offset + blen])
         offset += blen
+    placed: list = []
+
+    def place():
+        if not placed:
+            placed.append(device() if callable(device) else device)
+        return placed[0]
 
     def dec(x: Any):
         if isinstance(x, dict):
@@ -152,7 +160,7 @@ def decode(frame: bytes | memoryview, device: Any = None) -> Any:
                 buf = blobs[x["__tensor__"]]
                 if (x.get("kind") in ("torch", "jax")
                         or x["dtype"] == "bfloat16"):
-                    return _to_tensor(buf, x["dtype"], x["shape"], device)
+                    return _to_tensor(buf, x["dtype"], x["shape"], place())
                 return np.frombuffer(
                     buf, dtype=np.dtype(x["dtype"])).reshape(x["shape"])
             if "__list__" in x:

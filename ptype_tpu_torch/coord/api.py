@@ -1,6 +1,5 @@
 """Abstract coordination backend + connection factory — the port's copy
-of ``ptype_tpu/coord/api.py``, whose :func:`connect` serves only the
-in-process tier (the TCP client is the cluster-plane slice, ROADMAP A8).
+of ``ptype_tpu/coord/api.py``.
 
 Everything above the coordination layer (registry, store, cluster) programs
 against :class:`CoordBackend`, never a concrete transport — preserving the
@@ -75,26 +74,32 @@ class CoordBackend(abc.ABC):
     def close(self) -> None: ...
 
 
-def connect(address: str | list[str], *,
-            in_process: bool = False) -> CoordBackend:
+def connect(
+    address: str | list[str],
+    *,
+    dial_timeout: float = 5.0,
+    in_process: bool = False,
+    discovery_interval: float = 0.0,
+) -> CoordBackend:
     """Dial a coordination backend.
 
     ``in_process=True`` (or an address of the form ``local:<name>``) returns
     the shared in-process backend — the embedded-etcd-style test tier.
-    The reference dials any other address over TCP (its ``RemoteCoord``);
-    the port has no TCP client yet, so any other address raises
-    :class:`CoordinationError` rather than pretend to dial (its
-    ``dial_timeout`` and ``discovery_interval`` come with that client).
+    Otherwise dials the TCP coordination service with the reference's 5s
+    default dial timeout (registry.go:37). ``address`` may be a list of
+    endpoints (primary + standbys); the client fails over between them.
+    ``discovery_interval`` > 0 additionally polls the membership for
+    promote-eligible standbys attached at runtime and extends the
+    failover list with them (no-op for the in-process tier, which has
+    no failover).
     """
     from ptype_tpu_torch.coord.local import local_coord
-    from ptype_tpu_torch.errors import CoordinationError
+    from ptype_tpu_torch.coord.remote import RemoteCoord
 
     if isinstance(address, str) and (
             in_process or address.startswith("local:")):
         name = (address.split(":", 1)[1]
                 if address.startswith("local:") else address)
         return local_coord(name)
-    raise CoordinationError(
-        f"connect({address!r}): the port serves only the in-process "
-        "coordination tier (local:<name> or in_process=True); the TCP "
-        "client is the cluster-plane slice (ROADMAP A8)")
+    return RemoteCoord(address, dial_timeout=dial_timeout,
+                       discovery_interval=discovery_interval)

@@ -3,9 +3,9 @@
 The port's copy of ``ptype_tpu/coord/core.py``, whole, with its chaos
 seams ``coord.wal_append`` and ``coord.keepalive``. It is the
 authoritative store behind the in-process backend
-(:mod:`ptype_tpu_torch.coord.local`); the TCP service, the client and
-the standby that the reference also builds on it are the cluster-plane
-slice (ROADMAP A8). Linearizability is by construction — every
+(:mod:`ptype_tpu_torch.coord.local`) and the TCP service
+(:mod:`ptype_tpu_torch.coord.service`); the reference's standby, also
+built on it, is not ported yet. Linearizability is by construction — every
 mutation takes one lock and bumps one revision counter — which is the role
 raft quorum played for the reference's Store (SURVEY.md §3.4).
 

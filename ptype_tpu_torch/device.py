@@ -2,13 +2,15 @@
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: ``cuda`` unless the caller
     names another. With no CUDA device and none named this raises —
-    the port never drops to the CPU on its own."""
+    the port never drops to the CPU on its own. (torch is imported
+    here, not with the module, so the control plane can import this
+    without it.)"""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

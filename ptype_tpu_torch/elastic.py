@@ -31,9 +31,9 @@ One process per rank, where the reference has one controller. So:
 
 Not ported yet: ``ElasticTrainer`` (the GSPMD trainer's checkpoint-
 reshard-resume; the port's ``Trainer`` has no mesh until the trainer's
-shardings land, ROADMAP A7(c)); cross-process leases (the workers'
-registrations live in rank 0's process until the cluster plane,
-ROADMAP A8).
+shardings land, ROADMAP A7(c)). Each worker can hold its own lease
+through ``cluster.join`` over the TCP coordinator, but the detector and
+the verdict stay on the group's rank 0, so rank 0 may not leave.
 """
 
 from __future__ import annotations
@@ -151,8 +151,8 @@ def survivor_ranks(detector: FailureDetector, mesh) -> list[int]:
     """The survivor rank set: every registered worker's ``process_id``,
     each of which must be a rank of ``mesh``'s current group. The
     group's rank 0 must be among them: its process holds the detector
-    and the workers' registrations (until the cluster plane, ROADMAP
-    A8), so a live reshard cannot leave it behind."""
+    (and, in the in-process setup, the workers' registrations), so a
+    live reshard cannot leave it behind."""
     ranks = sorted({int(n.process_id) for n in detector.current()})
     if not ranks:
         raise ClusterError("elastic: no surviving workers are registered")

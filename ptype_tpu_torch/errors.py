@@ -1,14 +1,30 @@
 """Typed errors of the port — its own copies of the reference's
-``ptype_tpu/errors.py`` classes the serving path and the data plane
-raise (the port imports nothing from ``ptype_tpu``)."""
+``ptype_tpu/errors.py`` classes (the port imports nothing from
+``ptype_tpu``), with the reference's Go-spelled aliases."""
 
 
 class ClusterError(Exception):
     """Base class for every error raised by ptype_tpu_torch."""
 
 
+class ConfigError(ClusterError):
+    """Configuration file missing, unparseable, or invalid."""
+
+
 class RPCError(ClusterError):
     """An actor call failed (transport or remote handler error)."""
+
+
+class RemoteError(RPCError):
+    """The remote handler raised; carries the remote traceback text."""
+
+    def __init__(self, message: str, remote_traceback: str = ""):
+        super().__init__(message)
+        self.remote_traceback = remote_traceback
+
+
+class NoClientAvailableError(RPCError):
+    """No client nodes available (ref: cluster/rpc.go:15)."""
 
 
 class ShedError(RPCError):
@@ -40,3 +56,8 @@ class CoordinationError(ClusterError):
 
 class CheckpointError(ClusterError):
     """Checkpoint save/restore failed."""
+
+
+# Reference-named aliases (Go sentinel-error spelling).
+ErrNoKey = NoKeyError
+ErrNoClientAvailable = NoClientAvailableError

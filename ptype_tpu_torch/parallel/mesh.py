@@ -25,7 +25,8 @@ reshard's chaos fault) travel over the mesh's **control group**: the
 group itself on gloo, a gloo group beside it on NCCL (made by
 :func:`build_mesh`), so agreeing on one costs no device synchronization.
 
-Not ported: ``mesh_from_registry`` (the cluster plane, ROADMAP A8).
+:func:`mesh_from_registry` lowers a service's registry entries (the
+cluster plane's mesh map) to a mesh over the current group.
 """
 
 from __future__ import annotations
@@ -166,6 +167,50 @@ def survivor_mesh(mesh: Mesh, ranks, axis: str = "data",
         return None
     names, shape, device = _layout({axis: len(ranks)}, None, group, device)
     return Mesh(names, shape, group, dist.get_rank(group), device, ctrl)
+
+
+def mesh_from_registry(registry, service_name: str, axes: dict[str, int],
+                       axis_names: tuple[str, ...] | None = None,
+                       device=None) -> Mesh:
+    """Lower a service's registry entries to a :class:`Mesh` (the
+    mesh-map path).
+
+    As in the reference, nodes are ordered by ``process_id`` and their
+    advertised ``device_ordinals`` concatenate into the global device
+    order, which must be non-empty and free of duplicates. The port's
+    mesh lays rank r at position r, so the registry must describe the
+    current process group: its process ids are the group's ranks
+    ``0..world-1``, and its device order is that rank order (each rank
+    advertises its rank as its ordinal, ``cluster._local_device_ordinals``).
+    Returns :func:`build_mesh` of ``axes`` over the default group."""
+    nodes = registry.services().get(service_name, [])
+    if not nodes:
+        raise ClusterError(
+            f"mesh_from_registry: no nodes registered for {service_name!r}")
+    nodes = sorted(nodes, key=lambda n: n.process_id)
+    ordinals: list[int] = []
+    for node in nodes:
+        ordinals.extend(node.device_ordinals)
+    if not ordinals:
+        raise ClusterError(
+            f"mesh_from_registry: nodes of {service_name!r} advertise no "
+            "device ordinals (control-plane-only processes?)")
+    if len(set(ordinals)) != len(ordinals):
+        raise ClusterError(
+            f"mesh_from_registry: duplicate device ordinals across nodes "
+            f"of {service_name!r}: {ordinals}")
+    if not dist.is_initialized():
+        raise ClusterError("mesh_from_registry: no process group; join "
+                           "with num_processes > 1 or call "
+                           "init_distributed first")
+    ranks = list(range(dist.get_world_size()))
+    pids = [n.process_id for n in nodes]
+    if pids != ranks or ordinals != ranks:
+        raise ClusterError(
+            f"mesh_from_registry: {service_name!r} registers process ids "
+            f"{pids} with device order {ordinals}; the process group's "
+            f"ranks are {ranks}")
+    return build_mesh(axes, axis_names, device=device)
 
 
 def host_broadcast(mesh: Mesh, value: int) -> int:

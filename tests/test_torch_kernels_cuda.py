@@ -555,3 +555,74 @@ def test_live_reshard_at_world_1_on_nccl(meshes, zero):
 
     for (p, x), (_, y) in zip(_flatten(pa), _flatten(pb)):
         assert torch.equal(x, y), p
+
+
+# ------------------------------------------------------- cluster plane
+
+
+class _CardEcho:
+    def Echo(self, x):
+        return x
+
+    def Where(self, x):
+        return str(x.device)
+
+    def Sum(self, x):
+        return x.sum()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.bfloat16])
+def test_actor_tcp_round_trip_lands_on_the_card(cuda, dtype, monkeypatch):
+    """A CUDA tensor through the port's ActorServer over TCP: it arrives
+    on the server's card (no device named → cuda) and the reply lands
+    on the client's card, equal bit for bit."""
+    from ptype_tpu_torch import actor as actor_mod
+    from ptype_tpu_torch import rpc
+    from ptype_tpu_torch.registry import Node
+
+    monkeypatch.setattr(actor_mod, "lookup_local", lambda a, p: None)
+    srv = actor_mod.ActorServer("127.0.0.1", 0)
+    srv.register(_CardEcho(), "E")
+    srv.serve()
+    try:
+        conn = rpc._dial(Node("127.0.0.1", srv.port), 5.0)
+        assert isinstance(conn, rpc._Conn)
+        x = (torch.randn(257, 33, generator=cuda, device="cuda") * 100
+             ).to(dtype)
+        assert conn.call_async("E.Where", (x,)).result(timeout=60) \
+            .startswith("cuda")
+        y = conn.call_async("E.Echo", (x,)).result(timeout=60)
+        assert y.device.type == "cuda" and y.dtype == dtype
+        assert torch.equal(y, x)  # no NaN in x: equal is bit for bit
+        conn.close()
+    finally:
+        srv.close()
+
+
+def test_local_conn_waits_for_the_callers_side_stream(cuda):
+    """In one process a CUDA tensor passes by reference into the
+    dispatch thread: a tensor still being written on the caller's side
+    stream must be read complete (the dispatch stream waits for the
+    caller's), and the reply is complete when the call resolves."""
+    from ptype_tpu_torch import actor as actor_mod
+    from ptype_tpu_torch import rpc
+    from ptype_tpu_torch.registry import Node
+
+    srv = actor_mod.ActorServer("127.0.0.1", 0)
+    srv.register(_CardEcho(), "E")
+    srv.serve()
+    try:
+        conn = rpc._dial(Node("127.0.0.1", srv.port), 5.0)
+        assert isinstance(conn, rpc._LocalConn)
+        x = torch.zeros(1 << 22, device="cuda")
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s ahead of the fill
+            x.fill_(1.0)
+            fut = conn.call_async("E.Sum", (x,))
+        s = fut.result(timeout=60)
+        assert s.item() == float(x.numel())
+    finally:
+        srv.close()

@@ -1,6 +1,7 @@
 """Package rules of ptype_tpu_torch: it imports with JAX blocked, no
-module of it (nor chip_smoke.py, chip_engine_ab.py or the rank bodies
-of tests/torch_ranks.py) imports jax or the ptype_tpu package, its
+module of it (nor chip_smoke.py, chip_engine_ab.py, the rank bodies
+of tests/torch_ranks.py or the cluster members of
+tests/torch_cluster_node.py) imports jax or the ptype_tpu package, its
 entry points raise rather than run on the CPU unasked, and
 chip_smoke.py fails without a card."""
 
@@ -18,7 +19,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "ptype_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                        ROOT / "chip_engine_ab.py",
-                                       ROOT / "tests" / "torch_ranks.py"]
+                                       ROOT / "tests" / "torch_ranks.py",
+                                       ROOT / "tests" /
+                                       "torch_cluster_node.py"]
 
 
 def _modules():
