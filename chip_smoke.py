@@ -49,6 +49,25 @@ Run from the root of a checkout. Phases, each printing its own lines:
    connection, and after SIGKILL of the server the ms to the
    registry's empty snapshot (at most TTL + sweep + 0.25 s) and to
    NoClientAvailableError. The native wire must load on both sides;
+   gateway_serving: two replica processes of the script (``--actor-server
+   COORD --serve-class prefill|decode --service llm-gw``: an 8-slot bf16
+   ``Paged`` and f32 ``Paged32`` kernel engine each) behind the port's
+   InferenceGateway (per_replica_inflight 8): (a) phase 4's requests
+   interleaved in f32, int32 answers on the card equal to in-process solo
+   runs, both replicas used; (b) the same disaggregated over the exact
+   wire, equal to (a)'s, 8 migrations and no fallback, the migration
+   stage's ms and bytes; (c) bf16 over the q8 wire at (1 + 4/512)/2 of
+   exact's bytes a block; (d) open-loop traffic (the port's loadgen:
+   ``synth_trace`` seed 0, 8 s of arrivals at each rate of GW_RATES, RAG's
+   prompt tail cut to 800) through ``OpenLoopDriver`` and
+   ``gateway_target``: every arrival answered or shed typed, per rate the
+   traffic ledger's, the gateway's and the replicas' TTFT/TPOT/e2e tails,
+   tokens/s, issue lag and the gateway's stage ms, then the knee and the
+   rate where the gateway saturates (sheds, or a queue-wait p99 past the
+   TTFT yardstick); (e) the decode replica SIGKILLed halfway
+   through a run at half the knee: no arrival lost, the ms to its
+   eviction. Paged launches on both replicas = decode steps x 12 in
+   (a) and (b);
 5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
    one repeated batch: forward, dq and dk/dv kernels each launched
    steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
@@ -134,6 +153,7 @@ Weights are random, from a fixed seed. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -2246,23 +2266,35 @@ BULK_ELEMS = 64 * 2**20          # 256 MB of f32
 
 
 class ServerProbe:
-    """The cluster_rpc server's own endpoints: its kernel launch
-    counters, an empty call, bulk transfers, and a gate that holds the
-    paged engine's dispatch lock while requests queue in a fixed order
-    (as ``run_in_order`` does in process)."""
+    """A server process's own endpoints: its kernel launch counters
+    (and both paged engines' decode steps), an empty call, bulk
+    transfers, the bf16 engine's ledger records, and a gate that holds
+    the paged engine's dispatch lock while requests queue in a fixed
+    order (as ``run_in_order`` does in process)."""
 
-    def __init__(self, torch, flash_mod, paged_mod, native, engine):
+    def __init__(self, torch, flash_mod, paged_mod, native, engine,
+                 engine32=None):
         self.torch, self.flash, self.paged = torch, flash_mod, paged_mod
-        self.native, self.engine = native, engine
+        self.native, self.engine, self.engine32 = native, engine, engine32
         self._held = threading.Event()
         self._release = threading.Event()
         self._holder = None
 
     def Counters(self):
-        return {"flash_fwd": self.flash.flash_attention.launches,
-                "paged_decode": self.paged.paged_attention.launches,
-                "engine_steps": self.engine.Info()["engine_steps"],
-                "native": self.native.available()}
+        out = {"flash_fwd": self.flash.flash_attention.launches,
+               "paged_decode": self.paged.paged_attention.launches,
+               "engine_steps": self.engine.Info()["engine_steps"],
+               "native": self.native.available()}
+        if self.engine32 is not None:
+            out["engine_steps32"] = self.engine32.Info()["engine_steps"]
+            out["migrations32"] = self.engine32.Info()["migrations"]
+        return out
+
+    def Records(self, since):
+        """The bf16 engine's retired records enqueued at or after the
+        wall time ``since``: (ttft_ms, tpot_ms, e2e_ms) each."""
+        return [[r.get("ttft_ms"), r.get("tpot_ms"), r.get("e2e_ms")]
+                for r in self.engine.ledger.records() if r["t"] >= since]
 
     def Reset(self):
         self.flash.flash_attention.launches = 0
@@ -2303,16 +2335,19 @@ class ServerProbe:
         return not self._holder.is_alive()
 
 
-def actor_server(coord):
-    """Helper mode (``--actor-server COORD``): the cluster_rpc phase's
-    server process. Builds a ``GeneratorActor`` and an 8-slot
-    ``PagedGeneratorActor`` (attn="kernel") at optimus-125m from seed-0
-    weights on the card, serves them as ``Generator`` and ``Paged`` and
-    a ``ServerProbe`` as ``Probe`` on an ``ActorServer`` (tensor
-    arguments decode onto ``cuda``), then joins the TCP coordinator at
-    COORD as service ``llm`` (lease TTL ``CLUSTER_TTL``). Prints one
-    JSON line (when it called ``join``, whether the native wire
-    loaded) and serves until killed."""
+def actor_server(coord, serve_class="unified", service="llm"):
+    """Helper mode (``--actor-server COORD [--serve-class CLASS]
+    [--service NAME]``): the server process of the cluster_rpc phase
+    and the replicas of gateway_serving. Builds a ``GeneratorActor`` and
+    two 8-slot ``PagedGeneratorActor``s of serving class CLASS
+    (attn="kernel", 16-token blocks, 256-token prefill chunks; bf16 and
+    f32) at optimus-125m from seed-0 weights on the card, serves them
+    as ``Generator``, ``Paged`` and ``Paged32`` and a ``ServerProbe``
+    as ``Probe`` on an ``ActorServer`` (tensor arguments decode onto
+    ``cuda``), then joins the TCP coordinator at COORD as service NAME
+    (lease TTL ``CLUSTER_TTL``). Prints one JSON line (when it called
+    ``join``, whether the native wire loaded) and serves until
+    killed."""
     import torch
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2329,22 +2364,26 @@ def actor_server(coord):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tfm.preset("optimus-125m")
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    engine = PagedGeneratorActor(cfg, params=params, attn="kernel",
-                                 device="cuda", n_slots=8, block_tokens=16,
-                                 prefill_chunk=256)
+    kw = dict(params=params, attn="kernel", device="cuda", n_slots=8,
+              block_tokens=16, prefill_chunk=256, serve_class=serve_class)
+    engine = PagedGeneratorActor(cfg, **kw)
+    engine32 = PagedGeneratorActor(cfg32, **kw)
     server = ActorServer()
     server.register(GeneratorActor(cfg, params=params, device="cuda"),
                     "Generator")
     server.register(engine, "Paged")
+    server.register(engine32, "Paged32")
     server.register(ServerProbe(torch, flash_mod, paged_mod, native,
-                                engine), "Probe")
+                                engine, engine32), "Probe")
     server.serve()
     join_called_at = time.time()
+    name = f"actor-server-{serve_class}-{os.getpid()}"
     cluster = join(Config(
-        service_name="llm", node_name="actor-server", port=server.port,
+        service_name=service, node_name=name, port=server.port,
         initial_cluster_client_urls=[coord],
-        platform=PlatformConfig(name="actor-server", coordinator_address=coord,
+        platform=PlatformConfig(name=name, coordinator_address=coord,
                                 lease_ttl=CLUSTER_TTL)))
     print(json.dumps({"join_called_at": join_called_at,
                       "native": native.available()}), flush=True)
@@ -2355,9 +2394,10 @@ def actor_server(coord):
         cluster.close()
         server.close()
         engine.close()
+        engine32.close()
 
 
-def wait_child_line(proc, path, log, timeout):
+def wait_child_line(proc, path, log, timeout, phase="cluster_rpc"):
     """The first line the child writes to ``path`` (JSON), or fail with
     its log if it exits or stays silent past ``timeout`` seconds."""
     deadline = time.monotonic() + timeout
@@ -2371,7 +2411,7 @@ def wait_child_line(proc, path, log, timeout):
         time.sleep(0.05)
     with open(log) as f:
         tail = f.read()[-4000:]
-    raise SmokeError(f"cluster_rpc: the actor server wrote no ready line "
+    raise SmokeError(f"{phase}: the actor server wrote no ready line "
                      f"(exit {proc.poll()}):\n{tail}")
 
 
@@ -2615,6 +2655,519 @@ def cluster_rpc_phase(torch, flash_mod, paged_mod, GeneratorActor,
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------- gateway_serving phase
+
+
+#: gateway_serving's open-loop grid (offered rps, ascending; its top
+#: rates lie past the two replicas' capacity, so saturation shows as
+#: typed sheds or a queue-wait tail past the TTFT yardstick), the seeded
+#: trace each rate draws at that rate (8 s of arrivals whatever the
+#: rate), the yardstick SLOs (written down, not a target), the drain
+#: pause between rates, each request's deadline, the replicas' probe
+#: cadence, and the RAG family's prompt tail cut so its longest request
+#: (96 + 800 prompt + 128 new tokens) fits optimus-125m's reach of 1,024.
+GW_RATES = (4, 8, 16, 24, 28, 32, 48)
+GW_TRACE = dict(process="poisson", duration_s=8.0)
+GW_SLO_TTFT_MS = 1000.0
+GW_SLO_TPOT_MS = 50.0
+GW_SETTLE_S = 1.0
+GW_DEADLINE_S = 10.0
+GW_PROBE_S = 0.2
+GW_RAG_PROMPT_MAX = 800
+GW_SERVICE = "llm-gw"
+
+
+def start_replica(coord, serve_class, work):
+    """A replica process of this script (``--actor-server``) of serving
+    class ``serve_class`` in service ``GW_SERVICE``; returns (process,
+    its ready-line path, its log path)."""
+    out_path = os.path.join(work, f"{serve_class}.out")
+    log_path = os.path.join(work, f"{serve_class}.log")
+    with open(out_path, "w") as out_f, open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--actor-server",
+             coord, "--serve-class", serve_class, "--service", GW_SERVICE],
+            stdout=out_f, stderr=log_f)
+    return proc, out_path, log_path
+
+
+def replica_call(r, method, *args, timeout=120):
+    """One call to a replica over the gateway pool's own connection."""
+    return r.conn.call_async(method, args).result(timeout=timeout)
+
+
+def wait_for(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"gateway_serving: {what}")
+        time.sleep(0.01)
+
+
+def gateway_generate_all(torch, gw, prompts, max_new):
+    """Every prompt through ``gw.generate`` at once (a thread each, CUDA
+    int32 prompts); the answers in prompt order."""
+    outs, errs = [None] * len(prompts), []
+
+    def call(i):
+        try:
+            outs[i] = gw.generate(prompts[i].to("cuda", torch.int32)[None],
+                                  max_new)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errs:
+        raise errs[0]
+    check(all(o is not None for o in outs),
+          "gateway_serving: a request did not come back")
+    return outs
+
+
+def nearest_rank(vals, p):
+    """Nearest-rank percentile (the ledgers' rule); None when empty."""
+    vals = sorted(v for v in vals if v is not None)
+    if not vals:
+        return None
+    return vals[min(len(vals) - 1, int(round(p / 100 * (len(vals) - 1))))]
+
+
+class CountingTarget:
+    """A driver target wrapped to count, apart from the traffic ledger,
+    what the driver handed it: calls, answers, typed sheds, and other
+    errors by type."""
+
+    def __init__(self, target, shed_type):
+        self.target, self.shed_type = target, shed_type
+        self.lock = threading.Lock()
+        self.issued = self.answered = self.shed = 0
+        self.errors = {}
+
+    def __call__(self, arr):
+        with self.lock:
+            self.issued += 1
+        try:
+            res = self.target(arr)
+        except self.shed_type:
+            with self.lock:
+                self.shed += 1
+            raise
+        except Exception as e:
+            with self.lock:
+                name = type(e).__name__
+                self.errors[name] = self.errors.get(name, 0) + 1
+            raise
+        with self.lock:
+            self.answered += 1
+        return res
+
+    def counts(self):
+        with self.lock:
+            return {"issued": self.issued, "answered": self.answered,
+                    "shed": self.shed, "errors": sum(self.errors.values()),
+                    "error_types": dict(self.errors)}
+
+
+def migrate_spans(trace):
+    """(bytes, blocks) of each ``gateway.migrate`` span in the flight
+    recorder, then clear it."""
+    rec = trace.recorder()
+    out = [(int(s.attrs.get("bytes", 0)), int(s.attrs.get("blocks", 0)))
+           for s in rec.spans() if s.name == "gateway.migrate"]
+    rec.clear()
+    return out
+
+
+def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
+                          max_new, kw, card):
+    """optimus-125m served from two replica processes (``--actor-server
+    --serve-class prefill|decode``, one service) through the port's
+    ``InferenceGateway``: (a) interleaved f32 tokens equal to in-process
+    solo runs, both replicas used; (b) disaggregated f32 over the exact
+    wire, tokens equal to (a)'s, 8 migrations and no fallback; (c)
+    disaggregated bf16 over the q8 wire at (1 + 4/512)/2 of exact's
+    bytes a block at equal dtype; (d) open-loop traffic from the port's
+    load generator, 8 s of arrivals at each rate of ``GW_RATES`` through
+    ``OpenLoopDriver`` and ``gateway_target``, every arrival answered or
+    shed typed, the knee, and saturation at the top rate; (e) the decode replica SIGKILLed halfway through a run at half
+    the knee: no arrival lost, the dead replica evicted. Returns the
+    replicas' paged-kernel launches over (a)-(e) up to the kill."""
+    from ptype_tpu_torch import Config, PlatformConfig, join, trace
+    from ptype_tpu_torch.errors import ShedError
+    from ptype_tpu_torch.gateway import GatewayConfig, InferenceGateway
+    from ptype_tpu_torch.loadgen import (DEFAULT_MIX, DriverConfig,
+                                         OpenLoopDriver, TrafficLedger,
+                                         gateway_target, locate_knee,
+                                         point_from_summary, synth_trace)
+    from ptype_tpu_torch.metrics import MetricsRegistry
+
+    cfg = tfm.preset("optimus-125m")
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    n_layers = cfg.n_layers
+    seed = join(Config(
+        service_name="gw-seed", node_name="gw-seed", port=9001,
+        platform=PlatformConfig(name="gw-seed",
+                                coordinator_address="127.0.0.1:0",
+                                is_coordinator=True, lease_ttl=CLUSTER_TTL)))
+    coord = seed._owned_server.address
+    work = tempfile.mkdtemp(prefix="chip_smoke_gw_")
+    procs = {c: start_replica(coord, c, work) for c in ("prefill", "decode")}
+    gws = []
+
+    def gateway(reg, **over):
+        gcfg = GatewayConfig(probe_interval_s=GW_PROBE_S,
+                             default_deadline_s=600.0,
+                             per_replica_inflight=kw["n_slots"],
+                             generate_method="Paged32.Generate",
+                             info_method="Paged32.Info")
+        for k, v in over.items():
+            setattr(gcfg, k, v)
+        gw = InferenceGateway(seed.registry, GW_SERVICE, gcfg,
+                              metrics_registry=reg, device="cuda")
+        gws.append(gw)
+        wait_for(lambda: gw.pool.n_healthy() == 2
+                 and all(r.serve_class() for r in gw.pool.healthy()), 120,
+                 "the gateway did not see both replicas")
+        return gw
+
+    def replicas(gw):
+        return {r.serve_class(): r for r in gw.pool.healthy()}
+
+    def counters(reps):
+        return {c: replica_call(r, "Probe.Counters") for c, r in reps.items()}
+
+    row = {"phase": "gateway_serving", "preset": "optimus-125m",
+           "card": card, "service": GW_SERVICE,
+           "per_replica_inflight": kw["n_slots"], "requests": len(prompts),
+           "max_new": max_new}
+    t_phase = time.monotonic()
+    try:
+        # In-process solo f32 runs while the replicas start.
+        t0 = time.monotonic()
+        e32 = PagedGeneratorActor(cfg32, params=params, attn="kernel", **kw)
+        try:
+            solo = [e32.Generate(p.to("cuda")[None], max_new).to(torch.int32)
+                    for p in prompts]
+        finally:
+            e32.close()
+        row["solo_f32_s"] = time.monotonic() - t0
+        for proc, out_path, log_path in procs.values():
+            wait_child_line(proc, out_path, log_path, 300, "gateway_serving")
+        row["replicas_ready_s"] = time.monotonic() - t0
+
+        # (a) interleaved, f32
+        gw = gateway(MetricsRegistry())
+        reps = replicas(gw)
+        check(set(reps) == {"prefill", "decode"},
+              f"gateway_serving: replica classes {sorted(reps)}")
+        for r in reps.values():   # each engine's first prefill and steps
+            for engine in ("Paged32", "Paged"):
+                replica_call(r, f"{engine}.Generate",
+                             torch.ones((1, 16), dtype=torch.int32,
+                                        device="cuda"), 4)
+            replica_call(r, "Probe.Reset")
+        c0 = counters(reps)
+        t0 = time.monotonic()
+        outs_a = gateway_generate_all(torch, gw, prompts, max_new)
+        row["a_s"] = time.monotonic() - t0
+        c1 = counters(reps)
+        split = {d["serve_class"]: d["calls"]
+                 for d in gw.pool.status()["replicas"]}
+        row["a"] = {
+            "split": split,
+            "equal_to_solo": sum(int(torch.equal(o, s))
+                                 for o, s in zip(outs_a, solo)),
+            "int32_on_card": all(o.dtype == torch.int32
+                                 and o.device.type == "cuda"
+                                 for o in outs_a),
+            "counters": {c: {k: c1[c][k] - c0[c][k] for k in (
+                "paged_decode", "engine_steps", "engine_steps32")}
+                for c in reps}}
+        gw.close()
+
+        # (b) disaggregated, f32, exact wire
+        trace.enable("chip-smoke-gateway")
+        reg_b = MetricsRegistry()
+        gw = gateway(reg_b, disagg=True, kv_wire="exact")
+        reps = replicas(gw)
+        c0 = counters(reps)
+        t0 = time.monotonic()
+        outs_b = gateway_generate_all(torch, gw, prompts, max_new)
+        row["b_s"] = time.monotonic() - t0
+        c1 = counters(reps)
+        spans_b = migrate_spans(trace)
+        hist = reg_b.snapshot()["histograms"]
+        mig = reg_b.histogram(f"gateway.{GW_SERVICE}.stage_ms.migrate")
+        row["b"] = {
+            "equal_to_a": sum(int(torch.equal(x, y))
+                              for x, y in zip(outs_b, outs_a)),
+            "int32_on_card": all(o.dtype == torch.int32
+                                 and o.device.type == "cuda"
+                                 for o in outs_b),
+            "stage_counts": {s: hist.get(
+                f"gateway.{GW_SERVICE}.stage_ms.{s}", {}).get("count", 0)
+                for s in ("prefill", "migrate", "decode")},
+            "migrations": c1["decode"]["migrations32"]
+            - c0["decode"]["migrations32"],
+            "migrate_ms": {"p50": mig.percentile(50),
+                           "max": mig.percentile(100)},
+            "migrate_bytes": sum(b for b, _ in spans_b),
+            "migrate_blocks": sum(n for _, n in spans_b),
+            "migrate_spans": len(spans_b),
+            "counters": {c: {k: c1[c][k] - c0[c][k] for k in (
+                "paged_decode", "engine_steps", "engine_steps32")}
+                for c in reps}}
+        gw.close()
+
+        # (c) disaggregated, bf16, q8 wire
+        gw = gateway(MetricsRegistry(), disagg=True, kv_wire="q8",
+                     generate_method="Paged.Generate",
+                     info_method="Paged.Info")
+        t0 = time.monotonic()
+        outs_c = gateway_generate_all(torch, gw, prompts, max_new)
+        row["c_s"] = time.monotonic() - t0
+        spans_c = migrate_spans(trace)
+        trace.disable()
+        gw.close()
+        b_bytes, b_blocks = row["b"]["migrate_bytes"], row["b"]["migrate_blocks"]
+        c_bytes = sum(b for b, _ in spans_c)
+        c_blocks = sum(n for _, n in spans_c)
+        row["c"] = {
+            "answered": sum(int(tuple(o.shape) == (1, max_new)
+                                and bool(((o >= 0)
+                                          & (o < cfg.vocab_size)).all()))
+                            for o in outs_c),
+            "migrate_bytes": c_bytes, "migrate_blocks": c_blocks,
+            # exact f32 bytes / 2 is exact bf16's, block for block
+            "q8_over_exact_at_equal_dtype": (
+                (c_bytes / c_blocks) / (b_bytes / b_blocks / 2)
+                if c_blocks and b_blocks else None),
+            "want": (1 + 4 / 512) / 2}
+        emit({**row, "part": "a-c"})
+
+        # (d) open-loop load, bf16, interleaved, prefix-affine. Each rate
+        # draws its own 8 s trace (one trace compressed by ``at_rate``
+        # would give the fast rates a fraction of a second) and gets a
+        # fresh gateway, so its SLO tracker's histograms hold that rate
+        # alone.
+        mix = tuple(dataclasses.replace(f, prompt_max=GW_RAG_PROMPT_MAX)
+                    if f.name == "rag" else f for f in DEFAULT_MIX)
+        dcfg = DriverConfig(deadline_s=GW_DEADLINE_S, join_timeout_s=120)
+        svc = f"gateway.{GW_SERVICE}"
+        points, rows_d = [], []
+        t0 = time.monotonic()
+        for rate in GW_RATES:
+            if points:
+                time.sleep(GW_SETTLE_S)   # the fleet drains between rates
+            tr = synth_trace(0, mix=mix, rate_rps=rate, **GW_TRACE)
+            check(max(a.prompt_len + a.max_new for a in tr.arrivals)
+                  <= cfg.max_seq,
+                  "gateway_serving: a request exceeds the reach")
+            reg_d = MetricsRegistry()
+            gw = gateway(reg_d, generate_method="Paged.Generate",
+                         info_method="Paged.Info",
+                         slo_ttft_p99_ms=GW_SLO_TTFT_MS,
+                         slo_tpot_p99_ms=GW_SLO_TPOT_MS)
+            reps = replicas(gw)
+            counting = CountingTarget(
+                gateway_target(gw, deadline_s=GW_DEADLINE_S,
+                               vocab=cfg.vocab_size), ShedError)
+            led = TrafficLedger(slo_ttft_ms=GW_SLO_TTFT_MS,
+                                slo_tpot_ms=GW_SLO_TPOT_MS, offered_rps=rate)
+            since = time.time()
+            OpenLoopDriver(tr, counting, ledger=led, cfg=dcfg).run()
+            recs = [x for r in reps.values()
+                    for x in replica_call(r, "Probe.Records", since)]
+            gw.close()
+            s = led.summary()
+            p = point_from_summary(s)
+            p.offered_rps = float(rate)
+            points.append(p)
+            stage_ms = {st: reg_d.histogram(f"{svc}.stage_ms.{st}").summary()
+                        for st in ("queue-wait", "route", "rpc")}
+            lreg = led.registry
+            tpot = lreg.histogram("loadgen.tpot_ms")
+            point = {
+                "phase": "gateway_serving", "part": "d", "rate_rps": rate,
+                "trace_arrivals": len(tr.arrivals),
+                "trace_s": tr.duration_s, "offered": s["offered"],
+                "offered_rps": s["offered_rps"],
+                "answered_rps": s["achieved_rps"],
+                **counting.counts(),
+                "ledger_shed": s["shed"], "ledger_errors": s["errors"],
+                "dropped": s["dropped"], "overruns": s["overruns"],
+                "goodput_pct": p.goodput_pct, "goodput_rps": p.goodput_rps,
+                "culprit_stage": p.culprit_stage,
+                "slo_bad_stages": p.slo_bad_stages,
+                "tokens_per_s": sum(o.tokens for o in led.outcomes()
+                                    if o.status == "ok") / s["wall_s"],
+                "issue_lag_p99_ms": lreg.histogram(
+                    "loadgen.issue_lag_ms").percentile(99),
+                # no per-request TTFT or TPOT on the interleaved path:
+                # the ledger prices e2e as TTFT (its conservative rule)
+                "traffic_ledger": {
+                    "ttft_p50_ms": s["ttft_p50_ms"],
+                    "ttft_p99_ms": s["ttft_p99_ms"],
+                    "e2e_p99_ms": s["e2e_p99_ms"],
+                    "tpot_p50_ms": tpot.percentile(50) if tpot.count else None,
+                    "tpot_p99_ms": tpot.percentile(99) if tpot.count else None},
+                "gateway_slo": {
+                    "e2e_ms": reg_d.histogram(f"{svc}.latency_ms").summary(),
+                    "goodput": gw.slo.goodput(),
+                    "tokens_per_s": gw.slo.tokens_per_sec(),
+                    "stage_ms": stage_ms},
+                # the per-request samples the gateway's TTFT histogram
+                # is fed from, read from the replicas' own ledgers
+                "replica_ledgers": {
+                    name: {"p50": nearest_rank([x[i] for x in recs], 50),
+                           "p99": nearest_rank([x[i] for x in recs], 99)}
+                    for i, name in enumerate(("ttft_ms", "tpot_ms",
+                                              "e2e_ms"))},
+                "saturated": (s["shed"] > 0 or stage_ms["queue-wait"]["p99"]
+                              > GW_SLO_TTFT_MS)}
+            emit(point)
+            rows_d.append(point)
+        knee = locate_knee(points, 90.0)
+        saturated = [pt["rate_rps"] for pt in rows_d if pt["saturated"]]
+        row["d_s"] = time.monotonic() - t0
+        row["d"] = {"rates": list(GW_RATES), "trace": GW_TRACE,
+                    "trace_arrivals": [pt["trace_arrivals"] for pt in rows_d],
+                    "rag_prompt_max": GW_RAG_PROMPT_MAX,
+                    "slo_ttft_ms": GW_SLO_TTFT_MS,
+                    "slo_tpot_ms": GW_SLO_TPOT_MS,
+                    "deadline_s": GW_DEADLINE_S,
+                    "goodput_pct": [p.goodput_pct for p in points],
+                    "knee_rps": knee.offered_rps if knee else None,
+                    "knee_goodput_pct": knee.goodput_pct if knee else None,
+                    "knee_priced_on": "e2e as TTFT",
+                    "saturation_rps": min(saturated) if saturated else None}
+        emit({**row, "part": "d"})
+        for pt in rows_d:
+            check(pt["errors"] == 0 and pt["ledger_errors"] == 0,
+                  f"gateway_serving: errors at {pt['rate_rps']} rps: "
+                  f"{pt['error_types']}")
+            check(pt["offered"] == pt["trace_arrivals"] == pt["issued"]
+                  and pt["issued"] == pt["answered"] + pt["shed"]
+                  + pt["errors"] and pt["shed"] == pt["ledger_shed"],
+                  f"gateway_serving: an arrival unaccounted at "
+                  f"{pt['rate_rps']} rps: {pt}")
+        check(knee is not None, "gateway_serving: no knee")
+        check(rows_d[-1]["saturated"],
+              f"gateway_serving: no saturation up to {GW_RATES[-1]} rps "
+              "(no shed, queue-wait p99 under the TTFT yardstick)")
+
+        # (e) the decode replica SIGKILLed halfway through half the knee
+        rate = knee.offered_rps / 2
+        tr = synth_trace(0, mix=mix, rate_rps=rate, **GW_TRACE)
+        half_s = tr.duration_s / 2
+        gw = gateway(MetricsRegistry(), generate_method="Paged.Generate",
+                     info_method="Paged.Info")
+        reps = replicas(gw)
+        dead = reps["decode"]
+        counting = CountingTarget(
+            gateway_target(gw, deadline_s=GW_DEADLINE_S,
+                           vocab=cfg.vocab_size), ShedError)
+        kill = {}
+
+        def killer():
+            time.sleep(half_s)
+            kill["counters"] = counters(reps)
+            kill["t"] = time.monotonic()
+            os.kill(procs["decode"][0].pid, signal.SIGKILL)
+            deadline = kill["t"] + 30
+            while time.monotonic() < deadline:
+                now = time.monotonic()
+                if "unroutable" not in kill and gw.pool.n_healthy() == 1:
+                    kill["unroutable"] = now
+                if "evicted" not in kill and not any(
+                        d["key"] == dead.key and d["up"]
+                        for d in gw.pool.status()["replicas"]):
+                    kill["evicted"] = now
+                if "unroutable" in kill and "evicted" in kill:
+                    return
+                time.sleep(0.001)
+
+        led = TrafficLedger(offered_rps=rate)
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        t_run = time.monotonic()
+        OpenLoopDriver(tr, counting, ledger=led, cfg=dcfg).run()
+        kt.join(timeout=60)
+        s = led.summary()
+        row["e"] = {
+            "rate_rps": rate, "trace_arrivals": len(tr.arrivals),
+            "kill_after_s": half_s, "offered": s["offered"],
+            **counting.counts(),
+            "answered_after_kill": sum(
+                o.status == "ok" and t_run + o.t_done > kill.get(
+                    "t", float("inf")) for o in led.outcomes()),
+            "kill_to_unroutable_ms": ((kill["unroutable"] - kill["t"]) * 1e3
+                                      if "unroutable" in kill else None),
+            "kill_to_evicted_ms": ((kill["evicted"] - kill["t"]) * 1e3
+                                   if "evicted" in kill else None)}
+        gw.close()
+        launches = {c: d["paged_decode"]
+                    for c, d in kill.get("counters", {}).items()}
+        row["paged_launches_to_the_kill"] = launches
+        row["phase_s"] = time.monotonic() - t_phase
+        emit({**row, "part": "all"})
+
+        a, b, c = row["a"], row["b"], row["c"]
+        check(a["equal_to_solo"] == len(prompts) and a["int32_on_card"],
+              f"gateway_serving (a): {a['equal_to_solo']} of {len(prompts)} "
+              "answers equal the in-process solo f32 tokens")
+        check(min(split.values()) >= 1,
+              f"gateway_serving (a): a replica served nothing: {split}")
+        for part in (a, b):
+            for cls, d in part["counters"].items():
+                check(d["paged_decode"] == (d["engine_steps"]
+                                            + d["engine_steps32"]) * n_layers,
+                      f"gateway_serving: the {cls} replica's paged launches "
+                      f"{d['paged_decode']} != decode steps x {n_layers}: {d}")
+        check(b["equal_to_a"] == len(prompts) and b["int32_on_card"],
+              f"gateway_serving (b): {b['equal_to_a']} of {len(prompts)} "
+              "disaggregated answers equal (a)'s")
+        check(b["migrations"] == len(prompts) and b["migrate_spans"]
+              == len(prompts) and all(
+                  n == len(prompts) for n in b["stage_counts"].values()),
+              f"gateway_serving (b): migrations {b['migrations']}, stages "
+              f"{b['stage_counts']} (a fallback has no decode stage)")
+        check(b["counters"]["prefill"]["engine_steps32"] == 0,
+              "gateway_serving (b): the prefill replica decoded")
+        check(c["answered"] == len(prompts),
+              f"gateway_serving (c): {c['answered']} answered")
+        check(c_bytes * 2048 * b_blocks == b_bytes * 516 * c_blocks,
+              f"gateway_serving (c): q8 {c['q8_over_exact_at_equal_dtype']}"
+              f" of exact bytes a block, want {c['want']}")
+        e = row["e"]
+        check(e["errors"] == 0 and e["issued"] == e["offered"]
+              == e["trace_arrivals"]
+              and e["answered"] + e["shed"] == e["issued"],
+              f"gateway_serving (e): requests lost through the kill: {e}")
+        check(e["answered_after_kill"] > 0,
+              "gateway_serving (e): nothing answered after the kill")
+        check(e["kill_to_evicted_ms"] is not None,
+              "gateway_serving (e): the dead replica was not evicted")
+        check(len(launches) == 2, "gateway_serving (e): no kill counters")
+        return sum(launches.values())
+    finally:
+        if trace.enabled():
+            trace.disable()
+        for gw in gws:
+            gw.close()
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        seed.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2744,6 +3297,11 @@ def main():
     rpc_flash, rpc_paged = cluster_rpc_phase(
         torch, flash_mod, paged_mod, GeneratorActor, PagedGeneratorActor,
         params, prompt, 32, prompts, max_new, kw, card)
+
+    # gateway_serving: two replica processes behind the port's gateway,
+    # interleaved, disaggregated, and under open-loop load
+    gw_paged = gateway_serving_phase(torch, tfm, PagedGeneratorActor,
+                                     params, prompts, max_new, kw, card)
 
     # 5. Trainer at optimus-125m
     row, (fwd_n, dq_n, dkv_n) = trainer_phase(torch, tfm, flash_mod,
@@ -2893,6 +3451,7 @@ def main():
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
     paged128 = {"paged_engine": paged_main_launches,
                 "cluster_rpc": rpc_paged,
+                "gateway_serving": gw_paged,
                 "spec_engine": spec_launches["spec"],
                 "spec_engine_plain_run": spec_launches["plain"],
                 "sampled_engine": sampled_launches,
@@ -2946,7 +3505,9 @@ if __name__ == "__main__":
         zero_writer(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     if sys.argv[1:2] == ["--actor-server"]:
-        actor_server(sys.argv[2])
+        opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))
+        actor_server(sys.argv[2], opts.get("--serve-class", "unified"),
+                     opts.get("--service", "llm"))
         sys.exit(0)
     try:
         main()

@@ -23,7 +23,12 @@ counterpart is easy to find:
   ``PagedGeneratorActor``, its ``BlockPool``, and the KV wire of
   disaggregated prefill/decode (``KVMigrator``);
 - :mod:`ptype_tpu_torch.health` — the ``ServingLedger`` (TTFT, TPOT,
-  e2e, iteration composition, KV pressure);
+  e2e, iteration composition, KV pressure) and tail forensics;
+- :mod:`ptype_tpu_torch.gateway` — the ``InferenceGateway``: admission,
+  the replica pool, prefix-affine and two-stage disaggregated routing
+  over RPC, the SLO tracker, and ``GatewayActor``;
+- :mod:`ptype_tpu_torch.loadgen` — seeded traffic traces, the
+  open-loop driver, the ``TrafficLedger`` and the capacity frontier;
 - :mod:`ptype_tpu_torch.parallel` — the data plane on
   ``torch.distributed``: meshes, collectives with the int8+EF wire and
   the bucket planner, the ``TensorStore``, the ZeRO ladder;

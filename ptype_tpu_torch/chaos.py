@@ -37,6 +37,22 @@ site                    actions
 ``coord.wal_append``    ``delay`` — wedge the coordinator under its lock
                         (coord/core)
 ``coord.put``           ``kill_primary`` — die mid-write (coord/service)
+``gateway.admit``       ``shed`` (force-refuse) / ``delay`` (gateway/admission)
+``gateway.route``       ``drop`` (veto the picked replica) / ``delay``
+``gateway.probe``       ``drop`` / ``timeout`` / ``delay`` (gateway/pool)
+``serve.migrate``       ``drop`` (abort the KV-block transfer outright) /
+                        ``delay`` (stall it mid-flight) / ``truncate``
+                        (ship a wire missing blocks — the decode side
+                        refuses it). All three fall back to local
+                        prefill on the decode replica — correct tokens,
+                        never lost (gateway/frontdoor
+                        ``_dispatch_disagg``)
+``loadgen.issue``       ``drop`` (swallow one scheduled arrival — a
+                        ``dropped`` outcome goodput accounts) /
+                        ``delay`` (stall the issue — surfaces as
+                        ``loadgen.overrun`` + issue lag). Keyed by
+                        arrival ``seq``; answered requests pair the
+                        recovery (loadgen/driver)
 ======================  =====================================================
 
 Zero-cost contract: every seam calls ``chaos.hit(site, key)``, which is

@@ -626,3 +626,45 @@ def test_local_conn_waits_for_the_callers_side_stream(cuda):
         assert s.item() == float(x.numel())
     finally:
         srv.close()
+
+
+def test_gateway_answers_int32_on_the_card(cuda):
+    """The port's InferenceGateway (no device named → cuda) in front of
+    one in-process ActorServer engine: the answer is an int32 tensor on
+    the card, equal to the engine's own tokens, and the engine's decode
+    steps went through the paged kernel."""
+    from ptype_tpu_torch.actor import ActorServer
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.gateway import GatewayConfig, InferenceGateway
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    eng = PagedGeneratorActor(NARROW, device="cuda", n_slots=2,
+                              attn="kernel")
+    srv = ActorServer("127.0.0.1", 0)
+    srv.register(eng, "Paged")
+    srv.serve()
+    state = CoordState(sweep_interval=0.05)
+    registry = CoordRegistry(LocalCoord(state), lease_ttl=1.0)
+    reg = registry.register("card-llm", "r0", "127.0.0.1", srv.port)
+    gw = InferenceGateway(registry, "card-llm", GatewayConfig(
+        generate_method="Paged.Generate", info_method="Paged.Info",
+        probe_interval_s=0.1))
+    try:
+        assert gw.device == torch.device("cuda")
+        assert gw.pool.n_healthy() == 1
+        p = torch.randint(1, 256, (1, 37), generator=cuda, device="cuda")
+        paged_mod.paged_attention.launches = 0
+        steps0 = eng.Info()["engine_steps"]
+        out = gw.generate(p.to(torch.int32), 12)
+        steps = eng.Info()["engine_steps"] - steps0
+        assert out.device.type == "cuda" and out.dtype == torch.int32
+        assert tuple(out.shape) == (1, 12)
+        assert paged_mod.paged_attention.launches == steps * NARROW.n_layers
+        assert torch.equal(out, eng.Generate(p, 12).to(torch.int32))
+    finally:
+        gw.close()
+        reg.close()
+        srv.close()
+        eng.close()
+        state.close()

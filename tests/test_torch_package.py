@@ -52,6 +52,22 @@ def test_every_module_imports_with_jax_blocked():
     assert out.stdout.startswith("ok")
 
 
+def test_the_gateway_loadgen_and_forensics_modules_are_guarded():
+    """The serving frontdoor's modules are among those imported with JAX
+    blocked and scanned for imports of jax or the reference."""
+    mods = set(_modules())
+    want = {f"ptype_tpu_torch.gateway.{m}" for m in (
+        "slo", "admission", "directory", "pool", "frontdoor")}
+    want |= {f"ptype_tpu_torch.loadgen.{m}" for m in (
+        "rng", "arrivals", "ledger", "driver", "frontier")}
+    want |= {"ptype_tpu_torch.gateway", "ptype_tpu_torch.loadgen",
+             "ptype_tpu_torch.health.forensics"}
+    assert want <= mods, sorted(want - mods)
+    assert {PKG / "health" / "forensics.py",
+            PKG / "gateway" / "frontdoor.py",
+            PKG / "loadgen" / "driver.py"} <= set(SOURCES)
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference_package(path):
     tree = ast.parse(path.read_text())
@@ -105,6 +121,10 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
         ckpt.restore({"w": 0})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_reference_state(str(tmp_path), cfg)
+    from ptype_tpu_torch.gateway import InferenceGateway
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceGateway(None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
