@@ -68,6 +68,24 @@ Run from the root of a checkout. Phases, each printing its own lines:
    through a run at half the knee: no arrival lost, the ms to its
    eviction. Paged launches on both replicas = decode steps x 12 in
    (a) and (b);
+   reconciler: the port's Reconciler (min 2, max 3, one warm standby,
+   cooldown 2 s, tick 0.2 s) over replica worker processes
+   (``ProcessLauncher``, ``python -m ptype_tpu_torch.reconciler.worker``
+   of kind ``custom`` with ``chip_smoke:rec_replica``: gateway_serving's
+   bf16 ``Paged`` engine) behind the port's gateway (8 in flight a
+   replica): (a) from an empty fleet to 2 active and 1 warm, with each
+   spawn's Popen -> ready -> activate times; (b) phase 4's requests one
+   at a time, int32 on the card equal to an in-process solo run; (c) 16
+   s of open-loop arrivals at 8 rps (``synth_trace`` seed 0), the newest
+   active replica SIGKILLed at 4 s: one death, one replacement (the warm
+   standby), every arrival answered or shed typed, the ms from the kill
+   to its leaving the registry, to the replacement's activation and
+   first answer, and to the warm pool's refill, and the fleet's answered
+   rps and tails before and after; (d) scripted hints grow the fleet to
+   3 and shrink it under traffic: one drain, nothing lost, no
+   escalation, its wall time; (e) a ``kind="paged"`` worker with no
+   device variable serves on the card. Every replica's paged launches =
+   its decode steps x 12; no worker process outlives the phase;
 5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
    one repeated batch: forward, dq and dk/dv kernels each launched
    steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
@@ -3168,6 +3186,539 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         torch.cuda.empty_cache()
 
 
+#: The reconciler phase: its service, its replicas' counters directory
+#: variable, the open-loop traces of the kill (c) and the drain (d), the
+#: kill's offset into (c)'s run, and the drain's trigger offset in (d).
+REC_SERVICE = "llm-rec"
+REC_COUNTERS_ENV = "CHIP_SMOKE_REC_COUNTERS"
+REC_KILL_TRACE = dict(process="poisson", rate_rps=8.0, duration_s=16.0)
+REC_KILL_AT_S = 4.0
+REC_DRAIN_TRACE = dict(process="poisson", rate_rps=8.0, duration_s=6.0)
+REC_DRAIN_AT_S = 1.0
+
+
+def rec_replica():
+    """Factory of the reconciler phase's replicas
+    (``PTYPE_REPLICA_FACTORY=chip_smoke:rec_replica``, run in the worker
+    process): gateway_serving's ``Paged`` engine — optimus-125m from
+    seed-0 weights, bf16, attn="kernel", 8 slots, 16-token blocks,
+    256-token prefill chunks, on ``cuda`` — with ``Counters`` (the
+    process's flash and paged launch counts and the engine's decode
+    steps) and ``Records`` (its ledger's retired requests). On close it
+    writes its counters to ``$CHIP_SMOKE_REC_COUNTERS/<pid>.json``, so a
+    replica that drains and exits still reports its launches."""
+    import torch
+
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import flash_attention as flash_mod
+    from ptype_tpu_torch.ops import paged_attention as paged_mod
+    from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+
+    class RecEngine(PagedGeneratorActor):
+        def Counters(self):
+            return {"flash_fwd": flash_mod.flash_attention.launches,
+                    "paged_decode": paged_mod.paged_attention.launches,
+                    "engine_steps": self.Info()["engine_steps"],
+                    "pid": os.getpid()}
+
+        def Records(self):
+            """(enqueue wall time, ttft_ms, tpot_ms, e2e_ms) of each
+            retired request."""
+            return [[r["t"], r.get("ttft_ms"), r.get("tpot_ms"),
+                     r.get("e2e_ms")] for r in self.ledger.records()]
+
+        def close(self):
+            out = os.environ.get(REC_COUNTERS_ENV)
+            if out:
+                with open(os.path.join(out, f"{os.getpid()}.json"),
+                          "w") as f:
+                    json.dump(self.Counters(), f)
+            super().close()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.preset("optimus-125m")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    return RecEngine(cfg, params=params, attn="kernel", device="cuda",
+                     n_slots=8, block_tokens=16, prefill_chunk=256)
+
+
+def rec_warmup(actor):
+    """The worker's warm-up: one 1-token Generate, read back to the host,
+    so activation never pays the first kernel load or launch."""
+    import torch
+
+    actor.Generate(torch.ones((1, 4), dtype=torch.int32,
+                              device=actor.device), 1).cpu()
+
+
+rec_replica.warmup = rec_warmup
+
+
+def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
+                     max_new, kw, card):
+    """The port's reconciler keeping an optimus-125m fleet behind the
+    port's gateway: replicas are worker processes (``ProcessLauncher``,
+    kind ``custom``, ``rec_replica``) under ``Reconciler(min 2, max 3,
+    warm pool 1, cooldown 2 s, tick 0.2 s)``. (a) bootstrap from an
+    empty fleet to 2 active and 1 warm; (b) phase 4's prompts one at a
+    time, greedy, equal to an in-process solo run of the same engine;
+    (c) 16 s of open-loop traffic at 8 rps with the newest active
+    replica SIGKILLed at 4 s: one death, one replacement (the warm
+    standby), every arrival answered or shed typed, the kill-to-event
+    times, the fleet's rates and tails before and after the kill; (d)
+    scripted hints grow the fleet to 3, then shrink it: the newest
+    active replica drains under traffic with nothing lost and no
+    escalation; (e) one ``kind="paged"`` worker with no device variable
+    serves on the card. No worker process outlives the phase. Returns
+    the replicas' (paged, flash) launches."""
+    from ptype_tpu_torch import Config, PlatformConfig, join
+    from ptype_tpu_torch import rpc as rpc_mod
+    from ptype_tpu_torch.errors import ShedError
+    from ptype_tpu_torch.gateway import GatewayConfig, InferenceGateway
+    from ptype_tpu_torch.gateway.slo import ScaleHint
+    from ptype_tpu_torch.loadgen import (DEFAULT_MIX, DriverConfig,
+                                         OpenLoopDriver, TrafficLedger,
+                                         gateway_target, synth_trace)
+    from ptype_tpu_torch.metrics import MetricsRegistry
+    from ptype_tpu_torch.reconciler import (ProcessLauncher, Reconciler,
+                                            ReconcilerConfig)
+    from ptype_tpu_torch.registry import Node
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = tfm.preset("optimus-125m")
+    n_layers = cfg.n_layers
+    t_phase = time.monotonic()
+    seed = join(Config(
+        service_name="rec-seed", node_name="rec-seed", port=9001,
+        platform=PlatformConfig(name="rec-seed",
+                                coordinator_address="127.0.0.1:0",
+                                is_coordinator=True, lease_ttl=CLUSTER_TTL)))
+    coord = seed._owned_server.address
+    work = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    timings, spawned = {}, []
+
+    class TimedLauncher(ProcessLauncher):
+        """Stamps each spawn (Popen, ready file, activation) and keeps
+        its process."""
+
+        def spawn(self, name, **kw_):
+            t0 = time.monotonic()
+            h = super().spawn(name, **kw_)
+            spawned.append(h._proc)
+            timings[name] = {"start": t0, "ready": time.monotonic()}
+            activate = h.activate
+
+            def stamped():
+                activate()
+                timings[name].setdefault("activated", time.monotonic())
+
+            h.activate = stamped
+            return h
+
+    launcher = TimedLauncher(coord, service=REC_SERVICE, kind="custom",
+                             factory="chip_smoke:rec_replica",
+                             spawn_timeout_s=120,
+                             env={"PYTHONPATH": root,
+                                  REC_COUNTERS_ENV: work})
+    mreg = MetricsRegistry()
+    gw = InferenceGateway(
+        seed.registry, REC_SERVICE,
+        GatewayConfig(probe_interval_s=GW_PROBE_S, default_deadline_s=600.0,
+                      per_replica_inflight=kw["n_slots"]),
+        metrics_registry=MetricsRegistry(), device="cuda")
+    hint = {"fn": gw.scale_hint}
+    rec = None
+    row = {"phase": "reconciler", "preset": "optimus-125m", "card": card,
+           "service": REC_SERVICE, "min_replicas": 2, "max_replicas": 3,
+           "warm_pool": 1, "cooldown_s": 2.0, "tick_interval_s": 0.2,
+           "per_replica_inflight": kw["n_slots"]}
+    mix = tuple(dataclasses.replace(f, prompt_max=GW_RAG_PROMPT_MAX)
+                if f.name == "rag" else f for f in DEFAULT_MIX)
+    dcfg = DriverConfig(deadline_s=GW_DEADLINE_S, join_timeout_s=120)
+
+    def counter(name):
+        return int(mreg.counter(f"scale.{name}").value)
+
+    def fleet():
+        """name -> (lifecycle, draining) of the replicas the reconciler
+        holds."""
+        return {n: (r["lifecycle"], r["draining"])
+                for n, r in rec.status()["replicas"].items()}
+
+    def n_state(state):
+        return sum(lc == state and not dr for lc, dr in fleet().values())
+
+    def handle(name):
+        with rec._lock:
+            return rec._handles.get(name)
+
+    def call(addr, method, *args, timeout=120):
+        host, port = addr.split(":")
+        conn = rpc_mod._dial(Node(address=host, port=int(port)), 10.0,
+                             device="cuda")
+        try:
+            return conn.call_async(method, args).result(timeout=timeout)
+        finally:
+            conn.close()
+
+    def wait(cond, timeout, what):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < deadline, f"reconciler: {what}")
+            time.sleep(0.005)
+        return time.monotonic()
+
+    def records_by_wall(recs, t_from, t_wall):
+        before = [x for x in recs if t_from <= x[0] < t_wall]
+        after = [x for x in recs if x[0] >= t_wall]
+        return {part: {f"{name}_{p}": nearest_rank([x[i] for x in xs], p)
+                       for i, name in ((1, "ttft_ms"), (2, "tpot_ms"))
+                       for p in (50, 99)} | {"requests": len(xs)}
+                for part, xs in (("before", before), ("after", after))}
+
+    try:
+        # (a) bootstrap from an empty fleet; the solo runs for (b) on an
+        # in-process engine while the replicas come up.
+        t0 = time.monotonic()
+        rec = Reconciler(
+            seed.registry, REC_SERVICE, launcher,
+            hints=lambda: hint["fn"](),
+            cfg=ReconcilerConfig(min_replicas=2, max_replicas=3,
+                                 warm_pool=1, cooldown_s=2,
+                                 tick_interval_s=0.2, drain_deadline_s=30,
+                                 spawn_timeout_s=120),
+            metrics_registry=mreg).start()
+        solo_eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                                       **kw)
+        try:
+            rec_warmup(solo_eng)
+            solo = [solo_eng.Generate(p.to("cuda")[None], max_new)
+                    .to(torch.int32) for p in prompts]
+        finally:
+            solo_eng.close()
+        t_up = wait(lambda: n_state("active") == 2 and n_state("warm") == 1
+                    and not rec.status()["pending_spawns"]
+                    and gw.pool.n_healthy() == 2, 180,
+                    "no 2 active + 1 warm replicas seen by the gateway")
+        row["a"] = {
+            "bootstrap_s": t_up - t0,
+            "spawns": {n: {"popen_to_ready_s": t["ready"] - t["start"],
+                           "ready_to_activate_s": (
+                               t["activated"] - t["ready"]
+                               if "activated" in t else None)}
+                       for n, t in timings.items()},
+            "fleet": fleet()}
+        emit({"phase": "reconciler", "part": "a", **row["a"]})
+
+        # (b) one at a time, greedy, through a gateway whose affinity
+        # never yields to load: one shared key pins every request to one
+        # replica, which then sees the solo engine's sequence.
+        gw_b = InferenceGateway(
+            seed.registry, REC_SERVICE,
+            GatewayConfig(probe_interval_s=GW_PROBE_S,
+                          default_deadline_s=600.0,
+                          per_replica_inflight=kw["n_slots"],
+                          affinity_slack=float("inf")),
+            metrics_registry=MetricsRegistry(), device="cuda")
+        try:
+            wait(lambda: gw_b.pool.n_healthy() == 2, 30,
+                 "the pinned gateway did not see both replicas")
+            t0 = time.monotonic()
+            outs_b = [gw_b.generate(p.to("cuda", torch.int32)[None],
+                                    max_new, affinity_key="reconciler-b")
+                      for p in prompts]
+            split = {d["key"]: d["calls"]
+                     for d in gw_b.pool.status()["replicas"]}
+        finally:
+            gw_b.close()
+        row["b"] = {
+            "s": time.monotonic() - t0,
+            "equal_to_solo": sum(int(torch.equal(o, s))
+                                 for o, s in zip(outs_b, solo)),
+            "int32_on_card": all(o.dtype == torch.int32
+                                 and o.device.type == "cuda"
+                                 for o in outs_b),
+            "split": split}
+        emit({"phase": "reconciler", "part": "b", **row["b"]})
+
+        # (c) SIGKILL the newest active replica 4 s into 16 s of arrivals
+        tr = synth_trace(0, mix=mix, **REC_KILL_TRACE)
+        check(max(a.prompt_len + a.max_new for a in tr.arrivals)
+              <= cfg.max_seq, "reconciler: a request exceeds the reach")
+        counting = CountingTarget(
+            gateway_target(gw, deadline_s=GW_DEADLINE_S,
+                           vocab=cfg.vocab_size), ShedError)
+        led = TrafficLedger(offered_rps=REC_KILL_TRACE["rate_rps"])
+        deaths0, repl0 = counter("deaths"), counter("replacements")
+        kill = {}
+
+        def killer():
+            time.sleep(REC_KILL_AT_S)
+            victim = rec._pick_victim()
+            warm = [n for n, (lc, dr) in fleet().items()
+                    if lc == "warm" and not dr]
+            kill.update(victim=victim.name, addr=victim.addr,
+                        standby=warm[0] if warm else None,
+                        counters=call(victim.addr, "Generator.Counters"),
+                        records=call(victim.addr, "Generator.Records"))
+            kill["wall"] = time.time()
+            kill["t"] = time.monotonic()
+            victim._proc.kill()
+            deadline = kill["t"] + 60
+            while time.monotonic() < deadline:
+                now = time.monotonic()
+                if "unregistered" not in kill and all(
+                        f"{n.address}:{n.port}" != kill["addr"]
+                        for n in seed.registry.nodes(REC_SERVICE)):
+                    kill["unregistered"] = now
+                if "replaced" not in kill and counter("replacements") > repl0:
+                    kill["replaced"] = now
+                if "refilled" not in kill and "replaced" in kill and (
+                        n_state("warm") == 1
+                        and not rec.status()["pending_spawns"]):
+                    kill["refilled"] = now
+                if all(k in kill for k in ("unregistered", "replaced",
+                                           "refilled")):
+                    return
+                time.sleep(0.005)
+
+        kt = threading.Thread(target=killer, daemon=True)
+        t_run, t_run_wall = time.monotonic(), time.time()
+        kt.start()
+        OpenLoopDriver(tr, counting, ledger=led, cfg=dcfg).run()
+        kt.join(timeout=90)
+        check("t" in kill, "reconciler (c): the kill did not happen")
+        # the replacement is the standby the reconciler activated
+        repl = kill["standby"]
+        repl_addr = handle(repl).addr if handle(repl) else None
+        recs = {n: call(handle(n).addr, "Generator.Records")
+                for n, (lc, dr) in fleet().items() if lc == "active"}
+        first = [x[0] + x[3] / 1e3 for x in recs.get(repl, [])
+                 if x[3] is not None and x[0] >= t_run_wall]
+        s = led.summary()
+        k_rel = kill["t"] - t_run
+        end_rel = max(o.t_done for o in led.outcomes() if o.t_done)
+        ok_before = [o for o in led.outcomes() if o.status == "ok"
+                     and o.t_issued < k_rel]
+        ok_after = [o for o in led.outcomes() if o.status == "ok"
+                    and o.t_issued >= k_rel]
+        all_recs = kill["records"] + [x for n in recs
+                                      for x in recs[n]]
+        row["c"] = {
+            "trace": REC_KILL_TRACE, "kill_at_s": REC_KILL_AT_S,
+            "trace_arrivals": len(tr.arrivals), "offered": s["offered"],
+            **counting.counts(), "ledger_shed": s["shed"],
+            "ledger_errors": s["errors"],
+            "victim": kill["victim"], "replacement": repl,
+            "replacement_addr": repl_addr,
+            "deaths": counter("deaths") - deaths0,
+            "replacements": counter("replacements") - repl0,
+            "kill_to_unregistered_ms": ((kill["unregistered"] - kill["t"])
+                                        * 1e3 if "unregistered" in kill
+                                        else None),
+            "kill_to_replacement_active_ms": (
+                (kill["replaced"] - kill["t"]) * 1e3
+                if "replaced" in kill else None),
+            "kill_to_replacement_first_answer_ms": (
+                (min(first) - kill["wall"]) * 1e3 if first else None),
+            "kill_to_warm_refilled_ms": ((kill["refilled"] - kill["t"])
+                                         * 1e3 if "refilled" in kill
+                                         else None),
+            "traffic_ledger": {
+                "answered_rps_before": len(ok_before) / k_rel,
+                "answered_rps_after": len(ok_after) / (end_rel - k_rel),
+                "e2e_p50_ms_before": nearest_rank(
+                    [o.e2e_ms for o in ok_before], 50),
+                "e2e_p99_ms_before": nearest_rank(
+                    [o.e2e_ms for o in ok_before], 99),
+                "e2e_p50_ms_after": nearest_rank(
+                    [o.e2e_ms for o in ok_after], 50),
+                "e2e_p99_ms_after": nearest_rank(
+                    [o.e2e_ms for o in ok_after], 99),
+                "ttft_p99_ms": s["ttft_p99_ms"]},
+            "replica_ledgers": records_by_wall(all_recs, t_run_wall,
+                                               kill["wall"])}
+        emit({"phase": "reconciler", "part": "c", **row["c"]})
+
+        # (d) scripted hints: grow to 3 (the warm standby activates),
+        # then shrink one under traffic: the newest active drains.
+        grow = ScaleHint(delta=1, reason="scripted grow")
+        shrink = ScaleHint(delta=-1, reason="scripted idle")
+        drains0, esc0 = counter("drains"), counter("drain_escalations")
+        hint["fn"] = lambda: grow
+        wait(lambda: n_state("active") == 3 and gw.pool.n_healthy() == 3,
+             60, "the scripted grow did not reach 3 active replicas")
+        tr_d = synth_trace(1, mix=mix, **REC_DRAIN_TRACE)
+        counting_d = CountingTarget(
+            gateway_target(gw, deadline_s=GW_DEADLINE_S,
+                           vocab=cfg.vocab_size), ShedError)
+        led_d = TrafficLedger(offered_rps=REC_DRAIN_TRACE["rate_rps"])
+        drain = {}
+
+        def drainer():
+            time.sleep(REC_DRAIN_AT_S)
+            hint["fn"] = lambda: shrink
+            drain["t_hint"] = time.monotonic()
+            deadline = drain["t_hint"] + 60
+            while time.monotonic() < deadline:
+                with rec._lock:
+                    names = list(rec._draining)
+                if names and "name" not in drain:
+                    drain["t"] = time.monotonic()
+                    drain["name"] = names[0]
+                    drain["h"] = rec._handles.get(names[0])
+                    drain["inflight"] = sum(
+                        r.inflight for r in gw.pool.healthy()
+                        if r.key == drain["h"].addr)
+                if "h" in drain and not drain["h"].alive():
+                    drain["exited"] = time.monotonic()
+                    return
+                time.sleep(0.005)
+
+        dt = threading.Thread(target=drainer, daemon=True)
+        dt.start()
+        OpenLoopDriver(tr_d, counting_d, ledger=led_d, cfg=dcfg).run()
+        dt.join(timeout=90)
+        hint["fn"] = gw.scale_hint
+        wait(lambda: not rec.status()["pending_spawns"], 120,
+             "the warm pool's refill did not land")
+        check("exited" in drain, f"reconciler (d): no drain finished: "
+              f"{ {k: v for k, v in drain.items() if k != 'h'} }")
+        wait(lambda: all(f"{n.address}:{n.port}" != drain["h"].addr
+                         for n in seed.registry.nodes(REC_SERVICE)), 10,
+             "the drained replica stayed registered")
+        s_d = led_d.summary()
+        row["d"] = {
+            "trace": REC_DRAIN_TRACE, "hint_at_s": REC_DRAIN_AT_S,
+            "trace_arrivals": len(tr_d.arrivals), "offered": s_d["offered"],
+            **counting_d.counts(), "ledger_errors": s_d["errors"],
+            "drained": drain["name"],
+            "in_flight_at_order": drain["inflight"],
+            "hint_to_order_ms": (drain["t"] - drain["t_hint"]) * 1e3,
+            "drain_wall_ms": (drain["exited"] - drain["t"]) * 1e3,
+            "exit_code": drain["h"]._proc.returncode,
+            "drains": counter("drains") - drains0,
+            "drain_escalations": counter("drain_escalations") - esc0}
+        emit({"phase": "reconciler", "part": "d", **row["d"]})
+
+        # (e) kind="paged" with no device variable: the worker's own
+        # path, on the card.
+        check("PTYPE_REPLICA_DEVICE" not in os.environ,
+              "reconciler (e): PTYPE_REPLICA_DEVICE is set")
+        paged = ProcessLauncher(coord, service="llm-rec-paged",
+                                kind="paged", preset="optimus-125m",
+                                spawn_timeout_s=120,
+                                env={"PYTHONPATH": root})
+        try:
+            t0 = time.monotonic()
+            ph = paged.spawn("rec-paged-e")
+            t_ready = time.monotonic() - t0
+            spawned.append(ph._proc)
+            out_e = call(ph.addr, "Generator.Generate",
+                         torch.ones((1, 16), dtype=torch.int32,
+                                    device="cuda"), 8)
+            info_e = call(ph.addr, "Generator.Info")
+            ph.exit()
+            ph._proc.wait(timeout=60)
+            row["e"] = {"popen_to_ready_s": t_ready,
+                        "shape": list(out_e.shape),
+                        "device": info_e["device"], "attn": info_e["attn"],
+                        "device_bytes_in_use": info_e["memory"].get(
+                            "device_bytes_in_use"),
+                        "exit_code": ph._proc.returncode}
+        finally:
+            paged.close()
+        emit({"phase": "reconciler", "part": "e", **row["e"]})
+
+        # the end: close the loop and the fleet; every replica's
+        # counters (the victim's read before the kill)
+        spawn_failures = counter("spawn_failures")
+        rec.close(stop_fleet=True)
+        rec = None
+        launcher.close()
+        gw.close()
+        leaked = [p.pid for p in spawned if p.poll() is None]
+        finals = []
+        for name in os.listdir(work):
+            with open(os.path.join(work, name)) as f:
+                finals.append(json.load(f))
+        per_replica = [kill["counters"]] + finals
+        paged_n = sum(c["paged_decode"] for c in per_replica)
+        flash_n = sum(c["flash_fwd"] for c in per_replica)
+        row["end"] = {
+            "spawn_failures": spawn_failures,
+            "scale": {k: v for k, v in
+                      mreg.snapshot()["counters"].items()
+                      if k.startswith("scale.")},
+            "replica_counters": per_replica,
+            "paged_launches": paged_n, "flash_launches": flash_n,
+            "leaked_workers": leaked,
+            "phase_s": time.monotonic() - t_phase}
+        emit({**row, "part": "end"})
+
+        a, b, c, d, e = (row[k] for k in "abcde")
+        check(len(a["spawns"]) == 3,
+              f"reconciler (a): {len(a['spawns'])} spawns to bootstrap")
+        check(b["equal_to_solo"] == len(prompts) and b["int32_on_card"],
+              f"reconciler (b): {b['equal_to_solo']} of {len(prompts)} "
+              "answers equal the in-process solo run")
+        check(c["deaths"] == 1 and c["replacements"] == 1,
+              f"reconciler (c): deaths {c['deaths']}, replacements "
+              f"{c['replacements']}")
+        check(c["errors"] == 0 and c["ledger_errors"] == 0
+              and c["issued"] == c["offered"] == c["trace_arrivals"]
+              and c["answered"] + c["shed"] == c["issued"],
+              f"reconciler (c): an arrival lost through the kill: {c}")
+        check(None not in (c["kill_to_unregistered_ms"],
+                           c["kill_to_replacement_active_ms"],
+                           c["kill_to_replacement_first_answer_ms"],
+                           c["kill_to_warm_refilled_ms"]),
+              f"reconciler (c): a kill-to-event time is missing: {c}")
+        check(d["errors"] == 0 and d["ledger_errors"] == 0
+              and d["issued"] == d["offered"] == d["trace_arrivals"]
+              and d["answered"] + d["shed"] == d["issued"]
+              and d["exit_code"] == 0,
+              f"reconciler (d): the drain lost work: {d}")
+        check(d["drains"] == 1 and d["drain_escalations"] == 0,
+              f"reconciler (d): drains {d['drains']}, escalations "
+              f"{d['drain_escalations']}")
+        check(e["device"].startswith("cuda") and e["shape"] == [1, 8]
+              and e["exit_code"] == 0,
+              f"reconciler (e): the paged worker: {e}")
+        check(spawn_failures == 0,
+              f"reconciler: {spawn_failures} spawn failures")
+        check(not leaked, f"reconciler: worker processes leaked: {leaked}")
+        # An idle replica's counts close exactly; the victim's were read
+        # under traffic, where one step may be between its launches and
+        # its step count.
+        for cnt in finals:
+            check(cnt["paged_decode"] == cnt["engine_steps"] * n_layers,
+                  f"reconciler: a replica's paged launches != decode "
+                  f"steps x {n_layers}: {cnt}")
+        lag = kill["counters"]["paged_decode"] - (
+            kill["counters"]["engine_steps"] * n_layers)
+        check(0 <= lag <= n_layers,
+              f"reconciler: the victim's paged launches are not its decode "
+              f"steps x {n_layers}: {kill['counters']}")
+        check(paged_n > 0, "reconciler: the replicas launched no paged "
+              "decode kernel")
+        return paged_n, flash_n
+    finally:
+        hint["fn"] = gw.scale_hint
+        if rec is not None:
+            rec.close(stop_fleet=True)
+        launcher.close()
+        gw.close()
+        for p in spawned:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        seed.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3302,6 +3853,12 @@ def main():
     # interleaved, disaggregated, and under open-loop load
     gw_paged = gateway_serving_phase(torch, tfm, PagedGeneratorActor,
                                      params, prompts, max_new, kw, card)
+
+    # reconciler: the port's reconciler spawns, heals and drains a fleet
+    # of replica processes behind the gateway under open-loop traffic
+    rec_paged, rec_flash = reconciler_phase(torch, tfm, PagedGeneratorActor,
+                                            params, prompts, max_new, kw,
+                                            card)
 
     # 5. Trainer at optimus-125m
     row, (fwd_n, dq_n, dkv_n) = trainer_phase(torch, tfm, flash_mod,
@@ -3448,10 +4005,13 @@ def main():
               "store_dp": store_launches[0],
               "checkpoint": ckpt_launches[0],
               "elastic": elastic_launches[0]}
+    if rec_flash:
+        fwd128["reconciler"] = rec_flash
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
     paged128 = {"paged_engine": paged_main_launches,
                 "cluster_rpc": rpc_paged,
                 "gateway_serving": gw_paged,
+                "reconciler": rec_paged,
                 "spec_engine": spec_launches["spec"],
                 "spec_engine_plain_run": spec_launches["plain"],
                 "sampled_engine": sampled_launches,

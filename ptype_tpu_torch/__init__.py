@@ -29,6 +29,11 @@ counterpart is easy to find:
   over RPC, the SLO tracker, and ``GatewayActor``;
 - :mod:`ptype_tpu_torch.loadgen` — seeded traffic traces, the
   open-loop driver, the ``TrafficLedger`` and the capacity frontier;
+- :mod:`ptype_tpu_torch.reconciler` — the elastic replica lifecycle:
+  the ``HysteresisPolicy``, ``ReplicaHost`` and its launchers (in
+  process, or ``python -m ptype_tpu_torch.reconciler.worker``
+  processes), and the ``Reconciler`` loop that spawns, warms,
+  activates, drains and replaces replicas on the gateway's scale hints;
 - :mod:`ptype_tpu_torch.parallel` — the data plane on
   ``torch.distributed``: meshes, collectives with the int8+EF wire and
   the bucket planner, the ``TensorStore``, the ZeRO ladder;

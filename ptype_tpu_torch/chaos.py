@@ -53,6 +53,13 @@ site                    actions
                         ``loadgen.overrun`` + issue lag). Keyed by
                         arrival ``seq``; answered requests pair the
                         recovery (loadgen/driver)
+``scale.spawn``         ``fail`` (the replica process/host dies before it
+                        comes up — the reconciler retries next tick) /
+                        ``delay`` (slow spawn) (reconciler/replica)
+``scale.drain``         ``wedge`` (hold a drain open past ``delay_s`` —
+                        drive it past its deadline so the reconciler's
+                        escalation path fires) / ``delay``
+                        (reconciler/replica)
 ======================  =====================================================
 
 Zero-cost contract: every seam calls ``chaos.hit(site, key)``, which is

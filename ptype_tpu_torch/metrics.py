@@ -15,6 +15,10 @@
 - Profiler regions: :func:`annotate` and :func:`step_annotation` open
   a ``torch.profiler.record_function`` range (plus a trace span and
   the region observer when armed). None of them synchronizes.
+
+torch is imported by the functions that use it, not with the module,
+so a control-plane process (a fake replica worker) keeps the registry
+without loading torch.
 """
 
 from __future__ import annotations
@@ -24,8 +28,6 @@ import json
 import threading
 import time
 from dataclasses import dataclass, field
-
-import torch
 
 from ptype_tpu_torch import lockcheck
 from ptype_tpu_torch import trace as trace_mod
@@ -40,6 +42,8 @@ def device_peak_tflops(device=None) -> float | None:
     """The bf16 peak of ``device`` (a CUDA device; the current one when
     None), or None for a device the table does not name — the CPU
     included."""
+    import torch
+
     device = torch.device(device if device is not None else "cuda")
     if device.type != "cuda" or not torch.cuda.is_available():
         return None
@@ -401,6 +405,8 @@ def memory_watermarks(device=None) -> dict:
     None) from the caching allocator: bytes in use, the peak, and the
     card's total. ``{}`` on the CPU. Host reads only: no
     synchronization."""
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             return {}
@@ -539,6 +545,8 @@ def annotate(name: str, **kwargs):
     the region also opens a span of the same name; when a region
     observer is installed (:func:`set_annotate_observer`), the region's
     host wall time is reported to it on exit."""
+    import torch
+
     args = (",".join(f"{k}={v}" for k, v in sorted(kwargs.items()))
             if kwargs else None)
     ann = torch.profiler.record_function(name, args)
@@ -550,6 +558,8 @@ def annotate(name: str, **kwargs):
 
 def step_annotation(step: int):
     """Mark one training step in the profile (``train#<step>``)."""
+    import torch
+
     return torch.profiler.record_function(f"train#{int(step)}")
 
 

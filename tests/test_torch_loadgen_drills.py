@@ -1,0 +1,124 @@
+"""The diurnal-spike drill of ``tests/test_loadgen_drills.py`` on the
+port: one seeded diurnal trace replayed open-loop through the port's
+gateway (``device="cpu"``), admission and scale-hint path, against a
+static one-replica fleet and a fleet under the port's reconciler. The
+elastic fleet must hold the TTFT p99 SLO through the spike the static
+fleet fails, and the traffic ledger must publish its ``loadgen.*``
+series into the registry it was given. Every wait has a deadline."""
+
+import threading
+import time
+
+from ptype_tpu_torch.coord.core import CoordState
+from ptype_tpu_torch.coord.local import LocalCoord
+from ptype_tpu_torch.gateway import GatewayConfig, InferenceGateway
+from ptype_tpu_torch.loadgen import (DriverConfig, OpenLoopDriver,
+                                     TrafficLedger, gateway_target,
+                                     synth_trace)
+from ptype_tpu_torch.metrics import MetricsRegistry
+from ptype_tpu_torch.reconciler import (FakeGeneratorActor, LocalLauncher,
+                                        Reconciler, ReconcilerConfig)
+from ptype_tpu_torch.registry import CoordRegistry
+
+SEED = 20260807
+#: The SLO prices the whole run, the scale-up transient included; the
+#: static fleet's sustained-overload tail sits several multiples above.
+SLO_TTFT_MS = 250.0
+DELAY_S = 0.02           # fake service time
+INFLIGHT = 2             # per-replica concurrency: ~100 rps a replica
+
+
+def _until(cond, timeout):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return cond()
+
+
+def _build_fleet(service, min_r, max_r, elastic):
+    state = CoordState(sweep_interval=0.1)
+    registry = CoordRegistry(LocalCoord(state), lease_ttl=2.0)
+    mreg = MetricsRegistry()
+    launcher = LocalLauncher(
+        registry, lambda: FakeGeneratorActor(delay_s=DELAY_S),
+        service=service)
+    rec = Reconciler(
+        registry, service, launcher,
+        cfg=ReconcilerConfig(min_replicas=min_r, max_replicas=max_r,
+                             cooldown_s=0.2, vote_quorum=1,
+                             tick_interval_s=0.02,
+                             drain_deadline_s=15.0),
+        metrics_registry=mreg)
+
+    def seeded():
+        rec.tick()
+        return len(registry.nodes(service)) >= min_r
+
+    assert _until(seeded, 20)
+    gw = InferenceGateway(
+        registry, service,
+        GatewayConfig(probe_interval_s=0.05, probe_timeout_s=1.0,
+                      default_deadline_s=10.0, max_queue_depth=64,
+                      per_replica_inflight=INFLIGHT,
+                      slo_ttft_p99_ms=SLO_TTFT_MS),
+        metrics_registry=mreg, device="cpu")
+    assert _until(lambda: gw.pool.n_healthy() >= min_r, 20)
+    if elastic:
+        rec._hints = gw.scale_hint
+    rec.start()
+    return state, launcher, rec, gw, mreg
+
+
+def _spike_run(spike_trace, elastic):
+    svc = "drill-spike-e" if elastic else "drill-spike-s"
+    state, launcher, rec, gw, mreg = _build_fleet(
+        svc, 1, 4 if elastic else 1, elastic=elastic)
+    try:
+        # Peak fleet size during the run: the trace ends in a trough,
+        # so an elastic fleet has scaled back down by the end.
+        peak = [gw.pool.n_healthy()]
+        done = threading.Event()
+
+        def watch():
+            while not done.is_set():
+                peak[0] = max(peak[0], gw.pool.n_healthy())
+                done.wait(0.05)
+
+        w = threading.Thread(target=watch, daemon=True)
+        w.start()
+        led = TrafficLedger(slo_ttft_ms=SLO_TTFT_MS, registry=mreg)
+        OpenLoopDriver(spike_trace,
+                       gateway_target(gw, deadline_s=5.0),
+                       ledger=led,
+                       cfg=DriverConfig(max_inflight=256)).run()
+        done.set()
+        w.join(timeout=1.0)
+        assert not w.is_alive()
+        return led.summary(), peak[0], mreg
+    finally:
+        gw.close()
+        rec.close(stop_fleet=True)
+        launcher.close()
+        state.close()
+
+
+def test_diurnal_spike_elastic_holds_slo_where_static_fails():
+    spike = synth_trace(SEED, process="diurnal", duration_s=8.0,
+                        trough_rps=15.0, peak_rps=180.0,
+                        sharpness=2.0)
+    static_sum, static_n, _ = _spike_run(spike, elastic=False)
+    elastic_sum, elastic_n, mreg = _spike_run(spike, elastic=True)
+
+    assert static_n == 1
+    assert elastic_n >= 2, (
+        "the scale-hint path should have grown the fleet through "
+        f"the spike (got {elastic_n} replicas)")
+    assert static_sum["ttft_p99_ms"] > SLO_TTFT_MS, static_sum
+    assert elastic_sum["ttft_p99_ms"] <= SLO_TTFT_MS, elastic_sum
+    assert elastic_sum["goodput_pct"] > static_sum["goodput_pct"]
+    assert (mreg.counter("loadgen.offered").value
+            == elastic_sum["offered"])
+    assert mreg.counter("loadgen.slo_good").value > 0
+    assert mreg.histogram("loadgen.ttft_ms").count > 0

@@ -68,6 +68,31 @@ def test_the_gateway_loadgen_and_forensics_modules_are_guarded():
             PKG / "loadgen" / "driver.py"} <= set(SOURCES)
 
 
+def test_the_reconciler_modules_are_guarded_and_a_worker_skips_torch():
+    """The reconciler's modules are among those imported with JAX blocked
+    and scanned; what a ``fake`` replica worker imports (the worker, the
+    replica host, the TCP coordinator's client, the registry) loads
+    neither torch nor the reconcile loop."""
+    mods = set(_modules())
+    want = {f"ptype_tpu_torch.reconciler.{m}" for m in (
+        "policy", "replica", "worker", "core")} | {
+        "ptype_tpu_torch.reconciler"}
+    assert want <= mods, sorted(want - mods)
+    code = ("import sys\n"
+            "import ptype_tpu_torch.reconciler.worker\n"
+            "from ptype_tpu_torch.reconciler import FakeGeneratorActor\n"
+            "import ptype_tpu_torch.coord.remote, ptype_tpu_torch.registry\n"
+            "bad = [m for m in ('torch', 'ptype_tpu_torch.reconciler.core')"
+            " if m in sys.modules]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference_package(path):
     tree = ast.parse(path.read_text())
