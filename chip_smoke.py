@@ -153,6 +153,27 @@ Run from the root of a checkout. Phases, each printing its own lines:
    recover (a 1 -> 1 reshard), the retried step: losses and params
    equal to a run without the fault; the detection time, reshard_ms,
    and measure_reshard's live and checkpoint recoveries in step units;
+   health: the port's health plane at optimus-125m: (a) a GoodputLedger
+   on the annotate seam (analytic and counted FLOPs, the default
+   Sampler armed) over 8 StoreDPTrainer steps (ZeRO 0, exact, B=16,
+   S=1024, after 2 warm ones): 8 records closed, each one's legs
+   summing to its step, train.steps +8, the counted-vs-analytic FLOPs
+   gap within 10%, fwd/dq/dkv launched 10 x 12 times; the same over the
+   plain Trainer, whose regions time dispatch (printed, not gated);
+   (b) blocks of 8 steps with the Sampler at its default cadence and
+   without, alternated, beside a tick's cost over the cadence; (c) a
+   replica process of the script (``--actor-server COORD --service
+   llm-health --series 0.2``), warmed by one short request, serves
+   phase 4's 8 requests on its bf16 ``Paged`` engine and one (1, 512)
+   prompt on its ``Generator`` (whose prefill runs the flash forward;
+   the engine's chunked prefill attends through the block table) while
+   ``telemetry.cluster_profile`` captures 1 s of it over
+   ``ptype.Profile``: the shipped Chrome trace holds
+   flash_fwd_kernel_bf16 and paged_decode_split_kernel events, and the
+   ``memory`` verb's bytes_in_use is at least the weights' bytes; (d)
+   a ``cluster_snapshot`` of the replica and this process: no alert
+   from ``default_rules()``, ``render_top``/``render_serve`` printed,
+   an OpenMetrics line for every metric family;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -162,8 +183,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    latter with its router, dispatch, experts and combine named apart;
    one speculation window with every slot live, draft, verify and
    accept named apart; one StoreDPTrainer step each of (ZeRO 0,
-   overlap) and (ZeRO-2, exact), NCCL and the bucket pack (cat) among
-   the families.
+   exact) — health's goodput rung —, (ZeRO 0, overlap) and (ZeRO-2,
+   exact), NCCL and the bucket pack (cat) among the families.
 
 Then the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -905,8 +926,12 @@ def trainer_profile(torch, tfm, train_mod, name, ranges=()):
     labels = [label for _, label in ranges]
     with named_ranges(torch, tfm, ranges):
         prof, wall_ms = profiled(torch, lambda: tr.step(batch))
+    # The Trainer's own step ranges (train.step, train#<n>) are ranges,
+    # not kernels, as the named ones are.
+    own = sorted({ev.key for ev in prof.key_averages()
+                  if ev.key.startswith(("train.", "train#"))})
     out = {"phase": "trainer_profile", "preset": name,
-           **profile_summary(prof, wall_ms, labels)}
+           **profile_summary(prof, wall_ms, labels + own)}
     if ranges:
         out.update(range_summary(prof, labels))
     del tr
@@ -2353,19 +2378,21 @@ class ServerProbe:
         return not self._holder.is_alive()
 
 
-def actor_server(coord, serve_class="unified", service="llm"):
+def actor_server(coord, serve_class="unified", service="llm",
+                 series_s=None):
     """Helper mode (``--actor-server COORD [--serve-class CLASS]
-    [--service NAME]``): the server process of the cluster_rpc phase
-    and the replicas of gateway_serving. Builds a ``GeneratorActor`` and
+    [--service NAME] [--series CADENCE]``): the server process of the
+    cluster_rpc phase and the replicas of gateway_serving and health. Builds a ``GeneratorActor`` and
     two 8-slot ``PagedGeneratorActor``s of serving class CLASS
     (attn="kernel", 16-token blocks, 256-token prefill chunks; bf16 and
     f32) at optimus-125m from seed-0 weights on the card, serves them
     as ``Generator``, ``Paged`` and ``Paged32`` and a ``ServerProbe``
     as ``Probe`` on an ``ActorServer`` (tensor arguments decode onto
-    ``cuda``), then joins the TCP coordinator at COORD as service NAME
-    (lease TTL ``CLUSTER_TTL``). Prints one JSON line (when it called
-    ``join``, whether the native wire loaded) and serves until
-    killed."""
+    ``cuda``), arms the health sampler every CADENCE seconds when
+    given (its series then ride every ``ptype.Telemetry`` pull), then
+    joins the TCP coordinator at COORD as service NAME (lease TTL
+    ``CLUSTER_TTL``). Prints one JSON line (when it called ``join``,
+    whether the native wire loaded) and serves until killed."""
     import torch
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2396,6 +2423,10 @@ def actor_server(coord, serve_class="unified", service="llm"):
     server.register(ServerProbe(torch, flash_mod, paged_mod, native,
                                 engine, engine32), "Probe")
     server.serve()
+    if series_s is not None:
+        from ptype_tpu_torch.health import series
+
+        series.start(cadence_s=series_s)
     join_called_at = time.time()
     name = f"actor-server-{serve_class}-{os.getpid()}"
     cluster = join(Config(
@@ -2695,17 +2726,20 @@ GW_RAG_PROMPT_MAX = 800
 GW_SERVICE = "llm-gw"
 
 
-def start_replica(coord, serve_class, work):
+def start_replica(coord, serve_class, work, service=GW_SERVICE,
+                  series_s=None):
     """A replica process of this script (``--actor-server``) of serving
-    class ``serve_class`` in service ``GW_SERVICE``; returns (process,
-    its ready-line path, its log path)."""
+    class ``serve_class`` in ``service``, with the health sampler armed
+    at ``series_s`` seconds when given; returns (process, its
+    ready-line path, its log path)."""
     out_path = os.path.join(work, f"{serve_class}.out")
     log_path = os.path.join(work, f"{serve_class}.log")
+    args = [sys.executable, os.path.abspath(__file__), "--actor-server",
+            coord, "--serve-class", serve_class, "--service", service]
+    if series_s is not None:
+        args += ["--series", str(series_s)]
     with open(out_path, "w") as out_f, open(log_path, "w") as log_f:
-        proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--actor-server",
-             coord, "--serve-class", serve_class, "--service", GW_SERVICE],
-            stdout=out_f, stderr=log_f)
+        proc = subprocess.Popen(args, stdout=out_f, stderr=log_f)
     return proc, out_path, log_path
 
 
@@ -2714,10 +2748,10 @@ def replica_call(r, method, *args, timeout=120):
     return r.conn.call_async(method, args).result(timeout=timeout)
 
 
-def wait_for(cond, timeout, what):
+def wait_for(cond, timeout, what, phase="gateway_serving"):
     deadline = time.monotonic() + timeout
     while not cond():
-        check(time.monotonic() < deadline, f"gateway_serving: {what}")
+        check(time.monotonic() < deadline, f"{phase}: {what}")
         time.sleep(0.01)
 
 
@@ -3719,6 +3753,376 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ health plane
+
+#: The health phase's replica service, its sampler cadence, the profile
+#: capture's length, the FLOPs gap bar (the reference's own), and the
+#: reference's sampler overhead bar (``ptype_tpu/health/bench.py``).
+HEALTH_SERVICE = "llm-health"
+HEALTH_SERIES_S = 0.2
+HEALTH_PROFILE_S = 1.0
+HEALTH_GAP_PCT = 10.0
+HEALTH_SAMPLER_BAR_PCT = 1.0
+HEALTH_WARM, HEALTH_STEPS = 2, 8
+
+
+def goodput_run(torch, tfm, step, cfg, compiled_flops, batch_tokens):
+    """``HEALTH_WARM`` warm steps, then a ``GoodputLedger`` (analytic
+    and compiled FLOPs) on the annotate seam and the default ``Sampler``
+    armed, and ``HEALTH_STEPS`` steps: the ledger's records and
+    summary, the ``train.steps`` advance and the steps' wall ms."""
+    from ptype_tpu_torch.health import goodput as goodput_mod
+    from ptype_tpu_torch.health import series as series_mod
+    from ptype_tpu_torch.metrics import metrics
+
+    for _ in range(HEALTH_WARM):
+        step()
+    torch.cuda.synchronize()
+    ledger = goodput_mod.install(
+        tokens_per_step=batch_tokens,
+        flops_per_token=tfm.flops_per_token(cfg, 1024))
+    ledger.set_compiled_flops(compiled_flops)
+    sampler = series_mod.start()
+    steps0 = metrics.counter("train.steps").value
+    try:
+        t0 = time.monotonic()
+        for _ in range(HEALTH_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+        sampler.sample_once()
+    finally:
+        goodput_mod.uninstall()
+        series_mod.stop()
+    return (ledger.records(), ledger.summary(),
+            metrics.counter("train.steps").value - steps0, wall_ms)
+
+
+LEGS = ("compute_ms", "data_ms", "collective_ms", "checkpoint_ms",
+        "optimizer_ms", "prefill_ms")
+
+
+def sampler_overhead(torch, step):
+    """The Sampler at its default cadence against none, alternated in
+    blocks of ``HEALTH_STEPS`` steps (A B A B; host clock around
+    synchronized blocks), beside the reference's direct estimate: one
+    tick's cost over the cadence."""
+    import statistics
+
+    from ptype_tpu_torch.health import series as series_mod
+
+    blocks = {"with": [], "without": []}
+    for arm in ("with", "without", "with", "without"):
+        sampler = series_mod.Sampler().start() if arm == "with" else None
+        try:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(HEALTH_STEPS):
+                step()
+            torch.cuda.synchronize()
+            blocks[arm].append((time.monotonic() - t0) * 1e3 / HEALTH_STEPS)
+        finally:
+            if sampler is not None:
+                sampler.close()
+    probe = series_mod.Sampler()
+    n = 200
+    t0 = time.perf_counter()
+    for _ in range(n):
+        probe.sample_once()
+    tick_s = (time.perf_counter() - t0) / n
+    on = statistics.mean(blocks["with"])
+    off = statistics.mean(blocks["without"])
+    return {"step_ms_with": blocks["with"], "step_ms_without":
+            blocks["without"], "ab_overhead_pct": 100.0 * (on - off) / off,
+            "tick_us": tick_s * 1e6, "cadence_s": probe.cadence_s,
+            "sampler_overhead_pct": 100.0 * tick_s / probe.cadence_s,
+            "bar_pct": HEALTH_SAMPLER_BAR_PCT}
+
+
+def trace_kernels(profile_dir, top=12):
+    """The device-side records of the gzipped Chrome traces under
+    ``profile_dir``: their count by category, and the most frequent
+    kernel names."""
+    import collections
+    import gzip
+
+    cats, names = collections.Counter(), collections.Counter()
+    for root, _, files in os.walk(profile_dir):
+        for f in files:
+            if not f.endswith(".trace.json.gz"):
+                continue
+            with gzip.open(os.path.join(root, f), "rt") as fp:
+                for ev in json.load(fp).get("traceEvents", ()):
+                    if ev.get("ph") == "X" and ev.get("cat") in (
+                            "kernel", "gpu_memcpy", "gpu_memset"):
+                        cats[ev["cat"]] += 1
+                        if ev["cat"] == "kernel":
+                            names[ev.get("name", "?")[:120]] += 1
+    return {"by_category": dict(cats), "top": names.most_common(top)}
+
+
+def health_phase(torch, tfm, flash_mod, train_mod, mesh, params, prompts,
+                 max_new, card):
+    """The port's health plane at optimus-125m on the card: (a) goodput
+    of a StoreDPTrainer (ZeRO 0, exact wire) and of the plain Trainer
+    at B=16, S=1024; (b) the sampler's overhead; (c) a profile of a
+    serving replica process over RPC; (d) alerts, ``obs`` views and
+    OpenMetrics over a cluster snapshot. Returns the launches of this
+    phase: (this process's fwd, dq, dkv; the replica's fwd, paged)."""
+    from ptype_tpu_torch import Config, PlatformConfig, join, telemetry
+    from ptype_tpu_torch import rpc as rpc_mod
+    from ptype_tpu_torch.health import (AlertEngine, default_rules,
+                                        profiling, render_serve,
+                                        render_top)
+    from ptype_tpu_torch.metrics import device_peak_tflops
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+    from ptype_tpu_torch.train import store_dp as sd
+
+    cfg = tfm.preset("optimus-125m")
+    B, S = 16, 1024
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, B, S, seed=3,
+                                             device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    own = [0, 0, 0]
+    row = {"phase": "health", "preset": "optimus-125m", "card": card,
+           "B": B, "S": S, "peak_tflops": device_peak_tflops()}
+    t_phase = time.monotonic()
+
+    # (a) goodput of the StoreDPTrainer: host regions; the step reads
+    # its loss, so train.step is the true step.
+    tr, pieces = store_dp_trainer(torch, train_mod, sd, mesh, cfg, params,
+                                  0, False, "exact")
+    with pieces:
+        tr.step(batch)
+        t0 = time.monotonic()
+        cost = tr.compiled_cost()
+        row["compiled_cost_s"] = time.monotonic() - t0
+        row["compiled_flops_per_token"] = cost["flops_per_token"]
+        row["compiled_bytes_per_token"] = (cost["bytes_accessed"]
+                                           / cost["tokens_per_step"])
+        row["count_device"] = cost["programs"]["grads"]["device"]
+        for c in counters:
+            c.launches = 0
+        recs, summary, advanced, wall_ms = goodput_run(
+            torch, tfm, lambda: tr.step(batch), cfg, cost["flops"], B * S)
+        launches = [c.launches for c in counters]
+        own = [a + b for a, b in zip(own, launches)]
+        row["store_dp"] = {"goodput": summary, "wall_ms": wall_ms,
+                           "records": recs, "train_steps": advanced,
+                           "launches": launches}
+        check(len(recs) == HEALTH_STEPS,
+              f"health: {len(recs)} goodput records closed, want "
+              f"{HEALTH_STEPS}")
+        for r in recs:
+            legs = sum(r[k] for k in LEGS)
+            check(abs(legs - r["step_ms"]) <= 0.01,
+                  f"health: a record's legs sum to {legs} ms, its step is "
+                  f"{r['step_ms']} ms: {r}")
+        check(advanced == HEALTH_STEPS,
+              f"health: train.steps advanced {advanced}, want "
+              f"{HEALTH_STEPS}")
+        gap = summary.get("mfu_gap_pct")
+        check(gap is not None and abs(gap) <= HEALTH_GAP_PCT,
+              f"health: compiled vs analytic FLOPs gap {gap}% "
+              f"(bar {HEALTH_GAP_PCT}%)")
+        want = (HEALTH_STEPS + HEALTH_WARM) * cfg.n_layers
+        check(launches == [want] * 3,
+              f"health: goodput steps launched fwd/dq/dkv {launches}, "
+              f"want {want} each")
+        # (b) the sampler's overhead on the same trainer.
+        for c in counters:
+            c.launches = 0
+        row["sampler"] = sampler_overhead(torch, lambda: tr.step(batch))
+        own = [a + c.launches for a, c in zip(own, counters)]
+    del tr
+    torch.cuda.empty_cache()
+
+    # (a) the plain Trainer: it dispatches without waiting, so its
+    # regions time the host's dispatch (figures printed, not gated).
+    ptr, pbatch = new_trainer(torch, train_mod, cfg)
+    for c in counters:
+        c.launches = 0
+    recs, summary, advanced, wall_ms = goodput_run(
+        torch, tfm, lambda: ptr.step(pbatch), cfg, cost["flops"], B * S)
+    ptr.sync()
+    own = [a + c.launches for a, c in zip(own, counters)]
+    row["trainer"] = {"goodput": summary, "wall_ms": wall_ms,
+                      "train_steps": advanced,
+                      "step_ms": [r["step_ms"] for r in recs]}
+    check(advanced == HEALTH_STEPS and len(recs) == HEALTH_STEPS,
+          f"health: the Trainer's seam saw {len(recs)} steps, "
+          f"train.steps advanced {advanced}")
+    del ptr
+    torch.cuda.empty_cache()
+    emit({**row, "step": "goodput"})
+
+    # (c) a bf16 Paged replica process profiled over RPC while it serves
+    # phase 4's requests.
+    seed = join(Config(
+        service_name="health-seed", node_name="health-seed", port=9003,
+        platform=PlatformConfig(name="health-seed",
+                                coordinator_address="127.0.0.1:0",
+                                is_coordinator=True, lease_ttl=CLUSTER_TTL)))
+    work = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    proc, out_path, log_path = start_replica(
+        seed._owned_server.address, "unified", work, HEALTH_SERVICE,
+        series_s=HEALTH_SERIES_S)
+    conns = []
+    try:
+        t0 = time.monotonic()
+        wait_child_line(proc, out_path, log_path, 300, "health")
+        wait_for(lambda: seed.registry.nodes(HEALTH_SERVICE), 60,
+                 "the replica did not register", "health")
+        row["replica_ready_s"] = time.monotonic() - t0
+        node = seed.registry.nodes(HEALTH_SERVICE)[0]
+        conns = [rpc_mod._dial(node, 10.0, "cuda") for _ in range(2)]
+        ctl, calls = conns
+
+        def call(conn, method, *args, timeout=600):
+            return conn.call_async(method, args).result(timeout=timeout)
+
+        # One short request first, so the kernels' modules are loaded
+        # and the allocator warm before the capture's window.
+        call(calls, "Paged.Generate", prompts[0].to("cuda")[None], 4)
+        call(ctl, "Probe.Reset")
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for _, p in tree_flatten(params))
+        mem0 = call(ctl, "ptype.Profile", "memory")
+        prof_dir = os.path.join(work, "profile")
+        box = {}
+        profiler = threading.Thread(target=lambda: box.setdefault(
+            "res", telemetry.cluster_profile(
+                seed.registry, duration_s=HEALTH_PROFILE_S,
+                out_dir=prof_dir, services=[HEALTH_SERVICE],
+                timeout=HEALTH_PROFILE_S + 120)), daemon=True)
+        t_cap = time.monotonic()
+        profiler.start()
+        wait_for(lambda: call(ctl, "ptype.Profile", "status")["active"]
+                 or not profiler.is_alive(), 120,
+                 "the replica's profile session did not start", "health")
+        row["capture_start_s"] = time.monotonic() - t_cap
+        outs, errs = [None] * len(prompts), []
+
+        def generate(i):
+            try:
+                outs[i] = call(calls, "Paged.Generate",
+                               prompts[i].to("cuda")[None], max_new)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errs.append(e)
+
+        def prefill():
+            # The paged engine's chunked prefill attends through the
+            # block table; the replica's flash forward runs in its
+            # GeneratorActor's prefill (one 512-token prompt).
+            try:
+                box["generator"] = call(calls, "Generator.Generate",
+                                        prompts[-1][:512].to("cuda")[None],
+                                        8)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errs.append(e)
+
+        t_req = time.monotonic()
+        reqs = [threading.Thread(target=generate, args=(i,), daemon=True)
+                for i in range(len(prompts))]
+        reqs.append(threading.Thread(target=prefill, daemon=True))
+        for t in reqs:
+            t.start()
+        profiler.join(timeout=HEALTH_PROFILE_S + 300)
+        row["capture_wall_s"] = time.monotonic() - t_cap
+        for t in reqs:
+            t.join(timeout=600)
+        row["requests_s"] = time.monotonic() - t_req
+        if errs:
+            raise errs[0]
+        check(all(o is not None and tuple(o.shape) == (1, max_new)
+                  for o in outs) and tuple(box["generator"].shape) == (1, 8),
+              "health: a request through the profiled replica did not "
+              "come back whole")
+        res = box.get("res")
+        check(res is not None and not res["errors"] and res["nodes"],
+              f"health: cluster_profile failed: {res}")
+        (key, got), = res["nodes"].items()
+        mem = call(ctl, "ptype.Profile", "memory")
+        replica = call(ctl, "Probe.Counters")
+        row["replica_launches"] = replica
+
+        # (d) one snapshot of the replica and this process: no alert over
+        # the clean run, the obs views, an OpenMetrics line a family.
+        snap = telemetry.cluster_snapshot(seed.registry,
+                                          services=[HEALTH_SERVICE])
+        check(not snap["errors"] and len(snap["nodes"]) == 2,
+              f"health: snapshot errors {snap['errors']}, nodes "
+              f"{sorted(snap['nodes'])}")
+        alerts = AlertEngine(default_rules()).evaluate(snap)
+        row["alerts"] = [a.to_dict() for a in alerts]
+        check(not alerts, f"health: alerts over a clean run: "
+              f"{row['alerts']}")
+        row["series"] = {k: sorted(t.get("series", {}))
+                         for k, t in snap["nodes"].items()}
+        check(snap["nodes"][key]["series"], "health: the replica's pull "
+              "carries no series (its sampler is armed)")
+        om = telemetry.openmetrics(snap)
+        missing = [n for t in snap["nodes"].values()
+                   for fam in ("counters", "gauges", "timings",
+                               "histograms")
+                   for n in t["metrics"].get(fam, {})
+                   if f"# TYPE {telemetry._om_name(n)} " not in om]
+        row["openmetrics_lines"] = om.count("\n")
+        check(not missing, f"health: OpenMetrics lacks {missing[:10]}")
+        row["render_top"] = render_top(snap, alerts)
+        row["render_serve"] = render_serve(snap, alerts)
+        print(row["render_top"], flush=True)
+        print(row["render_serve"], flush=True)
+        call(ctl, "Probe.Reset")
+        # The cluster is done with: the shipped trace is parsed after it
+        # closes (parsing holds the interpreter lock for most of a
+        # second, longer than the seed's 1 s lease).
+        proc.kill()
+        proc.wait(timeout=60)
+        seed.close()
+
+        # (c)'s checks on the shipped artifacts.
+        s = profiling.summarize(got["dir"], top=100_000)
+        names = [op["name"] for op in s["top_ops"]]
+        kernels = trace_kernels(got["dir"])
+        found = {k: sum(op["count"] for op in s["top_ops"] if k in op["name"])
+                 for k in ("flash_fwd_kernel_bf16",
+                           "paged_decode_split_kernel")}
+        sizes = {f["path"]: f["size"] for f in profiling.artifact_files(
+            got["dir"])}
+        stats = mem["devices"][0]["stats"]
+        row["profile"] = {
+            "node": key, "capture_s": got["capture_s"],
+            "files": sizes, "events": s["events"],
+            "kernel_events": found, "remote_dir": got["remote_dir"],
+            "kernels": kernels, "truncated": got.get("truncated"),
+            "top_ops": s["top_ops"][:12],
+            "memory_before": mem0["devices"][0]["stats"],
+            "memory_after": stats, "weight_bytes": weight_bytes,
+            "memory_profile_size": mem.get("memory_profile_size")}
+        check(all(n > 0 for n in found.values()),
+              f"health: the shipped trace lacks the kernels' events "
+              f"{found}; its kernels: {kernels}; top: {names[:30]}")
+        check(stats["bytes_in_use"] >= weight_bytes,
+              f"health: the replica holds {stats['bytes_in_use']} bytes, "
+              f"under its weights' {weight_bytes}")
+        check(replica["flash_fwd"] > 0 and replica["paged_decode"] > 0,
+              f"health: the replica launched no kernel: {replica}")
+        row["seconds"] = time.monotonic() - t_phase
+        emit(row)
+        return own, (replica["flash_fwd"], replica["paged_decode"])
+    finally:
+        for c in conns:
+            c.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        seed.close()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3944,6 +4348,13 @@ def main():
     ckpt_launches = checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh)
     elastic_launches = elastic_phase(torch, tfm, flash_mod, train_mod, mesh)
 
+    # health: goodput, the sampler's cost, a replica profiled over RPC,
+    # alerts and the obs views, at optimus-125m
+    health_own, (health_rep_fwd, health_rep_paged) = health_phase(
+        torch, tfm, flash_mod, train_mod, mesh, params, prompts, max_new,
+        card)
+    torch.cuda.empty_cache()
+
     # 6. profiles, after every host-timed phase: one engine decode
     # iteration, one train step of each model, one speculation window,
     # one StoreDPTrainer step each of two rungs
@@ -3967,7 +4378,7 @@ def main():
     finally:
         eng.close()
     torch.cuda.empty_cache()
-    for zero, overlap in ((0, True), (2, False)):
+    for zero, overlap in ((0, False), (0, True), (2, False)):
         emit(store_dp_profile(torch, tfm, train_mod, mesh, zero, overlap))
         torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
@@ -4004,7 +4415,8 @@ def main():
               "batching_generator": batch_launches,
               "store_dp": store_launches[0],
               "checkpoint": ckpt_launches[0],
-              "elastic": elastic_launches[0]}
+              "elastic": elastic_launches[0],
+              "health": health_own[0] + health_rep_fwd}
     if rec_flash:
         fwd128["reconciler"] = rec_flash
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
@@ -4015,7 +4427,8 @@ def main():
                 "spec_engine": spec_launches["spec"],
                 "spec_engine_plain_run": spec_launches["plain"],
                 "sampled_engine": sampled_launches,
-                "disagg_engine": disagg_launches}
+                "disagg_engine": disagg_launches,
+                "health": health_rep_paged}
     paged64 = {"moe_paged_engine": moe_paged_launches}
 
     def rows(name, src, ref, row, by_path, **extra):
@@ -4037,7 +4450,7 @@ def main():
              pick("flash_bwd_dq", 16, 6, 128, 1024),
              {"trainer": dq_n, "store_dp": store_launches[1],
               "checkpoint": ckpt_launches[1],
-              "elastic": elastic_launches[1]}),
+              "elastic": elastic_launches[1], "health": health_own[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
              {"moe_trainer": moe_dq_n}),
@@ -4045,7 +4458,7 @@ def main():
              pick("flash_bwd_dkv", 16, 6, 128, 1024),
              {"trainer": dkv_n, "store_dp": store_launches[2],
               "checkpoint": ckpt_launches[2],
-              "elastic": elastic_launches[2]}),
+              "elastic": elastic_launches[2], "health": health_own[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
              {"moe_trainer": moe_dkv_n}),
@@ -4067,7 +4480,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--actor-server"]:
         opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))
         actor_server(sys.argv[2], opts.get("--serve-class", "unified"),
-                     opts.get("--service", "llm"))
+                     opts.get("--service", "llm"),
+                     (float(opts["--series"]) if "--series" in opts
+                      else None))
         sys.exit(0)
     try:
         main()

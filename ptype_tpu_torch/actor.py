@@ -18,9 +18,6 @@ Device-native behaviors:
 - same-process calls short-circuit the socket entirely (see
   ``lookup_local``), which is how actor calls between services that share a
   host process stay zero-copy.
-
-Not ported yet: the reference's built-in ``ptype.Profile`` endpoint
-(it needs ``health/profiling.py``). ``ptype.Telemetry`` is served.
 """
 
 from __future__ import annotations
@@ -44,6 +41,15 @@ _local_servers: dict[tuple[str, int], "ActorServer"] = {}
 _local_lock = threading.Lock()
 
 
+def _profile_endpoint(cmd: str, options=None):
+    """The built-in ``ptype.Profile`` handler — a lazy shim so actor.py
+    stays import-light (profiling pulls in the health plane; this
+    module must import before it)."""
+    from ptype_tpu_torch.health import profiling
+
+    return profiling.endpoint(cmd, options)
+
+
 def lookup_local(address: str, port: int) -> "ActorServer | None":
     with _local_lock:
         server = _local_servers.get((address, port))
@@ -61,10 +67,14 @@ class ActorServer:
         # advertises the host's routable IP (cluster.go:198-213), so the
         # server must be reachable on it.
         self._handlers: dict[str, object] = {}
-        # Built-in observability endpoint: every actor server answers
-        # the cluster telemetry pull plane (metrics snapshot + recent
-        # spans from the flight recorder) without registration.
+        # Built-in observability endpoints: every actor server answers
+        # the cluster telemetry pull plane (metrics snapshot, series and
+        # recent spans from the flight recorder) and the profiling
+        # plane (torch.profiler capture + device-memory snapshots)
+        # without registration — telemetry.cluster_snapshot /
+        # cluster_profile walk the registry and call these per node.
         self._handlers["ptype.Telemetry"] = trace.telemetry
+        self._handlers["ptype.Profile"] = _profile_endpoint
         #: Resolves the device tensor arguments decode onto (see the
         #: module doc); called only for a frame that holds a tensor.
         self._decode_device = functools.partial(resolve_device, device)

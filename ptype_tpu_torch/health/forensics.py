@@ -23,10 +23,9 @@ Three layers share the stage vocabulary defined here:
   the ordinary telemetry pull.
 
 Stitching spans across processes is the telemetry plane's
-(``telemetry.stitch_traces`` in the reference), which the port has not
-taken yet: :func:`waterfall_from_snapshot` on a snapshot without
-stitched ``traces`` and :func:`load_dump_traces` raise
-``NotImplementedError`` until it is (ROADMAP A8(e)).
+(:func:`ptype_tpu_torch.telemetry.stitch_traces`):
+:func:`waterfall_from_snapshot` stitches a raw cluster snapshot, and
+:func:`load_dump_traces` a flight-recorder dump.
 
 Stage names (the shared vocabulary):
 
@@ -46,6 +45,7 @@ Stage names (the shared vocabulary):
 
 from __future__ import annotations
 
+import json
 import os
 
 __all__ = [
@@ -380,20 +380,13 @@ def render_tail(snapshot: dict, limit: int = 8) -> str:
 # ------------------------------------------------------- obs plumbing
 
 
-def _no_telemetry(what: str):
-    return NotImplementedError(
-        f"{what} stitches spans through the telemetry plane, which the "
-        f"port has not taken yet (ROADMAP A8(e))")
-
-
 def waterfall_from_snapshot(snapshot: dict, trace_id: str) -> dict:
-    """Extract one trace's waterfall from a flight-recorder dump already
-    loaded as ``{"traces": ...}``. A raw cluster snapshot needs the
-    telemetry plane's stitching and raises ``NotImplementedError``
-    until it is ported."""
+    """Stitch a cluster snapshot (or a flight-recorder dump already
+    loaded as ``{"traces": ...}``) and extract one trace's waterfall."""
     traces = snapshot.get("traces")
     if traces is None:
-        raise _no_telemetry("waterfall_from_snapshot of a raw snapshot")
+        from ptype_tpu_torch import telemetry
+        traces = telemetry.stitch_traces(telemetry.all_spans(snapshot))
     spans = traces.get(trace_id)
     if spans is None:
         # Prefix match: operators paste the short id of a tail row.
@@ -411,9 +404,18 @@ def waterfall_from_snapshot(snapshot: dict, trace_id: str) -> dict:
 def load_dump_traces(path: str) -> dict:
     """Read a flight-recorder ``.jsonl`` dump (``trace.maybe_dump``
     output) into ``{trace_id: [span, ...]}`` — the post-mortem source
-    when the cluster is gone. The stitching is the telemetry plane's:
-    this raises ``NotImplementedError`` until it is ported."""
-    raise _no_telemetry(f"load_dump_traces({path!r})")
+    when the cluster is gone."""
+    spans: list = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            d = json.loads(line)
+            if "span_id" in d:
+                spans.append(d)
+    from ptype_tpu_torch import telemetry
+    return telemetry.stitch_traces(spans)
 
 
 def latest_dump(dump_dir: str) -> str | None:

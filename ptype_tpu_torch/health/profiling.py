@@ -1,0 +1,951 @@
+"""Profiling plane: on-demand device profiling + counted-cost MFU — the
+port's copy of ``ptype_tpu/health/profiling.py``, on ``torch.profiler``.
+
+Four seams, as in the reference:
+
+- **Capture sessions** (:func:`start` / :func:`stop` /
+  :func:`capture`): a managed ``torch.profiler.profile`` into an
+  artifact directory (``$PTYPE_PROFILE_DIR`` or a tempdir), returning a
+  file manifest — and, on request, the artifact BYTES, so a capture can
+  ship over the actor wire. :func:`stop` writes the session's Chrome
+  trace gzipped as ``<host>_<pid>.pt.trace.json.gz``, which
+  :func:`summarize` reads as the reference's reads its profiler's
+  ``*.trace.json.gz``.
+  Activities: the CPU, plus CUDA when the process computes on a card
+  (it has initialised CUDA). There is no quiet fallback: a CUDA process whose profiler
+  cannot trace CUDA raises :class:`ProfileError` at :func:`start`, and
+  a session whose trace holds no kernel (the session launches one
+  marker fill kernel at each end to prove it) raises at :func:`stop`.
+  One session per process: a second :func:`start` raises
+  :class:`ProfileError`. Device-memory snapshots
+  (:func:`memory_snapshot` — the caching allocator's counters under
+  the reference's key names, plus ``torch.cuda.memory._snapshot()``)
+  ride along with every capture.
+- **The ``ptype.Profile`` actor endpoint** (:func:`endpoint`): every
+  :class:`~ptype_tpu_torch.actor.ActorServer` serves it built-in
+  (sibling of ``ptype.Telemetry``), so any node's device timeline is
+  one RPC away — :func:`ptype_tpu_torch.telemetry.cluster_profile` fans
+  a simultaneous capture across the whole registry.
+- **Alert-triggered capture** (:class:`AlertCapture`): an
+  :class:`~ptype_tpu_torch.health.rules.AlertEngine` hook that captures
+  a short profile on the node an alert NAMES, rate-limited per (rule,
+  node).
+- **Counted-cost accounting** (:func:`compiled_cost` /
+  :func:`transformer_grads_cost` / :func:`measure_compiled_cost`): XLA's
+  ``cost_analysis`` has no PyTorch counterpart, so the port counts the
+  ops one call runs — FLOPs with ``torch.utils.flop_counter.
+  FlopCounterMode``, bytes with a dispatch mode that sums each op's
+  tensor bytes in and out — and feeds the goodput ledger an
+  ``mfu_compiled`` beside the analytic MFU.
+
+**Threads.** Kineto's session must start and stop on one thread (a
+stop on another thread crashes the process), while ``start`` and
+``stop`` arrive on different RPC handler threads. So a session runs on
+a thread of its own (``profile-session``): :func:`start` hands it the
+profiler and waits until it records, :func:`stop` signals it and joins.
+CUDA activity (CUPTI) is process-wide, so the device timeline holds
+every thread's kernels. CPU-side ops are recorded per thread: with
+``profile_all_threads`` (``torch._C._profiler._ExperimentalConfig``,
+where this torch has it) the trace holds every thread's ops; without
+it, only the session thread's. The manifest says which
+(``cpu_threads``: ``"all"`` or ``"session"``).
+
+Only this module imports torch, and only inside the functions that use
+it: ``import ptype_tpu_torch.health`` stays torch-free.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import shutil
+import socket
+import threading
+import time
+
+from ptype_tpu_torch import logs
+
+log = logs.get_logger("profiling")
+
+#: Env var: base directory for capture artifacts (default: a
+#: process-qualified tempdir subdirectory).
+PROFILE_DIR_ENV = "PTYPE_PROFILE_DIR"
+#: Default on-demand capture length.
+DEFAULT_CAPTURE_S = 0.5
+#: Hard cap on a single capture's duration — a fat-fingered
+#: ``duration=300`` from an operator (or a buggy alert hook) must not
+#: pin the process's profiler for minutes.
+MAX_CAPTURE_S = 30.0
+#: Byte budget for shipping artifact data over the wire in one reply.
+MAX_SHIP_BYTES = 32 * 2**20
+#: Minimum seconds between alert-triggered captures per (rule, node) —
+#: the ``trace.maybe_dump`` contract, applied to device profiles.
+CAPTURE_MIN_INTERVAL_S = 60.0
+#: Chrome-trace categories of device-side records (CUPTI activity).
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: Seconds a session thread may take to start or stop its profiler.
+SESSION_TIMEOUT_S = 120.0
+
+
+class ProfileError(RuntimeError):
+    """Typed misuse of the process's profiler (double start, stop
+    without start, capture path escape) or a capture that could not
+    trace what this process runs on."""
+
+
+# -------------------------------------------------------- capture session
+
+_lock = threading.Lock()
+#: The active session: {"dir", "label", "t0", "thread", ...} — one
+#: profiler per process, so there is at most one.
+_active: dict | None = None
+
+
+def base_dir() -> str:
+    """Artifact root: ``$PTYPE_PROFILE_DIR`` or a tempdir subdir."""
+    d = os.environ.get(PROFILE_DIR_ENV)
+    if d:
+        return d
+    import tempfile
+
+    return os.path.join(tempfile.gettempdir(),
+                        f"ptype-profile-{os.getpid()}")
+
+
+def active() -> bool:
+    with _lock:
+        return _active is not None
+
+
+def _on_cuda(torch) -> bool:
+    """Whether this process computes on a card: it has initialised CUDA.
+    A process that never touched one (a control plane beside a card)
+    is profiled, and reported, as a CPU process — and no verb here
+    makes it create a CUDA context."""
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
+def _profiler_kwargs(torch) -> tuple[dict, bool, str]:
+    """(``torch.profiler.profile`` kwargs, traces CUDA, cpu_threads).
+    Raises :class:`ProfileError` for a CUDA process whose profiler
+    cannot trace CUDA activity — never a CPU-only capture instead."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    cuda = _on_cuda(torch)
+    if cuda:
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise ProfileError(
+                "this process runs on CUDA but torch.profiler cannot trace "
+                "CUDA activity here (no CUPTI); refusing a CPU-only capture")
+        acts.append(ProfilerActivity.CUDA)
+    kw = {"activities": acts}
+    threads = "session"
+    try:
+        kw["experimental_config"] = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+        threads = "all"
+    except (AttributeError, TypeError):
+        pass  # an older torch: the session thread's CPU ops only
+    return kw, cuda, threads
+
+
+def _marker(torch) -> None:
+    """One tiny fill kernel on the current card: proof, in the trace,
+    that device activity was captured."""
+    torch.empty(1, device="cuda").fill_(0.0)
+
+
+def _session(sess: dict) -> None:
+    """The body of a session's own thread: start, wait, stop, export."""
+    import torch
+
+    try:
+        prof = torch.profiler.profile(**sess["kwargs"])
+        prof.start()
+        if sess["cuda"]:
+            _marker(torch)
+    except Exception as e:  # noqa: BLE001 — handed to start()
+        sess["error"] = e
+        sess["ready"].set()
+        return
+    sess["ready"].set()
+    sess["stop"].wait()
+    try:
+        if sess["cuda"]:
+            _marker(torch)
+            torch.cuda.synchronize()
+        prof.stop()
+        name = f"{socket.gethostname()}_{os.getpid()}.pt.trace.json"
+        raw = os.path.join(sess["dir"], name)
+        prof.export_chrome_trace(raw)
+        with open(raw, "rb") as src, gzip.open(raw + ".gz", "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        os.remove(raw)
+        sess["trace"] = raw + ".gz"
+    except Exception as e:  # noqa: BLE001 — handed to stop()
+        sess["error"] = e
+
+
+def start(label: str = "", base: str | None = None) -> dict:
+    """Begin a capture into a fresh artifact directory.
+
+    Returns ``{"dir", "label", "ts"}``. Raises :class:`ProfileError`
+    if a capture is already running (one profiler per process), or if
+    this process runs on CUDA and the profiler cannot trace it.
+    """
+    global _active
+    import torch
+
+    d = os.path.join(base or base_dir(),
+                     f"{label or 'capture'}-{time.monotonic_ns()}")
+    with _lock:
+        if _active is not None:
+            raise ProfileError(
+                f"profile capture already active in {_active['dir']!r}")
+        kwargs, cuda, threads = _profiler_kwargs(torch)
+        os.makedirs(d, exist_ok=True)
+        sess = {"dir": d, "label": label, "t0": time.perf_counter(),
+                "kwargs": kwargs, "cuda": cuda, "cpu_threads": threads,
+                "ready": threading.Event(), "stop": threading.Event(),
+                "error": None, "trace": None}
+        sess["thread"] = threading.Thread(
+            target=_session, args=(sess,), name="profile-session",
+            daemon=True)
+        sess["thread"].start()
+        if not sess["ready"].wait(SESSION_TIMEOUT_S):
+            raise ProfileError("profiler did not start within "
+                               f"{SESSION_TIMEOUT_S:.0f} s")
+        if sess["error"] is not None:
+            sess["thread"].join()
+            raise ProfileError(
+                f"profiler failed to start: {sess['error']!r}")
+        _active = sess
+    log.info("profile capture started", kv={"dir": d, "label": label})
+    return {"dir": d, "label": label, "ts": round(time.time(), 3)}
+
+
+def _device_events(path: str) -> int:
+    """Device-side records (kernels, copies, sets) in a gzipped Chrome
+    trace."""
+    with gzip.open(path, "rt", encoding="utf-8") as fp:
+        doc = json.load(fp)
+    return sum(1 for ev in doc.get("traceEvents", ())
+               if ev.get("ph") == "X"
+               and ev.get("cat") in DEVICE_CATEGORIES)
+
+
+def stop(include_data: bool = False,
+         max_bytes: int = MAX_SHIP_BYTES) -> dict:
+    """End the active capture. Returns the artifact manifest::
+
+        {"dir", "label", "duration_s", "files": [{"path", "size"}],
+         "activities", "cpu_threads", "device_events",
+         "memory": <memory_snapshot()>, "data": {relpath: bytes}?}
+
+    ``data`` (with ``include_data``) carries artifact bytes up to
+    ``max_bytes`` total — the wire-shipping path; oversize files are
+    listed in the manifest but skipped from ``data`` (``truncated``
+    names them). Raises :class:`ProfileError` without an active
+    capture, and when a CUDA session's trace holds no device record.
+    """
+    global _active
+    with _lock:
+        if _active is None:
+            raise ProfileError("no profile capture active")
+        sess, _active = _active, None
+        sess["stop"].set()
+        sess["thread"].join(SESSION_TIMEOUT_S)
+    dur = time.perf_counter() - sess["t0"]
+    if sess["thread"].is_alive():
+        raise ProfileError("profiler did not stop within "
+                           f"{SESSION_TIMEOUT_S:.0f} s")
+    if sess["error"] is not None:
+        raise ProfileError(f"profiler failed to stop: {sess['error']!r}")
+    n_device = _device_events(sess["trace"])
+    if sess["cuda"] and n_device == 0:
+        raise ProfileError(
+            "the capture holds no CUDA kernel (not even its own markers): "
+            "device activity was not traced")
+    out = {"dir": sess["dir"], "label": sess["label"],
+           "duration_s": round(dur, 4),
+           "files": artifact_files(sess["dir"]),
+           "activities": ["cpu", "cuda"] if sess["cuda"] else ["cpu"],
+           "cpu_threads": sess["cpu_threads"],
+           "device_events": n_device,
+           "memory": memory_snapshot()}
+    if include_data:
+        data: dict[str, bytes] = {}
+        truncated: list[str] = []
+        budget = int(max_bytes)
+        for f in out["files"]:
+            if f["size"] > budget:
+                truncated.append(f["path"])
+                continue
+            try:
+                with open(os.path.join(sess["dir"], f["path"]),
+                          "rb") as fp:
+                    data[f["path"]] = fp.read()
+            except OSError:
+                truncated.append(f["path"])
+                continue
+            budget -= f["size"]
+        out["data"] = data
+        if truncated:
+            out["truncated"] = truncated
+    log.info("profile capture stopped",
+             kv={"dir": sess["dir"], "files": len(out["files"]),
+                 "duration_s": out["duration_s"]})
+    return out
+
+
+def capture(duration_s: float = DEFAULT_CAPTURE_S, label: str = "",
+            include_data: bool = False,
+            max_bytes: int = MAX_SHIP_BYTES,
+            base: str | None = None) -> dict:
+    """One-shot: start, run for ``duration_s`` (capped at
+    :data:`MAX_CAPTURE_S`), stop. The remote-capture verb behind the
+    ``ptype.Profile`` endpoint and every alert-triggered capture."""
+    duration_s = min(max(float(duration_s), 0.0), MAX_CAPTURE_S)
+    start(label=label, base=base)
+    try:
+        threading.Event().wait(duration_s)
+    finally:
+        result = stop(include_data=include_data, max_bytes=max_bytes)
+    return result
+
+
+def artifact_files(d: str) -> list[dict]:
+    """Relative-path manifest of every file under ``d`` (sorted)."""
+    out: list[dict] = []
+    for dirpath, dirnames, filenames in os.walk(d):
+        dirnames.sort()
+        for f in sorted(filenames):
+            p = os.path.join(dirpath, f)
+            out.append({"path": os.path.relpath(p, d),
+                        "size": os.path.getsize(p)})
+    return out
+
+
+def fetch(dir_path: str, relpath: str) -> bytes:
+    """One artifact file's bytes — the follow-up verb for files the
+    capture reply truncated. The resolved path must stay under
+    ``dir_path`` (no traversal from the wire)."""
+    root = os.path.realpath(dir_path)
+    p = os.path.realpath(os.path.join(root, relpath))
+    if not p.startswith(root + os.sep):
+        raise ProfileError(f"artifact path escapes capture dir: "
+                           f"{relpath!r}")
+    with open(p, "rb") as fp:
+        return fp.read()
+
+
+def _host_watermarks() -> dict:
+    """The metrics module's device watermarks plus the process's peak
+    RSS (``ru_maxrss``, KiB on Linux) — the host row every snapshot
+    carries, CPU processes included."""
+    from ptype_tpu_torch import metrics as metrics_mod
+
+    out = dict(metrics_mod.memory_watermarks())
+    try:
+        import resource
+
+        out["rss_bytes"] = int(
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024
+    except (ImportError, OSError):
+        pass
+    return out
+
+
+def memory_snapshot(include_profile: bool = False) -> dict:
+    """Per-device memory snapshot + host watermarks.
+
+    ``devices``: one row per local CUDA device with the caching
+    allocator's counters under the reference's key names —
+    ``bytes_in_use`` / ``peak_bytes_in_use`` (``allocated_bytes.all``
+    current / peak), ``bytes_reserved`` (``reserved_bytes.all.current``),
+    ``num_allocs`` — and ``bytes_limit``, the card's total from
+    ``torch.cuda.mem_get_info``; a process that computes on no card
+    (CUDA never initialised) reports one ``cpu`` row with ``{}`` stats,
+    as the reference does on its CPU backend.
+    ``host`` is :func:`ptype_tpu_torch.metrics.memory_watermarks` plus
+    the peak RSS. The memory profile is ``torch.cuda.memory._snapshot()``
+    pickled (the format PyTorch's memory viewer reads): its size is
+    always reported, its bytes ride along with ``include_profile``.
+    """
+    import pickle
+
+    import torch
+
+    devices = []
+    if _on_cuda(torch):
+        for i in range(torch.cuda.device_count()):
+            stats = torch.cuda.memory_stats(i)
+            devices.append({
+                "id": i, "platform": "cuda",
+                "kind": torch.cuda.get_device_name(i),
+                "stats": {
+                    "bytes_in_use": int(
+                        stats.get("allocated_bytes.all.current", 0)),
+                    "peak_bytes_in_use": int(
+                        stats.get("allocated_bytes.all.peak", 0)),
+                    "bytes_reserved": int(
+                        stats.get("reserved_bytes.all.current", 0)),
+                    "num_allocs": int(stats.get("allocation.all.allocated",
+                                                0)),
+                    "bytes_limit": int(torch.cuda.mem_get_info(i)[1]),
+                }})
+    else:
+        devices.append({"id": 0, "platform": "cpu", "kind": "cpu",
+                        "stats": {}})
+    out = {"devices": devices, "host": _host_watermarks()}
+    if _on_cuda(torch):
+        prof = pickle.dumps(torch.cuda.memory._snapshot())
+        out["memory_profile_size"] = len(prof)
+        if include_profile:
+            out["memory_profile"] = prof
+    else:
+        out["memory_profile_note"] = "no CUDA device: no allocator snapshot"
+    return out
+
+
+# ----------------------------------------------------- the actor endpoint
+
+
+def endpoint(cmd: str, options: dict | None = None):
+    """The built-in ``ptype.Profile`` actor endpoint (registered by
+    every :class:`~ptype_tpu_torch.actor.ActorServer`, sibling of
+    ``ptype.Telemetry``). Verbs::
+
+        ("status",)                       -> platform + active session
+        ("start",   {"label"})            -> begin a capture
+        ("stop",    {"include_data", "max_bytes"})
+        ("capture", {"duration_s", "label", "include_data", ...})
+        ("memory",  {"include_profile"})  -> device-memory snapshot
+        ("fetch",   {"dir", "path"})      -> one artifact's bytes
+
+    Errors (double start, unknown verb) surface as typed exceptions —
+    the actor layer marshals them to the caller as ``RemoteError``.
+    """
+    opts = dict(options or {})
+    if cmd == "status":
+        import torch
+
+        with _lock:
+            sess = dict(_active) if _active is not None else None
+        cuda = _on_cuda(torch)
+        return {"pid": os.getpid(), "platform": "cuda" if cuda else "cpu",
+                "device_kind": (torch.cuda.get_device_name(0) if cuda
+                                else "cpu"),
+                "devices": torch.cuda.device_count() if cuda else 1,
+                "active": sess is not None,
+                "dir": sess["dir"] if sess else None}
+    if cmd == "start":
+        return start(label=opts.get("label", ""))
+    if cmd == "stop":
+        return stop(include_data=opts.get("include_data", False),
+                    max_bytes=opts.get("max_bytes", MAX_SHIP_BYTES))
+    if cmd == "capture":
+        return capture(
+            duration_s=opts.get("duration_s", DEFAULT_CAPTURE_S),
+            label=opts.get("label", ""),
+            include_data=opts.get("include_data", True),
+            max_bytes=opts.get("max_bytes", MAX_SHIP_BYTES))
+    if cmd == "memory":
+        return memory_snapshot(
+            include_profile=opts.get("include_profile", False))
+    if cmd == "fetch":
+        return fetch(opts["dir"], opts["path"])
+    raise ProfileError(f"ptype.Profile: unknown command {cmd!r}")
+
+
+def write_artifacts(out_dir: str, result: dict) -> list[str]:
+    """Persist a shipped capture reply (the ``data`` bytes from
+    :func:`stop`/:func:`capture` over the wire) under ``out_dir``;
+    returns the written paths. Relative paths are sanitized the same
+    way :func:`fetch` guards reads."""
+    root = os.path.realpath(out_dir)
+    os.makedirs(root, exist_ok=True)
+    written: list[str] = []
+    for rel, blob in (result.get("data") or {}).items():
+        p = os.path.realpath(os.path.join(root, rel))
+        if not p.startswith(root + os.sep):
+            continue
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with open(p, "wb") as fp:
+            fp.write(blob)
+        written.append(p)
+    return written
+
+
+# --------------------------------------------------- alert-driven capture
+
+#: Alerts whose firing auto-captures a profile on the named node: the
+#: rules whose runbook first question is "what is that node's device
+#: timeline doing". The serving rules ride the same hook — a TTFT
+#: blowup or a thrashing KV pool is diagnosed from the afflicted
+#: REPLICA's engine timeline, and the replica is what the alert names.
+PROFILE_ALERT_RULES = ("straggler", "train-stall", "slo-p99",
+                       "ttft-p99", "kv-pressure", "serve-stall")
+
+
+class AlertCapture:
+    """``AlertEngine`` hook: alert → short profile on the NAMED node.
+
+    Install as ``AlertEngine(rules, capture=AlertCapture(...))``. On a
+    matching firing it dials the node from the alert's node key
+    (``service/addr:port`` — the cluster-snapshot key shape), runs the
+    ``ptype.Profile`` ``capture`` verb with artifact shipping on, and
+    writes the artifacts next to the flight-recorder dump
+    (``out_dir``, defaulting to the trace plane's dump dir) — the page
+    and its device evidence land side by side. Rate-limited per
+    (rule, node) to one capture per ``min_interval_s``, mirroring
+    ``trace.maybe_dump``; unresolvable node keys (the aggregator's own
+    ``local`` row) degrade to a local capture. Capture runs on a
+    background thread by default so ``evaluate()`` never blocks on a
+    slow node; ``background=False`` is the deterministic test mode.
+    """
+
+    def __init__(self, out_dir: str | None = None,
+                 duration_s: float = 0.25,
+                 rules: tuple = PROFILE_ALERT_RULES,
+                 min_interval_s: float = CAPTURE_MIN_INTERVAL_S,
+                 timeout_s: float = 20.0,
+                 background: bool = True):
+        from ptype_tpu_torch import trace as trace_mod
+
+        self.out_dir = (out_dir or trace_mod.dump_dir()
+                        or os.path.join(base_dir(), "alerts"))
+        self.duration_s = float(duration_s)
+        self.rules = tuple(rules)
+        self.min_interval_s = float(min_interval_s)
+        self.timeout_s = float(timeout_s)
+        self.background = background
+        #: Completed captures: {"rule", "node", "dir", "files"} — the
+        #: post-mortem inventory (and the test surface).
+        self.captures: list[dict] = []
+        self.errors: list[dict] = []
+        self._last: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, alert) -> None:
+        if alert.rule not in self.rules:
+            return
+        key = (alert.rule, alert.node)
+        now = time.monotonic()
+        with self._lock:
+            last = self._last.get(key)
+            if last is not None and now - last < self.min_interval_s:
+                return
+            self._last[key] = now
+        if self.background:
+            threading.Thread(target=self._capture, args=(alert,),
+                             name="alert-profile", daemon=True).start()
+        else:
+            self._capture(alert)
+
+    @staticmethod
+    def _parse_node(node_key: str) -> tuple[str, int] | None:
+        """``service/addr:port`` → (addr, port); None when the key has
+        no dialable endpoint (the aggregator's ``local`` row)."""
+        tail = node_key.rsplit("/", 1)[-1]
+        addr, sep, port = tail.rpartition(":")
+        if not sep or not addr:
+            return None
+        try:
+            return addr, int(port)
+        except ValueError:
+            return None
+
+    def _capture(self, alert) -> None:
+        dest = os.path.join(
+            self.out_dir,
+            f"profile-{alert.rule}-"
+            f"{alert.node.replace('/', '_').replace(':', '_')}-"
+            f"{time.monotonic_ns()}")
+        try:
+            target = self._parse_node(alert.node)
+            if target is None:
+                result = capture(duration_s=self.duration_s,
+                                 label=f"alert-{alert.rule}",
+                                 include_data=True)
+            else:
+                result = self._remote_capture(*target)
+            files = write_artifacts(dest, result)
+            meta = {"rule": alert.rule, "node": alert.node,
+                    "message": alert.message,
+                    "ts": round(time.time(), 3),
+                    "duration_s": result.get("duration_s"),
+                    "remote_dir": result.get("dir"),
+                    "memory": result.get("memory"),
+                    "files": [os.path.relpath(p, dest) for p in files]}
+            os.makedirs(dest, exist_ok=True)
+            with open(os.path.join(dest, "capture.json"), "w",
+                      encoding="utf-8") as fp:
+                json.dump(meta, fp, indent=1, default=str)
+            rec = {"rule": alert.rule, "node": alert.node,
+                   "dir": dest, "files": len(files)}
+            with self._lock:
+                self.captures.append(rec)
+            log.warning("alert-triggered profile captured", kv=rec)
+        except Exception as e:  # noqa: BLE001 — the watchdog hosting
+            # this hook must survive any capture failure (dead node,
+            # disk full, profiler already busy on the target).
+            with self._lock:
+                self.errors.append({"rule": alert.rule,
+                                    "node": alert.node,
+                                    "error": f"{type(e).__name__}: {e}"})
+            log.warning("alert-triggered profile capture failed",
+                        kv={"rule": alert.rule, "node": alert.node,
+                            "err": repr(e)})
+
+    def _remote_capture(self, addr: str, port: int) -> dict:
+        from ptype_tpu_torch import telemetry
+        from ptype_tpu_torch.registry import Node
+
+        return telemetry.node_profile(
+            Node(addr, port), duration_s=self.duration_s,
+            timeout=self.timeout_s, label="alert", dial_timeout=5.0)
+
+
+# -------------------------------------------------- counted-cost analysis
+
+
+def tree_avals(tree):
+    """Shape/dtype skeleton of a tree of tensors — what
+    :func:`compiled_cost` counts against: each tensor as an empty
+    ``meta`` tensor of its shape and dtype (no data, no transfer), the
+    dicts, lists, tuples and dataclasses around them rebuilt; anything
+    else kept as it is. In-place updates on the skeleton leave the
+    original untouched."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree, device="meta")
+    if isinstance(tree, dict):
+        return {k: tree_avals(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_avals(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_avals(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+
+def _byte_counter():
+    """A ``TorchDispatchMode`` summing each op's tensor bytes, inputs
+    and outputs, over the ops it sees (views move no bytes and are
+    skipped)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class ByteCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+            self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops += 1
+            if not func.is_view:
+                self.bytes += sum(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves((args, kwargs, out))
+                    if isinstance(t, torch.Tensor))
+            return out
+
+    return ByteCounter()
+
+
+def compiled_cost(fn, *args, **kwargs) -> dict:
+    """FLOPs/bytes of one call ``fn(*args, **kwargs)``, counted op by
+    op — the port's stand-in for the reference's XLA ``cost_analysis``
+    (which has no PyTorch counterpart; nothing is compiled here, the
+    name is the reference's).
+
+    - ``flops``: ``torch.utils.flop_counter.FlopCounterMode``, which
+      prices the matmul-class ops (mm, bmm, addmm, baddbmm, einsum's
+      products, convolutions, SDPA) — the work MFU prices; elementwise
+      arithmetic (norms, softmax, an optimizer apply) counts 0 and shows
+      in the bytes instead.
+    - ``bytes_accessed``: each op's tensor inputs and outputs, summed
+      (a view moves none). Unlike XLA's count no op is fused, so this
+      is the eager program's traffic.
+
+    A launch made through ``ctypes`` (the port's kernels) runs no torch
+    op and is invisible to both counters: count a program built from
+    torch ops (see :func:`transformer_grads_cost`). Run ``fn`` on
+    ``meta`` tensors to count without computing. Raises
+    :class:`ProfileError` when ``fn`` ran no torch op at all.
+    """
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = _byte_counter()
+    with FlopCounterMode(display=False) as flops, counter:
+        fn(*args, **kwargs)
+    if not counter.ops:
+        raise ProfileError("compiled_cost: the call ran no torch op — "
+                           "nothing to count")
+    return {"flops": float(flops.get_total_flops()),
+            "bytes_accessed": float(counter.bytes)}
+
+
+def _meta_params(cfg, device) -> dict:
+    """A parameter tree of ``cfg``'s shapes on ``device`` (zeros off
+    ``meta``), requiring grad."""
+    import torch
+
+    from ptype_tpu_torch.models.weights import param_shapes
+
+    def leaf(shape):
+        return torch.zeros(shape, dtype=cfg.param_dtype, device=device,
+                           requires_grad=True)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in tree.items()}
+
+    return walk(param_shapes(cfg))
+
+
+def _grads_cost_on(cfg, batch: int, seq: int, device) -> dict:
+    import torch
+
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel.collectives import tree_flatten
+
+    params = _meta_params(cfg, device)
+    leaves = [leaf for _, leaf in tree_flatten(params)]
+    rows = {"tokens": torch.zeros(batch, seq, dtype=torch.int64,
+                                  device=device),
+            "targets": torch.zeros(batch, seq, dtype=torch.int64,
+                                   device=device)}
+
+    def local_grads():
+        loss = tfm.loss_fn(params, rows, cfg, tfm._attention)
+        return torch.autograd.grad(loss, leaves)
+
+    return compiled_cost(local_grads)
+
+
+def transformer_grads_cost(cfg, batch: int, seq: int,
+                           stacked: int | None = None) -> dict:
+    """Counted cost of one fwd+bwd over a ``(batch, seq)`` token block
+    for ``cfg`` — the dominant term of every trainer's step: the port's
+    ``loss_fn`` and ``torch.autograd.grad`` over every parameter, under
+    :func:`compiled_cost`.
+
+    The model's math runs with the PLAIN attention (the dense
+    ``_attention``), because FlopCounterMode cannot see a kernel
+    launched through ``ctypes``; the flash kernels do the same matmuls
+    (the causal mask halves neither count). It runs on the ``meta``
+    device — shapes only, no memory, no arithmetic — and, where an op
+    has no meta implementation (a data-dependent MoE dispatch), on the
+    CPU with zero weights instead; ``cost["device"]`` says which. With
+    ``stacked`` the cost is that of ``stacked`` worker shards of
+    ``batch`` rows each (the store-DP layout: each rank runs the same
+    program on its rows). Returns flops/bytes plus ``flops_per_token``
+    / ``tokens_per_step``.
+    """
+    try:
+        cost = _grads_cost_on(cfg, batch, seq, "meta")
+        cost["device"] = "meta"
+    except (NotImplementedError, RuntimeError):
+        cost = _grads_cost_on(cfg, batch, seq, "cpu")
+        cost["device"] = "cpu"
+    n = stacked or 1
+    cost["flops"] *= n
+    cost["bytes_accessed"] *= n
+    tokens = batch * seq * n
+    cost["tokens_per_step"] = tokens
+    cost["flops_per_token"] = cost["flops"] / tokens
+    return cost
+
+
+def measure_compiled_cost(preset: str = "optimus-125m", batch: int = 8,
+                          seq: int = 128) -> dict:
+    """Counted-vs-analytic FLOPs on one config — the check behind
+    ``compiled_flops_per_token`` (``mfu_compiled`` within 10% of the
+    analytic MFU, gap REPORTED either way). MFU shares the wall-clock
+    and peak factors, so the MFU gap IS the FLOPs gap."""
+    from ptype_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.preset(preset)
+    t0 = time.perf_counter()
+    cost = transformer_grads_cost(cfg, batch, seq)
+    analytic = tfm.flops_per_token(cfg, seq)
+    compiled = cost["flops_per_token"]
+    return {
+        "preset": preset, "batch": batch, "seq": seq,
+        "compiled_flops_per_token": round(compiled, 1),
+        "analytic_flops_per_token": round(analytic, 1),
+        "mfu_gap_pct": round(100.0 * (compiled - analytic) / analytic,
+                             2),
+        "bytes_per_token": round(
+            cost["bytes_accessed"] / cost["tokens_per_step"], 1),
+        "count_device": cost["device"],
+        "count_s": round(time.perf_counter() - t0, 2),
+    }
+
+
+# --------------------------------------------------- host-side summaries
+
+
+def summarize(profile_dir: str, top: int = 12) -> dict:
+    """Host-side artifact summary — stdlib-only (gzip+json over the
+    ``*.trace.json.gz`` Chrome traces a session writes), so it works
+    with no viewer installed.
+
+    Returns ``{"dir", "files", "events", "top_ops":
+    [{"name", "total_us", "count"}, ...]}`` — top ops by total
+    duration."""
+    files = artifact_files(profile_dir)
+    totals: dict[str, list] = {}
+    n_events = 0
+    for f in files:
+        if not f["path"].endswith(".trace.json.gz"):
+            continue
+        try:
+            with gzip.open(os.path.join(profile_dir, f["path"]),
+                           "rt", encoding="utf-8") as fp:
+                doc = json.load(fp)
+        except (OSError, ValueError):
+            continue
+        for ev in doc.get("traceEvents", ()):
+            if ev.get("ph") != "X":
+                continue
+            n_events += 1
+            name = str(ev.get("name", "?"))
+            acc = totals.setdefault(name, [0.0, 0])
+            acc[0] += float(ev.get("dur", 0.0))
+            acc[1] += 1
+    top_ops = [{"name": name, "total_us": round(us, 1), "count": n}
+               for name, (us, n) in sorted(
+                   totals.items(), key=lambda kv: -kv[1][0])[:top]]
+    return {"dir": profile_dir, "files": files, "events": n_events,
+            "top_ops": top_ops}
+
+
+def render_hbm_table(memory: dict) -> str:
+    """One-line-per-device memory table from a :func:`memory_snapshot`
+    dict (the ``obs profile`` printer feeds this to stdout)."""
+    lines = []
+    for dev in memory.get("devices", ()):
+        stats = dev.get("stats", {})
+        if stats:
+            used = stats.get("bytes_in_use", 0) / 2**20
+            peak = stats.get("peak_bytes_in_use", 0) / 2**20
+            limit = stats.get("bytes_limit", 0) / 2**20
+            lines.append(
+                f"  dev{dev['id']} {dev.get('kind') or dev['platform']}:"
+                f" {used:.1f} MiB in use (peak {peak:.1f}"
+                + (f" / limit {limit:.0f})" if limit else ")"))
+        else:
+            lines.append(
+                f"  dev{dev['id']} {dev.get('kind') or dev['platform']}:"
+                f" no allocator stats (host RSS below)")
+    host = memory.get("host", {})
+    if host.get("rss_bytes"):
+        lines.append(f"  host rss: {host['rss_bytes'] / 2**20:.1f} MiB")
+    return "\n".join(lines)
+
+
+# ----------------------------------------------------------- bench probe
+
+
+def measure_profile_overhead(steps: int = 12, preset: str = "tiny",
+                             batch: int = 8, seq: int = 32,
+                             device=None) -> dict:
+    """Capture-disabled cost of the profiling plane on the world-1
+    store-DP loop (``device``: ``cuda`` unless named) — the
+    ``profile_overhead_pct`` probe (bar: <1%).
+
+    What "armed but not capturing" adds to a step: nothing in the step
+    path checks the profiler (the endpoint is pull-only), so the whole
+    idle cost is the goodput ledger's ``mfu_compiled`` arithmetic in
+    its step-close — costed DIRECTLY (observe("train.step") with
+    compiled flops set, microseconds against a step of milliseconds;
+    same method as ``telemetry.measure_trace_overhead``). The
+    interleaved armed/bare wall clocks ride along for transparency, and
+    one short LIVE capture is costed separately (``capture_step_ms`` —
+    the price of actually profiling, which is allowed to be visible)."""
+    from ptype_tpu_torch import metrics as metrics_mod
+    from ptype_tpu_torch import telemetry
+    from ptype_tpu_torch.health import goodput as goodput_mod
+    from ptype_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.preset(preset)
+    with telemetry.probe_trainer(preset, device) as (trainer, batches):
+        def step():
+            trainer.step(batches(batch, seq))
+
+        step()  # warm-up outside every measurement
+        cost = trainer.compiled_cost()
+        # A unit peak where the card table has none (the CPU): the
+        # probe prices the MFU arithmetic and the gap, not an MFU.
+        peak = metrics_mod.device_peak_tflops(trainer.device) or 1.0
+
+        def ledger():
+            return goodput_mod.GoodputLedger(
+                registry=metrics_mod.MetricsRegistry(),
+                tokens_per_step=batch * seq,
+                flops_per_token=tfm.flops_per_token(cfg, seq),
+                peak_tflops=peak).set_compiled_flops(cost["flops"])
+
+        armed_ledger = ledger()
+        # Interleaved armed/bare arms, per-arm MIN (robust to load
+        # spikes).
+        t_on: list[float] = []
+        t_off: list[float] = []
+        for i in range(2 * steps):
+            armed = bool(i % 2)
+            if armed:
+                armed_ledger.install()
+            else:
+                armed_ledger.uninstall()
+            t0 = time.perf_counter()
+            step()
+            (t_on if armed else t_off).append(time.perf_counter() - t0)
+        armed_ledger.uninstall()
+        step_s = min(t_off)
+
+        # The idle cost, costed directly: one ledger step-close (with
+        # the mfu_compiled arithmetic live) per step.
+        probe = ledger()
+        n = 5_000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            probe.observe("train.step", step_s)
+        close_s = (time.perf_counter() - t0) / n
+
+        # The price of actually capturing (informational, not the bar).
+        start(label="bench-profile-overhead")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        capture_step_s = (time.perf_counter() - t0) / 2
+        captured = stop()
+
+    mfu_gap = None
+    rec = probe.records()
+    if rec and "mfu_gap_pct" in rec[-1]:
+        mfu_gap = rec[-1]["mfu_gap_pct"]
+    return {
+        "bare_step_ms": round(step_s * 1e3, 2),
+        "armed_step_ms": round(min(t_on) * 1e3, 2),
+        "capture_step_ms": round(capture_step_s * 1e3, 2),
+        "ledger_close_us": round(close_s * 1e6, 2),
+        "profile_overhead_pct": round(100.0 * close_s / step_s, 4),
+        "capture_artifact_files": len(captured["files"]),
+        "compiled_flops_per_token": round(
+            cost["flops"] / cost["tokens_per_step"], 1),
+        "mfu_gap_pct": mfu_gap,
+        "steps": steps,
+    }

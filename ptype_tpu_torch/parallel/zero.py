@@ -39,7 +39,8 @@ OLD group while every old rank still answers; a rank whose process is
 gone cannot hand over its shard, and then the way back is
 ``ZeroCheckpoint`` (the reshard raises ``ClusterError``).
 
-Not ported yet (ROADMAP): ``compiled_cost`` (with the profiling module).
+:meth:`ZeroState.compiled_cost` counts the shard-local applies for the
+profiling plane's ``mfu_compiled`` (``StoreDPTrainer.compiled_cost``).
 """
 
 from __future__ import annotations
@@ -299,6 +300,37 @@ class ZeroState:
 
     def finish_step(self) -> None:
         self.count += 1
+
+    def compiled_cost(self) -> dict:
+        """Counted cost of the per-bucket shard-local AdamW applies
+        (:func:`ptype_tpu_torch.health.profiling.compiled_cost` over
+        ``meta`` skeletons of this rank's shards: the state is not
+        touched), times the rank count — the CLUSTER's update, as the
+        reference's count is, comparable with the gradient program's
+        full-batch count. Elementwise work: its FLOPs count 0 under
+        ``FlopCounterMode``, its bytes do not."""
+        from ptype_tpu_torch.health.profiling import compiled_cost, tree_avals
+
+        n = self.plan.n
+        flops = nbytes = 0.0
+        scale = torch.ones((), dtype=torch.float32, device="meta")
+        lr = float(self._schedule(self.count))
+        for bi, b in enumerate(self.plan.buckets):
+            p_sh = torch.empty(self.plan.shard_elems(b),
+                               dtype=torch_dtype(b.dtype), device="meta")
+            m, v, mask = tree_avals([self.mu[bi], self.nu[bi],
+                                     self._masks[bi]])
+
+            def apply(p_sh=p_sh, m=m, v=v, mask=mask):
+                g32 = p_sh.to(torch.float32) * scale
+                adamw_leaf_(p_sh, g32, m, v, mask, self.count,
+                            self.hparams, lr)
+
+            c = compiled_cost(apply)
+            flops += c["flops"] * n
+            nbytes += c["bytes_accessed"] * n
+        return {"flops": flops, "bytes_accessed": nbytes,
+                "n_buckets": len(self.plan.buckets)}
 
     # ------------------------------------------------------- accounting
 

@@ -242,10 +242,15 @@ class Reconciler:
         is still running counts ONLY as pending (never also as
         foreign/active — spawns are warm-held until the handle is
         installed, so it cannot be registry-visible before the
-        reconciler owns it)."""
+        reconciler owns it). A replica this reconciler drained and has
+        already reaped is not foreign while the registry still lists it:
+        its address stays an expected departure until the failure
+        detector reports it gone (counted as foreign capacity, it made
+        the next tick drain the replica that stays; the reference's
+        ``_actual`` has that race)."""
         mine = self._addr_handles()
         with self._lock:
-            dead = set(self._dead_addrs)
+            dead = set(self._dead_addrs) | self._expected_departures
         foreign = [n for n in self._fd.current()
                    if f"{n.address}:{n.port}" not in mine
                    and f"{n.address}:{n.port}" not in dead]

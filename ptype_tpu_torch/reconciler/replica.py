@@ -27,12 +27,11 @@ pending: refuses new work typed, finishes in-flight) → **drained**
 
 Port rules: a replica's actor server decodes tensor arguments onto the
 ``device`` it was given (``cuda`` unless named, raising with no card —
-see ``actor.py``); the fake actor answers an int32 CPU tensor where the
-reference answers a numpy array; control calls to a worker dial with
-``device="cpu"``, so a reconciler on a host with no card never resolves
-``cuda`` for them (their replies are dicts). Nothing here imports
-torch: a ``fake`` replica's process never loads it until its first
-``Generate``.
+see ``actor.py``); the fake actor answers a numpy int32 array, as the
+reference's does; control calls to a worker dial with ``device="cpu"``,
+so a reconciler on a host with no card never resolves ``cuda`` for them
+(their replies are dicts). Nothing here imports torch: a ``fake``
+replica's process never loads it.
 
 Chaos seams: ``scale.spawn`` (``fail`` — the spawn dies before the
 replica comes up; ``delay`` — slow spawn) fires in the launchers and
@@ -85,8 +84,10 @@ class FakeGeneratorActor:
     (Generate/Info/begin_drain/drained): control-plane tests and the
     scale bench exercise spawn/route/drain semantics without building a
     model — the reconciler and gateway cannot tell. ``Generate``
-    answers an int32 CPU tensor of ``fill`` (the reference answers a
-    numpy array)."""
+    answers a numpy int32 array of ``fill``, as the reference's does:
+    no torch op on the request path, whose dispatch runs on a fresh
+    thread a call (torch's first op in a thread costs ~0.1 ms of CPU,
+    a fifth of a local call)."""
 
     def __init__(self, delay_s: float = 0.0, fill: int = 7):
         self.delay_s = float(delay_s)
@@ -98,7 +99,7 @@ class FakeGeneratorActor:
         self._lock = lockcheck.lock("reconciler.fake_actor")
 
     def Generate(self, prompt, max_new_tokens: int = 8, *args):
-        import torch
+        import numpy as np
 
         # Gate + count under ONE lock (drained() reads under the same
         # lock): a request can never be past the gate yet invisible
@@ -114,8 +115,8 @@ class FakeGeneratorActor:
             if self.delay_s:
                 time.sleep(self.delay_s)
             rows = int(prompt.shape[0])
-            return torch.full((rows, int(max_new_tokens)), self.fill,
-                              dtype=torch.int32)
+            return np.full((rows, int(max_new_tokens)), self.fill,
+                           np.int32)
         finally:
             with self._lock:
                 self._in_flight -= 1

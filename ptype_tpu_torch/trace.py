@@ -480,12 +480,16 @@ def maybe_dump(reason: str = "") -> str | None:
 
 
 def telemetry(span_limit: int = 256) -> dict:
-    """One node's observability snapshot: process identity, the metrics
-    registry snapshot (memory watermark gauges refreshed per pull) and
-    the most recent spans from the flight recorder. The reference's
-    snapshot also carries the health sampler's series; the port has no
-    sampler yet, so ``series`` is empty."""
+    """One node's observability snapshot — what the built-in
+    ``ptype.Telemetry`` actor endpoint serves and
+    :func:`ptype_tpu_torch.telemetry.cluster_snapshot` aggregates:
+    process identity, the metrics registry snapshot (memory watermark
+    gauges refreshed per pull), recent series when the health sampler
+    is armed (:func:`ptype_tpu_torch.health.series.start` — the history
+    the alert rules evaluate), and the most recent spans from the
+    flight recorder."""
     from ptype_tpu_torch import metrics as metrics_mod  # lazy: torch
+    from ptype_tpu_torch.health import series as series_mod
 
     metrics_mod.record_memory_gauges()
     rec = _recorder
@@ -495,7 +499,7 @@ def telemetry(span_limit: int = 256) -> dict:
         "tracing": rec is not None,
         "ts": round(time.time(), 3),
         "metrics": metrics_mod.metrics.snapshot(),
-        "series": {},
+        "series": series_mod.default_snapshot(),
         "spans": rec.to_dicts(limit=span_limit) if rec is not None else [],
         "spans_finished": rec.finished if rec is not None else 0,
     }

@@ -44,7 +44,9 @@ onto a survivor mesh in memory (``ZeroState.reshard``, the store
 re-homed, params re-committed); :func:`measure_reshard` sets it against
 the checkpoint round trip it replaces, in step units.
 
-Not ported yet (ROADMAP): ``compiled_cost`` (with the profiling module).
+Counted cost: :meth:`StoreDPTrainer.compiled_cost` gives the FLOPs and
+bytes of a step (the gradient program and the optimizer apply of the
+trainer's mode) for the goodput ledger's ``mfu_compiled``.
 """
 
 from __future__ import annotations
@@ -213,6 +215,9 @@ class StoreDPTrainer:
         #: This rank's resident gradient bytes of the last exchange
         #: (whole leaves under zero=1, its shards under zero=2/3).
         self.last_grad_bytes: int | None = None
+        #: (rows, seq) of this rank's last batch — what
+        #: :meth:`compiled_cost` counts against.
+        self._cost_shape: tuple[int, int] | None = None
 
     def _tree(self, leaves=None) -> dict:
         return tree_unflatten(self._paths, leaves if leaves is not None
@@ -255,6 +260,7 @@ class StoreDPTrainer:
                 f"batch size {B} not divisible by {self.n_workers} workers")
         b = B // self.n_workers
         r = axis_index(self.mesh, self.axis)
+        self._cost_shape = (b, int(batch["tokens"].shape[1]))
         with annotate("train.data"):
             return _batch_on({k: v[r * b:(r + 1) * b]
                               for k, v in batch.items()}, self.device)
@@ -432,10 +438,73 @@ class StoreDPTrainer:
                 else:
                     self._params_seq = self.store.put_tree("params",
                                                            self._tree())
+            self._cost_shape = None
         metrics.gauge("train.reshard_inflight").set(0.0)
         metrics.counter("train.reshards").add(1)
         return {"old_n": old_n, "new_n": new_n,
                 "reshard_ms": (_time.perf_counter() - t0) * 1e3}
+
+    # --------------------------------------- compiled-cost accounting
+
+    def compiled_cost(self) -> dict:
+        """FLOPs/bytes per step, counted op by op — the ``mfu_compiled``
+        numerator, fed to a goodput ledger via
+        ``ledger.set_compiled_flops(trainer.compiled_cost()["flops"])``.
+
+        Sums the gradient program
+        (:func:`ptype_tpu_torch.health.profiling.transformer_grads_cost`
+        over every rank's row block: the model's math with the plain
+        attention, on the ``meta`` device) and the optimizer apply(s) of
+        whichever exchange mode this trainer runs: the whole-tree apply,
+        the per-bucket overlap applies, or the ZeRO shard-local applies
+        — each counted on ``meta`` skeletons, so no state moves. FLOPs
+        are ``FlopCounterMode``'s (matmul-class ops: an optimizer's
+        count 0), bytes each op's tensors in and out. Requires one
+        completed step (the batch shape comes from it)."""
+        from ptype_tpu_torch.health import profiling
+
+        if self._cost_shape is None:
+            raise ValueError(
+                "StoreDPTrainer.compiled_cost: run at least one step "
+                "first (the cost programs count against the real batch "
+                "shapes)")
+        rows, seq = self._cost_shape
+        grads = profiling.transformer_grads_cost(
+            self.cfg, rows, seq, stacked=self.n_workers)
+        programs = {"grads": {"flops": grads["flops"],
+                              "bytes_accessed": grads["bytes_accessed"],
+                              "device": grads["device"]}}
+        if self.zero:
+            programs["optimizer"] = self._zero.compiled_cost()
+        elif self._bucket_opts is not None:
+            flops = nbytes = 0.0
+            scale = torch.ones((), dtype=torch.float32, device="meta")
+            for bi, idxs in enumerate(self._buckets):
+                subp = profiling.tree_avals(
+                    {str(i): self._param_leaves[i] for i in idxs})
+                c = profiling.compiled_cost(
+                    self._bucket_opts[bi].update, subp,
+                    profiling.tree_avals(subp),
+                    profiling.tree_avals(self._bucket_states[bi]), scale)
+                flops += c["flops"]
+                nbytes += c["bytes_accessed"]
+            programs["optimizer"] = {"flops": flops,
+                                     "bytes_accessed": nbytes}
+        elif self.opt_state is not None:
+            tree = profiling.tree_avals(self.params())
+            programs["optimizer"] = profiling.compiled_cost(
+                self.optimizer.update, tree, profiling.tree_avals(tree),
+                profiling.tree_avals(self.opt_state))
+        tokens = grads["tokens_per_step"]
+        flops = sum(p["flops"] for p in programs.values())
+        return {
+            "flops": flops,
+            "bytes_accessed": sum(p["bytes_accessed"]
+                                  for p in programs.values()),
+            "tokens_per_step": tokens,
+            "flops_per_token": flops / tokens,
+            "programs": programs,
+        }
 
     # ---------------------------------------------- fine-grained overlap
 

@@ -477,11 +477,23 @@ class Trainer:
                     self.cfg, batch["tokens"].shape[1]),
                 n_chips=1, peak_tflops=self._peak)
             self._stats.start()
-        self.state, out = self._step_fn(self.state, batch)
+        # train.step is the health-plane seam too (goodput ledger,
+        # trace span). This trainer dispatches without waiting, so on
+        # CUDA the region times the host's dispatch (which waits once
+        # the launch queue is full), not the step; the StoreDPTrainer,
+        # which reads the loss every step, is the per-step-accurate
+        # goodput source.
+        with metrics.annotate("train.step"), \
+                metrics.step_annotation(self.state.step):
+            self.state, out = self._step_fn(self.state, batch)
+        metrics.metrics.counter("train.steps").add(1)
         self._pending_tokens += batch["tokens"].numel()
         self._pending_steps += 1
         if self.sync_every and self.state.step % self.sync_every == 0:
             self._drain()
+            # The loss is materialized at the drain anyway: stamp the
+            # health gauge without adding a sync.
+            metrics.metrics.gauge("train.loss").set(float(out["loss"]))
             self._fold_pending()
         return {"loss": out["loss"], "grad_norm": out["grad_norm"],
                 "step": self.state.step, **self.throughput()}

@@ -668,3 +668,56 @@ def test_gateway_answers_int32_on_the_card(cuda):
         srv.close()
         eng.close()
         state.close()
+
+
+# ------------------------------------------------------ health plane
+
+
+def test_profile_on_the_card_captures_cuda_kernels(cuda, tmp_path):
+    """A ``ptype.Profile`` session in a CUDA process traces CUDA
+    activity: the shipped trace names the flash forward kernel a
+    prefill launched, on another thread than the session's, and the
+    manifest says CUDA was traced."""
+    import threading
+
+    from ptype_tpu_torch.health import profiling
+
+    actor = GeneratorActor(NARROW, device="cuda")
+    prompt = torch.randint(1, 256, (2, 128), generator=cuda, device="cuda")
+    actor.Generate(prompt, 4)  # the kernels' modules load before the window
+    profiling.start(label="card", base=str(tmp_path))
+    t = threading.Thread(target=lambda: actor.Generate(prompt, 4))
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    out = profiling.stop(include_data=True)
+    assert out["activities"] == ["cpu", "cuda"]
+    assert out["device_events"] > 0
+    top = profiling.summarize(out["dir"], top=10_000)["top_ops"]
+    assert any("flash_fwd_kernel" in op["name"] for op in top), [
+        op["name"] for op in top][:20]
+    mem = out["memory"]["devices"][0]
+    assert mem["platform"] == "cuda" and mem["stats"]["bytes_limit"] > 0
+    assert set(mem["stats"]) >= {"bytes_in_use", "peak_bytes_in_use",
+                                 "bytes_limit"}
+    assert out["memory"]["memory_profile_size"] > 0
+
+
+def test_store_dp_compiled_cost_on_the_card(meshes):
+    """``StoreDPTrainer.compiled_cost`` of a card trainer counts on
+    ``meta`` skeletons: the same FLOPs as the CPU count, and the card
+    state untouched."""
+    from ptype_tpu_torch.health import profiling
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    nccl, _ = meshes
+    cfg = NARROW
+    tr = StoreDPTrainer(cfg, TensorStore(nccl))
+    toks = torch.randint(0, cfg.vocab_size, (8, 33), device="cuda")
+    tr.step({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    before = [p.clone() for p in tr._param_leaves]
+    cost = tr.compiled_cost()
+    assert all(torch.equal(a, b) for a, b in zip(before, tr._param_leaves))
+    assert cost["flops"] == profiling.transformer_grads_cost(
+        cfg, 8, 32, stacked=1)["flops"]

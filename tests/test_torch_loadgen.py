@@ -283,3 +283,112 @@ def test_sweep_locates_the_knee_like_the_reference():
         assert fr.points[-1].goodput_pct < 90.0, fr.as_dict()
         assert fr.knee_rps in (10, 40)
     assert frs[0].points[0].offered == frs[1].points[0].offered
+
+
+# ------------------------------------------ health rule + obs views
+# (the cases of tests/test_loadgen.py that read the health plane)
+
+from ptype_tpu import health as jhealth  # noqa: E402
+from ptype_tpu_torch import health as thealth  # noqa: E402
+
+
+def _snap(nodes, ts=1000.0):
+    return {"ts": ts, "nodes": nodes, "errors": {}}
+
+
+def _driver_node(offered_pts, knee):
+    series = {"loadgen.offered": offered_pts}
+    if knee is not None:
+        series["loadgen.knee_rps"] = [[999.0, knee]]
+    return {"series": series}
+
+
+@pytest.mark.parametrize("pts,knee", [
+    ([[970.0, 0.0], [999.0, 2850.0]], 100.0),   # ~98 rps sustained
+    ([[970.0, 0.0], [999.0, 1450.0]], 100.0),   # comfortable headroom
+    ([[970.0, 0.0], [999.0, 2850.0]], None),    # no measured frontier
+    ([[970.0, 0.0], [999.0, 4.0]], 1.0)])       # not "sustained"
+def test_capacity_headroom_rule_warns_near_the_knee(pts, knee):
+    view = _snap({"drv/a:1": _driver_node(pts, knee)})
+    got = [a.to_dict() for a in thealth.CapacityHeadroomRule(
+        window_s=30.0, headroom_frac=0.9, min_offered=8.0).evaluate(
+        thealth.ClusterView(view))]
+    want = [a.to_dict() for a in jhealth.CapacityHeadroomRule(
+        window_s=30.0, headroom_frac=0.9, min_offered=8.0).evaluate(
+        jhealth.ClusterView(view))]
+    assert got == want
+    assert len(got) == (1 if pts[-1][1] == 2850.0 and knee else 0)
+    if got:
+        assert got[0]["severity"] == "warn"
+        assert "capacity knee" in got[0]["message"]
+
+
+def test_capacity_headroom_rule_is_in_default_rules():
+    assert any(r.name == "capacity-headroom"
+               for r in thealth.default_rules())
+
+
+def test_render_traffic_rows_and_empty_state():
+    node = {
+        "metrics": {
+            "counters": {"loadgen.offered": 120.0,
+                         "loadgen.slo_good": 90.0,
+                         "loadgen.slo_bad": 30.0,
+                         "loadgen.shed": 5.0,
+                         "loadgen.overrun": 2.0,
+                         "loadgen.dropped": 1.0},
+            "gauges": {"loadgen.offered_rps": 80.0,
+                       "loadgen.inflight": 3.0,
+                       "loadgen.knee_rps": 100.0},
+            "histograms": {"loadgen.ttft_ms": {"p99": 42.0}},
+        },
+        "series": {"loadgen.offered.rate": [[999.0, 80.0]],
+                   "loadgen.answered.rate": [[999.0, 75.0]]},
+    }
+    quiet = {"metrics": {"counters": {"train.steps": 5.0}}}
+    snap = _snap({"drv/a:1": node, "w/b:2": quiet})
+    view = thealth.render_traffic(snap)
+    assert view == jhealth.render_traffic(snap)
+    assert "1 load drivers" in view and "drv/a:1" in view
+    assert "w/b:2" not in view and "75.0" in view and "100" in view
+    empty = thealth.render_traffic(_snap({}))
+    assert empty == jhealth.render_traffic(_snap({}))
+    assert "no open-loop driver" in empty
+
+
+def test_render_serve_gateway_goodput_section():
+    node = {"metrics": {"counters": {
+        "gateway.llm.requests": 100.0,
+        "gateway.llm.answered": 88.0,
+        "gateway.llm.shed": 12.0,
+        "gateway.llm.slo_good_requests": 80.0,
+        "gateway.llm.slo_violations": 20.0}}}
+    view = thealth.render_serve(_snap({"gw/a:1": node}))
+    assert view == jhealth.render_serve(_snap({"gw/a:1": node}))
+    assert "good%" in view and "gw/a:1" in view
+    assert "80" in view and "20" in view
+
+
+def test_traffic_ledger_series_reach_the_headroom_rule():
+    """A port ``TrafficLedger`` publishing into a registry, that
+    registry's ``Sampler``, and the knee gauge ``publish_knee`` stamps:
+    the pull carries ``loadgen.offered`` history, and offered load
+    sustained past 90% of the knee warns in both packages' rule."""
+    from ptype_tpu_torch.metrics import MetricsRegistry
+
+    reg = MetricsRegistry()
+    led = tlg.TrafficLedger(slo_ttft_ms=100.0, registry=reg)
+    sampler = thealth.Sampler(registry=reg, cadence_s=1.0, memory=False)
+    tlg.publish_knee(reg, 10.0)
+    for i in range(31):
+        for _ in range(20):
+            led.offered()
+        sampler.sample_once(now=970.0 + i, now_mono=float(i))
+    node = thealth.telemetry_endpoint(reg, sampler.store, "drv")()
+    assert node["series"]["loadgen.knee_rps"] == [[970.0, 10.0]]
+    snap = _snap({"drv/a:1": node})
+    got = thealth.CapacityHeadroomRule().evaluate(thealth.ClusterView(snap))
+    want = jhealth.CapacityHeadroomRule().evaluate(
+        jhealth.ClusterView(snap))
+    assert [a.to_dict() for a in got] == [a.to_dict() for a in want]
+    assert [a.rule for a in got] == ["capacity-headroom"]

@@ -93,6 +93,35 @@ def test_the_reconciler_modules_are_guarded_and_a_worker_skips_torch():
     assert out.stdout.startswith("ok")
 
 
+def test_the_health_plane_imports_without_torch():
+    """``series``, ``goodput``, ``rules``, ``top``, ``telemetry`` and
+    ``health/__init__`` import with torch blocked, and an alert engine
+    evaluates there: the reconciler worker's control plane stays
+    torch-free with the health plane loaded (``profiling`` and the
+    measurement functions import torch when called)."""
+    mods = set(_modules())
+    want = {f"ptype_tpu_torch.health.{m}" for m in (
+        "series", "goodput", "rules", "top", "profiling", "bench")} | {
+        "ptype_tpu_torch.health", "ptype_tpu_torch.telemetry"}
+    assert want <= mods, sorted(want - mods)
+    code = ("import sys\n"
+            "sys.modules['torch'] = None\n"
+            "import ptype_tpu_torch.health as h\n"
+            "import ptype_tpu_torch.telemetry, ptype_tpu_torch.health.bench\n"
+            "from ptype_tpu_torch.health import (series, goodput, rules,"
+            " top, profiling)\n"
+            "snap = {'ts': 1.0, 'nodes': {}, 'errors': {}}\n"
+            "assert h.AlertEngine(h.default_rules(), dump=False)"
+            ".evaluate(snap) == []\n"
+            "assert 'ptype health' in h.render_top(snap)\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference_package(path):
     tree = ast.parse(path.read_text())

@@ -1,0 +1,550 @@
+"""The port's profiling plane on ``torch.profiler``, on the CPU — the
+cases of ``tests/test_profiling.py``: capture sessions (manifest, the
+gzipped Chrome trace ``summarize`` reads, a region opened on another
+thread in the trace, double start and stop without start as typed
+errors), artifact shipping, the fetch traversal guard, the built-in
+``ptype.Profile`` endpoint over real sockets, a partial
+``cluster_profile`` with a dead node, ``AlertCapture``'s rate limit and
+dedup, the memory snapshot and its table, and the counted-cost
+accounting against the reference's XLA ``cost_analysis``: one fwd+bwd
+at tiny and at optimus-125m (B=8, S=128; at 125M also in the store-DP
+layout) within the reference's own 10% bar (``tests/test_profiling.py``'s
+125M check), and ``StoreDPTrainer.compiled_cost`` (tiny) against the
+reference trainer's, each gap printed. Then the
+end-to-end drill: the straggler alert on port ``ActorServer``s
+auto-captures a profile of the named node over its own endpoint."""
+
+import os
+
+import pytest
+import torch
+
+from ptype_tpu import metrics as jmetrics
+from ptype_tpu.health import profiling as jprofiling
+from ptype_tpu.models import transformer as jtfm
+from ptype_tpu_torch import metrics
+from ptype_tpu_torch.health import (AlertCapture, AlertEngine, ClusterView,
+                                    GoodputLedger, MfuGapRule,
+                                    default_rules, profiling)
+from ptype_tpu_torch.models import transformer as ttfm
+
+#: The reference's bar on counted vs reference FLOPs.
+FLOPS_GAP_PCT = 10.0
+
+
+@pytest.fixture(autouse=True)
+def _no_session_left():
+    yield
+    if profiling.active():
+        profiling.stop()
+
+
+def _work():
+    """A region and a matmul on a thread other than the session's."""
+    import threading
+
+    def run():
+        with metrics.annotate("train.step"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+
+
+# ------------------------------------------------------ capture session
+
+
+def test_start_stop_capture_manifest_and_summary(tmp_path):
+    profiling.start(label="unit", base=str(tmp_path))
+    assert profiling.active()
+    _work()
+    out = profiling.stop()
+    assert not profiling.active()
+    names = [f["path"] for f in out["files"]]
+    assert len(names) == 1 and names[0].endswith(".pt.trace.json.gz")
+    assert out["activities"] == ["cpu"] and out["device_events"] == 0
+    assert out["cpu_threads"] in ("all", "session")
+    s = profiling.summarize(out["dir"])
+    assert s["events"] > 0 and s["files"] == out["files"]
+    if out["cpu_threads"] == "all":
+        assert any(op["name"] == "train.step" for op in s["top_ops"])
+    assert out["memory"]["host"]["rss_bytes"] > 0
+    assert out["memory"]["devices"] == [
+        {"id": 0, "platform": "cpu", "kind": "cpu", "stats": {}}]
+
+
+def test_double_start_is_typed_error_and_stop_without_start(tmp_path):
+    profiling.start(base=str(tmp_path))
+    try:
+        with pytest.raises(profiling.ProfileError):
+            profiling.start(base=str(tmp_path))
+    finally:
+        profiling.stop()
+    with pytest.raises(profiling.ProfileError):
+        profiling.stop()
+
+
+def test_start_and_stop_on_different_threads(tmp_path):
+    """The RPC verbs arrive on different handler threads: a session
+    started on one thread stops on another (the session's own thread
+    holds the profiler)."""
+    import threading
+
+    box = {}
+    t = threading.Thread(target=lambda: box.setdefault(
+        "s", profiling.start(label="x", base=str(tmp_path))))
+    t.start()
+    t.join()
+    _work()
+    t = threading.Thread(target=lambda: box.setdefault(
+        "o", profiling.stop()))
+    t.start()
+    t.join()
+    assert box["o"]["dir"] == box["s"]["dir"] and box["o"]["files"]
+
+
+def test_capture_ships_data_and_fetch_blocks_traversal(tmp_path):
+    out = profiling.capture(duration_s=0.01, base=str(tmp_path),
+                            include_data=True)
+    assert out["data"] and all(isinstance(b, bytes)
+                               for b in out["data"].values())
+    rel = out["files"][0]["path"]
+    assert profiling.fetch(out["dir"], rel) == out["data"][rel]
+    with pytest.raises(profiling.ProfileError):
+        profiling.fetch(out["dir"], "../../etc/passwd")
+    dest = tmp_path / "shipped"
+    written = profiling.write_artifacts(str(dest), out)
+    assert len(written) == len(out["data"])
+    assert profiling.summarize(str(dest))["events"] > 0
+    # Past the byte budget a file is listed, not shipped.
+    small = profiling.capture(duration_s=0.01, base=str(tmp_path),
+                              include_data=True, max_bytes=1)
+    assert small["data"] == {} and small["truncated"] == [
+        f["path"] for f in small["files"]]
+    # write_artifacts keeps the fetch guard: no path escapes.
+    assert profiling.write_artifacts(
+        str(tmp_path / "g"), {"data": {"../escape": b"x"}}) == []
+
+
+def test_capture_duration_is_capped(tmp_path, monkeypatch):
+    monkeypatch.setattr(profiling, "MAX_CAPTURE_S", 0.05)
+    out = profiling.capture(duration_s=600.0, base=str(tmp_path))
+    assert out["duration_s"] < 30.0
+
+
+def test_memory_snapshot_and_hbm_table_match_the_reference():
+    mem = profiling.memory_snapshot(include_profile=True)
+    assert mem["devices"][0]["stats"] == {}
+    assert "memory_profile_note" in mem and "memory_profile" not in mem
+    table = profiling.render_hbm_table(mem)
+    assert table == jprofiling.render_hbm_table(mem)
+    assert "no allocator stats" in table and "host rss" in table
+    card = {"devices": [{"id": 0, "platform": "cuda", "kind": "H100",
+                         "stats": {"bytes_in_use": 3 * 2**30,
+                                   "peak_bytes_in_use": 4 * 2**30,
+                                   "bytes_limit": 80 * 2**30}}],
+            "host": {"rss_bytes": 2**30}}
+    assert profiling.render_hbm_table(card) == \
+        jprofiling.render_hbm_table(card)
+
+
+# ------------------------------------------ the ptype.Profile endpoint
+
+
+def _dial(server):
+    from ptype_tpu_torch import rpc as rpc_mod
+    from ptype_tpu_torch.registry import Node
+
+    return rpc_mod._dial(Node("127.0.0.1", server.port), dial_timeout=5.0)
+
+
+def _call(conn, *args, timeout=60.0):
+    return conn.call_async("ptype.Profile", args).result(timeout=timeout)
+
+
+def test_profile_endpoint_over_real_sockets(tmp_path, monkeypatch):
+    monkeypatch.setenv(profiling.PROFILE_DIR_ENV, str(tmp_path))
+    from unittest import mock
+
+    from ptype_tpu_torch import actor as actor_mod
+    from ptype_tpu_torch.actor import ActorServer
+    from ptype_tpu_torch.errors import RemoteError
+
+    with mock.patch.object(actor_mod, "lookup_local", lambda a, p: None):
+        server = ActorServer("127.0.0.1", 0, device="cpu").serve()
+        assert "ptype.Profile" in server.methods
+        conn = _dial(server)
+        try:
+            st = _call(conn, "status")
+            assert st["active"] is False and st["devices"] >= 1
+            assert st["platform"] == "cpu" and st["device_kind"] == "cpu"
+            started = _call(conn, "start", {"label": "remote"})
+            assert str(tmp_path) in started["dir"]
+            assert _call(conn, "status")["active"] is True
+            with pytest.raises(RemoteError):
+                _call(conn, "start", {"label": "again"})
+            out = _call(conn, "stop", {"include_data": True})
+            assert out["files"] and out["data"]
+            rel = out["files"][0]["path"]
+            blob = _call(conn, "fetch", {"dir": out["dir"], "path": rel})
+            assert blob == out["data"][rel]
+            mem = _call(conn, "memory")
+            assert mem["host"]["rss_bytes"] > 0
+            with pytest.raises(RemoteError):
+                _call(conn, "nope")
+        finally:
+            conn.close()
+            server.close()
+
+
+def test_reference_client_reads_a_port_profile():
+    """Wire compatibility: the reference's ``node_profile`` dials a port
+    node's ``ptype.Profile`` and gets a manifest its own
+    ``write_artifacts``/``summarize`` read."""
+    import tempfile
+
+    from ptype_tpu import telemetry as jtel
+    from ptype_tpu.registry import Node as JNode
+    from ptype_tpu_torch.actor import ActorServer
+
+    server = ActorServer("127.0.0.1", 0, device="cpu").serve()
+    try:
+        res = jtel.node_profile(JNode("127.0.0.1", server.port),
+                                duration_s=0.02)
+    finally:
+        server.close()
+    d = tempfile.mkdtemp()
+    assert jprofiling.write_artifacts(d, res)
+    assert jprofiling.summarize(d)["events"] > 0
+
+
+def test_cluster_profile_partial_on_dead_node(tmp_path, monkeypatch):
+    monkeypatch.setenv(profiling.PROFILE_DIR_ENV, str(tmp_path / "node"))
+    from ptype_tpu_torch import telemetry
+    from ptype_tpu_torch.actor import ActorServer
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    state = CoordState(sweep_interval=0.05)
+    registry = CoordRegistry(LocalCoord(state), lease_ttl=5.0)
+    live = ActorServer("127.0.0.1", 0, device="cpu").serve()
+    dead = ActorServer("127.0.0.1", 0, device="cpu").serve()
+    dead_port = dead.port
+    regs = [registry.register("work", "w0", "127.0.0.1", live.port),
+            registry.register("work", "w1", "127.0.0.1", dead_port)]
+    dead.close()
+    try:
+        res = telemetry.cluster_profile(
+            registry, duration_s=0.02, out_dir=str(tmp_path / "out"))
+        live_key = f"work/127.0.0.1:{live.port}"
+        assert live_key in res["nodes"], res
+        assert f"work/127.0.0.1:{dead_port}" in res["errors"], res
+        node = res["nodes"][live_key]
+        assert node["files"] and os.path.isdir(node["dir"])
+        assert profiling.summarize(node["dir"])["events"] > 0
+        assert node["memory"]["host"]["rss_bytes"] > 0
+    finally:
+        for r in regs:
+            r.close()
+        live.close()
+        state.close()
+
+
+# ------------------------------------------------ alert-driven capture
+
+
+def _alert(rule="straggler", node="local"):
+    from ptype_tpu_torch.health.rules import Alert
+
+    return Alert(rule=rule, severity="warn", node=node, message="test",
+                 ts=1.0)
+
+
+def test_alert_capture_rate_limit_dedup(tmp_path, monkeypatch):
+    monkeypatch.setenv(profiling.PROFILE_DIR_ENV, str(tmp_path / "base"))
+    cap = AlertCapture(out_dir=str(tmp_path / "alerts"), duration_s=0.01,
+                       min_interval_s=60.0, background=False)
+    cap(_alert())
+    cap(_alert())
+    assert len(cap.captures) == 1, (cap.captures, cap.errors)
+    cap(_alert(rule="train-stall"))
+    assert len(cap.captures) == 2
+    cap(_alert(rule="loss"))
+    assert len(cap.captures) == 2
+    assert profiling.PROFILE_ALERT_RULES == jprofiling.PROFILE_ALERT_RULES
+    d = cap.captures[0]["dir"]
+    assert os.path.isfile(os.path.join(d, "capture.json"))
+    assert profiling.summarize(d)["files"]
+
+
+def test_alert_capture_survives_dead_node(tmp_path):
+    cap = AlertCapture(out_dir=str(tmp_path), duration_s=0.01,
+                       timeout_s=2.0, background=False)
+    cap(_alert(node="work/127.0.0.1:1"))
+    assert cap.captures == []
+    assert cap.errors and cap.errors[0]["node"] == "work/127.0.0.1:1"
+
+
+# --------------------------------------------- counted-cost accounting
+
+
+def _gap_pct(port: float, ref: float) -> float:
+    return 100.0 * (port - ref) / ref
+
+
+@pytest.mark.parametrize("preset,stacked", [("tiny", None),
+                                            ("optimus-125m", None),
+                                            ("optimus-125m", 1)])
+def test_counted_flops_against_the_reference_cost_analysis(preset,
+                                                           stacked):
+    """One fwd+bwd at B=8, S=128: the port's counted FLOPs within 10%
+    of XLA's ``cost_analysis`` of the reference's program, gap printed
+    — unstacked, and at optimus-125m also in the store-DP layout
+    (``stacked=1``: the grads program of a one-worker
+    ``StoreDPTrainer``, which the reference vmaps). The gap is the
+    counting convention: XLA prices elementwise ops too, FlopCounterMode
+    the matmul-class ones, and the port's loss recomputes the LM head
+    in its backward (its fused chunked NLL)."""
+    port = profiling.transformer_grads_cost(ttfm.preset(preset), 8, 128,
+                                            stacked=stacked)
+    ref = jprofiling.transformer_grads_cost(jtfm.preset(preset), 8, 128,
+                                            stacked=stacked)
+    gap = _gap_pct(port["flops_per_token"], ref["flops_per_token"])
+    print(f"{preset} stacked={stacked}: port "
+          f"{port['flops_per_token']:.0f} vs reference "
+          f"{ref['flops_per_token']:.0f} FLOPs/token ({gap:+.2f}%, "
+          f"counted on {port['device']})")
+    assert port["device"] == "meta"
+    assert port["tokens_per_step"] == ref["tokens_per_step"] == 8 * 128
+    assert abs(gap) <= FLOPS_GAP_PCT
+    # Against the analytic formula, as measure_compiled_cost reports.
+    m = profiling.measure_compiled_cost(preset, 8, 128)
+    assert m["compiled_flops_per_token"] == pytest.approx(
+        port["flops_per_token"], abs=0.1)
+    assert abs(m["mfu_gap_pct"]) <= FLOPS_GAP_PCT
+
+
+def test_stacked_cost_is_per_shard_times_shards():
+    cfg = ttfm.preset("tiny")
+    one = profiling.transformer_grads_cost(cfg, 2, 32)
+    four = profiling.transformer_grads_cost(cfg, 2, 32, stacked=4)
+    assert four["flops"] == 4 * one["flops"]
+    assert four["flops_per_token"] == one["flops_per_token"]
+
+
+def test_compiled_cost_counts_matmuls_and_bytes():
+    a = torch.empty(64, 32, device="meta")
+    b = torch.empty(32, 16, device="meta")
+    c = profiling.compiled_cost(lambda: (a @ b).relu())
+    assert c["flops"] == 2 * 64 * 32 * 16
+    # mm: a + b + out; relu: out in + out out (4-byte floats).
+    assert c["bytes_accessed"] == 4 * (64 * 32 + 32 * 16 + 3 * 64 * 16)
+    with pytest.raises(profiling.ProfileError):
+        profiling.compiled_cost(lambda: None)
+
+
+@pytest.fixture(scope="module")
+def store_trainers():
+    """Port ``StoreDPTrainer``s (world 1, gloo, tiny) of three modes
+    after one B=8, S=128 step, and the reference's ``compiled_cost`` of
+    the same step on the same layout: one worker of 8 rows (a 1-device
+    data mesh — on conftest's 8-device mesh the reference counts a
+    program vmapped over 8 one-row shards, another program)."""
+    import jax
+
+    from ptype_tpu.models import transformer as jt
+    from ptype_tpu.parallel.mesh import build_mesh
+    from ptype_tpu.parallel.tensorstore import TensorStore as JStore
+    from ptype_tpu.train.data import synthetic_batches
+    from ptype_tpu.train.store_dp import StoreDPTrainer as JTrainer
+    from ptype_tpu_torch import telemetry
+
+    cfg = jt.preset("tiny")
+    jtr = JTrainer(cfg, JStore(build_mesh({"data": 1},
+                                          devices=jax.devices()[:1])))
+    jtr.step(next(synthetic_batches(cfg.vocab_size, 8, 128)))
+    ref = jtr.compiled_cost()
+    out = {}
+    with telemetry.probe_trainer("tiny", "cpu") as (tr, batches):
+        with pytest.raises(ValueError):
+            tr.compiled_cost()  # needs one step's shapes
+        tr.step(batches(8, 128))
+        out["whole"] = tr.compiled_cost()
+        from ptype_tpu_torch.parallel.tensorstore import TensorStore
+        from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+        for name, kw in (("zero", {"zero": True}),
+                         ("overlap", {"overlap": True})):
+            t = StoreDPTrainer(ttfm.preset("tiny"),
+                               TensorStore(tr.mesh, device="cpu"),
+                               device="cpu", **kw)
+            t.step(batches(8, 128))
+            before = [p.clone() for p in t._param_leaves or []]
+            out[name] = t.compiled_cost()
+            after = t._param_leaves or []
+            assert all(torch.equal(a, b) for a, b in zip(before, after))
+    return ref, out
+
+
+def test_store_dp_compiled_cost_against_the_reference(store_trainers):
+    """``StoreDPTrainer.compiled_cost`` at tiny: its grads program is
+    the counted fwd+bwd of the store-DP layout exactly (held to the
+    reference within 10% at optimus-125m above); its total against the
+    reference trainer's is printed and held to the reference's own bar
+    for tiny (``tests/test_profiling.py``: within 2× of the analytic
+    count), since at tiny XLA's elementwise and vmapped-layout terms
+    (~13% of the count) exceed the 10% the 125M bar allows."""
+    ref, out = store_trainers
+    cost = out["whole"]
+    gap = _gap_pct(cost["flops_per_token"], ref["flops_per_token"])
+    print(f"StoreDPTrainer tiny B=8 S=128: port "
+          f"{cost['flops_per_token']:.0f} vs reference "
+          f"{ref['flops_per_token']:.0f} FLOPs/token ({gap:+.2f}%)")
+    grads = profiling.transformer_grads_cost(ttfm.preset("tiny"), 8, 128,
+                                             stacked=1)
+    assert cost["programs"]["grads"]["flops"] == grads["flops"]
+    assert 0.5 < cost["flops_per_token"] / ref["flops_per_token"] < 2.0
+    analytic = ttfm.flops_per_token(ttfm.preset("tiny"), 128)
+    assert 0.5 < cost["flops_per_token"] / analytic < 2.0
+    assert cost["tokens_per_step"] == ref["tokens_per_step"] == 8 * 128
+    assert set(cost["programs"]) == set(ref["programs"]) == {
+        "grads", "optimizer"}
+    assert cost["bytes_accessed"] > 0
+    # FlopCounterMode prices no elementwise op: the apply's FLOPs are 0,
+    # its bytes are not.
+    opt = cost["programs"]["optimizer"]
+    assert opt["flops"] == 0.0 and opt["bytes_accessed"] > 0
+
+
+@pytest.mark.parametrize("mode", ["zero", "overlap"])
+def test_zero_and_overlap_compiled_cost(store_trainers, mode):
+    _, out = store_trainers
+    cost, whole = out[mode], out["whole"]
+    opt = cost["programs"]["optimizer"]
+    assert opt["bytes_accessed"] > 0
+    if mode == "zero":
+        assert opt["n_buckets"] >= 1
+    assert cost["programs"]["grads"] == whole["programs"]["grads"]
+    assert cost["flops"] == whole["flops"]
+
+
+def test_compiled_cost_feeds_mfu_compiled_as_the_reference():
+    def run(met, led_cls):
+        reg = met.MetricsRegistry()
+        led = led_cls(registry=reg, tokens_per_step=8 * 32,
+                      flops_per_token=7.0e5, peak_tflops=10.0)
+        led.set_compiled_flops(1.9e8)
+        end = 10.0
+        for _ in range(2):
+            end += 0.1
+            led.observe("train.step", 0.1, end=end)
+        return led.records(), reg.snapshot()["gauges"]
+
+    from unittest import mock
+
+    from ptype_tpu.health import GoodputLedger as JLedger
+
+    with mock.patch("time.time", lambda: 5.0):
+        assert run(metrics, GoodputLedger) == run(jmetrics, JLedger)
+
+
+def test_mfu_gap_rule_fires_on_divergence():
+    rule = MfuGapRule(gap_frac=0.25)
+
+    def snap(compiled):
+        return {"ts": 1000.0, "errors": {}, "nodes": {"w": {"series": {
+            "goodput.mfu": [[999.0, 0.40]],
+            "goodput.mfu_compiled": [[999.0, compiled]]}}}}
+
+    alerts = rule.evaluate(ClusterView(snap(0.55)))
+    assert len(alerts) == 1 and alerts[0].rule == "mfu-divergence"
+    assert rule.evaluate(ClusterView(snap(0.42))) == []
+    lone = {"ts": 1.0, "errors": {}, "nodes": {"w": {"series": {
+        "goodput.mfu": [[0.5, 0.4]]}}}}
+    assert rule.evaluate(ClusterView(lone)) == []
+
+
+def test_overhead_probes_run_on_the_cpu():
+    from ptype_tpu_torch.health import bench
+
+    prof = profiling.measure_profile_overhead(steps=2, device="cpu")
+    assert prof["capture_artifact_files"] == 1
+    assert prof["mfu_gap_pct"] is not None
+    assert prof["profile_overhead_pct"] >= 0.0
+    health = bench.measure_health_overhead(steps=2, device="cpu")
+    assert health["steps"] == 2 and health["sampler_tick_us"] > 0
+    assert health["mfu"] is None  # no peak for the CPU
+    assert set(health["step_breakdown"]) >= {"step_ms", "compute_ms"}
+    lock = bench.measure_lockcheck_overhead(ticks=40, repeats=1)
+    assert lock["lockcheck_acquires_per_tick"] > 0
+
+
+# ------------------------------------------- end-to-end drill + capture
+
+
+def test_straggler_alert_auto_captures_profile_on_named_node(tmp_path):
+    """The straggler drill of ``test_torch_health.py`` with an
+    ``AlertCapture`` on the engine: the alert names the slow node AND a
+    profile of THAT node, taken over the real socket to its
+    ``ptype.Profile``, lands next to the dumps; a repeat firing inside
+    the capture's rate limit takes none."""
+    from test_torch_health import (DRILL_STEPS, N_WORKERS, SLOW_PUSH_S,
+                                   _SimWorker)
+
+    import torch.distributed as dist
+
+    from ptype_tpu_torch import chaos, telemetry
+    from ptype_tpu_torch.chaos import FaultPlan, FaultSpec
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    own = not dist.is_initialized()
+    if own:
+        init_distributed(f"file://{tmp_path}/rdv", 0, 1, device="cpu")
+    mesh = build_mesh({"data": 1}, device="cpu")
+    state = CoordState(sweep_interval=0.05)
+    registry = CoordRegistry(LocalCoord(state), lease_ttl=5.0)
+    workers = [_SimWorker(f"w{i}", mesh, registry)
+               for i in range(N_WORKERS)]
+    cap = AlertCapture(out_dir=str(tmp_path / "alerts"), duration_s=0.05,
+                       min_interval_s=300.0, background=False)
+    engine = AlertEngine(default_rules(), cooldown_s=0.0,
+                         registry=metrics.MetricsRegistry(), capture=cap)
+    try:
+        for w in workers:
+            w.step(0)
+        for w in workers:
+            w.sampler.start()
+        chaos.arm(FaultPlan([FaultSpec(
+            "store.push", "delay", match="w2",
+            times=DRILL_STEPS + 1, delay_s=SLOW_PUSH_S)]))
+        for i in range(1, DRILL_STEPS + 1):
+            for w in workers:
+                w.step(i)
+        chaos.disarm()
+        for w in workers:
+            w.sampler.sample_once()
+        snap = telemetry.cluster_snapshot(registry, include_local=False)
+        alerts = engine.evaluate(snap)
+        slow_key = workers[2].key
+        assert [a.rule for a in alerts] == ["straggler"], alerts
+        assert alerts[0].node == slow_key
+        assert len(cap.captures) == 1, (cap.captures, cap.errors)
+        rec = cap.captures[0]
+        assert rec["node"] == slow_key and rec["files"] >= 1
+        files = profiling.summarize(rec["dir"])["files"]
+        assert any(f["path"].endswith(".trace.json.gz") for f in files)
+        alerts2 = engine.evaluate(snap, now=snap["ts"] + 1.0)
+        assert [a.rule for a in alerts2] == ["straggler"]
+        assert len(cap.captures) == 1
+    finally:
+        chaos.disarm()
+        for w in workers:
+            w.close()
+        state.close()
+        if own:
+            dist.destroy_process_group()

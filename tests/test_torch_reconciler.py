@@ -388,6 +388,46 @@ def test_flapping_hint_stream_holds_count_steady(coord):
         launcher.close()
 
 
+def test_a_reaped_drain_is_not_counted_as_foreign_capacity(coord):
+    """Shrinking 2 → 1: once the victim's drain is reaped but the
+    failure detector still lists it (its deregistration not yet
+    delivered), the victim is an expected departure, not foreign
+    capacity — the next ticks drain nothing more. Counted as foreign
+    (the reference's ``_actual``), it made the reconciler drain the
+    replica that stays, then respawn one (seen under load in
+    ``test_graceful_drain_finishes_in_flight_zero_lost``)."""
+    from unittest import mock
+
+    registry, launcher, rec, mreg = _fleet(coord, min_replicas=1)
+    try:
+        rec.desired = 2
+        assert _settle(rec, 2)
+        stale = list(rec._fd.current())
+        assert len(stale) == 2
+        victim = rec._pick_victim()
+        rec.desired = 1
+        rec.tick()
+        assert mreg.counter("scale.drains").value == 1
+        assert _until(lambda: victim.lifecycle in ("drained", "dead"), 5)
+        # The detector has not seen the deregistration yet: its view and
+        # its change buffer both still hold the victim.
+        with mock.patch.object(rec._fd, "current", lambda: stale), \
+                mock.patch.object(rec._fd, "drain_changes",
+                                  lambda: ([], [])):
+            for _ in range(3):
+                rec.tick()
+            assert victim.name not in rec.status()["replicas"]
+        assert mreg.counter("scale.drains").value == 1
+        for _ in range(3):  # the loss delivered: an expected departure
+            rec.tick()
+        assert mreg.counter("scale.deaths").value == 0
+        assert _n_active(rec) == 1
+        assert mreg.counter("scale.spawns").value == 2
+    finally:
+        rec.close(stop_fleet=True)
+        launcher.close()
+
+
 def test_graceful_drain_finishes_in_flight_zero_lost(coord):
     registry, launcher, rec, mreg = _fleet(
         coord, delay_s=0.25, min_replicas=2, drain_deadline_s=10.0)
@@ -420,7 +460,7 @@ def test_graceful_drain_finishes_in_flight_zero_lost(coord):
         _join_all(threads, 10)
         assert not errors, errors
         assert len(results) == 3
-        assert all(r.dtype == torch.int32 and (r == 7).all()
+        assert all(r.dtype == np.int32 and (r == 7).all()
                    for r in results)
 
         def gone():
@@ -616,7 +656,7 @@ def test_replica_ctl_endpoints_over_the_wire(coord):
         assert st["lifecycle"] == "active" and st["registered"]
         assert len(registry.nodes("llm")) == 1
         out = call("Generator.Generate", PROMPT, 3)
-        assert out.dtype == torch.int32 and out.tolist() == [[7, 7, 7]]
+        assert out.dtype == np.int32 and out.tolist() == [[7, 7, 7]]
         st = call("Replica.Drain", 5.0)
         assert st["lifecycle"] in ("draining", "drained")
         assert _until(lambda: not handle.alive(), 5)

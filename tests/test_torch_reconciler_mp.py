@@ -13,7 +13,7 @@ serve actor RPC and drain to a clean exit — every case of
   ``ProcessReplicaHandle`` drives a port worker and the port's handle a
   reference worker, with the same lifecycle strings.
 
-``fake`` workers never load torch before their first ``Generate`` (a
+``fake`` workers never load torch (a
 second or so to start). The ``paged`` drill on ``PTYPE_REPLICA_DEVICE=
 cpu`` builds and warms a tiny engine in the child in a few seconds. So,
 unlike the reference's, none of these drills is ``slow``. Every wait
@@ -99,7 +99,7 @@ def test_worker_process_warm_activate_serve_drain(coord_server, tmp_path,
         out = conn.call_async(
             "Generator.Generate",
             (np.zeros((1, 4), np.int32), 6)).result(timeout=30)
-        assert out.dtype == torch.int32 and tuple(out.shape) == (1, 6)
+        assert out.dtype == np.int32 and tuple(out.shape) == (1, 6)
         h.drain(30.0)
         assert _until(lambda: not h.alive(), 20)
         assert h._proc.returncode == 0
