@@ -174,6 +174,32 @@ Run from the root of a checkout. Phases, each printing its own lines:
    a ``cluster_snapshot`` of the replica and this process: no alert
    from ``default_rules()``, ``render_top``/``render_serve`` printed,
    an OpenMetrics line for every metric family;
+   failover: coordinator failover and the operator CLI at optimus-125m,
+   every process a ``python -m ptype_tpu_torch`` verb of this checkout
+   with a two-level config tree (written as JSON): (a) a ``witness``, a
+   seed (``join``, witness-fenced, lease TTL 1 s), a wal-stream
+   ``standby`` and a ``serve`` replica (BatchingGeneratorActor), each
+   one's ms from Popen to its ready line and the standby's to
+   promote-eligible; (b) phase 4's prompts one at a time, 32 greedy
+   tokens, through ``new_client``: the replica's answers on the card
+   equal an in-process BatchingGeneratorActor's; (c) one (1, 512)
+   prompt at 2 rps for 12 s, the seed SIGKILLed at 4 s: every request
+   answered, the ms from the kill to the standby's promotion (its
+   address accepting), the witness lease changing hands, a registry read
+   through the promoted standby listing the replica and a client built
+   after the promotion answering, the new term; the old seed restarted
+   on its data dir refuses a write fenced with that term; (d) ``obs`` of
+   the promoted cluster writes trace.json and spans.jsonl and lists the
+   replica, and ``obs profile`` under load ships a trace with at least
+   12 flash_fwd_kernel_bf16 records; (e) the ``train`` verb in this
+   process (``__main__.main()``, store mode, B=16, S=1024, 8 steps,
+   CKPT_EVERY 4) on a fresh seed and wal-stream standby, the seed
+   SIGKILLed after the first step, beside an uninterrupted run of the
+   same verb on the promoted cluster: equal losses, 96 launches each of
+   forward, dq and dk/dv a run, manifests on the promoted standby, each
+   step's ms and the stall of the steps after the kill; ``eval`` of its
+   checkpoint (3 steps) reads step 8; (f) ``info`` reads the card;
+   (g) no child process outlives the phase;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -199,6 +225,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -4123,6 +4150,599 @@ def health_phase(torch, tfm, flash_mod, train_mod, mesh, params, prompts,
         torch.cuda.empty_cache()
 
 
+FO_SERVICE = "llm-fo"
+FO_LEASE_TTL = 1.0
+FO_WITNESS_TTL = 3.0
+FO_RPS = 2.0
+FO_TRAFFIC_S = 12.0
+FO_KILL_AT_S = 4.0
+FO_MAX_NEW = 32
+FO_TRAIN = dict(PRESET="optimus-125m", MODE="store", BATCH="16",
+                SEQ="1024", STEPS="8", CKPT_EVERY="4")
+FO_EVAL_STEPS = 3
+FO_FLASH_RECORDS = 12
+
+
+def listening(addr):
+    """True once something accepts TCP connections on ``addr``."""
+    host, _, port = addr.rpartition(":")
+    try:
+        socket.create_connection((host, int(port)), timeout=0.2).close()
+        return True
+    except OSError:
+        return False
+
+
+def free_addr():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def cli_config(work, name, service, urls=(), **platform):
+    """A two-level config tree of the CLI (``CONFIG`` names a cluster
+    file whose ``platform_config_file`` is beside it), written as JSON,
+    which is YAML."""
+    d = os.path.join(work, "cfg", name)
+    os.makedirs(d)
+    with open(os.path.join(d, "platform.yaml"), "w") as f:
+        json.dump({"name": name, **platform}, f)
+    with open(os.path.join(d, "node.yaml"), "w") as f:
+        json.dump({"service_name": service, "node_name": name, "port": 0,
+                   "initial_cluster_client_urls": list(urls),
+                   "platform_config_file": "platform.yaml"}, f)
+    return os.path.join(d, "node.yaml")
+
+
+class CliProc:
+    """``python -m ptype_tpu_torch VERB...`` of this checkout as a child
+    process, its output (stdout and stderr) in a log under ``work``."""
+
+    def __init__(self, verb, cfg, work, name, **env):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.name = name
+        self.log = os.path.join(work, f"{name}.log")
+        e = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+            **env)
+        if cfg is not None:
+            e["CONFIG"] = cfg
+        with open(self.log, "w") as f:
+            self.t0 = time.monotonic()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "ptype_tpu_torch", *verb.split()],
+                stdout=f, stderr=subprocess.STDOUT, env=e, cwd=root)
+
+    def text(self):
+        with open(self.log) as f:
+            return f.read()
+
+    def wait(self, needle, timeout=300):
+        """ms from the Popen to a line holding ``needle``."""
+        deadline = time.monotonic() + timeout
+        while needle not in self.text():
+            check(self.proc.poll() is None and time.monotonic() < deadline,
+                  f"failover: {self.name} printed no {needle!r} (exit "
+                  f"{self.proc.poll()}):\n{self.text()[-4000:]}")
+            time.sleep(0.02)
+        return (time.monotonic() - self.t0) * 1e3
+
+    def finish(self, timeout=300):
+        """The verb's whole output, once it exited 0."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, f"failover: {self.name} exited {rc}:\n"
+              f"{self.text()[-4000:]}")
+        return self.text()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def run_verb(cli, argv, env):
+    """``python -m ptype_tpu_torch ARGV`` in this process (so the launch
+    counters of its kernels are readable here) under ``env``; its
+    standard output, echoed."""
+    import contextlib
+    import io
+
+    saved_env, saved_argv = dict(os.environ), sys.argv
+    os.environ.update(env)
+    sys.argv = ["ptype_tpu_torch", *argv]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main()
+    finally:
+        sys.argv = saved_argv
+        os.environ.clear()
+        os.environ.update(saved_env)
+        print(buf.getvalue(), end="", flush=True)
+    return buf.getvalue()
+
+
+class StepClock:
+    """Times every ``StoreDPTrainer.step`` (its loss is read on the host,
+    so a step's host time is its whole time) and runs ``after_first``
+    once the first step returned."""
+
+    def __init__(self, cls, after_first=None):
+        self.cls, self.orig = cls, cls.step
+        self.after_first = after_first
+        self.rows = []
+
+    def __enter__(self):
+        clock = self
+
+        def step(tr, batch):
+            t0 = time.monotonic()
+            out = clock.orig(tr, batch)
+            t1 = time.monotonic()
+            clock.rows.append({"step": out["step"], "loss": out["loss"],
+                               "ms": (t1 - t0) * 1e3, "t0": t0, "t1": t1})
+            if len(clock.rows) == 1 and clock.after_first is not None:
+                clock.after_first()
+            return out
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+
+def failover_phase(torch, tfm, flash_mod, prompts, card):
+    """Coordinator failover and the operator CLI at optimus-125m, every
+    process a ``python -m ptype_tpu_torch`` verb: (a) a witness, a seed
+    (``join``), a wal-stream ``standby`` and a ``serve`` replica;
+    (b) phase 4's prompts through the replica equal an in-process
+    ``BatchingGeneratorActor``; (c) the seed SIGKILLed under 2 rps of
+    (1, 512) requests: none lost, the standby's promotion, the witness
+    handover, the replica's re-listing, a fresh client's first answer,
+    and the old seed restarted on its data refused by the term fence;
+    (d) ``obs`` and ``obs profile`` of the promoted cluster, the
+    replica's flash forward records; (e) the ``train`` verb in this
+    process (store mode, B=16, S=1024, 8 steps) through a second seed's
+    SIGKILL: losses equal an uninterrupted run's, the kernels' launches,
+    each step's ms, then ``eval`` of its checkpoint; (f) ``info``;
+    (g) no child left. Returns the phase's launches (fwd, dq, dkv) and
+    the replica's flash forward records."""
+    from ptype_tpu_torch import Config, PlatformConfig, join
+    from ptype_tpu_torch import __main__ as cli
+    from ptype_tpu_torch.coord import wire, witness
+    from ptype_tpu_torch.coord.remote import RemoteCoord
+    from ptype_tpu_torch.errors import CoordinationError
+    from ptype_tpu_torch.health import profiling
+    from ptype_tpu_torch.registry import CoordRegistry
+    from ptype_tpu_torch.rpc import ConnConfig
+    from ptype_tpu_torch.serve import BatchingGeneratorActor
+    from ptype_tpu_torch.store import KVStore, with_prefix
+    from ptype_tpu_torch.train.store_dp import StoreDPTrainer
+
+    t_phase = time.monotonic()
+    row = {"phase": "failover", "card": card, "preset": "optimus-125m"}
+    work = tempfile.mkdtemp(prefix="chip_smoke_failover_")
+    procs, clients, coords = [], [], []
+
+    def start(verb, cfg, name, **env):
+        p = CliProc(verb, cfg, work, name, **env)
+        procs.append(p)
+        return p
+
+    def eligible(members, addr):
+        return any((m.metadata or {}).get("role") == "standby"
+                   and (m.metadata or {}).get("learner") is False
+                   and m.peer_addr == addr for m in members)
+
+    def kill(p):
+        os.kill(p.proc.pid, signal.SIGKILL)
+        p.proc.wait(timeout=60)
+        return time.monotonic()
+
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    try:
+        # (a) a witness, a seed, a wal-stream standby and a replica.
+        seed_addr, sb_addr, wit_addr = free_addr(), free_addr(), free_addr()
+        quorum = dict(witness_address=wit_addr,
+                      witness_ttl=FO_WITNESS_TTL)
+        seed_cfg = cli_config(
+            work, "seed", "fo-seed", coordinator_address=seed_addr,
+            is_coordinator=True, data_dir=os.path.join(work, "seed"),
+            lease_ttl=FO_LEASE_TTL, **quorum)
+        ready = {}
+        wit = start("witness", cli_config(
+            work, "witness", "fo-witness", coordinator_address=seed_addr,
+            data_dir=os.path.join(work, "witness"), **quorum), "witness")
+        ready["witness"] = wit.wait("witness on")
+        seed = start("join", seed_cfg, "seed")
+        ready["seed"] = seed.wait("joined as")
+        sb = start("standby", cli_config(
+            work, "standby", "fo-standby", coordinator_address=seed_addr,
+            data_dir=os.path.join(work, "standby"), lease_ttl=FO_LEASE_TTL,
+            **quorum), "standby", STANDBY_ADDR=sb_addr,
+            STANDBY_REPLICATE="1")
+        ready["standby"] = sb.wait("standby for")
+        rep = start("serve", cli_config(
+            work, "replica", FO_SERVICE, urls=[seed_addr, sb_addr],
+            coordinator_address=seed_addr, lease_ttl=FO_LEASE_TTL),
+            "replica", PRESET="optimus-125m")
+        client = join(Config(
+            service_name="", node_name="fo-client", port=0,
+            initial_cluster_client_urls=[seed_addr, sb_addr],
+            platform=PlatformConfig(name="fo-client",
+                                    coordinator_address=seed_addr,
+                                    lease_ttl=FO_LEASE_TTL)),
+            device="cuda")
+        clients.append(client)
+        wait_for(lambda: eligible(client.member_list(), sb_addr), 120,
+                 "the standby never became promote-eligible", "failover")
+        ready["standby_promote_eligible"] = (time.monotonic()
+                                             - sb.t0) * 1e3
+        ready["replica"] = rep.wait("serving Generator", 600)
+        row["ready_ms"] = ready
+
+        # (b) phase 4's prompts one at a time, greedy, 32 new tokens.
+        gen = client.new_client(FO_SERVICE)
+        local = BatchingGeneratorActor(tfm.preset("optimus-125m"),
+                                       device="cuda")
+        same = []
+        try:
+            for p in prompts:
+                x = p.to("cuda", torch.int32)[None]
+                got = gen.call("Generator.Generate", x, FO_MAX_NEW)
+                want = local.Generate(x, FO_MAX_NEW)
+                check(got.device.type == "cuda"
+                      and tuple(got.shape) == (1, FO_MAX_NEW),
+                      f"failover: the replica answered {got.device} "
+                      f"{tuple(got.shape)}")
+                same.append(bool(torch.equal(got, want)))
+        finally:
+            local.close()
+            del local
+            torch.cuda.empty_cache()
+        row["tokens_equal_in_process"] = same
+        check(all(same), f"failover: the CLI replica's tokens differ from "
+              f"an in-process BatchingGeneratorActor's: {same}")
+
+        # (c) SIGKILL the seed at 4 s of 12 s of 2 rps.
+        x512 = prompts[-1][:512].to("cuda", torch.int32)[None]
+        x16 = x512[:, :16]
+        holder0 = witness.status(wit_addr)["holder"]
+        results, lock = [], threading.Lock()
+        mon = {"missing_reads": 0, "reads": 0}
+        stop_mon = threading.Event()
+
+        def request(t_send):
+            try:
+                out = gen.call("Generator.Generate", x512, FO_MAX_NEW)
+                ok, err = tuple(out.shape) == (1, FO_MAX_NEW), None
+            except Exception as e:  # noqa: BLE001 — counted below
+                ok, err = False, repr(e)
+            with lock:
+                results.append({"t_send": t_send, "ok": ok, "err": err,
+                                "ms": (time.monotonic() - t_send) * 1e3})
+
+        def monitor(t_kill):
+            def since():
+                return (time.monotonic() - t_kill) * 1e3
+
+            coord = None
+            while not stop_mon.is_set():
+                if "witness_handover_ms" not in mon:
+                    try:
+                        st = witness.status(wit_addr, timeout=0.5)
+                        if st["holder"] not in (holder0, None):
+                            mon["witness_handover_ms"] = since()
+                            mon["witness"] = st
+                    except OSError:
+                        pass
+                if coord is None:
+                    if listening(sb_addr):
+                        mon.setdefault("promoted_ms", since())
+                        try:
+                            coord = RemoteCoord([sb_addr], dial_timeout=1.0,
+                                                request_timeout=2.0,
+                                                reconnect_timeout=2.0)
+                            coords.append(coord)
+                        except CoordinationError:
+                            pass
+                else:
+                    try:
+                        nodes = CoordRegistry(coord).nodes(FO_SERVICE)
+                        mon["reads"] += 1
+                        mon["term"] = coord.term
+                        if nodes:
+                            mon.setdefault("listed_ms", since())
+                        else:
+                            # Listed once, then gone: the replica's
+                            # lease lapsed before its keepalive found
+                            # the promoted standby (it re-registers).
+                            mon["missing_reads"] += 1
+                            mon.setdefault("first_missing_ms", since())
+                            mon["last_missing_ms"] = since()
+                    except CoordinationError as e:
+                        mon.setdefault("read_errors", []).append(repr(e))
+                time.sleep(0.01)
+
+        def fresh_client(t_kill):
+            deadline = t_kill + 60
+            while "promoted_ms" not in mon and time.monotonic() < deadline:
+                time.sleep(0.01)
+            while time.monotonic() < deadline:
+                try:
+                    c = client.new_client(
+                        FO_SERVICE, ConnConfig(initial_node_timeout=2.0))
+                    try:
+                        c.call("Generator.Generate", x16, 4)
+                    finally:
+                        c.close()
+                    mon["new_client_ms"] = (time.monotonic() - t_kill) * 1e3
+                    return
+                except Exception as e:  # noqa: BLE001 — retried
+                    mon.setdefault("new_client_errors", []).append(repr(e))
+                    time.sleep(0.05)
+
+        n = int(FO_TRAFFIC_S * FO_RPS)
+        t_start, t_kill, reqs, watchers = time.monotonic(), None, [], []
+        for i in range(n):
+            due = t_start + i / FO_RPS
+            if t_kill is None and due >= t_start + FO_KILL_AT_S:
+                time.sleep(max(0.0, t_start + FO_KILL_AT_S
+                               - time.monotonic()))
+                t_kill = kill(seed)
+                watchers = [threading.Thread(target=fn, args=(t_kill,),
+                                             daemon=True)
+                            for fn in (monitor, fresh_client)]
+                for t in watchers:
+                    t.start()
+            time.sleep(max(0.0, due - time.monotonic()))
+            reqs.append(threading.Thread(target=request, args=(due,),
+                                         daemon=True))
+            reqs[-1].start()
+        for t in reqs:
+            t.join(timeout=600)
+        watchers[1].join(timeout=60)
+        stop_mon.set()
+        watchers[0].join(timeout=60)
+        before = [r["ms"] for r in results if r["t_send"] < t_kill]
+        after = [r["ms"] for r in results if r["t_send"] >= t_kill]
+        term = sb.text().split("term bumped (promotion) term=")
+        row["kill"] = {
+            **{k: v for k, v in mon.items() if k != "read_errors"},
+            "read_errors": len(mon.get("read_errors", [])),
+            "promotion_term_logged": (int(term[1].split()[0])
+                                      if len(term) > 1 else None),
+            "requests": n, "answered": sum(r["ok"] for r in results),
+            "errors": [r["err"] for r in results if not r["ok"]],
+            "ms_before_kill": {"p50": nearest_rank(before, 50),
+                               "max": max(before)},
+            "ms_after_kill": {"p50": nearest_rank(after, 50),
+                              "max": max(after)}}
+        row["kill"].pop("new_client_errors", None)
+        check(len(results) == n and all(r["ok"] for r in results),
+              f"failover: requests lost across the kill: {row['kill']}")
+        for key in ("promoted_ms", "witness_handover_ms", "listed_ms",
+                    "new_client_ms"):
+            check(key in mon, f"failover: no {key} after the kill: "
+                  f"{row['kill']}")
+        check(mon["term"] >= 1 and mon["witness"]["holder"] == sb_addr,
+              f"failover: the promoted standby's term {mon['term']}, "
+              f"witness {mon['witness']}")
+
+        # The old seed restarted on its old data dir: the term fence
+        # refuses a client that has seen the promoted term.
+        again = start("join", seed_cfg, "seed-restarted")
+        again.wait("joined as")
+        host, _, port = seed_addr.rpartition(":")
+        s = socket.create_connection((host, int(port)), timeout=5)
+        try:
+            wire.send_msg(s, threading.Lock(),
+                          {"op": "put", "id": 1, "key": "store/fo",
+                           "value": "stale", "min_term": mon["term"]})
+            reply = wire.recv_msg(s)
+        finally:
+            s.close()
+        row["stale_seed_reply"] = reply
+        check(reply.get("stale") and not reply.get("ok"),
+              f"failover: the restarted stale seed served a fenced "
+              f"write: {reply}")
+        again.stop()
+
+        # (d) obs of the promoted cluster, and obs profile under load.
+        obs_cfg = cli_config(work, "obs", "fo-obs",
+                             coordinator_address=sb_addr)
+        obs_dir = os.path.join(work, "obs")
+        os.makedirs(obs_dir)
+        out = start("obs", obs_cfg, "obs", OBS_DIR=obs_dir).finish(120)
+        files = {f: os.path.getsize(os.path.join(obs_dir, f))
+                 for f in ("trace.json", "spans.jsonl")
+                 if os.path.exists(os.path.join(obs_dir, f))}
+        row["obs"] = {"files": files,
+                      "lists_replica": f"{FO_SERVICE}/" in out}
+        check(len(files) == 2 and row["obs"]["lists_replica"],
+              f"failover: obs wrote {files}, listed the replica: "
+              f"{row['obs']['lists_replica']}:\n{out[-3000:]}")
+        # A process's first torch.profiler session pays CUPTI's start-up
+        # (~7 s) inside the verb's reply timeout (its window + 15 s, as
+        # the reference's): a short capture with no load takes it out
+        # of the measured one.
+        t_warm = time.monotonic()
+        warm = start("obs profile", obs_cfg, "obs-profile-warm",
+                     OBS_DIR=os.path.join(work, "obs-warm"),
+                     PROFILE_DURATION="0.1").finish(120)
+        check("FAILED" not in warm, f"failover: the warm-up capture "
+              f"failed:\n{warm[-3000:]}")
+        warm_s = time.monotonic() - t_warm
+        prof = start("obs profile", obs_cfg, "obs-profile", OBS_DIR=obs_dir,
+                     PROFILE_DURATION="1")
+        load_errors = []
+
+        def load():
+            while prof.proc.poll() is None:
+                try:
+                    gen.call("Generator.Generate", x512, 8)
+                except Exception as e:  # noqa: BLE001 — checked below
+                    load_errors.append(repr(e))
+                    return
+
+        loaders = [threading.Thread(target=load, daemon=True)
+                   for _ in range(2)]
+        for t in loaders:
+            t.start()
+        out = prof.finish(300)
+        prof_s = time.monotonic() - prof.t0
+        for t in loaders:
+            t.join(timeout=120)
+        check(not load_errors, f"failover: requests under the profile "
+              f"failed: {load_errors}")
+        pdir = os.path.join(obs_dir, "profile")
+        rep_dirs = [os.path.join(pdir, d)
+                    for d in (os.listdir(pdir) if os.path.isdir(pdir) else ())
+                    if d.startswith(FO_SERVICE + "_")]
+        check(len(rep_dirs) == 1, f"failover: obs profile shipped no "
+              f"capture of the replica:\n{out[-3000:]}")
+        ops = profiling.summarize(rep_dirs[0], top=100_000)["top_ops"]
+        records = sum(op["count"] for op in ops
+                      if "flash_fwd_kernel_bf16" in op["name"])
+        row["obs_profile"] = {"warm_up_s": warm_s,
+                              "capture_wall_s": prof_s,
+                              "flash_fwd_kernel_bf16_records": records,
+                              "kernels": trace_kernels(rep_dirs[0])}
+        check(records >= FO_FLASH_RECORDS,
+              f"failover: the replica's shipped trace holds {records} "
+              f"flash_fwd_kernel_bf16 records (< {FO_FLASH_RECORDS}):\n"
+              f"{out[-3000:]}")
+        gen.close()
+
+        # (e) the train verb through a second seed's SIGKILL, beside an
+        # uninterrupted run of the same verb on the promoted cluster.
+        seed2_addr, sb2_addr = free_addr(), free_addr()
+        seed2 = start("join", cli_config(
+            work, "seed2", "fo-seed2", coordinator_address=seed2_addr,
+            is_coordinator=True, data_dir=os.path.join(work, "seed2"),
+            lease_ttl=FO_LEASE_TTL), "seed2")
+        seed2.wait("joined as")
+        sb2 = start("standby", cli_config(
+            work, "standby2", "fo-standby2", coordinator_address=seed2_addr,
+            data_dir=os.path.join(work, "standby2"),
+            lease_ttl=FO_LEASE_TTL), "standby2", STANDBY_ADDR=sb2_addr,
+            STANDBY_REPLICATE="1")
+        sb2.wait("standby for")
+        coord2 = RemoteCoord([seed2_addr])
+        coords.append(coord2)
+        wait_for(lambda: eligible(coord2.member_list(), sb2_addr), 120,
+                 "the second standby never became promote-eligible",
+                 "failover")
+        coord2.close()
+        runs = {}
+        for name, urls, coord_addr, on_first in (
+                ("uninterrupted", [sb_addr], sb_addr, None),
+                ("failover", [seed2_addr, sb2_addr], seed2_addr,
+                 lambda: runs.__setitem__("t_kill", kill(seed2)))):
+            ckpt = os.path.join(work, f"ckpt_{name}")
+            cfg = cli_config(work, f"train_{name}", "fo-train", urls=urls,
+                             coordinator_address=coord_addr,
+                             mesh_axes={"data": 1}, lease_ttl=FO_LEASE_TTL)
+            for c in counters:
+                c.launches = 0
+            with StepClock(StoreDPTrainer, on_first) as clock:
+                out = run_verb(cli, ["train"],
+                               dict(FO_TRAIN, CONFIG=cfg, CKPT_DIR=ckpt))
+            torch.cuda.synchronize()
+            runs[name] = {"steps": clock.rows, "stdout": out, "ckpt": ckpt,
+                          "launches": [c.launches for c in counters]}
+        fo, calm = runs["failover"], runs["uninterrupted"]
+        want = int(FO_TRAIN["STEPS"]) * 12
+        for name in ("uninterrupted", "failover"):
+            r = runs[name]
+            check(len(r["steps"]) == int(FO_TRAIN["STEPS"]),
+                  f"failover: the {name} run took {len(r['steps'])} steps")
+            check(r["launches"] == [want] * 3,
+                  f"failover: the {name} run's launches fwd/dq/dkv "
+                  f"{r['launches']} != {want} each")
+            check("optimus[store] optimus-125m on 1 devices, batch=16 "
+                  "seq=1024" in r["stdout"],
+                  f"failover: {name}'s lines:\n{r['stdout']}")
+        l_fo = [r["loss"] for r in fo["steps"]]
+        l_calm = [r["loss"] for r in calm["steps"]]
+        check(l_fo == l_calm, f"failover: losses {l_fo} differ from the "
+              f"uninterrupted run's {l_calm}")
+        check(all(math.isfinite(x) for x in l_fo),
+              f"failover: loss not finite: {l_fo}")
+        t_kill2 = runs["t_kill"]
+        wait_for(lambda: listening(sb2_addr), 60,
+                 "the second standby never promoted", "failover")
+        coord3 = RemoteCoord([sb2_addr], reconnect_timeout=10.0)
+        coords.append(coord3)
+        manifests = [json.loads(v) for v in
+                     KVStore(coord3).get("tensors/", with_prefix())]
+        calm_ms = sorted(r["ms"] for r in calm["steps"][1:])
+        span = [r for r in fo["steps"] if r["t1"] >= t_kill2]
+        def gaps(rows):  # between steps: the checkpoint saves, prints
+            return [(b["t0"] - a["t1"]) * 1e3 for a, b in zip(rows, rows[1:])]
+
+        row["train"] = {
+            "losses": l_fo, "losses_equal_uninterrupted": True,
+            "step_ms": [r["ms"] for r in fo["steps"]],
+            "uninterrupted_step_ms": [r["ms"] for r in calm["steps"]],
+            "gap_ms": gaps(fo["steps"]),
+            "uninterrupted_gap_ms": gaps(calm["steps"]),
+            "steps_after_kill_ms": [r["ms"] for r in span],
+            "stall_ms": (max(r["ms"] for r in span)
+                         - calm_ms[len(calm_ms) // 2]) if span else None,
+            "kill_after_step": fo["steps"][0]["step"],
+            "launches": {"uninterrupted": calm["launches"],
+                         "failover": fo["launches"]},
+            "manifests_on_promoted_standby": len(manifests),
+            "manifest_max_epoch": max(m["epoch"] for m in manifests)}
+        check(manifests, "failover: no tensor manifests on the promoted "
+              "standby")
+        counters[0].launches = 0
+        out = run_verb(cli, ["eval"], dict(
+            CKPT_DIR=fo["ckpt"], PRESET="optimus-125m",
+            BATCH=FO_TRAIN["BATCH"], SEQ=FO_TRAIN["SEQ"],
+            EVAL_STEPS=str(FO_EVAL_STEPS)))
+        ev = json.loads(out.strip().splitlines()[-1])
+        eval_fwd = counters[0].launches
+        row["eval"] = {**ev, "flash_fwd_launches": eval_fwd}
+        check(ev["checkpoint_step"] == int(FO_TRAIN["STEPS"])
+              and math.isfinite(ev["loss"]),
+              f"failover: eval read {ev}")
+        check(eval_fwd == FO_EVAL_STEPS * 12,
+              f"failover: eval launched the flash forward {eval_fwd} times")
+
+        # (f) info on the card.
+        out = start("info", None, "info").finish(120)
+        info = json.loads(out[out.index("{"):out.rindex("}") + 1])
+        row["info"] = info
+        check(info["platform"] == "cuda" and info["devices"] == 1
+              and info["device_kind"] == torch.cuda.get_device_name(0)
+              and info["native_wire"] is True, f"failover: info {info}")
+    finally:
+        for c in coords:
+            c.close()
+        for c in clients:
+            c.close()
+        for p in procs:
+            p.stop()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    # (g) every child has exited.
+    left = [p.name for p in procs if p.proc.poll() is None]
+    row["children"] = len(procs)
+    check(not left, f"failover: children outlived the phase: {left}")
+    row["seconds"] = time.monotonic() - t_phase
+    emit(row)
+    launches = [calm["launches"][i] + fo["launches"][i] for i in range(3)]
+    launches[0] += eval_fwd
+    return launches, records
+
+
 def main():
     import torch
 
@@ -4355,6 +4975,11 @@ def main():
         card)
     torch.cuda.empty_cache()
 
+    # failover: coordinator failover and the operator CLI, every process
+    # a python -m ptype_tpu_torch verb, at optimus-125m
+    fo_launches, fo_records = failover_phase(torch, tfm, flash_mod, prompts,
+                                             card)
+
     # 6. profiles, after every host-timed phase: one engine decode
     # iteration, one train step of each model, one speculation window,
     # one StoreDPTrainer step each of two rungs
@@ -4416,7 +5041,8 @@ def main():
               "store_dp": store_launches[0],
               "checkpoint": ckpt_launches[0],
               "elastic": elastic_launches[0],
-              "health": health_own[0] + health_rep_fwd}
+              "health": health_own[0] + health_rep_fwd,
+              "failover": fo_launches[0] + fo_records}
     if rec_flash:
         fwd128["reconciler"] = rec_flash
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
@@ -4450,7 +5076,8 @@ def main():
              pick("flash_bwd_dq", 16, 6, 128, 1024),
              {"trainer": dq_n, "store_dp": store_launches[1],
               "checkpoint": ckpt_launches[1],
-              "elastic": elastic_launches[1], "health": health_own[1]}),
+              "elastic": elastic_launches[1], "health": health_own[1],
+              "failover": fo_launches[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
              {"moe_trainer": moe_dq_n}),
@@ -4458,7 +5085,8 @@ def main():
              pick("flash_bwd_dkv", 16, 6, 128, 1024),
              {"trainer": dkv_n, "store_dp": store_launches[2],
               "checkpoint": ckpt_launches[2],
-              "elastic": elastic_launches[2], "health": health_own[2]}),
+              "elastic": elastic_launches[2], "health": health_own[2],
+              "failover": fo_launches[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
              {"moe_trainer": moe_dkv_n}),

@@ -65,6 +65,8 @@ loads nothing and a control-plane-only process never imports torch.
 
 import importlib
 
+__version__ = "0.1.0"
+
 #: Exported name → the module that defines it.
 _EXPORTS = {
     "ActorServer": "actor",

@@ -3,7 +3,8 @@ of ``ptype_tpu/coord/``.
 
 A single coordinator serves a linearizable KV with leases and watches
 (the model JAX's own distributed runtime uses, and the reference's
-embedded etcd before it). Three tiers are ported:
+embedded etcd before it). Three tiers and the failover pair are
+ported:
 
 - :class:`ptype_tpu_torch.coord.core.CoordState` — the authoritative
   in-memory state machine (KV + revisions, leases + TTL, prefix
@@ -13,10 +14,12 @@ embedded etcd before it). Three tiers are ported:
 - :class:`ptype_tpu_torch.coord.service.CoordServer` /
   :class:`ptype_tpu_torch.coord.remote.RemoteCoord` — the TCP server
   and client of real multi-process clusters, protocol-compatible with
-  the reference's.
-
-The standby and the witness (the reference's ``coord/standby.py`` and
-``witness.py``) are not ported yet.
+  the reference's;
+- :class:`ptype_tpu_torch.coord.standby.Standby` /
+  :class:`ptype_tpu_torch.coord.standby.WalFollower` — the warm standby
+  that mirrors a primary (shared dir or WAL stream) and promotes on its
+  death, with :mod:`ptype_tpu_torch.coord.witness` as the quorum's third
+  vote.
 """
 
 from ptype_tpu_torch.coord.core import (
@@ -36,6 +39,7 @@ from ptype_tpu_torch.coord.local import (LocalCoord, local_coord,
 from ptype_tpu_torch.coord.service import CoordServer
 from ptype_tpu_torch.coord.remote import RemoteCoord
 from ptype_tpu_torch.coord.api import CoordBackend, connect
+from ptype_tpu_torch.coord.standby import Standby, WalFollower
 
 __all__ = [
     "CoordBackend",
@@ -50,6 +54,8 @@ __all__ = [
     "RemoteCoord",
     "SortOrder",
     "SortTarget",
+    "Standby",
+    "WalFollower",
     "Watch",
     "LocalCoord",
     "connect",

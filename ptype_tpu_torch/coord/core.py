@@ -4,8 +4,8 @@ The port's copy of ``ptype_tpu/coord/core.py``, whole, with its chaos
 seams ``coord.wal_append`` and ``coord.keepalive``. It is the
 authoritative store behind the in-process backend
 (:mod:`ptype_tpu_torch.coord.local`) and the TCP service
-(:mod:`ptype_tpu_torch.coord.service`); the reference's standby, also
-built on it, is not ported yet. Linearizability is by construction — every
+(:mod:`ptype_tpu_torch.coord.service`), and the ground the standby
+(:mod:`ptype_tpu_torch.coord.standby`) mirrors. Linearizability is by construction — every
 mutation takes one lock and bumps one revision counter — which is the role
 raft quorum played for the reference's Store (SURVEY.md §3.4).
 
@@ -267,7 +267,7 @@ class ReplFeed:
     item with the full state at subscribe time (and after each
     compaction), then a ``("rec", dict)`` item per mutation, in commit
     order. Consumed by the WAL-shipping standby
-    (the reference's ``coord.standby.WalFollower``). The queue is
+    (:class:`ptype_tpu_torch.coord.standby.WalFollower`). The queue is
     bounded at :data:`MAX_BUFFER` items and SELF-CANCELS on overflow
     (see below) — a cancelled follower re-syncs from a fresh snapshot
     on reconnect, so dropping the feed is always safe; a follower that
@@ -958,7 +958,7 @@ class CoordState:
         state snapshot taken atomically with the subscription (no
         mutation can fall between the snapshot and the record stream),
         then every subsequent mutation's WAL record in commit order.
-        The standby's ``WalFollower`` (reference ``coord/standby.py``)
+        The standby's :class:`~ptype_tpu_torch.coord.standby.WalFollower`
         mirrors these into its own data_dir so promotion replays
         locally — control-plane failover without a shared filesystem.
         """

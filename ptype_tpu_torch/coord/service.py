@@ -11,10 +11,9 @@ distributed coordination service is deployed (process 0 hosts), replacing
 the reference's every-process-embeds-etcd model (cluster.go:161-196).
 
 The WAL ``data_dir``, the ``sync`` put's replication feeds and the
-quorum self-fence are copied whole. The fence votes through the witness
-(``coord/witness.py``), which the port does not have yet: a server
-given a ``witness_addr`` raises :class:`CoordinationError` rather than
-run a quorum loop that could never win a vote.
+quorum self-fence are copied whole. Given a ``witness_addr``, the server
+renews its lease at the witness (``coord/witness.py``) and self-fences
+when it holds neither that lease nor a live follower round trip.
 """
 
 from __future__ import annotations
@@ -26,7 +25,6 @@ import time
 from ptype_tpu_torch import chaos, logs, retry, trace
 from ptype_tpu_torch.coord import wire
 from ptype_tpu_torch.coord.core import CoordState, RangeOptions, Watch
-from ptype_tpu_torch.errors import CoordinationError
 
 log = logs.get_logger("coord.service")
 
@@ -74,11 +72,6 @@ class CoordServer:
                  witness_addr: str | None = None,
                  witness_ttl: float = 3.0,
                  witness_holder: str | None = None):
-        if witness_addr is not None:
-            raise CoordinationError(
-                f"CoordServer: witness_addr={witness_addr!r} needs the "
-                "quorum witness (coord/witness.py), which the port does "
-                "not have yet (ROADMAP A8)")
         # bump_term marks this server a PROMOTED successor: the
         # recovered state's fencing term is incremented (by that many
         # slots — juniors promoting past unresponsive seniors skip

@@ -345,3 +345,18 @@ class BatchingGeneratorActor(GeneratorActor):
                 p.err = RuntimeError("generator actor closed")
                 p.done.set()
         self._thread.join(timeout=5)
+
+
+def __getattr__(name: str):
+    """Lazy re-exports (PEP 562), as the reference's ``serve`` has: the
+    continuous engine lives in :mod:`ptype_tpu_torch.serve_engine` (the
+    paged KV cache with prefix reuse and chunked prefill), and
+    ``ContinuousGeneratorActor`` is that engine under its older name.
+    Importing it here eagerly would cycle (the engine subclasses
+    ``GeneratorActor``)."""
+    if name in ("ContinuousGeneratorActor", "PagedGeneratorActor"):
+        from ptype_tpu_torch.serve_engine.engine import PagedGeneratorActor
+
+        return PagedGeneratorActor
+    raise AttributeError(f"module {__name__!r} has no attribute "
+                         f"{name!r}")

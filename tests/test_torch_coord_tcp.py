@@ -262,11 +262,6 @@ def test_remote_error_and_dial_failure(server):
         tapi.connect("127.0.0.1:1", dial_timeout=0.3)
 
 
-def test_witness_is_refused_until_ported():
-    with pytest.raises(CoordinationError, match="witness"):
-        tservice.CoordServer("127.0.0.1:0", witness_addr="127.0.0.1:1")
-
-
 def test_server_survives_garbage_frames(server):
     import os
     import random

@@ -6,9 +6,11 @@ entry points raise rather than run on the CPU unasked, and
 chip_smoke.py fails without a card."""
 
 import ast
+import json
 import os
 import pathlib
 import shutil
+import signal
 import subprocess
 import sys
 
@@ -181,6 +183,126 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
         InferenceGateway(None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
+
+
+def _cli_config(tmp_path, coord, **extra):
+    """A two-level config tree (``CONFIG`` → ``platform_config_file``)
+    for the CLI verbs below."""
+    lines = [f'name: n\ncoordinator_address: "{coord}"\n'
+             "mesh_axes:\n  data: 1"]
+    lines += [f'{k}: "{v}"' for k, v in extra.items()]
+    (tmp_path / "platform.yaml").write_text("\n".join(lines) + "\n")
+    (tmp_path / "node.yaml").write_text(
+        "service_name: svc\nnode_name: n\nport: 0\n"
+        "platform_config_file: platform.yaml\n")
+    return str(tmp_path / "node.yaml")
+
+
+@pytest.mark.parametrize("verb", ["info", "serve", "train", "eval"])
+def test_cli_device_verbs_raise_without_a_card(tmp_path, verb):
+    """``python -m ptype_tpu_torch`` with no card and no PTYPE_DEVICE:
+    every verb that touches a device raises instead of running on the
+    CPU (the eval verb, once it has found a checkpoint)."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from ptype_tpu_torch.checkpoint import Checkpointer
+
+    Checkpointer(str(tmp_path / "ckpt")).save(1, {"w": torch.ones(2)})
+    env = {k: v for k, v in os.environ.items() if k != "PTYPE_DEVICE"}
+    env.update(PYTHONPATH=str(ROOT), PRESET="tiny", STEPS="1",
+               CKPT_DIR=str(tmp_path / "ckpt"),
+               CONFIG=_cli_config(tmp_path, "127.0.0.1:1"))
+    out = subprocess.run([sys.executable, "-m", "ptype_tpu_torch", verb],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert "PTYPE_DEVICE" in out.stderr
+
+
+#: Runs a control-plane verb of the CLI in a thread of a process whose
+#: torch import is blocked, and reports whether it failed or loaded it.
+_TORCHLESS_VERB = """
+import json, os, signal, sys, threading, time
+sys.modules["torch"] = None
+# The standby verb installs its SIGUSR1 handler from a CLI's main
+# thread; here it runs in a thread, so the install is recorded instead.
+handlers = []
+signal.signal = lambda sig, fn: handlers.append(sig)
+from ptype_tpu_torch.coord.service import CoordServer
+from ptype_tpu_torch.coord import witness
+seed = CoordServer(os.environ["SEED_ADDR"], data_dir=os.environ["SEED_DIR"])
+errors = []
+threading.excepthook = lambda a: errors.append(repr(a.exc_value))
+from ptype_tpu_torch import __main__ as cli
+def run(*argv):
+    sys.argv = ["ptype_tpu_torch", *argv]
+    try:
+        cli.main()
+    except BaseException as e:  # reported below
+        errors.append(repr(e))
+for argv in (("standby",), ("witness",)):
+    threading.Thread(target=run, args=argv, daemon=True).start()
+deadline = time.monotonic() + 60
+while True:
+    try:
+        status = witness.status(os.environ["WITNESS_ADDR"])
+        break
+    except OSError:
+        assert time.monotonic() < deadline, "the witness verb never served"
+        time.sleep(0.1)
+deadline = time.monotonic() + 60
+while not any(m.metadata.get("role") == "standby"
+              for m in seed.state.member_list()):
+    assert time.monotonic() < deadline, "the standby never attached"
+    time.sleep(0.1)
+run("obs")
+run("obs", "top")
+run("obs", "request", "deadbe")
+loaded = [m for m in sys.modules
+          if m.split(".")[0] == "torch" and sys.modules[m] is not None]
+print(json.dumps({"errors": errors, "torch": loaded,
+                  "status": status, "handlers": handlers}))
+sys.stdout.flush()
+os._exit(0)
+"""
+
+
+def test_cli_control_plane_verbs_load_no_torch(tmp_path):
+    """``standby``, ``witness`` and ``obs`` (a snapshot, ``top`` and
+    ``request``) run with torch's import blocked: none of them loads it."""
+
+    def addr():
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return f"127.0.0.1:{s.getsockname()[1]}"
+
+    seed, wit = addr(), addr()
+    cfg = _cli_config(tmp_path, seed, witness_address=wit,
+                      data_dir=str(tmp_path / "data"))
+    spans = tmp_path / "spans.jsonl"
+    spans.write_text(json.dumps(
+        {"name": "gateway.request", "trace_id": "deadbeef",
+         "span_id": "r", "parent_id": None, "start_s": 0.0,
+         "dur_s": 0.1, "status": "ok", "tid": 1}) + "\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CONFIG=cfg,
+               SEED_ADDR=seed, SEED_DIR=str(tmp_path / "seed"),
+               WITNESS_ADDR=wit, STANDBY_ADDR=addr(),
+               STANDBY_REPLICATE="1", OBS_DIR=str(tmp_path / "obs"),
+               TOP_ITERS="1", TOP_INTERVAL="0.1", TRACE_FILE=str(spans))
+    (tmp_path / "obs").mkdir()
+    out = subprocess.run([sys.executable, "-c", _TORCHLESS_VERB], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["errors"] == [] and got["torch"] == [], got
+    assert got["status"]["term"] == 0
+    assert got["handlers"] == [int(signal.SIGUSR1)]
+    assert (tmp_path / "obs" / "trace.json").exists()
+    assert "deadbeef" in out.stdout
 
 
 def test_kernel_build_is_lazy_and_targets_hopper():

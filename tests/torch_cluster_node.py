@@ -3,6 +3,7 @@
     python tests/torch_cluster_node.py calc COORD
     python tests/torch_cluster_node.py serve COORD PARAMS_PKL
     python tests/torch_cluster_node.py mesh COORD RDV RANK WORLD OUT
+    python tests/torch_cluster_node.py seed ADDR DATA_DIR
 
 ``calc`` joins the TCP coordinator at COORD as service ``calc`` (lease
 TTL 1.0 s) with an ``ActorServer`` serving ``Calculator.Multiply``;
@@ -14,7 +15,11 @@ is one gloo rank of WORLD: it joins with ``num_processes`` WORLD and
 ``mesh_axes`` ``{"data": WORLD}`` (rendezvous RDV), builds
 ``Cluster.mesh()``, all-reduces rank + 1 over it, writes JSON to OUT,
 and stays registered until the file OUT.go appears (so the test can
-read the live registry), for at most 120 s.
+read the live registry), for at most 120 s. ``seed`` hosts a
+``CoordServer`` on ADDR over the WAL directory DATA_DIR (the port's
+twin of ``tests/coord_seed_worker.py``, the SIGKILL target of the
+failover drills): it prints one JSON line ``{"ready": true, ...}`` and
+serves until killed, without importing torch.
 
 This module imports torch, numpy and ptype_tpu_torch only — never JAX
 or ptype_tpu — so a member starts without the reference.
@@ -31,7 +36,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from ptype_tpu_torch import ActorServer, Config, PlatformConfig, join  # noqa: E402
+from ptype_tpu_torch import Config, PlatformConfig  # noqa: E402
 
 TTL = 1.0
 
@@ -59,6 +64,8 @@ def _serve_forever(server, cluster):
 
 
 def calc(coord: str) -> None:
+    from ptype_tpu_torch import ActorServer, join
+
     server = ActorServer()  # all interfaces: join advertises get_ip()
     server.register(Calculator())
     server.serve()
@@ -69,6 +76,7 @@ def calc(coord: str) -> None:
 def serve(coord: str, params_pkl: str) -> None:
     import torch
 
+    from ptype_tpu_torch import ActorServer, join
     from ptype_tpu_torch.models import transformer as tfm
     from ptype_tpu_torch.models.weights import params_from_numpy
     from ptype_tpu_torch.serve import GeneratorActor
@@ -91,6 +99,8 @@ def serve(coord: str, params_pkl: str) -> None:
 def mesh(coord: str, rdv: str, rank: int, world: int, out: str) -> None:
     import torch
     import torch.distributed as dist
+
+    from ptype_tpu_torch import join
 
     cluster = join(member_cfg(
         "ranks", f"rank-{rank}", coord, num_processes=world,
@@ -115,6 +125,18 @@ def mesh(coord: str, rdv: str, rank: int, world: int, out: str) -> None:
     dist.destroy_process_group()
 
 
+def seed(addr: str, data_dir: str) -> None:
+    import os
+    import threading
+
+    from ptype_tpu_torch.coord.service import CoordServer
+
+    server = CoordServer(addr, data_dir=data_dir)
+    print(json.dumps({"ready": True, "addr": server.address,
+                      "pid": os.getpid()}), flush=True)
+    threading.Event().wait()
+
+
 if __name__ == "__main__":
     mode, args = sys.argv[1], sys.argv[2:]
     if mode == "calc":
@@ -123,5 +145,7 @@ if __name__ == "__main__":
         serve(*args)
     elif mode == "mesh":
         mesh(args[0], args[1], int(args[2]), int(args[3]), args[4])
+    elif mode == "seed":
+        seed(*args)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
