@@ -153,6 +153,15 @@ Run from the root of a checkout. Phases, each printing its own lines:
    recover (a 1 -> 1 reshard), the retried step: losses and params
    equal to a run without the fault; the detection time, reshard_ms,
    and measure_reshard's live and checkpoint recoveries in step units;
+   llama_remat: llama-3-8b at its published widths (8 of 32 layers:
+   the f32 state of all 32 exceeds one card), B=1, S=8192, bf16 compute,
+   through the mesh Trainer on a world-1 NCCL mesh {data, fsdp, model}
+   with remat off, "none" and "dots" (2 warm-up and 3 timed steps each):
+   step ms, tokens/s, MFU, peak memory, losses and flash launches a step
+   (L/L/L off, 2L/L/L with remat); peak memory none < dots < off, the
+   step-1 losses equal; then every gradient of one batch at 2 layers,
+   S=2048, with and without remat: bit for bit in bf16, or else held in
+   f32 at 1e-4; the kernels phase has the flash rows at its shape;
    health: the port's health plane at optimus-125m: (a) a GoodputLedger
    on the annotate seam (analytic and counted FLOPs, the default
    Sampler armed) over 8 StoreDPTrainer steps (ZeRO 0, exact, B=16,
@@ -206,7 +215,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    by kernel family, top host ops): a new engine's first decode
    iteration with every slot live (phase 4's configuration, 32 new
    tokens); one train step each of optimus-125m and optimus-moe, the
-   latter with its router, dispatch, experts and combine named apart;
+   latter with its router, dispatch, experts and combine named apart,
+   and one of llama_remat's "dots" run;
    one speculation window with every slot live, draft, verify and
    accept named apart; one StoreDPTrainer step each of (ZeRO 0,
    exact) — health's goodput rung —, (ZeRO 0, overlap) and (ZeRO-2,
@@ -961,6 +971,32 @@ def trainer_profile(torch, tfm, train_mod, name, ranges=()):
            **profile_summary(prof, wall_ms, labels + own)}
     if ranges:
         out.update(range_summary(prof, labels))
+    del tr
+    return out
+
+
+def llama_profile(torch, tfm, train_mod):
+    """llama_remat's "dots" run: two steps, then one step under
+    torch.profiler — device time by kernel family and idle share."""
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = tfm.preset("llama-3-8b", n_layers=LLAMA_LAYERS,
+                     remat_policy="dots")
+    tr = train_mod.Trainer(
+        cfg, mesh=build_mesh({"data": 1, "fsdp": 1, "model": 1}),
+        generator=torch.Generator(device="cuda").manual_seed(0),
+        optimizer=train_mod.default_optimizer(lr=1e-4, warmup=2),
+        sync_every=0)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, LLAMA_B,
+                                             LLAMA_S, seed=5, device="cuda"))
+    for _ in range(2):
+        tr.step(batch)
+    prof, wall_ms = profiled(torch, lambda: tr.step(batch))
+    own = sorted({ev.key for ev in prof.key_averages()
+                  if ev.key.startswith(("train.", "train#"))})
+    out = {"phase": "llama_profile", "preset": "llama-3-8b",
+           "layers": cfg.n_layers, "remat_policy": "dots", "B": LLAMA_B,
+           "S": LLAMA_S, **profile_summary(prof, wall_ms, own)}
     del tr
     return out
 
@@ -2318,6 +2354,187 @@ def elastic_phase(torch, tfm, flash_mod, train_mod, mesh):
             h.close()
         state.close()
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- llama_remat phase
+
+
+#: llama-3-8b at its published widths, depth cut to fit one card: the
+#: f32 params and AdamW moments of 8 layers are 16 B x 2.80 B = 44.7 GB.
+LLAMA_LAYERS = 8
+LLAMA_B, LLAMA_S = 1, 8192
+LLAMA_STEPS, LLAMA_WARM = 5, 2
+#: (run, remat, remat_policy)
+LLAMA_RUNS = (("off", False, "none"), ("none", True, "none"),
+              ("dots", True, "dots"))
+#: Later losses of the three runs: bf16 compute, the trainer phase's
+#: tolerance between two attention paths (relative).
+LLAMA_LOSS_RTOL = 2e-2
+#: The remat grads check: llama widths at 2 layers, S=2048.
+REMAT_GRAD_SHAPE = dict(n_layers=2, S=2048)
+#: Remat grads against no remat in f32, where bf16 ones are not bit for
+#: bit: max abs err over the largest magnitude, as BWD_TOL["f32"].
+REMAT_GRAD_TOL_F32 = 1e-4
+
+
+def remat_grads(torch, tfm, train_mod, mesh, dtype):
+    """Per-leaf grads of one batch with remat off, "none" and "dots" at
+    llama widths, 2 layers, S=2048, through the mesh layout: whether
+    each policy's are bit for bit those of no remat, and the largest
+    difference over the largest magnitude."""
+    from dataclasses import replace
+
+    from ptype_tpu_torch.models.weights import init_params
+
+    cfg = tfm.preset("llama-3-8b", n_layers=REMAT_GRAD_SHAPE["n_layers"],
+                     dtype=dtype)
+    S = REMAT_GRAD_SHAPE["S"]
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    flat = train_mod.trainer._flatten(params)
+    for _, p in flat:
+        p.requires_grad_(True)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, 1, S, seed=6,
+                                             device="cuda"))
+    layout = tfm.MeshLayout(cfg, mesh)
+    grads = {}
+    for name, remat, policy in LLAMA_RUNS:
+        c = replace(cfg, remat=remat, remat_policy=policy)
+        _, g = train_mod.trainer.grads_of(params, batch, c, layout=layout)
+        grads[name] = [x for _, x in train_mod.trainer._flatten(g)]
+        del g
+    out = {}
+    for name in ("none", "dots"):
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(grads[name], grads["off"]))
+        rel = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max()).item()
+                  for a, b in zip(grads[name], grads["off"]))
+        out[name] = {"bit_for_bit": bitwise, "max_rel_err": rel}
+    del grads, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama_remat_phase(torch, tfm, flash_mod, train_mod, card):
+    """llama-3-8b at full width (LLAMA_LAYERS of 32 layers), B=1, S=8192,
+    bf16 compute, f32 params, trained by the mesh Trainer on a world-1
+    NCCL mesh {data, fsdp, model} with remat off, "none" and "dots":
+    step ms, tokens/s, MFU, peak memory, losses and flash launches a
+    step (L/L/L off, 2L/L/L with remat: the recompute re-runs the
+    forward), then the remat grads check. ``peak_mem_gib`` is the
+    process's (earlier phases' leftovers, ``base_gib``, included).
+    Returns the launches over the three runs (fwd, dq, dkv)."""
+    from dataclasses import replace
+
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh({"data": 1, "fsdp": 1, "model": 1})
+    base = tfm.preset("llama-3-8b", n_layers=LLAMA_LAYERS)
+    L = base.n_layers
+    batch = next(train_mod.synthetic_batches(base.vocab_size, LLAMA_B,
+                                             LLAMA_S, seed=5, device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    # flops_per_token (the reference's count) takes the untied embedding
+    # table for matmul work; its lookup is none, so it is left out here.
+    fpt_ref = tfm.flops_per_token(base, LLAMA_S)
+    fpt = fpt_ref - 6.0 * base.vocab_size * base.d_model
+    total = [0, 0, 0]
+    runs = {}
+    t_phase = time.monotonic()
+    for name, remat, policy in LLAMA_RUNS:
+        cfg = replace(base, remat=remat, remat_policy=policy)
+        torch.cuda.empty_cache()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        tr = train_mod.Trainer(
+            cfg, mesh=mesh,
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            optimizer=train_mod.default_optimizer(lr=1e-4, warmup=2),
+            sync_every=0)
+        torch.cuda.synchronize()
+        state_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        losses, gnorms, ms = [], [], []
+        for i in range(LLAMA_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.step(batch)
+            torch.cuda.synchronize()
+            if i >= LLAMA_WARM:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out["loss"]))
+            gnorms.append(float(out["grad_norm"]))
+        launches = [c.launches for c in counters]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, n in enumerate(launches):
+            total[i] += n
+        per_step = [n / LLAMA_STEPS for n in launches]
+        want = [2 * L if remat else L, L, L]
+        step_ms = sum(ms) / len(ms)
+        tok_s = LLAMA_B * LLAMA_S / (step_ms / 1e3)
+        row = {"phase": "llama_remat", "run": name, "remat": remat,
+               "remat_policy": policy if remat else None,
+               "preset": "llama-3-8b", "layers": L,
+               "reduced": {"n_layers": [32, L]}, "B": LLAMA_B,
+               "S": LLAMA_S, "dtype": "bf16", "param_dtype": "f32",
+               "n_params": tr.n_params, "base_gib": base_gib,
+               "state_gib": state_gib - base_gib,
+               "steps": LLAMA_STEPS, "timed_steps": len(ms),
+               "step_ms": step_ms, "step_ms_each": ms,
+               "step_ms_median": sorted(ms)[len(ms) // 2],
+               "tokens_per_s": tok_s, "flops_per_token": fpt,
+               "mfu": tok_s * fpt / PEAK_OPS["bf16"],
+               "mfu_counting_the_lookup": tok_s * fpt_ref / PEAK_OPS["bf16"],
+               "peak_mem_gib": peak,
+               "peak_over_base_gib": peak - base_gib, "losses": losses,
+               "grad_norms": gnorms,
+               "launches_per_step": {"flash_fwd": per_step[0],
+                                     "flash_bwd_dq": per_step[1],
+                                     "flash_bwd_dkv": per_step[2]},
+               "card": card}
+        emit(row)
+        check(all(math.isfinite(x) for x in losses),
+              f"llama_remat {name}: loss not finite: {losses}")
+        check(per_step == want, f"llama_remat {name}: launches a step "
+              f"fwd/dq/dkv {per_step} != {want}")
+        runs[name] = row
+        del tr, out
+        torch.cuda.empty_cache()
+    off = runs["off"]
+    for name in ("none", "dots"):
+        r = runs[name]
+        check(r["losses"][0] == off["losses"][0],
+              f"llama_remat: step-1 loss {name} {r['losses'][0]} != off "
+              f"{off['losses'][0]}")
+        for a, b in zip(r["losses"][1:], off["losses"][1:]):
+            check(abs(a - b) <= LLAMA_LOSS_RTOL * abs(b),
+                  f"llama_remat: {name} losses {r['losses']} vs off "
+                  f"{off['losses']} past {LLAMA_LOSS_RTOL}")
+    peaks = [runs[n]["peak_mem_gib"] for n in ("none", "dots", "off")]
+    check(peaks[0] < peaks[1] < peaks[2],
+          f"llama_remat: peak GiB none/dots/off {peaks} not ordered")
+    grads = {"bf16": remat_grads(torch, tfm, train_mod, mesh,
+                                 torch.bfloat16)}
+    if not all(v["bit_for_bit"] for v in grads["bf16"].values()):
+        grads["f32"] = remat_grads(torch, tfm, train_mod, mesh,
+                                   torch.float32)
+        for name, v in grads["f32"].items():
+            check(v["max_rel_err"] <= REMAT_GRAD_TOL_F32,
+                  f"llama_remat: f32 grads of remat {name} differ from no "
+                  f"remat by {v['max_rel_err']} > {REMAT_GRAD_TOL_F32}")
+    emit({"phase": "llama_remat_summary", "layers": L,
+          "step1_losses": {n: runs[n]["losses"][0] for n in runs},
+          "step1_grad_norm_bit_for_bit": {
+              n: runs[n]["grad_norms"][0] == off["grad_norms"][0]
+              for n in ("none", "dots")},
+          "peak_mem_gib": {n: runs[n]["peak_mem_gib"] for n in runs},
+          "step_ms": {n: runs[n]["step_ms"] for n in runs},
+          "remat_grads": {**grads, "shape": REMAT_GRAD_SHAPE,
+                          "tol_f32": REMAT_GRAD_TOL_F32},
+          "seconds": time.monotonic() - t_phase, "card": card})
+    return total
 
 
 # ------------------------------------------------------- cluster_rpc phase
@@ -4807,6 +5024,7 @@ def main():
                                (4, 1024, 6, 6, torch.bfloat16, 128),
                                (16, 1024, 6, 6, torch.bfloat16, 128),
                                (1, 2048, 32, 8, torch.bfloat16, 128),
+                               (1, 8192, 32, 8, torch.bfloat16, 128),
                                (4, 512, 6, 6, torch.float32, 128),
                                (4, 512, 12, 12, torch.bfloat16, 64),
                                (16, 1024, 12, 12, torch.bfloat16, 64)):
@@ -4817,6 +5035,7 @@ def main():
             (16, 1024, 6, 6, torch.bfloat16, True, 128),
             (4, 512, 6, 6, torch.float32, True, 128),
             (1, 2048, 32, 8, torch.bfloat16, True, 128),
+            (1, 8192, 32, 8, torch.bfloat16, True, 128),
             (4, 1024, 6, 6, torch.bfloat16, False, 128),
             (16, 1024, 12, 12, torch.bfloat16, True, 64)):
         for row in bwd_case(torch, F, flash_mod, B, S, H, K, dt, causal,
@@ -4967,6 +5186,13 @@ def main():
     # checkpoint and elastic: save/resume and live reshard at optimus-125m
     ckpt_launches = checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh)
     elastic_launches = elastic_phase(torch, tfm, flash_mod, train_mod, mesh)
+    torch.cuda.empty_cache()
+
+    # llama_remat: llama-3-8b at full width (depth cut) through the mesh
+    # Trainer with remat off, "none" and "dots", at S=8192
+    llama_launches = llama_remat_phase(torch, tfm, flash_mod, train_mod,
+                                       card)
+    torch.cuda.empty_cache()
 
     # health: goodput, the sampler's cost, a replica profiled over RPC,
     # alerts and the obs views, at optimus-125m
@@ -4992,6 +5218,8 @@ def main():
     emit(trainer_profile(torch, tfm, train_mod, "optimus-125m"))
     torch.cuda.empty_cache()
     emit(trainer_profile(torch, tfm, train_mod, "optimus-moe", MOE_RANGES))
+    torch.cuda.empty_cache()
+    emit(llama_profile(torch, tfm, train_mod))
     torch.cuda.empty_cache()
     dp, dc = gen_mod.truncated_draft_params(params, cfg, n_layers=2)
     eng = PagedGeneratorActor(
@@ -5072,6 +5300,15 @@ def main():
              pick("flash_fwd", 4, 12, 64, 512), fwd64),
         rows("flash_fwd", fwd_src, fwd_ref,
              pick("flash_fwd", 16, 12, 64, 1024), fwd64),
+        rows("flash_fwd", fwd_src, fwd_ref,
+             pick("flash_fwd", 1, 32, 128, 8192),
+             {"llama_remat": llama_launches[0]}),
+        rows("flash_bwd_dq", bwd_src, dq_ref,
+             pick("flash_bwd_dq", 1, 32, 128, 8192),
+             {"llama_remat": llama_launches[1]}),
+        rows("flash_bwd_dkv", bwd_src, dkv_ref,
+             pick("flash_bwd_dkv", 1, 32, 128, 8192),
+             {"llama_remat": llama_launches[2]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 6, 128, 1024),
              {"trainer": dq_n, "store_dp": store_launches[1],

@@ -60,6 +60,7 @@ from ptype_tpu_torch import chaos, logs, retry
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.errors import CheckpointError, ClusterError
 from ptype_tpu_torch.metrics import annotate
+from ptype_tpu_torch.parallel.mesh import block_of
 
 log = logs.get_logger("checkpoint")
 
@@ -474,18 +475,37 @@ class Checkpointer:
         return step
 
     def restore(self, tree_like: Any, step: int | None = None,
-                device=None) -> Any:
+                device=None, placements: Any | None = None) -> Any:
         """Rebuild the tree saved at ``step`` (default: latest) in the
         shape of ``tree_like`` (any tree with the saved leaves' paths;
         its leaf values are ignored), each leaf a tensor of the saved
-        dtype on ``device``. Entry point: ``cuda`` unless ``device``
-        names another. A ``checkpoint.restore/<step>`` region."""
+        dtype on ``device``. With ``placements`` (a matching tree of
+        placement tuples) each leaf is this rank's block on the
+        checkpointer's mesh, and only that block is read. Entry point:
+        ``cuda`` unless ``device`` names another. A
+        ``checkpoint.restore/<step>`` region."""
         device = resolve_device(device)
         step = self._resolve_step(step)
+        if placements is not None and self.mesh is None:
+            raise ClusterError("restore: placements need the "
+                               "Checkpointer's mesh")
         with annotate(f"checkpoint.restore/{step}"):
             reader = self.reader(step)
-            out = _rebuild(tree_like, lambda path, _: reader.read(
-                _flat_key(path)).to(device))
+
+            def leaf(path, _):
+                key = _flat_key(path)
+                spec = None
+                if placements is not None:
+                    spec = placements
+                    for p in path:
+                        spec = spec[p]
+                if not any(spec or ()):
+                    return reader.read(key).to(device)
+                start, size = block_of(reader.entry(key)["shape"], spec,
+                                       self.mesh)
+                return reader.read_block(key, start, size).to(device)
+
+            out = _rebuild(tree_like, leaf)
             chaos.note_ok("checkpoint.restore", str(step))
             return out
 
@@ -508,8 +528,9 @@ class Checkpointer:
 
 class StepReader:
     """The leaves of one step directory: ``read(key)`` the whole array,
-    ``read(key, lo, hi)`` rows ``[lo, hi)`` of dim 0, loading only the
-    shard files that overlap them (each checked against its crc32)."""
+    ``read(key, lo, hi)`` rows ``[lo, hi)`` of dim 0, ``read_block`` a
+    block on any dims, loading only the shard files that overlap them
+    (each checked against its crc32)."""
 
     def __init__(self, sdir: str, step: int):
         self.sdir = sdir
@@ -526,27 +547,47 @@ class StepReader:
     def read(self, key: str, lo: int | None = None,
              hi: int | None = None) -> torch.Tensor:
         entry = self.entry(key)
+        shape = list(entry["shape"])
+        if not shape:
+            return self.read_block(key, [], [])
+        lo = 0 if lo is None else int(lo)
+        hi = shape[0] if hi is None else int(hi)
+        if not 0 <= lo <= hi <= shape[0]:
+            raise ClusterError(f"restore: rows [{lo}, {hi}) of {key!r} "
+                               f"outside its {shape[0]}")
+        return self.read_block(key, [lo] + [0] * (len(shape) - 1),
+                               [hi - lo] + shape[1:])
+
+    def read_block(self, key: str, start, size) -> torch.Tensor:
+        """The block of ``key`` at ``start`` of ``size`` (one entry a
+        dim), loading only the shard files that overlap it."""
+        entry = self.entry(key)
         dtype = _torch_dtype(entry["dtype"])
         shape = list(entry["shape"])
         if not shape:
             return _load_shard(self.sdir, entry["shards"][0],
                                dtype).reshape(())
         _check_tiling(key, entry["shards"], shape)
-        lo = 0 if lo is None else int(lo)
-        hi = shape[0] if hi is None else int(hi)
-        if not 0 <= lo <= hi <= shape[0]:
-            raise ClusterError(f"restore: rows [{lo}, {hi}) of {key!r} "
-                               f"outside its {shape[0]}")
-        out = torch.zeros([hi - lo] + shape[1:], dtype=dtype)
+        start, size = [int(a) for a in start], [int(n) for n in size]
+        if len(start) != len(shape) or any(
+                a < 0 or n < 0 or a + n > d
+                for a, n, d in zip(start, size, shape)):
+            raise ClusterError(f"restore: block at {start} of {size} of "
+                               f"{key!r} outside its {shape}")
+        out = torch.zeros(size, dtype=dtype)
         for rec in entry["shards"]:
-            s0, n0 = int(rec["start"][0]), int(rec["shape"][0])
-            a, b = max(lo, s0), min(hi, s0 + n0)
-            if a >= b:
+            box = list(zip(rec["start"], rec["shape"]))
+            lo = [max(a, s0) for a, (s0, _) in zip(start, box)]
+            hi = [min(a + n, s0 + n0)
+                  for a, n, (s0, n0) in zip(start, size, box)]
+            if any(a >= b for a, b in zip(lo, hi)):
                 continue
             data = _load_shard(self.sdir, rec, dtype)
-            rest = tuple(slice(st, st + sz) for st, sz in
-                         zip(rec["start"][1:], data.shape[1:]))
-            out[(slice(a - lo, b - lo),) + rest] = data[a - s0:b - s0]
+            src = tuple(slice(a - s0, b - s0)
+                        for a, b, (s0, _) in zip(lo, hi, box))
+            dst = tuple(slice(a - s, b - s)
+                        for a, b, s in zip(lo, hi, start))
+            out[dst] = data[src]
         return out
 
 

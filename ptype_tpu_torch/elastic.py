@@ -4,6 +4,9 @@
 - :class:`FailureDetector` — watches a service's registry stream
   (snapshot-then-deltas) and reports joins and losses. Liveness is lease
   expiry, the reference's mechanism.
+- :class:`ElasticTrainer` — the mesh ``Trainer`` + the detector +
+  checkpoint → survivor mesh → restore into the new placements →
+  resume: the reference's checkpoint-reshard-resume.
 - :class:`ElasticZeroTrainer` — wraps the store-DP ZeRO trainer: ``step``
   raises :class:`MembershipChanged` when the detector saw churn;
   ``recover()`` reshards the resident sharded state in memory onto the
@@ -29,11 +32,9 @@ One process per rank, where the reference has one controller. So:
   truly gone cannot hand its shard over: ``recover`` raises
   ``ClusterError`` and the way back is ``ZeroCheckpoint``.
 
-Not ported yet: ``ElasticTrainer`` (the GSPMD trainer's checkpoint-
-reshard-resume; the port's ``Trainer`` has no mesh until the trainer's
-shardings land, ROADMAP A7(c)). Each worker can hold its own lease
-through ``cluster.join`` over the TCP coordinator, but the detector and
-the verdict stay on the group's rank 0, so rank 0 may not leave.
+Each worker can hold its own lease through ``cluster.join`` over the
+TCP coordinator, but the detector and the verdict stay on the group's
+rank 0, so rank 0 may not leave.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from __future__ import annotations
 import threading
 from typing import Callable
 
+import torch
 import torch.distributed as dist
 
 from ptype_tpu_torch import chaos, lockcheck, logs
@@ -181,7 +183,178 @@ def _share(mesh, obj):
     return box[0]
 
 
-class ElasticZeroTrainer:
+def _detector_on_rank0(registry, service_name: str, mesh):
+    """Rank 0's seeded :class:`FailureDetector` (None elsewhere), its
+    registered ranks checked to be the mesh's on every rank: the
+    ClusterError rank 0 found is raised everywhere."""
+    detector, err = None, None
+    if mesh.rank == 0:
+        detector = FailureDetector(registry, service_name)
+        try:
+            detector.wait_seeded()
+            ranks = survivor_ranks(detector, mesh)
+            if ranks != group_ranks(mesh):
+                raise ClusterError(
+                    f"elastic: registered ranks {ranks} are not the "
+                    f"mesh's {group_ranks(mesh)}")
+        except ClusterError as e:
+            err = str(e)
+    err = _share(mesh, err)
+    if err is not None:
+        if detector is not None:
+            detector.close()
+        raise ClusterError(err)
+    return detector
+
+
+class _Elastic:
+    """The membership protocol both elastic trainers share: rank 0's
+    detector, the churn every rank agrees on at a step boundary, and the
+    survivor set."""
+
+    detector: FailureDetector | None
+    left: bool
+
+    def _churn(self):
+        """Rank 0's undrained (lost, joined), agreed by every rank at
+        this step boundary: None when nothing changed."""
+        changed = int(self.detector.changed) if self.detector else 0
+        if not host_broadcast(self.mesh, changed):
+            return None
+        return _share(self.mesh, self.detector.drain_changes()
+                      if self.detector else None)
+
+    def _check_churn(self, who: str) -> None:
+        if self.left:
+            raise ClusterError(f"{who}: this rank left the group in a "
+                               "recover")
+        churn = self._churn()
+        if churn is not None:
+            raise MembershipChanged(*churn)
+
+    def _survivors(self) -> list[int]:
+        """Rank 0 drains the churn and reads the survivor set; every
+        rank gets it, or the ClusterError it raised."""
+        out = None
+        if self.detector is not None:
+            self.detector.drain_changes()
+            try:
+                out = survivor_ranks(self.detector, self.mesh)
+            except ClusterError as e:
+                out = str(e)
+        out = _share(self.mesh, out)
+        if isinstance(out, str):
+            raise ClusterError(out)
+        return out
+
+    def _more_churn(self) -> bool:
+        more = int(self.detector.changed) if self.detector else 0
+        return bool(host_broadcast(self.mesh, more))
+
+    def close(self) -> None:
+        if self.detector is not None:
+            self.detector.close()
+            self.detector = None
+
+
+class ElasticTrainer(_Elastic):
+    """Mesh trainer + failure detector + checkpoint-reshard-resume.
+
+    Every rank of ``mesh`` (one axis, ``mesh_axis``) constructs one,
+    together; rank 0 passes the ``registry``. ``step`` raises
+    :class:`MembershipChanged` on churn. ``recover`` saves the state
+    (every rank writes its blocks to ``ckpt_dir``, a directory all ranks
+    share), builds the survivor mesh (every current rank takes part;
+    the leavers then stop, ``left``), makes a trainer over it and
+    restores the saved step into the new placements, each survivor
+    reading its own blocks; the caller retries the step. Churn that
+    lands mid-recover re-runs the drain-and-rebuild loop over the latest
+    survivors (at most 5 times); no survivors is refused with
+    ``ClusterError``. Entry point: runs on the mesh's device."""
+
+    def __init__(self, cfg, registry, service_name: str, ckpt_dir: str,
+                 mesh, mesh_axis: str = DATA_AXIS, optimizer=None,
+                 params=None, generator=None, attn_fn=None):
+        from ptype_tpu_torch.checkpoint import Checkpointer
+        from ptype_tpu_torch.train.trainer import Trainer, default_optimizer
+
+        self.cfg = cfg
+        self.mesh_axis = mesh_axis
+        self.service_name = service_name
+        self.ckpt_dir = ckpt_dir
+        self.optimizer = optimizer or default_optimizer()
+        self._attn_fn = attn_fn
+        self.detector = _detector_on_rank0(registry, service_name, mesh)
+        self.trainer = Trainer(cfg, optimizer=self.optimizer, params=params,
+                               generator=generator, attn_fn=attn_fn,
+                               mesh=mesh, sync_every=0)
+        self.ckpt = Checkpointer(ckpt_dir, mesh=mesh)
+        self.left = False
+        log.info("elastic trainer up", kv={"ranks": mesh.size})
+
+    @property
+    def mesh(self):
+        return self.trainer.mesh
+
+    @property
+    def state(self):
+        return self.trainer.state
+
+    def step(self, batch: dict) -> dict:
+        self._check_churn("ElasticTrainer")
+        return self.trainer.step(batch)
+
+    def checkpoint(self) -> int:
+        """Save the current step (every rank calls); returns it."""
+        self.trainer.sync()
+        return self.trainer.save(self.ckpt)
+
+    def _rebuild(self, mesh) -> None:
+        """A trainer over ``mesh`` (zero state of the right placements)
+        and a checkpointer writing from it."""
+        from ptype_tpu_torch.checkpoint import Checkpointer
+        from ptype_tpu_torch.models.weights import param_shapes
+        from ptype_tpu_torch.train.trainer import Trainer, _flatten, \
+            _unflatten
+
+        # Zero-stride zeros: each rank's Trainer copies out its own
+        # block of each, and no whole leaf is ever allocated.
+        zeros = _unflatten(
+            (path, torch.zeros((), dtype=self.cfg.param_dtype).expand(shape))
+            for path, shape in _flatten(param_shapes(self.cfg)))
+        self.trainer = Trainer(self.cfg, optimizer=self.optimizer,
+                               params=zeros, attn_fn=self._attn_fn,
+                               mesh=mesh, sync_every=0)
+        self.ckpt = Checkpointer(self.ckpt_dir, mesh=mesh)
+
+    def recover(self) -> dict:
+        """Checkpoint → survivor mesh → restore → resume (every rank
+        calls). Returns ``{"restored_step", "devices"}``; on a rank that
+        left, ``devices`` is None."""
+        saved = self.checkpoint()
+        old = self.mesh.size
+        for _ in range(5):
+            ranks = self._survivors()
+            new = survivor_mesh(self.mesh, ranks, self.mesh_axis,
+                                self.trainer.device)
+            if new is None:
+                self.left = True
+                self.close()
+                return {"restored_step": saved, "devices": None}
+            self._rebuild(new)
+            self.trainer.restore(self.ckpt, step=saved)
+            if not self._more_churn():
+                break
+            log.info("membership changed again mid-recover; rebuilding",
+                     kv={"step": saved})
+        chaos.note_ok("elastic.recover", str(saved))
+        log.info("elastic recovery complete",
+                 kv={"step": saved, "old_devices": old,
+                     "new_devices": self.mesh.size})
+        return {"restored_step": saved, "devices": self.mesh.size}
+
+
+class ElasticZeroTrainer(_Elastic):
     """Store-DP ZeRO trainer + failure detector + LIVE reshard-resume.
 
     Every rank of ``mesh`` constructs one, together; rank 0 passes the
@@ -201,23 +374,7 @@ class ElasticZeroTrainer:
         self.cfg = cfg
         self.mesh_axis = mesh_axis
         self.service_name = service_name
-        self.detector = None
-        err = None
-        if mesh.rank == 0:
-            self.detector = FailureDetector(registry, service_name)
-            try:
-                self.detector.wait_seeded()
-                ranks = survivor_ranks(self.detector, mesh)
-                if ranks != group_ranks(mesh):
-                    raise ClusterError(
-                        f"elastic: registered ranks {ranks} are not the "
-                        f"mesh's {group_ranks(mesh)}")
-            except ClusterError as e:
-                err = str(e)
-        err = _share(mesh, err)
-        if err is not None:
-            self.close()
-            raise ClusterError(err)
+        self.detector = _detector_on_rank0(registry, service_name, mesh)
         store = TensorStore(mesh, axis=mesh_axis, wire=wire, device=device)
         self.trainer = StoreDPTrainer(cfg, store, zero=zero,
                                       zero_hparams=zero_hparams,
@@ -234,43 +391,14 @@ class ElasticZeroTrainer:
 
     # ------------------------------------------------------------- step
 
-    def _churn(self):
-        """Rank 0's undrained (lost, joined), agreed by every rank at
-        this step boundary: None when nothing changed."""
-        changed = int(self.detector.changed) if self.detector else 0
-        if not host_broadcast(self.mesh, changed):
-            return None
-        return _share(self.mesh, self.detector.drain_changes()
-                      if self.detector else None)
-
     def step(self, batch: dict) -> dict:
-        if self.left:
-            raise ClusterError("ElasticZeroTrainer: this rank left the "
-                               "group in a recover")
-        churn = self._churn()
-        if churn is not None:
-            raise MembershipChanged(*churn)
+        self._check_churn("ElasticZeroTrainer")
         return self.trainer.step(batch)
 
     def params(self) -> dict:
         return self.trainer.params()
 
     # ---------------------------------------------------------- recover
-
-    def _survivors(self) -> list[int]:
-        """Rank 0 drains the churn and reads the survivor set; every
-        rank gets it, or the ClusterError it raised."""
-        out = None
-        if self.detector is not None:
-            self.detector.drain_changes()
-            try:
-                out = survivor_ranks(self.detector, self.mesh)
-            except ClusterError as e:
-                out = str(e)
-        out = _share(self.mesh, out)
-        if isinstance(out, str):
-            raise ClusterError(out)
-        return out
 
     def recover(self, reshard_retries: int = 3) -> dict:
         """Live reshard after :class:`MembershipChanged` (every rank
@@ -304,8 +432,7 @@ class ElasticZeroTrainer:
                 self.left = True
                 self.close()
                 return {"old_devices": old, "new_devices": None, **info}
-            more = int(self.detector.changed) if self.detector else 0
-            if not host_broadcast(self.mesh, more):
+            if not self._more_churn():
                 break
         chaos.note_ok("elastic.recover", f"{old}->{self.trainer.n_workers}")
         log.info("elastic live reshard complete",
@@ -314,8 +441,3 @@ class ElasticZeroTrainer:
                      "reshard_ms": info.get("reshard_ms")})
         return {"old_devices": old, "new_devices": self.trainer.n_workers,
                 **info}
-
-    def close(self) -> None:
-        if self.detector is not None:
-            self.detector.close()
-            self.detector = None

@@ -6,7 +6,10 @@ printed lines (the banner, ``step … loss …``, ``resumed …`` and
 ``checkpointed step N``). Two modes:
 
 - ``gspmd`` (default): the port's :class:`~ptype_tpu_torch.train.Trainer`
-  on one device, with ``Checkpointer`` save and resume;
+  with ``Checkpointer`` save and resume — on one device, or, when the
+  platform's ``mesh_axes`` span more than one rank or ``SHARD_UPDATE=1``,
+  on the mesh of the cluster's ranks (each rank a process; the
+  reference's FSDP/TP/ZeRO-1 placements);
 - ``store``: Store-backed DP (``train/store_dp.py``) — push/pull IS the
   gradient exchange, manifests published through the cluster's KV.
 
@@ -14,11 +17,11 @@ Env knobs: PRESET (optimus-125m), STEPS, BATCH, SEQ, MODE,
 LR/WARMUP/WEIGHT_DECAY/DECAY_STEPS (optimizer), METRICS_PATH (JSONL
 sink), COMPRESS (store mode: bf16|int8 gradient-push wire compression),
 ZERO=1 (store mode: sharded weight update, ``ZeroCheckpoint`` beside the
-params), CKPT_DIR and CKPT_EVERY (save/resume), and PTYPE_DEVICE (the
-device, ``cuda`` when unset; set it to ``cpu`` to train on the CPU).
+params), SHARD_UPDATE=1 (gspmd mode: the moments split over ``data``),
+CKPT_DIR and CKPT_EVERY (save/resume), and PTYPE_DEVICE (the device,
+``cuda`` when unset; set it to ``cpu`` to train on the CPU).
 
-Not ported: ``MODE=async`` (the parameter server, ROADMAP A8) and
-``SHARD_UPDATE=1`` (the trainer's shardings, ROADMAP A6(a)) raise.
+Not ported: ``MODE=async`` (the parameter server, ROADMAP A8) raises.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def _free_port() -> int:
 
 
 def _own_process_group(platform, device) -> bool:
-    """Make the world-1 process group a one-process store run needs (a
+    """Make the world-1 process group a one-process mesh run needs (a
     multi-process run joins its group inside ``join``; a group made by
     the caller is reused). Returns True when this made it."""
     import torch.distributed as dist
@@ -68,16 +71,9 @@ def main() -> None:
             "(ROADMAP A8)")
     if mode not in ("gspmd", "store"):
         raise SystemExit(f"unknown MODE {mode!r}")
-    if mode == "gspmd" and os.environ.get("SHARD_UPDATE") == "1":
-        raise NotImplementedError(
-            "optimus trainer: SHARD_UPDATE=1 needs the trainer's "
-            "shardings, which the port does not have yet (ROADMAP A6(a))")
-    n_axes = math.prod(cfg.platform.mesh_axes.values())
-    if mode == "gspmd" and n_axes > 1:
-        raise NotImplementedError(
-            f"optimus trainer: MODE=gspmd over mesh axes "
-            f"{cfg.platform.mesh_axes} needs the trainer's shardings "
-            "(ROADMAP A6(a)); the port's Trainer runs on one device")
+    shard_update = os.environ.get("SHARD_UPDATE") == "1"
+    on_mesh = mode == "store" or shard_update or math.prod(
+        cfg.platform.mesh_axes.values()) > 1
     device = resolve_device(os.environ.get("PTYPE_DEVICE") or None)
 
     # Optimizer knobs ($LR/$WARMUP/$WEIGHT_DECAY/$DECAY_STEPS) and a
@@ -97,14 +93,20 @@ def main() -> None:
 
         mw = MetricsWriter(os.environ["METRICS_PATH"])
 
-    own_group = mode == "store" and _own_process_group(cfg.platform, device)
+    own_group = on_mesh and _own_process_group(cfg.platform, device)
     cluster = join(cfg, device=device)
     preset = os.environ.get("PRESET", "optimus-125m")
     steps = int(os.environ.get("STEPS", "50"))
     seq = int(os.environ.get("SEQ", "1024"))
 
     model_cfg = tfm.preset(preset)
-    mesh = cluster.mesh() if mode == "store" else None
+    mesh = None
+    if on_mesh:
+        if cfg.platform.num_processes > 1:
+            import torch.distributed as dist
+
+            dist.barrier()  # every rank registered before the lowering
+        mesh = cluster.mesh()
     n_dev = mesh.size if mesh is not None else 1
     batch = int(os.environ.get("BATCH", str(8 * n_dev)))
     stream = synthetic_batches(model_cfg.vocab_size, batch, seq,
@@ -116,7 +118,8 @@ def main() -> None:
         if mode == "gspmd":
             from ptype_tpu_torch.train.trainer import Trainer
 
-            trainer = Trainer(model_cfg, device=device, optimizer=optimizer)
+            trainer = Trainer(model_cfg, device=device, optimizer=optimizer,
+                              mesh=mesh, shard_update=shard_update)
             print(f"params: {trainer.n_params/1e6:.1f}M", flush=True)
             # CKPT_DIR enables save/resume: restart the process with the
             # same dir and training continues from the latest complete
@@ -127,7 +130,7 @@ def main() -> None:
             if ckpt_dir:
                 from ptype_tpu_torch.checkpoint import Checkpointer
 
-                ck = Checkpointer(ckpt_dir)
+                ck = Checkpointer(ckpt_dir, mesh=mesh)
                 latest = ck.latest_step()
                 if latest is not None:
                     trainer.restore(ck, step=latest)

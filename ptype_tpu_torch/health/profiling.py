@@ -50,6 +50,14 @@ where this torch has it) the trace holds every thread's ops; without
 it, only the session thread's. The manifest says which
 (``cpu_threads``: ``"all"`` or ``"session"``).
 
+**Leases.** A session's stop (Kineto's event processing and the Chrome
+trace export, both C++) and the trace's read-back hold the GIL for
+seconds when the session recorded a busy process, and no keepalive
+runs meanwhile: on a lease of a second or two the process's
+registrations would lapse and its node drop out of the registry. So
+:func:`stop` holds them on leases of at least :data:`STOP_LEASE_S`
+(``registry.leases_held``), and a node being profiled stays listed.
+
 Only this module imports torch, and only inside the functions that use
 it: ``import ptype_tpu_torch.health`` stays torch-free.
 """
@@ -86,6 +94,10 @@ CAPTURE_MIN_INTERVAL_S = 60.0
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 #: Seconds a session thread may take to start or stop its profiler.
 SESSION_TIMEOUT_S = 120.0
+#: The least lease the process's registrations hold through a stop
+#: (``registry.leases_held``): the profiler's stop and export hold the
+#: GIL, so no keepalive runs, for seconds under load.
+STOP_LEASE_S = 30.0
 
 
 class ProfileError(RuntimeError):
@@ -251,19 +263,23 @@ def stop(include_data: bool = False,
     capture, and when a CUDA session's trace holds no device record.
     """
     global _active
+    from ptype_tpu_torch import registry
+
     with _lock:
         if _active is None:
             raise ProfileError("no profile capture active")
         sess, _active = _active, None
-        sess["stop"].set()
-        sess["thread"].join(SESSION_TIMEOUT_S)
-    dur = time.perf_counter() - sess["t0"]
-    if sess["thread"].is_alive():
-        raise ProfileError("profiler did not stop within "
-                           f"{SESSION_TIMEOUT_S:.0f} s")
-    if sess["error"] is not None:
-        raise ProfileError(f"profiler failed to stop: {sess['error']!r}")
-    n_device = _device_events(sess["trace"])
+        with registry.leases_held(STOP_LEASE_S):
+            sess["stop"].set()
+            sess["thread"].join(SESSION_TIMEOUT_S)
+            dur = time.perf_counter() - sess["t0"]
+            if sess["thread"].is_alive():
+                raise ProfileError("profiler did not stop within "
+                                   f"{SESSION_TIMEOUT_S:.0f} s")
+            if sess["error"] is not None:
+                raise ProfileError(
+                    f"profiler failed to stop: {sess['error']!r}")
+            n_device = _device_events(sess["trace"])
     if sess["cuda"] and n_device == 0:
         raise ProfileError(
             "the capture holds no CUDA kernel (not even its own markers): "

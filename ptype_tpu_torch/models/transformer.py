@@ -24,16 +24,38 @@ top-k experts with the reference's static capacity and inverse-index
 dispatch (:func:`_moe_mlp`); every shape is fixed by the config and the
 token count, so no step reads a value back from the device.
 
-Not ported yet (ROADMAP): ``param_specs`` and expert parallelism, remat,
-ring/Ulysses attention.
+Remat (``cfg.remat``) checkpoints each layer's block with
+``torch.utils.checkpoint``: policy "none" saves only the block's inputs,
+"dots" also saves the outputs of the 2-D weight products (``aten.mm``)
+and recomputes the rest — the counterpart of the reference's
+``dots_with_no_batch_dims_saveable``; the batched attention products
+and the flash kernel's output are recomputed under both. The
+reference's ``scan_unroll`` is a knob of XLA's compile of ``lax.scan``;
+a Python loop over layers has nothing to unroll, so it is left out.
+
+On a mesh (``mesh=`` of :func:`hidden_with_aux` and :func:`loss_terms`)
+each rank holds its block of every leaf under :func:`param_specs` and
+of the batch under :func:`batch_spec` (:class:`MeshLayout`): weights
+split over ``fsdp`` are allgathered just before use (their gradients
+reduce-scattered back), the attention and MLP are Megatron's column /
+row pairs over ``model`` with one allreduce on each residual write, the
+embedding is split over the vocabulary (a masked lookup and an
+allreduce), and the LM head is gathered whole over ``model`` for the
+fused loss.
+
+Not ported yet (ROADMAP): expert parallelism, and a mixture-of-experts
+config on a mesh of more than one rank.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 @dataclass(frozen=True)
@@ -51,9 +73,17 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     tie_embeddings: bool = True
+    #: Rematerialize each block in backward (torch.utils.checkpoint).
+    remat: bool = False
+    #: Policy when ``remat``: "none" saves nothing inside a block,
+    #: "dots" saves the 2-D weight products' outputs and recomputes the
+    #: elementwise chains and attention.
+    remat_policy: str = "none"
     causal: bool = True
     #: "auto" (the port's flash kernel on CUDA, dense elsewhere),
-    #: "xla" (dense; the reference's name for it), "flash".
+    #: "xla" (dense; the reference's name for it), "flash", and
+    #: "ring" / "ulysses" (sequence-parallel over the "seq" mesh axis:
+    #: they need a mesh, ``parallel/ring_attention.py``).
     attn_impl: str = "auto"
     #: Mixture-of-experts: experts per MLP (0 = dense).
     n_experts: int = 0
@@ -91,7 +121,7 @@ PRESETS: dict[str, TransformerConfig] = {
     "llama-3-8b": TransformerConfig(
         vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
         n_kv_heads=8, d_ff=14336, max_seq=8192, rope_theta=500000.0,
-        tie_embeddings=False,
+        tie_embeddings=False, remat=True,
     ),
     "optimus-moe": TransformerConfig(
         d_ff=1024, n_experts=8, expert_top_k=2,
@@ -222,8 +252,10 @@ def _flash_attn_fn(q, k, v, cfg: TransformerConfig):
     return flash_attention(q, k, v, causal=cfg.causal)
 
 
-def resolve_attn_fn(cfg: TransformerConfig, device=None):
-    """Resolve ``cfg.attn_impl`` to an ``attn_fn(q, k, v, cfg)``."""
+def resolve_attn_fn(cfg: TransformerConfig, device=None, mesh=None):
+    """Resolve ``cfg.attn_impl`` to an ``attn_fn(q, k, v, cfg)``.
+    "ring" and "ulysses" need a mesh with a "seq" axis (the Trainer
+    passes its own); without one they raise rather than run dense."""
     impl = cfg.attn_impl
     if impl == "auto":
         impl = default_attn_impl(device if device is not None else "cpu")
@@ -231,8 +263,20 @@ def resolve_attn_fn(cfg: TransformerConfig, device=None):
         return _attention
     if impl == "flash":
         return _flash_attn_fn
-    raise ValueError(f"unknown or unported attn_impl {impl!r}; "
-                     "want auto|xla|flash")
+    if impl in ("ring", "ulysses"):
+        if mesh is None:
+            raise ValueError(
+                f"attn_impl={impl!r} needs a mesh with a 'seq' axis: use "
+                "the Trainer (which passes its mesh) or pass attn_fn "
+                "explicitly (parallel/ring_attention.py)")
+        from ptype_tpu_torch.parallel.ring_attention import (
+            make_ring_attention, make_ulysses_attention)
+
+        make = (make_ring_attention if impl == "ring"
+                else make_ulysses_attention)
+        return make(mesh)
+    raise ValueError(f"unknown attn_impl {impl!r}; "
+                     "want auto|xla|flash|ring|ulysses")
 
 
 def _proj(h, w, dt):
@@ -242,22 +286,68 @@ def _proj(h, w, dt):
     return out.reshape(*h.shape[:-1], *w.shape[1:])
 
 
-def qkv_proj(x, layer, cfg: TransformerConfig, sin, cos):
+class LocalLayout:
+    """The model on one device: every parameter whole and every hook
+    the identity. The block (:func:`qkv_proj`, :func:`attn_residual`,
+    :func:`mlp_residual`) calls these hooks where a mesh needs a
+    collective, so the one body runs on one device and, through
+    :class:`MeshLayout`, on a mesh."""
+
+    def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens``."""
+        return params["embed"][tokens]
+
+    def positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The RoPE positions of this rank's sequence block."""
+        return torch.arange(tokens.shape[1], device=tokens.device)
+
+    def layer(self, layer: dict) -> dict:
+        """One layer's weights as the block uses them."""
+        return layer
+
+    def attn_in(self, h):
+        """The normed input of the Q/K/V products."""
+        return h
+
+    def kv_weights(self, wk, wv):
+        return wk, wv
+
+    def kv_heads(self, k):
+        """This rank's K or V heads of the projection."""
+        return k
+
+    def attn_out(self, y):
+        """The output projection's product, before the residual add."""
+        return y
+
+    def mlp_in(self, h):
+        return h
+
+    def mlp_out(self, y):
+        return y
+
+
+_LOCAL = LocalLayout()
+
+
+def qkv_proj(x, layer, cfg: TransformerConfig, sin, cos, hooks=_LOCAL):
     """Pre-norm + Q/K/V projections + RoPE. x: (B, S, D) → three
     (B, S, H|K, Dh)."""
     dt = cfg.dtype
-    h = rms_norm(x, layer["attn_norm"])
+    h = hooks.attn_in(rms_norm(x, layer["attn_norm"]))
+    wk, wv = hooks.kv_weights(layer["wk"], layer["wv"])
     q = _proj(h, layer["wq"], dt)
-    k = _proj(h, layer["wk"], dt)
-    v = _proj(h, layer["wv"], dt)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    k = _proj(h, wk, dt)
+    v = _proj(h, wv, dt)
+    return (apply_rope(q, sin, cos), hooks.kv_heads(apply_rope(k, sin, cos)),
+            hooks.kv_heads(v))
 
 
-def attn_residual(x, o, layer, cfg: TransformerConfig):
+def attn_residual(x, o, layer, cfg: TransformerConfig, hooks=_LOCAL):
     """Output projection + residual add. o: (B, S, H, Dh)."""
     B, S, H, Dh = o.shape
     wo = layer["wo"].reshape(H * Dh, -1).to(cfg.dtype)
-    return x + o.reshape(B, S, H * Dh) @ wo
+    return x + hooks.attn_out(o.reshape(B, S, H * Dh) @ wo)
 
 
 def _moe_route(x, router, cfg: TransformerConfig):
@@ -354,7 +444,7 @@ def _moe_mlp(h, layer, cfg: TransformerConfig, capacity: int | None = None):
 
 
 def mlp_residual(x, layer, cfg: TransformerConfig,
-                 moe_capacity: int | None = None):
+                 moe_capacity: int | None = None, hooks=_LOCAL):
     """Pre-norm MLP (dense SwiGLU or MoE) + residual → (x, aux); a dense
     MLP's aux is the float 0.0 (no device work)."""
     dt = cfg.dtype
@@ -362,10 +452,11 @@ def mlp_residual(x, layer, cfg: TransformerConfig,
     if cfg.n_experts:
         y, aux = _moe_mlp(h, layer, cfg, capacity=moe_capacity)
         return x + y, aux
+    h = hooks.mlp_in(h)
     gate = h @ layer["w_gate"].to(dt)
     up = h @ layer["w_up"].to(dt)
-    x = x + (torch.nn.functional.silu(gate) * up) @ layer["w_down"].to(dt)
-    return x, 0.0
+    y = (torch.nn.functional.silu(gate) * up) @ layer["w_down"].to(dt)
+    return x + hooks.mlp_out(y), 0.0
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -373,26 +464,73 @@ def layer_params(params: dict, i: int) -> dict:
     return {name: w[i] for name, w in params["blocks"].items()}
 
 
-def hidden_with_aux(params: dict, tokens: torch.Tensor,
-                    cfg: TransformerConfig, attn_fn=None):
-    """Backbone through the final norm: (x (B,S,D) in compute dtype,
-    aux) — aux is the MoE router loss summed over layers (0.0 dense)."""
-    attn_fn = attn_fn or resolve_attn_fn(cfg, tokens.device)
-    S = tokens.shape[1]
-    x = params["embed"][tokens].to(cfg.dtype)
-    sin, cos = rope_tables(cfg, S, device=tokens.device)
-    aux = torch.zeros((), device=tokens.device)
+#: The remat policies; "dots" saves the outputs of these ops.
+REMAT_POLICIES = ("none", "dots")
+_SAVED_DOTS = ("mm", "addmm")
+
+
+def _remat_kwargs(cfg: TransformerConfig) -> dict:
+    """``torch.utils.checkpoint`` options of ``cfg.remat_policy``."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"want one of {REMAT_POLICIES}")
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        ops = [getattr(torch.ops.aten, n).default for n in _SAVED_DOTS]
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, ops)
+    return kw
+
+
+def _layers(x, params: dict, cfg: TransformerConfig, body):
+    """``x`` through every layer's ``body(x, *leaves) -> (x, aux)``,
+    ``leaves`` the layer's slices of the stacked block parameters in
+    ``params["blocks"]`` order. Under ``cfg.remat`` each layer runs
+    checkpointed, its slices passed in, so the recompute captures them
+    and not the whole stacks (with no gradient recorded there is nothing
+    to recompute, and it runs plain). Returns (x, aux summed over layers)."""
+    names = list(params["blocks"])
+    kw = (_remat_kwargs(cfg) if cfg.remat and torch.is_grad_enabled()
+          else None)
+    aux = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        q, k, v = qkv_proj(x, layer, cfg, sin, cos)
-        x = attn_residual(x, attn_fn(q, k, v, cfg), layer, cfg)
-        x, layer_aux = mlp_residual(x, layer, cfg)
+        leaves = [params["blocks"][n][i] for n in names]
+        if kw is None:
+            x, layer_aux = body(x, *leaves)
+        else:
+            x, layer_aux = checkpoint(body, x, *leaves, **kw)
         if cfg.n_experts:
             aux = aux + layer_aux
+    return x, aux
+
+
+def hidden_with_aux(params: dict, tokens: torch.Tensor,
+                    cfg: TransformerConfig, attn_fn=None, mesh=None):
+    """Backbone through the final norm: (x (B,S,D) in compute dtype,
+    aux) — aux is the MoE router loss summed over layers (0.0 dense).
+    With ``mesh``, ``params`` and ``tokens`` are this rank's blocks
+    (:class:`MeshLayout`) and so is ``x``."""
+    hooks = MeshLayout(cfg, mesh) if mesh is not None else _LOCAL
+    attn_fn = attn_fn or resolve_attn_fn(cfg, tokens.device, mesh)
+    x = hooks.embed(params, tokens).to(cfg.dtype)
+    sin, cos = rope_tables(cfg, positions=hooks.positions(tokens))
+    names = list(params["blocks"])
+
+    def body(x, *leaves):
+        layer = hooks.layer(dict(zip(names, leaves)))
+        q, k, v = qkv_proj(x, layer, cfg, sin, cos, hooks)
+        x = attn_residual(x, attn_fn(q, k, v, cfg), layer, cfg, hooks)
+        return mlp_residual(x, layer, cfg, hooks=hooks)
+
+    x, aux = _layers(x, params, cfg, body)
     return rms_norm(x, params["final_norm"]), aux
 
 
-def head_weight(params: dict, cfg: TransformerConfig) -> torch.Tensor:
+def head_weight(params: dict, cfg: TransformerConfig,
+                mesh=None) -> torch.Tensor:
+    """The LM head (D, V); on a mesh gathered whole for the fused loss
+    from this rank's block."""
+    if mesh is not None:
+        return MeshLayout(cfg, mesh).head(params)
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
@@ -403,17 +541,17 @@ def head_logits(x: torch.Tensor, head: torch.Tensor,
 
 
 def forward_with_aux(params: dict, tokens: torch.Tensor,
-                     cfg: TransformerConfig, attn_fn=None):
+                     cfg: TransformerConfig, attn_fn=None, mesh=None):
     """(logits (B, S, V) f32, aux) — aux is the summed MoE router loss
     (0.0 for dense MLPs)."""
-    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn)
-    return head_logits(x, head_weight(params, cfg), cfg), aux
+    x, aux = hidden_with_aux(params, tokens, cfg, attn_fn, mesh)
+    return head_logits(x, head_weight(params, cfg, mesh), cfg), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            attn_fn=None) -> torch.Tensor:
+            attn_fn=None, mesh=None) -> torch.Tensor:
     """Logits (B, S, V) in f32."""
-    return forward_with_aux(params, tokens, cfg, attn_fn)[0]
+    return forward_with_aux(params, tokens, cfg, attn_fn, mesh)[0]
 
 
 # -------------------------------------------------------------------- loss
@@ -525,12 +663,13 @@ def _chunked_nll(x, head, targets, mask, cfg: TransformerConfig):
 
 
 def loss_terms(params: dict, batch: dict, cfg: TransformerConfig,
-               attn_fn=None):
+               attn_fn=None, mesh=None):
     """(nll_sum, denom, aux) — the loss pieces gradient accumulation
     sums across microbatches (``train/trainer.py``). The LM head runs
-    fused with the cross-entropy: full logits are never materialized."""
-    x, aux = hidden_with_aux(params, batch["tokens"], cfg, attn_fn)
-    nll_sum, denom = _chunked_nll(x, head_weight(params, cfg),
+    fused with the cross-entropy: full logits are never materialized.
+    With ``mesh`` the sums are over this rank's rows only."""
+    x, aux = hidden_with_aux(params, batch["tokens"], cfg, attn_fn, mesh)
+    nll_sum, denom = _chunked_nll(x, head_weight(params, cfg, mesh),
                                   batch["targets"], batch.get("loss_mask"),
                                   cfg)
     return nll_sum, denom, aux
@@ -546,3 +685,208 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
     if cfg.n_experts:
         loss = loss + cfg.moe_aux_coef * aux
     return loss
+
+
+# ---------------------------------------------------------------- sharding
+
+
+def _maybe(axis: str | None, size: int, axis_sizes: dict[str, int]):
+    """Use the axis in a spec only if present and it divides ``size``:
+    strategies degrade to replication when an axis is absent."""
+    if axis is None or axis not in axis_sizes:
+        return None
+    return axis if size % axis_sizes[axis] == 0 else None
+
+
+def param_specs(cfg: TransformerConfig, axis_sizes: dict[str, int]) -> dict:
+    """Placement tree matching ``init_params`` (the reference's
+    ``param_specs``, each ``P(...)`` a tuple): ``model`` (TP) splits the
+    head and ff dims, Megatron's column/row pairs; ``fsdp`` splits the
+    d_model dim of every matmul weight. Block placements lead with None
+    for the stacked layer dim."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, K, E = cfg.n_heads, cfg.kv_heads, cfg.n_experts
+    fsdp = partial(_maybe, "fsdp", axis_sizes=axis_sizes)
+    tp = partial(_maybe, "model", axis_sizes=axis_sizes)
+    ep = partial(_maybe, "expert", axis_sizes=axis_sizes)
+    if E:
+        mlp = {"mlp_norm": (None, None),
+               "router": (None, fsdp(D), None),
+               "w_gate": (None, ep(E), fsdp(D), tp(F)),
+               "w_up": (None, ep(E), fsdp(D), tp(F)),
+               "w_down": (None, ep(E), tp(F), fsdp(D))}
+    else:
+        mlp = {"mlp_norm": (None, None),
+               "w_gate": (None, fsdp(D), tp(F)),
+               "w_up": (None, fsdp(D), tp(F)),
+               "w_down": (None, tp(F), fsdp(D))}
+    specs = {
+        "embed": (tp(V), fsdp(D)),
+        "blocks": {
+            "attn_norm": (None, None),
+            "wq": (None, fsdp(D), tp(H), None),
+            "wk": (None, fsdp(D), tp(K), None),
+            "wv": (None, fsdp(D), tp(K), None),
+            "wo": (None, tp(H), None, fsdp(D)),
+            **mlp,
+        },
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (fsdp(D), tp(V))
+    return specs
+
+
+def batch_spec(axis_sizes: dict[str, int], seq_axis: bool = False) -> tuple:
+    """Token batch placement: the batch dim over every data-like axis
+    present (data and fsdp both act as data for activations), and the
+    sequence dim over ``seq`` when ``seq_axis`` (ring attention)."""
+    batch_axes = tuple(a for a in ("data", "fsdp") if a in axis_sizes)
+    first = (batch_axes[0] if len(batch_axes) == 1  # P's own normal form
+             else batch_axes or None)
+    second = "seq" if (seq_axis and "seq" in axis_sizes) else None
+    return (first, second)
+
+
+def tp_kv_heads(k: torch.Tensor, cfg: TransformerConfig, m: int,
+                r: int) -> torch.Tensor:
+    """This model rank's K/V heads when ``kv_heads`` does not divide the
+    ``model`` axis (``m`` ranks, this one ``r``) and K/V are computed
+    whole: each kv head repeated just enough (``m / gcd(K, m)``, or up
+    to ``H`` when the padded count cannot group with the query heads),
+    then the rank's contiguous share, aligned with its query heads."""
+    K, H = cfg.kv_heads, cfg.n_heads
+    rep = m // math.gcd(K, m)
+    if H % (K * rep):
+        rep = H // K
+    k = torch.repeat_interleave(k, rep, dim=2)
+    n = k.shape[2] // m
+    return k[:, :, r * n:(r + 1) * n]
+
+
+class MeshLayout(LocalLayout):
+    """The model laid out on a mesh: :func:`param_specs` and
+    :func:`batch_spec`, and the block's hooks (:class:`LocalLayout`)
+    over this rank's blocks. Every rank of the mesh runs the same
+    forward (the collectives pair up).
+
+    The collectives (``parallel/collectives.py``, each the identity on
+    an axis of size 1): a weight split over ``fsdp`` is allgathered
+    before use, its gradient reduce-scattered; over ``model`` the block
+    input enters the column-parallel products through "f" (gradient
+    allreduced) and each row-parallel product leaves through "g"
+    (allreduced); K/V weights kept whole under a split attention get
+    "f" too, since each rank uses its own heads of them. Gradients over
+    the batch axes are the trainer's to sum."""
+
+    def __init__(self, cfg: TransformerConfig, mesh):
+        from ptype_tpu_torch.parallel.mesh import axis_index
+
+        self.cfg, self.mesh = cfg, mesh
+        self.sizes = {n: int(mesh.shape[n]) for n in mesh.axis_names}
+        if cfg.n_experts and mesh.size > 1:
+            raise NotImplementedError(
+                "a mixture-of-experts config on a mesh of more than one "
+                "rank (expert parallelism and the router's aux over the "
+                "batch axes) is not ported (ROADMAP)")
+        self.specs = param_specs(cfg, self.sizes)
+        live = {n for n, s in self.sizes.items() if s > 1}
+        b = self.specs["blocks"]
+        self.model = "model" if "model" in live else None
+        self.attn_tp = self.model is not None and b["wq"][2] == "model"
+        self.kv_whole = self.attn_tp and b["wk"][2] is None
+        self.mlp_tp = (self.model is not None and not cfg.n_experts
+                       and b["w_gate"][-1] == "model")
+        self.vocab_tp = (self.model is not None
+                         and self.specs["embed"][0] == "model")
+        self.seq = "seq" if "seq" in live else None
+        #: The axes that split the batch: a leaf's gradient is summed
+        #: over those it is not split on.
+        self.batch_axes = tuple(a for a in ("data", "fsdp", "seq")
+                                if a in live)
+        self.m = self.sizes.get("model", 1)
+        self.m_rank = axis_index(mesh, "model") if self.model else 0
+
+    def use(self, w: torch.Tensor, spec) -> torch.Tensor:
+        """``w`` whole over ``fsdp`` (allgathered on each split dim)."""
+        from ptype_tpu_torch.parallel.collectives import gather_for_use
+
+        for dim, entry in enumerate(spec):
+            if entry == "fsdp":
+                w = gather_for_use(w, self.mesh, "fsdp", dim)
+        return w
+
+    def _embed(self, params: dict) -> torch.Tensor:
+        return self.use(params["embed"], self.specs["embed"])
+
+    def head(self, params: dict) -> torch.Tensor:
+        """The whole LM head (D, V): gathered over ``fsdp`` (gradient
+        reduce-scattered) and over ``model`` (each model rank computes
+        the same loss from it, so its gradient's own block comes back)."""
+        from ptype_tpu_torch.parallel.collectives import gather_replicated
+
+        if self.cfg.tie_embeddings:
+            e = self._embed(params)
+            if self.vocab_tp:
+                e = gather_replicated(e, self.mesh, "model", 0)
+            return e.T
+        w = self.use(params["lm_head"], self.specs["lm_head"])
+        if self.specs["lm_head"][1] == "model" and self.model:
+            w = gather_replicated(w, self.mesh, "model", 1)
+        return w
+
+    def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows; split over the vocabulary, a masked
+        lookup of this rank's rows and an allreduce over ``model``."""
+        from ptype_tpu_torch.parallel import collectives as C
+
+        e = self._embed(params)
+        if not self.vocab_tp:
+            return e[tokens]
+        lo = self.m_rank * e.shape[0]
+        idx = tokens - lo
+        hit = (idx >= 0) & (idx < e.shape[0])
+        rows = e[torch.where(hit, idx, torch.zeros_like(idx))]
+        rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
+        return C.reduce_from(rows, self.mesh, "model")
+
+    def positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        from ptype_tpu_torch.parallel.mesh import axis_index
+
+        S = tokens.shape[1]
+        pos0 = axis_index(self.mesh, "seq") * S if self.seq else 0
+        return torch.arange(pos0, pos0 + S, device=tokens.device)
+
+    def layer(self, layer: dict) -> dict:
+        specs = self.specs["blocks"]
+        return {n: self.use(w, specs[n][1:]) for n, w in layer.items()}
+
+    def _f(self, x, on: bool):
+        from ptype_tpu_torch.parallel import collectives as C
+
+        return C.copy_to(x, self.mesh, self.model) if on else x
+
+    def _g(self, y, on: bool):
+        from ptype_tpu_torch.parallel import collectives as C
+
+        return C.reduce_from(y, self.mesh, self.model) if on else y
+
+    def attn_in(self, h):
+        return self._f(h, self.attn_tp)
+
+    def kv_weights(self, wk, wv):
+        return self._f(wk, self.kv_whole), self._f(wv, self.kv_whole)
+
+    def kv_heads(self, k):
+        if not self.kv_whole:
+            return k
+        return tp_kv_heads(k, self.cfg, self.m, self.m_rank)
+
+    def attn_out(self, y):
+        return self._g(y, self.attn_tp)
+
+    def mlp_in(self, h):
+        return self._f(h, self.mlp_tp)
+
+    def mlp_out(self, y):
+        return self._g(y, self.mlp_tp)

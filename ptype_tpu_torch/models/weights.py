@@ -64,56 +64,68 @@ def param_shapes(cfg: TransformerConfig) -> dict:
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig,
-                device=None) -> dict:
+                device=None, place=None) -> dict:
     """Seeded random parameters with the reference's shapes and scales
     (scaled normals: 0.02, and 0.02/sqrt(2L) on the out-projections).
     Draws on ``generator.device``; moves to ``device`` when given. The
     draws are torch's, not JAX's: for identical weights in both
     packages, carry a reference tree across with
-    :func:`params_from_numpy`."""
+    :func:`params_from_numpy`.
+
+    ``place(path, leaf)``, when given, takes each leaf as it is drawn
+    (``path`` its key tuple, as ``train.trainer._flatten`` names it)
+    and returns what the tree keeps: a mesh rank keeps its block, so
+    no more than one whole leaf exists at a time. The draws, and so the
+    values, are the same either way."""
     L, D, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads
     Dh, F, V = cfg.head_dim, cfg.d_ff, cfg.vocab_size
     pd = cfg.param_dtype
     gdev = generator.device
     device = gdev if device is None else torch.device(device)
 
-    def norm(shape, scale):
+    def kept(path, x):
+        return x if place is None else place(path, x)
+
+    def norm(path, shape, scale):
         x = torch.randn(shape, generator=generator, device=gdev,
                         dtype=torch.float32) * scale
-        return x.to(device=device, dtype=pd)
+        return kept(path, x).to(device=device, dtype=pd)
 
-    def ones(shape):
-        return torch.ones(shape, device=device, dtype=pd)
+    def ones(path, shape):
+        return kept(path, torch.ones(shape, device=device, dtype=pd))
+
+    def block(name):
+        return ("blocks", name)
 
     resid = 0.02 / math.sqrt(2.0 * L)
     E = cfg.n_experts
     if E:
         mlp = {
-            "mlp_norm": ones((L, D)),
-            "router": norm((L, D, E), 0.02),
-            "w_gate": norm((L, E, D, F), 0.02),
-            "w_up": norm((L, E, D, F), 0.02),
-            "w_down": norm((L, E, F, D), resid),
+            "mlp_norm": ones(block("mlp_norm"), (L, D)),
+            "router": norm(block("router"), (L, D, E), 0.02),
+            "w_gate": norm(block("w_gate"), (L, E, D, F), 0.02),
+            "w_up": norm(block("w_up"), (L, E, D, F), 0.02),
+            "w_down": norm(block("w_down"), (L, E, F, D), resid),
         }
     else:
         mlp = {
-            "mlp_norm": ones((L, D)),
-            "w_gate": norm((L, D, F), 0.02),
-            "w_up": norm((L, D, F), 0.02),
-            "w_down": norm((L, F, D), resid),
+            "mlp_norm": ones(block("mlp_norm"), (L, D)),
+            "w_gate": norm(block("w_gate"), (L, D, F), 0.02),
+            "w_up": norm(block("w_up"), (L, D, F), 0.02),
+            "w_down": norm(block("w_down"), (L, F, D), resid),
         }
     params = {
-        "embed": norm((V, D), 0.02),
+        "embed": norm(("embed",), (V, D), 0.02),
         "blocks": {
-            "attn_norm": ones((L, D)),
-            "wq": norm((L, D, H, Dh), 0.02),
-            "wk": norm((L, D, K, Dh), 0.02),
-            "wv": norm((L, D, K, Dh), 0.02),
-            "wo": norm((L, H, Dh, D), resid),
+            "attn_norm": ones(block("attn_norm"), (L, D)),
+            "wq": norm(block("wq"), (L, D, H, Dh), 0.02),
+            "wk": norm(block("wk"), (L, D, K, Dh), 0.02),
+            "wv": norm(block("wv"), (L, D, K, Dh), 0.02),
+            "wo": norm(block("wo"), (L, H, Dh, D), resid),
             **mlp,
         },
-        "final_norm": ones((D,)),
+        "final_norm": ones(("final_norm",), (D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = norm((D, V), 0.02)
+        params["lm_head"] = norm(("lm_head",), (D, V), 0.02)
     return params

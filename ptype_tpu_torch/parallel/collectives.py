@@ -31,7 +31,12 @@ as the reference's ``_count_launch``), ``collectives.calls`` (each
 ``torch.distributed`` call) and ``collectives.wire_bytes`` (the bytes
 each call is handed).
 
-Not ported yet (ROADMAP A7): the hierarchical two-leg bodies and the
+The autograd-aware collectives at the end (:func:`gather_for_use`,
+:func:`gather_replicated`, :func:`reduce_from`, :func:`copy_to`,
+:func:`ring_send`, :func:`all_to_all_dims`) are the sharded trainer's:
+each is the identity on an axis of size 1.
+
+Not ported yet (ROADMAP A6(b)): the hierarchical two-leg bodies and the
 ``measure_*`` probes.
 """
 
@@ -645,6 +650,175 @@ def bucketed_reduce_scatter_stream(leaves, mesh, axis: str = "data",
 
         _count_launch()
         yield b, Reduction(b, wire, works, finish)
+
+
+# ---------------------------------------------------- along one dim
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Every rank's block of ``axis`` concatenated along ``dim`` in rank
+    order (the inverse of cutting ``dim`` into contiguous blocks)."""
+    n = axis_n(mesh, axis)
+    if n == 1:
+        return x
+    out = _gather(x, axis_group(mesh, axis), n)       # (n, *x.shape)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter_dim(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """The sum of every rank's ``x``, cut along ``dim`` into contiguous
+    blocks, this rank keeping its own."""
+    n = axis_n(mesh, axis)
+    if n == 1:
+        return x
+    out = reduce_scatter(x.movedim(dim, 0).contiguous(), mesh, axis)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_to_all_dim(x: torch.Tensor, mesh, axis, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+    """Cut ``x`` into ``n`` blocks along ``split_dim``, send block j to
+    rank j, and concatenate what arrives along ``concat_dim``, in rank
+    order (the Ulysses exchange)."""
+    n = axis_n(mesh, axis)
+    if n == 1:
+        return x
+    blocks = torch.stack(torch.chunk(x, n, dim=split_dim))
+    got = all_to_all(blocks, mesh, axis)
+    return torch.cat(got.unbind(0), dim=concat_dim)
+
+
+# ------------------------------------------------- autograd collectives
+
+
+class _GatherForUse(torch.autograd.Function):
+    """Allgather along a dim; backward sums the gradient over the axis
+    and keeps this rank's block (a reduce-scatter): the FSDP pair, for
+    ranks that compute different terms of the loss."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_dim(g.contiguous(), ctx.mesh, ctx.axis,
+                                   ctx.dim), None, None, None)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """Allgather along a dim; backward keeps this rank's block of the
+    gradient: for ranks that compute the SAME loss from the gathered
+    value (a tensor-parallel group), whose gradients are equal."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.size = x.shape[dim]
+        return all_gather_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = axis_index(ctx.mesh, ctx.axis)
+        return (g.narrow(ctx.dim, i * ctx.size, ctx.size).contiguous(),
+                None, None, None)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's "g": allreduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's "f": identity forward, allreduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _RingSend(torch.autograd.Function):
+    """:func:`ring_shift` whose backward sends the gradient back the
+    other way."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return ring_shift(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ring_shift(g, ctx.mesh, ctx.axis, -ctx.shift), None, None,
+                None)
+
+
+class _AllToAllDims(torch.autograd.Function):
+    """:func:`all_to_all_dim`, whose backward is the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, concat_dim, split_dim)
+        return all_to_all_dim(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_to_all_dim(g.contiguous(), *ctx.args), None, None, None,
+                None)
+
+
+def _live(mesh, axis) -> bool:
+    return axis is not None and axis_n(mesh, axis) > 1
+
+
+def gather_for_use(x, mesh, axis, dim: int):
+    """FSDP: the full tensor from every rank's block along ``dim``;
+    the gradient is reduce-scattered back."""
+    return _GatherForUse.apply(x, mesh, axis, dim) if _live(mesh, axis) \
+        else x
+
+
+def gather_replicated(x, mesh, axis, dim: int):
+    """The full tensor along ``dim`` for a group that computes one loss
+    from it; the gradient's own block comes back."""
+    return (_GatherReplicated.apply(x, mesh, axis, dim)
+            if _live(mesh, axis) else x)
+
+
+def reduce_from(x, mesh, axis):
+    """Sum the partial results of a row-parallel product ("g")."""
+    return _ReduceFrom.apply(x, mesh, axis) if _live(mesh, axis) else x
+
+
+def copy_to(x, mesh, axis):
+    """Enter a column-parallel region ("f"): the gradient is summed."""
+    return _CopyTo.apply(x, mesh, axis) if _live(mesh, axis) else x
+
+
+def ring_send(x, mesh, axis, shift: int = 1):
+    """Differentiable :func:`ring_shift`."""
+    return _RingSend.apply(x, mesh, axis, shift) if _live(mesh, axis) \
+        else x
+
+
+def all_to_all_dims(x, mesh, axis, split_dim: int, concat_dim: int):
+    """Differentiable :func:`all_to_all_dim`."""
+    return (_AllToAllDims.apply(x, mesh, axis, split_dim, concat_dim)
+            if _live(mesh, axis) else x)
 
 
 # ------------------------------------------------------------ tree forms

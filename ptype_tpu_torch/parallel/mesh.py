@@ -13,9 +13,20 @@ The process group comes from an explicit rendezvous,
 There is no fallback from one backend to the other, and a mesh whose
 axes do not cover the group exactly is refused, never shrunk to size 1.
 
-Placements are the reference's partition specs written as tuples:
-``()`` replicated, ``(axis,)`` dim 0 split into contiguous shards, rank
-r holding shard r (:func:`replicated`).
+Every axis, and every combination of axes, has its own process group
+on each rank (:func:`axis_group`): :func:`build_mesh` makes the groups
+of each single axis and of each composite of axes, every rank making
+every group in one fixed order (``dist.new_group`` names a group by a
+per-process count, so a rank that skipped one or took them out of order
+would hang the others). Ranks lie outer → inner, as the reference lays
+out devices: this rank's coordinate on an axis is :func:`axis_index`.
+
+Placements are the reference's partition specs written as tuples, one
+entry a dim: ``None`` replicated, an axis name or a tuple of them (a
+composite, outer first) split into contiguous blocks, the block at the
+rank's coordinate its own; ``()`` is replicated (:func:`replicated`).
+:func:`shard_of` cuts this rank's block out of a full tensor and
+:func:`gather` puts the full tensor back together.
 
 Elastic resharding builds a **survivor mesh** (:func:`survivor_mesh`):
 one data axis over a ``dist.new_group`` of the surviving ranks, made by
@@ -58,6 +69,12 @@ class Mesh:
     #: A gloo group over the same ranks for host-side agreement (the
     #: group itself on gloo).
     control: object
+    #: This rank's process group on each sub-axis: a tuple of the
+    #: non-trivial axes it spans (mesh order) → group; ``()`` is the
+    #: rank alone. Axes that span the mesh use ``group``.
+    groups: dict = field(default_factory=dict, hash=False)
+    #: The gloo twins of ``groups`` on NCCL (``groups`` itself on gloo).
+    controls: dict = field(default_factory=dict, hash=False)
 
     @property
     def size(self) -> int:
@@ -95,18 +112,62 @@ def build_mesh(axes: dict[str, int], axis_names: tuple[str, ...] | None = None,
     rank's device (cuda unless named; on cuda, the current card), and
     must match the group's backend: a cuda mesh never runs on gloo.
 
-    On NCCL it also makes the mesh's gloo control group, so every rank
-    of the default group calls, as for any ``dist.new_group``."""
+    On NCCL it also makes the mesh's gloo control group, and every
+    group gets a gloo twin. Every rank of ``group`` calls, and so does
+    every rank of the default group when ``group`` is not it, as for
+    any ``dist.new_group``."""
     if not dist.is_initialized():
         raise ClusterError("build_mesh: no process group; call "
                            "init_distributed first")
     group = group if group is not None else dist.group.WORLD
     names, shape, device = _layout(axes, axis_names, group, device)
-    control = group
-    if dist.get_backend(group) != "gloo":
-        control = dist.new_group(dist.get_process_group_ranks(group),
-                                 backend="gloo")
-    return Mesh(names, shape, group, dist.get_rank(group), device, control)
+    backend = dist.get_backend(group)
+    gloo = backend == "gloo"
+    ranks = dist.get_process_group_ranks(group)
+    control = group if gloo else dist.new_group(ranks, backend="gloo")
+    me = dist.get_rank(group)
+    groups, controls = {}, {}
+    for key, members in _sub_axis_groups(names, shape):
+        g = dist.new_group([ranks[p] for p in members], backend=backend)
+        c = g if gloo or len(members) == 1 else dist.new_group(
+            [ranks[p] for p in members], backend="gloo")
+        if me in members:
+            groups[key], controls[key] = g, c
+    return Mesh(names, shape, group, me, device, control, groups, controls)
+
+
+def _coords(position: int, names, shape) -> dict:
+    """The axis coordinates of a mesh position (the last axis
+    innermost)."""
+    out = {}
+    for name in reversed(names):
+        out[name] = position % shape[name]
+        position //= shape[name]
+    return out
+
+
+def _sub_axis_groups(names, shape):
+    """``(key, member positions)`` of every group a mesh needs beyond
+    its own, in one fixed order: for each proper subset of the
+    non-trivial axes (the empty one too: each rank alone), one group
+    per coordinate of the other axes, its members in mesh order. A mesh
+    of one non-trivial axis or fewer needs none but the singletons."""
+    import itertools
+
+    live = [n for n in names if shape[n] > 1]
+    if not live:
+        return []
+    size = math.prod(shape.values())
+    out = []
+    for k in range(len(live)):
+        for key in itertools.combinations(live, k):
+            by_rest: dict = {}
+            for p in range(size):
+                c = _coords(p, names, shape)
+                rest = tuple(c[n] for n in live if n not in key)
+                by_rest.setdefault(rest, []).append(p)
+            out += [(key, members) for members in by_rest.values()]
+    return out
 
 
 def _layout(axes, axis_names, group, device):
@@ -259,25 +320,91 @@ def axis_n(mesh: Mesh, axis) -> int:
     return int(mesh.shape[axis])
 
 
+def _axis_key(mesh: Mesh, axis) -> tuple:
+    """``axis`` (a name or a tuple of them) as the tuple of its
+    non-trivial axes in mesh order; an unknown name is refused."""
+    names = axis if isinstance(axis, tuple) else (axis,)
+    unknown = [a for a in names if a not in mesh.axis_names]
+    if unknown:
+        raise ClusterError(f"mesh {mesh.shape} has no axis {unknown}")
+    return tuple(a for a in mesh.axis_names
+                 if a in names and mesh.shape[a] > 1)
+
+
 def axis_group(mesh: Mesh, axis):
-    """The process group a collective over ``axis`` runs on. The port's
-    collectives span the whole group, so ``axis`` must cover every rank
-    (the other axes of size 1); sub-axis groups come with the trainer's
-    shardings (ROADMAP A7)."""
-    if axis_n(mesh, axis) != mesh.size:
-        raise NotImplementedError(
-            f"collectives over axis {axis!r} of a mesh {mesh.shape}: only "
-            "an axis that spans every rank is ported (sub-axis groups: "
-            "ROADMAP A7, the trainer's shardings)")
-    return mesh.group
+    """This rank's process group on ``axis`` (a name, or a tuple of
+    names: a composite axis): the ranks that differ from this one only
+    in their coordinates on it. An axis that spans the mesh is the
+    mesh's own group."""
+    key = _axis_key(mesh, axis)
+    if axis_n(mesh, axis) == mesh.size:
+        return mesh.group
+    return mesh.groups[key]
 
 
 def axis_index(mesh: Mesh, axis) -> int:
-    """This rank's linear index along ``axis`` (its shard number)."""
-    axis_group(mesh, axis)
-    return mesh.rank
+    """This rank's coordinate along ``axis`` (its shard number): for a
+    composite axis the linear index over its axes, outer first — the
+    rank's position in :func:`axis_group`."""
+    coords = _coords(mesh.rank, mesh.axis_names, mesh.shape)
+    idx = 0
+    for a in _axis_key(mesh, axis):
+        idx = idx * int(mesh.shape[a]) + coords[a]
+    return idx
 
 
 def replicated(mesh: Mesh) -> tuple:
     """The replicated placement: every rank holds the whole value."""
     return ()
+
+
+def block_of(shape, spec, mesh: Mesh) -> tuple[list, list]:
+    """``(start, size)`` per dim of this rank's block of an array of
+    ``shape`` under placement ``spec``."""
+    start, size = [], []
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    for dim, (d, entry) in enumerate(zip(shape, spec)):
+        n = 1 if entry is None else axis_n(mesh, entry)
+        if d % n:
+            raise ClusterError(f"placement {spec}: dim {dim} ({d}) does "
+                               f"not split into {n} blocks")
+        i = 0 if entry is None else axis_index(mesh, entry)
+        start.append(i * (d // n))
+        size.append(d // n)
+    return start, size
+
+
+def owns_block(spec, mesh: Mesh) -> bool:
+    """Whether this rank is the one writer of its block under ``spec``:
+    its coordinate is 0 on every axis the placement does not split on
+    (the block's other holders are its replicas)."""
+    named = set()
+    for entry in spec or ():
+        if entry is not None:
+            named.update(entry if isinstance(entry, tuple) else (entry,))
+    coords = _coords(mesh.rank, mesh.axis_names, mesh.shape)
+    return all(coords[a] == 0 for a in mesh.axis_names if a not in named)
+
+
+def shard_of(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's contiguous block of the full tensor ``x`` under
+    ``spec``: ``x`` itself when the block is all of it, else a copy (no
+    view keeps the whole of ``x`` alive)."""
+    start, size = block_of(tuple(x.shape), spec, mesh)
+    if list(size) == list(x.shape):
+        return x
+    for dim, (a, n) in enumerate(zip(start, size)):
+        x = x.narrow(dim, a, n)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def gather(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The inverse of :func:`shard_of`: the full tensor from every
+    rank's block, on every rank (an allgather per sharded dim; every
+    rank of the mesh calls)."""
+    from ptype_tpu_torch.parallel.collectives import all_gather_dim
+
+    for dim, entry in enumerate(spec):
+        if entry is not None and axis_n(mesh, entry) > 1:
+            local = all_gather_dim(local, mesh, entry, dim)
+    return local

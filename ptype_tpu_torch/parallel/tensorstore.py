@@ -37,7 +37,7 @@ collective is waited, so the port commits at the wait.
 :meth:`TensorStore.reshard` re-homes the store on a survivor mesh (the
 live elastic reshard's store leg).
 
-Not ported yet (ROADMAP A7(b)): the hierarchical wire (a ``topology``
+Not ported yet (ROADMAP A6(b)): the hierarchical wire (a ``topology``
 raises).
 """
 
@@ -200,7 +200,7 @@ class TensorStore:
         if topology is not None:
             raise NotImplementedError(
                 "TensorStore: the hierarchical wire (a Topology) is not "
-                "ported yet (ROADMAP A7, the hierarchical wire)")
+                "ported yet (ROADMAP A6(b), the hierarchical wire)")
         if (wire is not None and compress is not None
                 and compress != wire.compress):
             raise ValueError(

@@ -9,7 +9,7 @@ allgathers back out, with the int8+EF wire resolved per leg.
 
 Ported here: the axis-name constants, :class:`LegWire`, and
 :class:`Topology`'s geometry, per-leg wire policy, analytic cost and
-byte model and JSON/env forms. Not ported yet (ROADMAP A7, the
+byte model and JSON/env forms. Not ported yet (ROADMAP A6(b), the
 hierarchical wire): ``Topology.mesh`` and the two-leg collective
 bodies; a ``TensorStore`` given a topology raises.
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import abc
 import atexit
+import contextlib
 import json
 import threading
 import time
@@ -187,6 +188,9 @@ class Registration:
         self._node_json = node_json
         self._stop = threading.Event()
         self._failures = 0
+        #: Serialises the lease id's changes (:meth:`_relet`) with the
+        #: keepalive that reads it.
+        self._lease_lock = lockcheck.lock("registry.lease")
         # The loop holds only a WEAK reference to this handle between
         # beats: an abandoned Registration (a crash simulation's `del`,
         # a test that leaked one) becomes garbage, and its thread exits
@@ -225,7 +229,8 @@ class Registration:
             stop.set()
             return
         try:
-            self._registry._coord.keepalive(self.lease_id)
+            with self._lease_lock:
+                self._registry._coord.keepalive(self.lease_id)
             if self._failures:
                 log.info("lease refresh recovered",
                          kv={"service": self.service, "node": self.node})
@@ -255,12 +260,7 @@ class Registration:
         if self._stop.is_set():
             return
         try:
-            lease_id = self._registry._coord.grant(self.ttl)
-            self._registry._coord.put(
-                _service_key(self.service, self.node), self._node_json,
-                lease=lease_id,
-            )
-            self.lease_id = lease_id
+            lease_id = self._relet(self.ttl)
             chaos.note_ok("coord.lease",
                           f"{self.service}/{self.node}")
             log.info("re-registered after lease loss",
@@ -270,6 +270,21 @@ class Registration:
             log.warning("re-registration failed",
                         kv={"service": self.service, "node": self.node,
                             "err": str(e)})
+
+    def _relet(self, ttl: float) -> int:
+        """Move the registration onto a fresh lease of ``ttl`` seconds:
+        the key is re-put under it and the lease it leaves revoked
+        (which no longer deletes the key). Returns the new lease id."""
+        with self._lease_lock:
+            old = self.lease_id
+            lease_id = self._registry._coord.grant(ttl)
+            self._registry._coord.put(
+                _service_key(self.service, self.node), self._node_json,
+                lease=lease_id,
+            )
+            self.lease_id = lease_id
+            self._registry._coord.revoke(old)
+        return lease_id
 
     def close(self, revoke: bool = True) -> None:
         """Stop keeping the registration alive.
@@ -285,6 +300,44 @@ class Registration:
                 self._registry._coord.revoke(self.lease_id)
             except CoordinationError:
                 pass
+
+
+@contextlib.contextmanager
+def leases_held(ttl: float):
+    """Every live registration of this process on a lease of at least
+    ``ttl`` seconds while the block runs, then back on a lease of its
+    own TTL.
+
+    For work that holds the GIL longer than a lease lives: no keepalive
+    runs meanwhile, and on its own TTL the registration would lapse and
+    its node drop out of the registry until it re-registered. (A
+    ``torch.profiler`` session's stop processes and exports its events
+    in C++ without releasing the GIL, seconds under load:
+    ``health/profiling.py``.) A process that dies inside the block
+    stays listed for up to ``ttl``."""
+    regs = [r for r in list(_live_registrations) if not r._stop.is_set()
+            and not getattr(r._registry._coord, "closed", False)]
+    held = []
+    for r in regs:
+        try:
+            r._relet(max(ttl, r.ttl))
+            held.append(r)
+        except CoordinationError as e:
+            log.warning("lease hold failed",
+                        kv={"service": r.service, "node": r.node,
+                            "err": str(e)})
+    try:
+        yield
+    finally:
+        for r in held:
+            if r._stop.is_set():
+                continue
+            try:
+                r._relet(r.ttl)
+            except CoordinationError as e:
+                log.warning("lease release failed",
+                            kv={"service": r.service, "node": r.node,
+                                "err": str(e)})
 
 
 class Registry(abc.ABC):

@@ -3,9 +3,9 @@
 :func:`synthetic_batches` draws on the device from a seeded
 ``torch.Generator``, so the input pipeline never holds a step back.
 :class:`TokenFileDataset` reads a memory-mapped flat corpus and moves
-batches to the device from a prefetch thread, one step ahead. The
-multi-process slice of the reference (``local_row_range``) waits for
-the mesh (ROADMAP).
+batches to the device from a prefetch thread, one step ahead.
+:func:`local_row_range` gives the batch rows a rank of a mesh holds, so
+a loader on each rank can read only its slice of the global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +30,17 @@ def synthetic_batches(vocab_size: int, batch: int, seq: int, seed: int = 0,
         toks = torch.randint(0, vocab_size, (batch, seq + 1), generator=gen,
                              device=device)
         yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def local_row_range(spec, mesh, batch: int) -> tuple[int, int]:
+    """``[lo, hi)``: the rows of a ``batch``-row global batch this rank
+    holds under placement ``spec`` (``models.transformer.batch_spec``)
+    on ``mesh`` — its contiguous block of dim 0, or every row when dim
+    0 is not split."""
+    from ptype_tpu_torch.parallel.mesh import block_of
+
+    (lo,), (n,) = block_of((batch,), tuple(spec)[:1], mesh)
+    return lo, lo + n
 
 
 def write_token_file(path: str, tokens, dtype=None) -> None:

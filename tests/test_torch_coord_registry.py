@@ -175,6 +175,37 @@ def test_reregisters_after_lease_loss(pkg, coord):
     handle.close()
 
 
+def test_leases_held_keeps_a_starved_registration_listed():
+    """The port's ``registry.leases_held`` (held by a profiler's stop,
+    which holds the GIL past a lease): with no keepalive reaching the
+    coordinator, a registration on a 0.3 s lease stays listed through a
+    5 s hold, the lease it leaves revoked; after the hold it is back on a
+    0.3 s lease, which then lapses unrefreshed."""
+    ns = _load(PACKAGES["port"])
+    state = ns.CoordState(sweep_interval=0.05)
+    coord = ns.LocalCoord(state)
+    reg = ns.CoordRegistry(coord, lease_ttl=0.3)
+    r = reg.register("calc", "n1", "10.0.0.1", 9000)
+    refresh = coord.keepalive
+    try:
+        first = r.lease_id
+        coord.keepalive = lambda lease_id: 0.3   # starved: none refreshes
+        with ns.leases_held(5.0):
+            held = r.lease_id
+            assert held != first and first not in state._leases
+            assert state._leases[held].ttl == 5.0
+            time.sleep(1.2)
+            assert reg.nodes("calc") == [ns.Node("10.0.0.1", 9000)]
+        assert r.lease_id != held and held not in state._leases
+        assert state._leases[r.lease_id].ttl == 0.3
+        assert wait_until(lambda: reg.nodes("calc") == [], timeout=2.0)
+    finally:
+        coord.keepalive = refresh
+        r.close()
+        state.close()
+        ns.local_module.reset_local_coords()
+
+
 # --------------------------------------------------------------- store
 
 

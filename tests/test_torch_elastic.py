@@ -4,8 +4,10 @@ flats bit-equal to the reference's ``reshard``), a chaos drop mid-move
 that leaves every rank on the old plan, ``ZeroCheckpoint`` written at 4
 and restored at 2 in both directions across the packages,
 ``StoreDPTrainer.reshard`` then survivor steps against the reference's,
-the ``FailureDetector``'s event sequence, and ``ElasticZeroTrainer``
-recovering from ``inject_loss``.
+the ``FailureDetector``'s event sequence, ``ElasticZeroTrainer``
+recovering from ``inject_loss``, and the mesh ``ElasticTrainer``
+(checkpoint → survivor mesh → restore) recovering and refusing zero
+devices (a second 4-rank spawn, suite "elastic_trainer").
 
 The port runs on 4 gloo ranks (``tests/torch_ranks.py`` suite
 "elastic", one spawn, a 300 s ``Ranks.join`` deadline); the reference on
@@ -27,6 +29,7 @@ from ptype_tpu.parallel.tensorstore import TensorStore as JStore
 from ptype_tpu.parallel.zero import ShardPlan as JPlan
 from ptype_tpu.parallel.zero import ZeroState as JZero
 from ptype_tpu.train import store_dp as jsd
+from ptype_tpu.train import trainer as jtr
 from ptype_tpu.train.trainer import default_optimizer_hparams as jhp
 from test_torch_train import LOSS_TOL, STEP_TOL
 from torch_ranks import Ranks
@@ -387,3 +390,65 @@ def test_measure_reshard_reports_both_recoveries_in_steps(run):
         assert (m["old_n"], m["new_n"]) == (4, 2)
         assert m["reshard_resume_steps"] > 0 and m["ckpt_resume_steps"] > 0
         assert m["live_resume_ms"] >= m["reshard_ms"] > 0
+
+
+# ------------------------------------------------- the mesh ElasticTrainer
+
+ET_OPT = dict(lr=1e-3, warmup=1, decay_steps=50)
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """The port's ``ElasticTrainer`` on 4 gloo ranks (suite
+    "elastic_trainer") and the reference's data-parallel losses on the
+    same params and batches (B=12: it splits over 4 ranks and over the
+    3 survivors)."""
+    work = tmp_path_factory.mktemp("elastic_trainer")
+    p0 = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k: jtfm.init_params(k, jcfg()))(jax.random.PRNGKey(9)))
+    batches = make_batches(12, 3, 13)
+    (work / "ranks").mkdir()
+    ranks = Ranks("elastic_trainer", N, work / "ranks",
+                  {"params": p0, "batches": batches, "opt": ET_OPT,
+                   "ckpt": str(work / "ckpt")})
+    try:  # the reference runs while the ranks do
+        mesh = build_mesh({"data": N})
+        opt = jtr.default_optimizer(**ET_OPT)
+        state, sh = jtr.init_state(jax.random.PRNGKey(0), jcfg(), mesh, opt)
+        state = jtr.TrainState(jax.device_put(p0, sh.params),
+                               state.opt_state, state.step)
+        step = jtr.make_train_step(jcfg(), mesh, opt)
+        ref = []
+        for b in batches:
+            state, out = step(state, b)
+            ref.append(float(out["loss"]))
+    finally:
+        outs = ranks.join()
+    return outs, ref
+
+
+def test_mesh_elastic_trainer_recovers_from_member_loss(mesh_run):
+    """Two steps on 4 ranks; the last worker's lease revoked: the next
+    step raises MembershipChanged naming it on every rank; recover saves
+    step 2, builds the 3-rank survivor mesh (the lost rank leaves),
+    restores into it with the params unchanged, and training goes on:
+    the losses are the reference's uninterrupted data-parallel ones."""
+    outs, ref = mesh_run
+    for r, out in enumerate(outs):
+        row = out["lost"]
+        assert row["raised"] == {"lost": ["127.0.0.1:9303"], "joined": []}
+        if r == N - 1:
+            assert row["left"]
+            assert row["recover"] == {"restored_step": 2, "devices": None}
+            continue
+        assert not row["left"]
+        assert row["recover"] == {"restored_step": 2, "devices": N - 1}
+        assert row["params_kept"] and row["mesh_size"] == N - 1
+        assert row["step_after"] == 2 and row["step_after_next"] == 3
+        np.testing.assert_allclose(row["losses"], ref, **LOSS_TOL)
+
+
+def test_mesh_elastic_trainer_refuses_zero_devices(mesh_run):
+    outs, _ = mesh_run
+    for out in outs:
+        assert "no surviving workers" in out["no_survivors"]

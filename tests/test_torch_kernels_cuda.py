@@ -721,3 +721,95 @@ def test_store_dp_compiled_cost_on_the_card(meshes):
     assert all(torch.equal(a, b) for a, b in zip(before, tr._param_leaves))
     assert cost["flops"] == profiling.transformer_grads_cost(
         cfg, 8, 32, stacked=1)["flops"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["none", "dots"])
+def test_remat_grads_equal_no_remat_through_the_flash_kernels(cuda, policy,
+                                                              dtype):
+    """Remat re-runs each layer's forward, the flash forward kernel
+    among it, in backward (2 forward launches a layer, one dq and one
+    dk/dv): the loss and every gradient equal no remat's, through the
+    kernels, at the narrow GQA config (Dh = 128)."""
+    from dataclasses import replace
+
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.train import trainer as tr
+
+    cfg = replace(NARROW, dtype=dtype, attn_impl="flash")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    for _, p in tr._flatten(params):
+        p.requires_grad_(True)
+    batch = next(synthetic_batches(cfg.vocab_size, 2, 256, seed=1,
+                                   device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    got = {}
+    for name, c in (("off", cfg),
+                    ("on", replace(cfg, remat=True, remat_policy=policy))):
+        before = [k.launches for k in counters]
+        loss, grads = tr.grads_of(params, batch, c)
+        torch.cuda.synchronize()
+        got[name] = (loss, [g for _, g in tr._flatten(grads)],
+                     [k.launches - b for k, b in zip(counters, before)])
+    L = cfg.n_layers
+    assert got["off"][2] == [L, L, L]
+    assert got["on"][2] == [2 * L, L, L]
+    assert torch.equal(got["on"][0], got["off"][0])
+    for a, b in zip(got["on"][1], got["off"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+def test_mesh_trainer_at_world_1_on_nccl_equals_the_one_device_trainer(
+        meshes):
+    """The sharded code path on a world-1 NCCL mesh {data, fsdp, model}
+    (every collective the identity) trains as the one-device Trainer:
+    the same losses and params after three steps at the narrow config,
+    through the flash kernels."""
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+    from ptype_tpu_torch.train import trainer as tr
+
+    mesh = build_mesh({"data": 1, "fsdp": 1, "model": 1})
+    cfg = NARROW
+    stream = synthetic_batches(cfg.vocab_size, 4, 256, seed=2,
+                               device="cuda")
+    batches = [next(stream) for _ in range(3)]
+    runs = {}
+    for name, kw in (("one", dict(device="cuda")), ("mesh", dict(mesh=mesh))):
+        t = Trainer(cfg, generator=torch.Generator(device="cuda").manual_seed(
+            0), optimizer=default_optimizer(lr=1e-3, warmup=1),
+                    sync_every=0, **kw)
+        losses = [float(t.step(b)["loss"]) for b in batches]
+        runs[name] = (losses, [p.detach() for _, p in
+                               tr._flatten(t.state.params)])
+    assert runs["mesh"][0] == pytest.approx(runs["one"][0], rel=1e-6)
+    for a, b in zip(runs["mesh"][1], runs["one"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_sequence_parallel_attention_at_world_1_runs_the_flash_kernels(
+        meshes, impl):
+    """Ring and Ulysses on a world-1 mesh (a ``seq`` axis of size 1, or
+    none) are one rank's whole-sequence attention: the flash kernels on
+    the card, forward and backward, never dense attention."""
+    from ptype_tpu_torch.parallel import ring_attention as ra
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+
+    make = (ra.make_ring_attention if impl == "ring"
+            else ra.make_ulysses_attention)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, 256, 4, 128, generator=gen, device="cuda",
+                    requires_grad=True)
+    k, v = (torch.randn(1, 256, 2, 128, generator=gen, device="cuda",
+                        requires_grad=True) for _ in range(2))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    for mesh in (meshes[0], build_mesh({"data": 1, "seq": 1})):
+        before = [c.launches for c in counters]
+        o = make(mesh)(q, k, v, NARROW)
+        o.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+        ref = ttfm._attention(q, k, v, NARROW)
+        assert (o - ref).abs().max().item() < FLASH_TOL[torch.float32]

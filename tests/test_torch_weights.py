@@ -77,3 +77,23 @@ def test_init_params_shapes_match_reference_and_are_seeded():
     # The reference's scales: 0.02 normals, GPT residual scaling on wo.
     assert abs(fa["embed"].std().item() - 0.02) < 2e-3
     assert fa["blocks/wo"].std().item() < 0.02
+
+
+def test_init_params_place_keeps_blocks_of_the_same_draws():
+    """``place`` sees every leaf, named by its path, as it is drawn, and
+    the tree keeps what it returns (a mesh rank's block): the values are
+    those of the whole init, for tied and untied heads."""
+    for tie in (True, False):
+        cfg = ttfm.preset("tiny", dtype=torch.float32, tie_embeddings=tie)
+        whole = _flat(init_params(torch.Generator().manual_seed(3), cfg))
+        seen = []
+
+        def place(path, leaf):
+            seen.append("/".join(path))
+            return leaf.narrow(-1, 0, 1).clone()
+
+        kept = _flat(init_params(torch.Generator().manual_seed(3), cfg,
+                                 place=place))
+        assert sorted(seen) == sorted(whole)
+        for name, leaf in whole.items():
+            assert torch.equal(kept[name], leaf.narrow(-1, 0, 1))

@@ -625,8 +625,329 @@ def elastic_suite(mesh, inp: dict) -> dict:
     return _np(out)
 
 
+def _full_state(t) -> dict:
+    """A mesh Trainer's params and moments whole (every rank calls)."""
+    from ptype_tpu_torch.parallel.mesh import gather
+    from ptype_tpu_torch.train import trainer as tr
+
+    out = {}
+    mom = tr.opt_state_placements(t.layout, t._shard_update)
+    for name, tree, specs in (("params", t.state.params, t.layout.specs),
+                              ("mu", t.state.opt_state.mu, mom),
+                              ("nu", t.state.opt_state.nu, mom)):
+        out[name] = tr._unflatten(
+            (path, gather(x.detach(), tr._at(specs, path), t.mesh).clone())
+            for path, x in tr._flatten(tree))
+    out["count"] = t.state.opt_state.count
+    out["step"] = t.state.step
+    return out
+
+
+def _moment_elems(t) -> int:
+    from ptype_tpu_torch.train import trainer as tr
+
+    return sum(int(x.numel()) for tree in (t.state.opt_state.mu,
+                                           t.state.opt_state.nu)
+               for _, x in tr._flatten(tree))
+
+
+def sharded_train_suite(mesh, inp: dict) -> dict:
+    """The mesh ``Trainer`` on every layout of ``inp["cases"]`` (name,
+    axes, knobs), each from the given params on the given batches: loss
+    and grad-norm curves, the final state whole, the moments' resident
+    elements; a grad-accum step with an uneven mask; sub-axis groups;
+    ``local_row_range``; a sharded save and a restore of the
+    reference's save; evaluation; and a step on rows each rank reads
+    itself."""
+    import torch.distributed as dist
+
+    from ptype_tpu_torch.checkpoint import Checkpointer
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel import collectives as C
+    from ptype_tpu_torch.parallel.mesh import (axis_group, axis_index,
+                                               build_mesh, gather, shard_of)
+    from ptype_tpu_torch.train import data as td
+    from ptype_tpu_torch.train import trainer as tr
+
+    r = mesh.rank
+    cfg = tfm.preset("tiny", dtype=torch.float32, attn_impl="xla",
+                     n_kv_heads=2)
+    batches = inp["batches"]
+    out: dict = {"cases": {}}
+
+    def trainer(m, **kw):
+        return tr.Trainer(cfg, mesh=m, params=inp["params"], sync_every=0,
+                          optimizer=tr.default_optimizer(**inp["opt"]), **kw)
+
+    for name, axes, knobs in inp["cases"]:
+        m = build_mesh(axes, device="cpu")
+        t = trainer(m, **knobs)
+        steps = [t.step(b) for b in batches]
+        row = {"losses": [float(o["loss"]) for o in steps],
+               "grad_norms": [float(o["grad_norm"]) for o in steps],
+               "moment_elems": _moment_elems(t), "state": _full_state(t)}
+        if name == inp["save_case"]:
+            ck = Checkpointer(inp["port_ckpt"], mesh=m)
+            t.save(ck)
+            # Checkpointer.restore into the placements: this rank's
+            # blocks, equal to the trainer's own.
+            mine = tr.state_tree(t.state)
+            got = ck.restore(mine, step=3, device="cpu",
+                             placements=t._placements)
+            row["restore_blocks_equal"] = all(
+                torch.equal(a, b) for (_, a), (_, b) in
+                zip(tr._flatten(got), tr._flatten(mine))
+                if torch.is_tensor(b))
+            row["eval"] = t.evaluate(iter(inp["eval_batches"]),
+                                     len(inp["eval_batches"]))
+        out["cases"][name] = row
+
+    # Grad accumulation with an uneven mask on a mesh.
+    m = build_mesh(inp["accum_axes"], device="cpu")
+    params = tr.tree_map(torch.from_numpy, inp["params"])
+    state, _ = tr.init_state(cfg, m, params)
+    step = tr.make_train_step(cfg, tr.default_optimizer(**inp["opt"]),
+                              grad_accum=2, mesh=m)
+    t = trainer(m)
+    state, o = step(state, t.shard_batch(inp["accum_batch"]))
+    t.state = state
+    out["accum"] = {"loss": float(o["loss"]), "state": _full_state(t)}
+
+    # Sub-axis groups: axis_index and a sum over each (composite) axis.
+    m = build_mesh(inp["group_axes"], device="cpu")
+    groups = {}
+    for axis in inp["group_probe"]:
+        axis = tuple(axis) if isinstance(axis, list) else axis
+        x = C.all_reduce(torch.tensor([float(r + 1)]), m, axis)
+        groups[str(axis)] = {
+            "index": axis_index(m, axis), "sum": float(x),
+            "ranks": dist.get_process_group_ranks(axis_group(m, axis))}
+    out["groups"] = groups
+    # The autograd collectives: forward and backward of each.
+    probe = {}
+    x = torch.arange(4.0).reshape(2, 2) + 10 * r
+    for name, fn in (("gather_for_use", C.gather_for_use),
+                     ("gather_replicated", C.gather_replicated)):
+        xl = x.clone().requires_grad_()
+        y = fn(xl, m, "model", 1)
+        (y * (torch.arange(y.numel()).reshape(y.shape) + 1.0)).sum().backward()
+        probe[name] = {"y": y.detach(), "grad": xl.grad}
+    for name, fn in (("reduce_from", C.reduce_from), ("copy_to", C.copy_to)):
+        xl = x.clone().requires_grad_()
+        y = fn(xl, m, "model")
+        (y * (r + 1.0)).sum().backward()
+        probe[name] = {"y": y.detach(), "grad": xl.grad}
+    out["autograd_collectives"] = probe
+    # Placements: shard_of then gather is the identity.
+    full = torch.arange(48.0).reshape(4, 12)
+    spec = (tuple(a for a in ("data", "fsdp") if a in m.axis_names) or None,
+            "model" if "model" in m.axis_names else None)
+    out["roundtrip"] = torch.equal(gather(shard_of(full, spec, m), spec, m),
+                                   full)
+
+    # local_row_range on the port's placements.
+    out["rows"] = {}
+    for label, axes in inp["row_axes"].items():
+        m = build_mesh(axes, device="cpu")
+        sizes = {a: int(n) for a, n in m.shape.items()}
+        out["rows"][label] = {
+            "batch": td.local_row_range(tfm.batch_spec(sizes), m, 16),
+            "replicated": td.local_row_range((), m, 16)}
+
+    # The reference's save restored into this layout's placements.
+    m = build_mesh(inp["restore_axes"], device="cpu")
+    t = trainer(m)
+    got_step = t.restore(Checkpointer(inp["ref_ckpt"], mesh=m))
+    row = {"step": got_step, "state": _full_state(t)}
+    row["next"] = float(t.step(inp["next_batch"])["loss"])
+    out["restored"] = row
+
+    # Each rank reads its own rows of the global batch (local_row_range)
+    # and steps on them: every rank's loss is the global one.
+    m = build_mesh({"data": mesh.size}, device="cpu")
+    t = trainer(m)
+    lo, hi = td.local_row_range(tfm.batch_spec({"data": m.size}), m,
+                                inp["mp_rows"].shape[0])
+    rows = inp["mp_rows"][lo:hi]
+    local = {"tokens": torch.from_numpy(rows[:, :-1]).long(),
+             "targets": torch.from_numpy(rows[:, 1:]).long()}
+    out["mp"] = {"range": (lo, hi), "losses": [
+        float(t._step_fn(t.state, local)[1]["loss"]) for _ in range(3)]}
+    return _np(out)
+
+
+def ring_suite(mesh, inp: dict) -> dict:
+    """Ring and Ulysses attention on the cases of this world size: each
+    rank's blocks of q, k, v, the attention's output and the grads of
+    ``sum(o ** 2)``, gathered whole; the head counts each collective
+    carried; a train step with the sequence axis."""
+    from unittest import mock
+
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel import collectives as C
+    from ptype_tpu_torch.parallel import ring_attention as ra
+    from ptype_tpu_torch.parallel.mesh import axis_index, build_mesh, gather, \
+        shard_of
+    from ptype_tpu_torch.train import trainer as tr
+
+    cfg = tfm.preset("tiny", dtype=torch.float32)
+    out = {}
+    for case in inp["cases"]:
+        if case["world"] != mesh.size:
+            continue
+        m = build_mesh(case["axes"], device="cpu")
+        names = m.axis_names
+        spec = (("data",) if "data" in names else None,
+                "seq" if "seq" in names else None,
+                "model" if "model" in names else None, None)
+        row = {}
+        if case["kind"] == "train":
+            t = tr.Trainer(cfg, mesh=m, params=inp["params"], sync_every=0,
+                           attn_fn=ra.make_ring_attention(m), seq_axis=True,
+                           optimizer=tr.default_optimizer(**inp["opt"]))
+            o = t.step(inp["train_batch"])
+            out[case["name"]] = {"loss": float(o["loss"]), "step": o["step"]}
+            continue
+        if case["kind"] == "degrade":
+            # Without the axis both are one rank's whole-sequence
+            # attention, chosen per call by the device: dense here.
+            g = torch.Generator().manual_seed(0)
+            q = torch.randn(1, 16, 4, 8, generator=g)
+            k, v = torch.randn(2, 1, 16, 2, 8, generator=g)
+            c = tfm.preset("tiny", n_heads=4, n_kv_heads=2, d_model=32)
+            want = tfm._attention(q, k, v, c)
+            out[case["name"]] = {
+                name: fn is ra._local_attention
+                and torch.equal(fn(q, k, v, c), want)
+                for name, fn in (("ring", ra.make_ring_attention(m)),
+                                 ("ulysses", ra.make_ulysses_attention(m)))}
+            continue
+        q, k, v = (torch.from_numpy(case[x]) for x in "qkv")
+        ql = shard_of(q, spec, m).clone().requires_grad_()
+        kl = shard_of(k, spec[:2], m)
+        vl = shard_of(v, spec[:2], m)
+        if "model" in names:
+            # K/V whole over heads: each model rank's padded share.
+            mm, mr = int(m.shape["model"]), axis_index(m, "model")
+            c = tfm.preset("tiny", n_heads=q.shape[2],
+                           n_kv_heads=k.shape[2],
+                           d_model=q.shape[2] * q.shape[3])
+            kl = tfm.tp_kv_heads(kl, c, mm, mr)
+            vl = tfm.tp_kv_heads(vl, c, mm, mr)
+        kl = kl.clone().requires_grad_()
+        vl = vl.clone().requires_grad_()
+        if case["kind"] == "ring":
+            attn = ra.make_ring_attention(
+                m, score_chunk=case.get("score_chunk",
+                                        ra.RING_SCORE_CHUNK))
+        else:
+            inner = tfm._flash_attn_fn if case.get("flash_inner") else None
+            attn = ra.make_ulysses_attention(m, inner_attn=inner)
+        heads = []
+        real = {"ring": C.ring_send, "ulysses": C.all_to_all_dims}
+
+        def spy(x, *a, _fn=real[case["kind"]], **k):
+            # ring: (2, B, S, K, Dh) stacked K/V; ulysses: (B, S, h, Dh)
+            heads.append(int(x.shape[3] if x.dim() == 5 else x.shape[2]))
+            return _fn(x, *a, **k)
+
+        target = "ring_send" if case["kind"] == "ring" else "all_to_all_dims"
+        with mock.patch.object(C, target, spy):
+            o = attn(ql, kl, vl, cfg)
+            (o ** 2).sum().backward()
+        row["heads"] = heads
+        row["o"] = gather(o.detach(), spec, m)
+        row["dq"] = gather(ql.grad, spec, m)
+        if "model" not in names:
+            row["dk"] = gather(kl.grad, spec[:2], m)
+            row["dv"] = gather(vl.grad, spec[:2], m)
+        out[case["name"]] = row
+    return _np(out)
+
+
+def elastic_trainer_suite(mesh, inp: dict) -> dict:
+    """``ElasticTrainer`` on every rank, rank 0 holding the registry:
+    two steps, a worker lost, ``MembershipChanged``, ``recover`` onto
+    the survivors from the checkpoint, and a step after; then every
+    worker revoked, and ``recover`` refused."""
+    import time
+
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.elastic import (ElasticTrainer, MembershipChanged,
+                                         inject_loss)
+    from ptype_tpu_torch.errors import ClusterError
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.registry import CoordRegistry
+    from ptype_tpu_torch.train import trainer as tr
+
+    r, n = mesh.rank, mesh.size
+    cfg = tfm.preset("tiny", dtype=torch.float32, attn_impl="xla")
+    batches = inp["batches"]
+    reg = None
+    if r == 0:
+        reg = CoordRegistry(LocalCoord(CoordState(sweep_interval=0.05)),
+                            lease_ttl=0.5)
+
+    def workers(service):
+        if r != 0:
+            return []
+        return [reg.register(service, f"w{i}", "127.0.0.1", 9300 + i,
+                             process_id=i) for i in range(n)]
+
+    def wait_for(pred):
+        deadline = time.monotonic() + 10
+        while not pred() and time.monotonic() < deadline:
+            time.sleep(0.01)
+
+    kw = dict(params=inp["params"],
+              optimizer=tr.default_optimizer(**inp["opt"]))
+    out = {}
+    regs = workers("etsvc")
+    t = ElasticTrainer(cfg, reg, "etsvc", inp["ckpt"] + "/lost", mesh, **kw)
+    row = {"losses": [float(t.step(b)["loss"]) for b in batches[:2]]}
+    if r == 0:
+        inject_loss(regs[n - 1])
+        wait_for(lambda: t.detector.changed)
+    try:
+        t.step(batches[2])
+        row["raised"] = None
+    except MembershipChanged as e:
+        row["raised"] = {"lost": e.lost, "joined": e.joined}
+    before = t.state.params["embed"].detach().clone()
+    row["recover"] = t.recover()
+    row["left"] = t.left
+    if not t.left:
+        row["params_kept"] = torch.equal(t.state.params["embed"], before)
+        row["step_after"] = t.state.step
+        o = t.step(batches[2])
+        row["losses"].append(float(o["loss"]))
+        row["step_after_next"] = int(o["step"])
+        row["mesh_size"] = t.mesh.size
+    t.close()
+    for h in regs:
+        h.close()
+    out["lost"] = row
+
+    # Every worker gone: no survivors, refused on every rank.
+    regs = workers("ezsvc")
+    t = ElasticTrainer(cfg, reg, "ezsvc", inp["ckpt"] + "/zero", mesh, **kw)
+    if r == 0:
+        for h in regs:
+            inject_loss(h)
+        wait_for(lambda: not t.detector.current())
+    try:
+        t.recover()
+        out["no_survivors"] = None
+    except ClusterError as e:
+        out["no_survivors"] = str(e)
+    t.close()
+    return _np(out)
+
+
 SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite,
-          "elastic": elastic_suite}
+          "elastic": elastic_suite, "sharded_train": sharded_train_suite,
+          "ring": ring_suite, "elastic_trainer": elastic_trainer_suite}
 
 
 def main(argv: list[str]) -> None:
