@@ -6,7 +6,8 @@
 Run from the root of a checkout. Phases, each printing its own lines:
 
 1. build — every CUDA kernel under ptype_tpu_torch/ops/csrc is compiled
-   by nvcc for sm_90a (one nvcc per source, all at once); prints the
+   by nvcc for sm_90a (one nvcc per source, all at once, while the
+   package imports); prints the
    build seconds, each kernel's registers and spills, its counts of
    HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions
    from cuobjdump -sass, and the card's name and power limit. The bf16
@@ -14,7 +15,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
 2. kernels — each kernel against its plain PyTorch version at the
    shapes the serving and training paths give it, at optimus-125m's
    head width (Dh=128) and optimus-moe's (Dh=64) (bf16, plus f32), with
-   the stated tolerance, its time, the plain version's time, one
+   the stated tolerance (bert-base's full-mask instance, B=16, S=512,
+   12 heads of 64, among them), its time, the plain version's time, one
    library call's time where one computes the same function (for the
    backward kernels: torch.autograd.grad through
    F.scaled_dot_product_attention) and the ratio of the two
@@ -142,8 +144,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    for bit; the same for ZeRO-2 on the world-1 NCCL mesh through
    ZeroCheckpoint + StoreCheckpoint; a ZeroCheckpoint of seeded moments
    (optimus-125m's plan) written by 2 gloo CPU rank processes of this
-   script (``--zero-writer``, started at the phase's start and joined
-   before its first timed figure) restores on the card byte for byte;
+   script (``--zero-writer``, started before store_dp_f32 and joined
+   before the phase's first timed figure) restores on the card byte for
+   byte;
    bytes written, save, snapshot (first and with its pinned buffers
    reused), background write and restore ms, the step while the write
    runs and without;
@@ -183,6 +186,32 @@ Run from the root of a checkout. Phases, each printing its own lines:
    a ``cluster_snapshot`` of the replica and this process: no alert
    from ``default_rules()``, ``render_top``/``render_serve`` printed,
    an OpenMetrics line for every metric family;
+   param_server: bert-base's async param-server mode at full width
+   (S=512, full attention, bf16 compute, f32 params; 16 sequences a
+   worker step where BERT's pretraining took 256): (a) the ``train``
+   verb with PRESET=bert-base MODE=async as its own process; (b) a
+   ``ParamServer`` in a server process of this script
+   (``--ps-server``) and two ``AsyncWorker``s here pushing over the
+   balanced RPC client, one on the exact wire and one on int8 with
+   error feedback: every push applied or rejected as stale, Stats()
+   equal to the workers' counts, the version equal to the applied
+   pushes, 12 flash forward, dq and dk/dv launches a step; a worker's
+   step ms and tokens/s, pull and push ms and bytes a wire, the
+   staleness; (c) at f32 a worker's losses through the kernels equal
+   its losses through dense attention;
+   actor_pipeline: ResNet-50 at full width (224x224x3, 1,000 classes,
+   B=32 in 4 microbatches): its six stage_split units as
+   ``resnet-stage<i>`` StageActors in a server process of this script
+   (``--stage-server``, started while param_server runs, with
+   ``resnet-eval`` and an f32 ``resnet32`` twin), found with
+   discover_stages: infer equals an in-process forward in bf16, two f32
+   sweeps equal the same stages chained here, three bf16 sweeps lower
+   the loss; sweep ms, images/s, ms and bytes a hop;
+   pipeline: GPipe and 1F1B over a world-1 ``stage`` mesh at
+   optimus-125m (B=16, S=1024, 4 microbatches, 2 steps each): step ms,
+   tokens/s, peak memory, the flash launches (GPipe 12 x 4 forward, dq
+   and dk/dv a step; 1F1B twice the forwards); at f32 both schedules'
+   losses equal the dense Trainer's;
    failover: coordinator failover and the operator CLI at optimus-125m,
    every process a ``python -m ptype_tpu_torch`` verb of this checkout
    with a two-level config tree (written as JSON): (a) a ``witness``, a
@@ -222,9 +251,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
    exact) — health's goodput rung —, (ZeRO 0, overlap) and (ZeRO-2,
    exact), NCCL and the bucket pack (cat) among the families.
 
-Then the kernels' JSON line, the card line, and as the last line
+Then each phase's wall seconds (one JSON line), the kernels' JSON
+line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
-Weights are random, from a fixed seed. Without a CUDA device, or
+sampled_engine, disagg_engine, batching_generator, moe_paged_parity,
+checkpoint, elastic and the store_dp profiles run the first 4 of the
+model's 12 layers (``SHORT_LAYERS``). Weights are random, from a fixed
+seed. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -265,6 +298,15 @@ LOGIT_TOL_BF16 = 0.1
 #: orders (the f32 kernel is within 1e-6 of plain attention); a token
 #: whose top-2 experts flipped would move its logits by ~0.1 or more.
 LOGIT_TOL_F32 = 1e-3
+
+
+#: Layers of the paths whose checks are equalities between two runs
+#: (sampled_engine, disagg_engine, batching_generator, moe_paged_parity;
+#: checkpoint and elastic, bit for bit) and of the store_dp profiles: 4
+#: of the model's 12 at its published widths, to keep the whole run
+#: within half its time limit. Their requests, tokens, steps and runs
+#: are the full model's.
+SHORT_LAYERS = 4
 
 
 class SmokeError(Exception):
@@ -379,33 +421,35 @@ def ptxas_summary(build, log):
 # ----------------------------------------------------------- phase 2
 
 
-def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen, Dh=128):
+def flash_case(torch, F, flash_mod, B, S, H, K, dtype, flush, gen, Dh=128,
+               causal=True):
     q = torch.randn(B, S, H, Dh, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, K, Dh, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, S, K, Dh, generator=gen, device="cuda").to(dtype)
-    got = flash_mod.flash_attention(q, k, v, causal=True)
-    want = flash_mod.flash_attention_plain(q, k, v, causal=True)
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    want = flash_mod.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     kind = "bf16" if dtype == torch.bfloat16 else "f32"
     check(torch.isfinite(got).all().item(), "flash output not finite")
     check(err <= TOL["flash"][kind],
-          f"flash {B}x{S}x{H}/{K} Dh={Dh} {kind}: max err {err} > "
-          f"{TOL['flash'][kind]}")
-    ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v), 10,
-                 flush)
-    plain_ms = time_ms(
-        torch, lambda: flash_mod.flash_attention_plain(q, k, v), 3, flush)
+          f"flash {B}x{S}x{H}/{K} Dh={Dh} {kind} causal={causal}: max err "
+          f"{err} > {TOL['flash'][kind]}")
+    ms = time_ms(torch, lambda: flash_mod.flash_attention(q, k, v, causal),
+                 10, flush)
+    plain_ms = time_ms(torch, lambda: flash_mod.flash_attention_plain(
+        q, k, v, causal), 3, flush)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=K != H), 10, flush)
+        qt, kt, vt, is_causal=causal, enable_gqa=K != H), 10, flush)
     esz = q.element_size()
     nbytes = (2 * B * S * H * Dh + 2 * B * S * K * Dh) * esz
-    pairs = S * (S + 1) // 2                      # causal (q, k) pairs
+    # (q, k) pairs: causal's lower triangle, a full mask's every pair
+    pairs = S * (S + 1) // 2 if causal else S * S
     ops = 4 * B * H * Dh * pairs                  # QK^T and PV, 2 each
     bound_ms, by = bound(nbytes, ops, kind)
     return {"kernel": "flash_fwd", "B": B, "S": S, "H": H, "K": K,
-            "Dh": Dh, "dtype": kind, "max_abs_err": err,
+            "Dh": Dh, "dtype": kind, "causal": causal, "max_abs_err": err,
             "tol": TOL["flash"][kind], "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "vs_library": ms / lib_ms,
             "bound_ms": bound_ms, "bound_by": by}
@@ -1381,7 +1425,7 @@ def store_dp_profile(torch, tfm, train_mod, mesh, zero, overlap):
     from ptype_tpu_torch.models.weights import init_params
     from ptype_tpu_torch.train import store_dp as sd
 
-    cfg = tfm.preset("optimus-125m")
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     batch = next(train_mod.synthetic_batches(cfg.vocab_size, 16, 1024,
                                              seed=3, device="cuda"))
@@ -1396,7 +1440,8 @@ def store_dp_profile(torch, tfm, train_mod, mesh, zero, overlap):
     # are ranges, not kernels: their device time is their kernels'.
     labels = sorted({ev.key for ev in prof.key_averages()
                      if ev.key.startswith(("train.", "store."))})
-    return {"phase": "store_dp_profile", "zero": zero, "overlap": overlap,
+    return {"phase": "store_dp_profile", "n_layers": SHORT_LAYERS,
+            "zero": zero, "overlap": overlap,
             **profile_summary(prof, wall_ms, labels),
             **range_summary(prof, labels)}
 
@@ -1620,11 +1665,13 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
     depth follows the deepest live row, so a co-batched row's last
     window draws more than its solo one); and each sampled window reads
     the host as often as a greedy one. Emits its row, then checks."""
-    cfg = tfm.preset("optimus-125m")
-    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32,
+                       n_layers=SHORT_LAYERS)
     seeds = list(range(1, len(prompts) + 1))
     k = 4
     row = {"phase": "sampled_engine", "preset": "optimus-125m",
+           "n_layers": SHORT_LAYERS,
            "sampling": SAMPLING, "seeds": seeds, "max_new": max_new,
            "requests": len(prompts)}
     launches, checks = 0, {}
@@ -1848,8 +1895,9 @@ def disagg_phase(torch, tfm, paged_mod, PagedGeneratorActor, params,
     request decodes, at (1 + 4/512)/2 of the exact bytes, residuals on
     the prefill side); dedup of the shared prefix; paged launches only
     on the decode engine. Emits its row, then checks."""
-    cfg = tfm.preset("optimus-125m")
-    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32,
+                       n_layers=SHORT_LAYERS)
     runs, toks = {}, {}
     for name, c, wire in (("f32_exact", cfg32, "exact"),
                           ("bf16_exact", cfg, "exact"),
@@ -1873,7 +1921,8 @@ def disagg_phase(torch, tfm, paged_mod, PagedGeneratorActor, params,
     n_prefix = 96 // kw["block_tokens"]
     want_hits = (len(prompts) - 1) * n_prefix
     row = {"phase": "disagg_engine", "preset": "optimus-125m",
-           "requests": len(prompts), "max_new": max_new,
+           "n_layers": SHORT_LAYERS, "requests": len(prompts),
+           "max_new": max_new,
            "block_pair_bytes_exact_bf16": ex["legs"][0]["bytes"]
            // ex["legs"][0]["blocks"],
            "f32_exact_identical_to_unified": f32_same == total,
@@ -1920,15 +1969,16 @@ def batching_phase(torch, tfm, flash_mod, BatchingGeneratorActor,
     coalesce, left-padded, and launch none; in f32 every request's
     tokens equal its solo run. Emits its row, then checks."""
     gp = torch.Generator().manual_seed(5)
-    cfg = tfm.preset("optimus-125m")
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
     equal = [torch.randint(1, cfg.vocab_size, (512,), generator=gp)
              for _ in range(8)]
     row = {"phase": "batching_generator", "preset": "optimus-125m",
-           "requests": 8, "max_new": max_new}
+           "n_layers": SHORT_LAYERS, "requests": 8, "max_new": max_new}
     launches, flags = 0, []
     for dt in ("bf16", "f32"):
-        c = tfm.preset("optimus-125m", **({} if dt == "bf16"
-                                          else {"dtype": torch.float32}))
+        c = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS,
+                       **({} if dt == "bf16"
+                          else {"dtype": torch.float32}))
         actor = BatchingGeneratorActor(c, params=params, device="cuda",
                                        window_ms=500.0)
         solo = GeneratorActor(c, params=params, device="cuda")
@@ -2099,7 +2149,7 @@ def join_zero_writers(procs, timeout=300):
                 p.wait()
 
 
-def checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh):
+def checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh, writers=None):
     """The checkpoint tier at optimus-125m (B=16, S=1024, bf16 compute,
     f32 params, seed 0): a Trainer saves step 2 in the background while
     steps 3-4 run, and a fresh Trainer restored from it runs steps 3-4
@@ -2114,16 +2164,18 @@ def checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh):
     from ptype_tpu_torch.train import store_dp as sd
     from ptype_tpu_torch.train import trainer as tr_mod
 
-    writers_dir, writers = start_zero_writers(2)
-    cfg = tfm.preset("optimus-125m")
+    # ``writers``: the (dir, processes) of start_zero_writers(2), started
+    # ahead of the phase so their start-up overlaps untimed work.
+    writers_dir, writers = writers or start_zero_writers(2)
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
     stream = train_mod.synthetic_batches(cfg.vocab_size, 16, 1024, seed=3,
                                          device="cuda")
     batches = [next(stream) for _ in range(4)]
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
                 flash_mod.flash_attention_dkv)
-    row = {"phase": "checkpoint", "preset": "optimus-125m", "B": 16,
-           "S": 1024}
+    row = {"phase": "checkpoint", "preset": "optimus-125m",
+           "n_layers": SHORT_LAYERS, "B": 16, "S": 1024}
     try:
         for c in counters:
             c.launches = 0
@@ -2276,7 +2328,7 @@ def elastic_phase(torch, tfm, flash_mod, train_mod, mesh):
     from ptype_tpu_torch.registry import CoordRegistry
     from ptype_tpu_torch.train import store_dp as sd
 
-    cfg = tfm.preset("optimus-125m")
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
     stream = train_mod.synthetic_batches(cfg.vocab_size, 16, 1024, seed=4,
                                          device="cuda")
     batches = [next(stream) for _ in range(4)]
@@ -2285,7 +2337,8 @@ def elastic_phase(torch, tfm, flash_mod, train_mod, mesh):
     state = CoordState(sweep_interval=0.05)
     reg = CoordRegistry(LocalCoord(state), lease_ttl=0.5)
     hp = train_mod.OptHParams(lr=1e-3, warmup=2)
-    row = {"phase": "elastic", "preset": "optimus-125m", "B": 16,
+    row = {"phase": "elastic", "preset": "optimus-125m",
+           "n_layers": SHORT_LAYERS, "B": 16,
            "S": 1024, "zero": 2, "lease_ttl_s": 0.5}
 
     def trainer(service):
@@ -2548,7 +2601,7 @@ CLUSTER_TTL = 1.0
 #: client (a relist and one frame on loopback).
 CLUSTER_DELIVERY_S = 0.25
 #: Empty calls timed a transport, and the size of the bulk tensor.
-RTT_CALLS = 2000
+RTT_CALLS = 1000
 BULK_ELEMS = 64 * 2**20          # 256 MB of f32
 
 
@@ -2963,7 +3016,7 @@ GW_RATES = (4, 8, 16, 24, 28, 32, 48)
 GW_TRACE = dict(process="poisson", duration_s=8.0)
 GW_SLO_TTFT_MS = 1000.0
 GW_SLO_TPOT_MS = 50.0
-GW_SETTLE_S = 1.0
+GW_SETTLE_S = 0.5
 GW_DEADLINE_S = 10.0
 GW_PROBE_S = 0.2
 GW_RAG_PROMPT_MAX = 800
@@ -3574,7 +3627,7 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
                                 is_coordinator=True, lease_ttl=CLUSTER_TTL)))
     coord = seed._owned_server.address
     work = tempfile.mkdtemp(prefix="chip_smoke_rec_")
-    timings, spawned = {}, []
+    timings, spawned, paged = {}, [], None
 
     class TimedLauncher(ProcessLauncher):
         """Stamps each spawn (Popen, ready file, activation) and keeps
@@ -3688,6 +3741,28 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
                        for n, t in timings.items()},
             "fleet": fleet()}
         emit({"phase": "reconciler", "part": "a", **row["a"]})
+
+        # (e)'s worker starts here, in the background: its start-up
+        # overlaps (b), which times nothing.
+        check("PTYPE_REPLICA_DEVICE" not in os.environ,
+              "reconciler (e): PTYPE_REPLICA_DEVICE is set")
+        paged = ProcessLauncher(coord, service="llm-rec-paged",
+                                kind="paged", preset="optimus-125m",
+                                spawn_timeout_s=120,
+                                env={"PYTHONPATH": root})
+        spawn_e = {}
+
+        def spawn_paged():
+            t0 = time.monotonic()
+            try:
+                spawn_e["h"] = paged.spawn("rec-paged-e")
+                spawned.append(spawn_e["h"]._proc)
+            except Exception as e:  # noqa: BLE001 — checked in (e)
+                spawn_e["error"] = repr(e)
+            spawn_e["s"] = time.monotonic() - t0
+
+        spawner_e = threading.Thread(target=spawn_paged, daemon=True)
+        spawner_e.start()
 
         # (b) one at a time, greedy, through a gateway whose affinity
         # never yields to load: one shared key pins every request to one
@@ -3881,25 +3956,19 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         emit({"phase": "reconciler", "part": "d", **row["d"]})
 
         # (e) kind="paged" with no device variable: the worker's own
-        # path, on the card.
-        check("PTYPE_REPLICA_DEVICE" not in os.environ,
-              "reconciler (e): PTYPE_REPLICA_DEVICE is set")
-        paged = ProcessLauncher(coord, service="llm-rec-paged",
-                                kind="paged", preset="optimus-125m",
-                                spawn_timeout_s=120,
-                                env={"PYTHONPATH": root})
+        # path, on the card (spawned at (b)).
         try:
-            t0 = time.monotonic()
-            ph = paged.spawn("rec-paged-e")
-            t_ready = time.monotonic() - t0
-            spawned.append(ph._proc)
+            spawner_e.join(timeout=180)
+            check("h" in spawn_e, f"reconciler (e): the paged worker did "
+                  f"not come up: {spawn_e}")
+            ph, t_ready = spawn_e["h"], spawn_e["s"]
             out_e = call(ph.addr, "Generator.Generate",
                          torch.ones((1, 16), dtype=torch.int32,
                                     device="cuda"), 8)
             info_e = call(ph.addr, "Generator.Info")
             ph.exit()
             ph._proc.wait(timeout=60)
-            row["e"] = {"popen_to_ready_s": t_ready,
+            row["e"] = {"popen_to_ready_s_beside_b_to_d": t_ready,
                         "shape": list(out_e.shape),
                         "device": info_e["device"], "attn": info_e["attn"],
                         "device_bytes_in_use": info_e["memory"].get(
@@ -3986,6 +4055,8 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         hint["fn"] = gw.scale_hint
         if rec is not None:
             rec.close(stop_fleet=True)
+        if paged is not None:
+            paged.close()
         launcher.close()
         gw.close()
         for p in spawned:
@@ -4415,9 +4486,9 @@ class CliProc:
     """``python -m ptype_tpu_torch VERB...`` of this checkout as a child
     process, its output (stdout and stderr) in a log under ``work``."""
 
-    def __init__(self, verb, cfg, work, name, **env):
+    def __init__(self, verb, cfg, work, name, phase="failover", **env):
         root = os.path.dirname(os.path.abspath(__file__))
-        self.name = name
+        self.name, self.phase = name, phase
         self.log = os.path.join(work, f"{name}.log")
         e = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
@@ -4439,7 +4510,7 @@ class CliProc:
         deadline = time.monotonic() + timeout
         while needle not in self.text():
             check(self.proc.poll() is None and time.monotonic() < deadline,
-                  f"failover: {self.name} printed no {needle!r} (exit "
+                  f"{self.phase}: {self.name} printed no {needle!r} (exit "
                   f"{self.proc.poll()}):\n{self.text()[-4000:]}")
             time.sleep(0.02)
         return (time.monotonic() - self.t0) * 1e3
@@ -4450,7 +4521,7 @@ class CliProc:
             rc = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
             rc = None
-        check(rc == 0, f"failover: {self.name} exited {rc}:\n"
+        check(rc == 0, f"{self.phase}: {self.name} exited {rc}:\n"
               f"{self.text()[-4000:]}")
         return self.text()
 
@@ -4602,6 +4673,10 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
                                              - sb.t0) * 1e3
         ready["replica"] = rep.wait("serving Generator", 600)
         row["ready_ms"] = ready
+
+        # (f)'s info verb starts here: its start-up overlaps (b), which
+        # times nothing.
+        info_proc = start("info", None, "info")
 
         # (b) phase 4's prompts one at a time, greedy, 32 new tokens.
         gen = client.new_client(FO_SERVICE)
@@ -4934,7 +5009,7 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
               f"failover: eval launched the flash forward {eval_fwd} times")
 
         # (f) info on the card.
-        out = start("info", None, "info").finish(120)
+        out = info_proc.finish(120)
         info = json.loads(out[out.index("{"):out.rindex("}") + 1])
         row["info"] = info
         check(info["platform"] == "cuda" and info["devices"] == 1
@@ -4960,7 +5035,626 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
     return launches, records
 
 
+# ------------------------------------------- the last baseline modes
+
+PS_PRESET = "bert-base"
+PS_B, PS_S = 16, 512
+#: BERT's published pretraining batch: 256 sequences of 512 tokens.
+PS_PUBLISHED_B = 256
+PS_CLI_STEPS = 3
+PS_STEPS = 3          # pushes of each worker of (b)
+PS_F32_STEPS = 2
+PS_SERVICE = "bert-ps"
+#: AdamW of the param_server and pipeline phases: no warm-up, so a
+#: second step already moves the loss.
+STEP_OPT = dict(lr=1e-3, warmup=0)
+AP_PIPE, AP_EVAL, AP_F32 = "resnet", "resnet-eval", "resnet32"
+AP_B, AP_M, AP_HW, AP_SWEEPS = 32, 4, 224, 3
+#: ResNet-50 logits of the stage actors (another process) against an
+#: in-process forward, both bf16 on the card: max abs error over the
+#: largest logit. The two processes may pick other cuDNN algorithms,
+#: which sum in other orders and round to bf16 at other points.
+AP_BF16_TOL = 2e-2
+#: The same at f32 (TF32 off): the first sweep's loss (the same
+#: forward), and the second's, after each stage's Apply, whose update
+#: carries the gradients' rounding: cuDNN's weight-gradient algorithms
+#: add atomically, in an order of their own, and the microbatch sums
+#: arrive in another order through the actors (1.2e-5 and 6.9e-5 of the
+#: loss in two runs of the sweep after the step).
+AP_F32_LOSS_RTOL = 1e-4
+AP_F32_STEP_RTOL = 1e-3
+AP_F32_SWEEPS = 2
+PP_B, PP_S, PP_M, PP_STEPS = 16, 1024, 4, 2
+PP_F32_B = 4
+#: Pipelined against dense losses at f32: the reference's bound for two
+#: schedules' step-for-step losses (tests/test_pipeline.py).
+PIPE_LOSS_RTOL = 1e-4
+
+
+def payload_bytes(x):
+    """Bytes of the tensors and arrays in a payload (a pull's params, a
+    push's tree or its int8 wire)."""
+    if isinstance(x, dict):
+        return sum(payload_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(payload_bytes(v) for v in x)
+    if hasattr(x, "element_size"):
+        return x.numel() * x.element_size()
+    return getattr(x, "nbytes", 0)
+
+
+def seed_cluster(name):
+    """A TCP coordinator seeded in this process, and its member (no
+    service), whose clients decode replies onto the card."""
+    from ptype_tpu_torch import Config, PlatformConfig, join
+
+    seed = join(Config(service_name="", node_name=name, port=0,
+                       platform=PlatformConfig(
+                           name=name, coordinator_address="127.0.0.1:0",
+                           is_coordinator=True, lease_ttl=CLUSTER_TTL)),
+                device="cuda")
+    return seed, seed._owned_server.address
+
+
+def start_child(mode, coord, work):
+    """``python3 chip_smoke.py MODE COORD`` with its first line, its
+    log, and the Popen."""
+    out_path, log_path = (os.path.join(work, f"{mode[2:]}.{n}")
+                          for n in ("out", "log"))
+    with open(out_path, "w") as out_f, open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), mode, coord],
+            stdout=out_f, stderr=log_f)
+    return proc, out_path, log_path
+
+
+def stop_child(proc):
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=60)
+
+
+def serve_forever(servers, clusters):
+    print(json.dumps({"ready": True}), flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    finally:
+        for c in clusters:
+            c.close()
+        for srv in servers:
+            srv.close()
+
+
+def ps_server(coord):
+    """Helper mode (``--ps-server COORD``): the param_server phase's
+    server process. A ``ParamServer`` of bert-base (seed-0 weights on the
+    card, AdamW at STEP_OPT, publishing through a TensorStore on its own
+    world-1 NCCL group) served as ``ParamServer`` on an ``ActorServer``,
+    joined to the TCP coordinator at COORD as PS_SERVICE. Prints one
+    JSON line and serves until killed."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ptype_tpu_torch import ActorServer, Config, PlatformConfig, join
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.param_server import ParamServer
+    from ptype_tpu_torch.train.trainer import default_optimizer
+
+    init_distributed(f"tcp://{free_addr()}", 0, 1)
+    ps = ParamServer(tfm.preset(PS_PRESET), TensorStore(build_mesh(
+        {"data": 1})), optimizer=default_optimizer(**STEP_OPT),
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    server = ActorServer()
+    server.register(ps, "ParamServer")
+    server.serve()
+    name = f"ps-{os.getpid()}"
+    cluster = join(Config(
+        service_name=PS_SERVICE, node_name=name, port=server.port,
+        initial_cluster_client_urls=[coord],
+        platform=PlatformConfig(name=name, coordinator_address=coord,
+                                lease_ttl=CLUSTER_TTL)))
+    serve_forever([server], [cluster])
+
+
+class TimedServer:
+    """A worker's ParamServer peer over the RPC client: each Pull and
+    Push timed on the host clock with its payload's bytes."""
+
+    def __init__(self, client):
+        self.client = client
+        self.pulls, self.pushes = [], []
+
+    def Pull(self):
+        t0 = time.perf_counter()
+        out = self.client.call("ParamServer.Pull")
+        self.pulls.append(((time.perf_counter() - t0) * 1e3,
+                           payload_bytes(out["params"])))
+        return out
+
+    def Push(self, grads, version):
+        t0 = time.perf_counter()
+        try:
+            return self.client.call("ParamServer.Push", grads, version)
+        finally:
+            self.pushes.append(((time.perf_counter() - t0) * 1e3,
+                                payload_bytes(grads)))
+
+
+def ms_bytes(rows):
+    ms = sorted(r[0] for r in rows)
+    return {"n": len(rows), "ms_p50": ms[len(ms) // 2], "ms_max": ms[-1],
+            "bytes": rows[0][1] if rows else None}
+
+
+def param_server_phase(torch, tfm, flash_mod, train_mod, mesh, card):
+    """BERT-base async param-server mode at full width (12 layers of
+    12 × 64 heads, d_ff 3072, vocab 30592, S=512, full attention), bf16
+    compute, f32 parameters: (a) ``python -m ptype_tpu_torch train``
+    with PRESET=bert-base MODE=async BATCH=16 SEQ=512 as its own
+    process; (b) a ``ParamServer`` in a server process (``--ps-server``)
+    and two ``AsyncWorker``s here pushing over the balanced RPC client,
+    one on the exact wire and one on int8 with error feedback:
+    every push applied or rejected as stale, ``Stats()`` equal to what
+    the workers counted, the version equal to the applied pushes, the
+    flash kernels 12 a step each; (c) at f32 one worker's losses
+    through the kernels equal to its losses through dense attention.
+    Returns (b)'s (forward, dq, dk/dv) launches."""
+    from ptype_tpu_torch import ConnConfig
+    from ptype_tpu_torch.parallel.collectives import WireConfig
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train.param_server import AsyncWorker, ParamServer
+
+    cfg = tfm.preset(PS_PRESET)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ps_")
+    row = {"phase": "param_server", "preset": PS_PRESET, "B": PS_B,
+           "S": PS_S, "card": card,
+           "reduced": f"{PS_B} sequences a worker step, not the "
+                      f"{PS_PUBLISHED_B} of BERT's published pretraining"}
+    seed, addr = seed_cluster("ps-seed")
+    child = cli = None
+    try:
+        # (a) the CLI verb and (b)'s server process start together, and
+        # (c), which times nothing, runs while they come up
+        cli_cfg = cli_config(work, "ps-train", "bert-train",
+                             coordinator_address=free_addr(),
+                             is_coordinator=True, mesh_axes={"data": 1})
+        cli = CliProc("train", cli_cfg, work, "ps-train",
+                      phase="param_server", PRESET=PS_PRESET, MODE="async",
+                      BATCH=str(PS_B), SEQ=str(PS_S),
+                      STEPS=str(PS_CLI_STEPS))
+        cli_exit = []  # the verb's exit time on the host clock
+        threading.Thread(target=lambda: cli_exit.append(
+            (cli.proc.wait(), time.monotonic())[1]), daemon=True).start()
+        child, out_path, log_path = start_child("--ps-server", addr, work)
+        # (c) f32: the kernels' losses against dense attention's
+        cfg32 = tfm.preset(PS_PRESET, dtype=torch.float32)
+        stream = train_mod.synthetic_batches(cfg.vocab_size, PS_B, PS_S,
+                                             seed=9, device="cuda")
+        batches = [next(stream) for _ in range(PS_F32_STEPS)]
+        losses, f32_launches = {}, 0
+        for name, attn in (("flash", None), ("dense", tfm._attention)):
+            ps = ParamServer(cfg32, TensorStore(mesh),
+                             optimizer=train_mod.default_optimizer(**STEP_OPT),
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(0))
+            before = flash_mod.flash_attention.launches
+            wk = AsyncWorker(cfg32, ps, device="cuda", attn_fn=attn)
+            losses[name] = [wk.step(b)["loss"] for b in batches]
+            if attn is None:
+                f32_launches = flash_mod.flash_attention.launches - before
+            del ps, wk
+            torch.cuda.empty_cache()
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["flash"], losses["dense"]))
+        row["c"] = {"losses": losses, "max_rel": rel,
+                    "rtol": STORE_DP_LOSS_RTOL,
+                    "flash_fwd_launches": f32_launches}
+        check(f32_launches == cfg.n_layers * PS_F32_STEPS,
+              f"param_server (c): {f32_launches} f32 flash launches")
+        check(rel <= STORE_DP_LOSS_RTOL, f"param_server (c): f32 losses "
+              f"through the kernels {losses['flash']} against dense "
+              f"{losses['dense']}")
+        # (a)'s output
+        out = cli.finish(600)
+        steps = re.findall(r"^step +(\d+) loss (\S+) applied=(\w+)", out,
+                           re.M)
+        row["a"] = {"wall_s": cli_exit[0] - cli.t0,
+                    "steps": [[int(i), float(lo), ok == "True"]
+                              for i, lo, ok in steps]}
+        check(f"optimus[async] {PS_PRESET} on 1 devices, batch={PS_B} "
+              f"seq={PS_S}" in out and len(steps) == 2
+              and all(ok == "True" and math.isfinite(float(lo))
+                      for _, lo, ok in steps),
+              f"param_server (a): the train verb's output:\n{out[-3000:]}")
+
+        # (b) two workers over the RPC client, one wire each
+        wait_child_line(child, out_path, log_path, 300, "param_server")
+        conn = ConnConfig(initial_node_timeout=60, debounce_time=0.1,
+                          retries=0, call_timeout=600)
+        wires = {"exact": None,
+                 "int8": WireConfig(compress="int8", error_feedback=True)}
+        peers = {n: TimedServer(seed.new_client(PS_SERVICE, conn))
+                 for n in wires}
+        workers = {n: AsyncWorker(cfg, peers[n], worker_id=i, wire=w,
+                                  device="cuda")
+                   for i, (n, w) in enumerate(wires.items())}
+        streams = {n: train_mod.synthetic_batches(
+            cfg.vocab_size, PS_B, PS_S, seed=10 + i, device="cuda")
+            for i, n in enumerate(wires)}
+        counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                    flash_mod.flash_attention_dkv)
+        for c in counters:
+            c.launches = 0
+        results = {n: [] for n in wires}
+        errors = []
+
+        def run(n):
+            try:
+                for _ in range(PS_STEPS):
+                    t0 = time.perf_counter()
+                    r = workers[n].step(next(streams[n]))
+                    r["ms"] = (time.perf_counter() - t0) * 1e3
+                    results[n].append(r)
+            except Exception as e:  # noqa: BLE001 — checked below
+                errors.append(f"{n}: {e!r}")
+
+        threads = [threading.Thread(target=run, args=(n,)) for n in wires]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches = [c.launches for c in counters]
+        check(not errors, f"param_server (b): {errors}")
+        stats = peers["exact"].client.call("ParamServer.Stats")
+        w = workers.values()
+        applied = sum(x.steps for x in w)
+        rejected = sum(x.stale_rejections for x in w)
+        done = [r for n in wires for r in results[n]]
+        row["b"] = {
+            "stats": stats, "steps": {n: len(results[n]) for n in wires},
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dq": launches[1],
+                         "flash_bwd_dkv": launches[2]},
+            "staleness": [r.get("staleness") for r in done],
+            "losses": {n: [r["loss"] for r in results[n]] for n in wires},
+            "per_worker": {n: {
+                "step_ms": [r["ms"] for r in results[n]],
+                # the rest of a step: its grads (and the int8 wire's
+                # quantize) on the card
+                "step_less_wire_ms": [
+                    r["ms"] - pull[0] - push[0] for r, pull, push in zip(
+                        results[n], peers[n].pulls, peers[n].pushes)],
+                "tokens_per_s": PS_B * PS_S * len(results[n])
+                / (sum(r["ms"] for r in results[n]) / 1e3),
+                "pull": ms_bytes(peers[n].pulls),
+                "push": ms_bytes(peers[n].pushes)} for n in wires}}
+        check(all(len(results[n]) == PS_STEPS for n in wires)
+              and all(r["applied"] in (True, False) for r in done),
+              f"param_server (b): a push neither applied nor rejected: "
+              f"{results}")
+        check(stats["applied"] == applied
+              and stats["rejected"] == rejected
+              and stats["quantized"] == workers["int8"].steps
+              and stats["version"] == stats["applied"],
+              f"param_server (b): Stats() {stats} against the workers' "
+              f"{applied} applied, {rejected} rejected, "
+              f"{workers['int8'].steps} quantized")
+        check(all(math.isfinite(r["loss"]) for r in done),
+              f"param_server (b): a loss not finite: {results}")
+        want = cfg.n_layers * len(done)
+        check(launches == [want] * 3, f"param_server (b): launches "
+              f"fwd/dq/dkv {launches} != {want} each")
+        q, e = (peers[n].pushes[0][1] for n in ("int8", "exact"))
+        check(q * 3.5 < e, f"param_server (b): the int8 push is {q} bytes "
+              f"against the exact {e}")
+        for p in peers.values():
+            p.client.close()
+        del workers
+        torch.cuda.empty_cache()
+
+        emit(row)
+        return launches
+    finally:
+        if cli is not None:
+            cli.stop()
+        if child is not None:
+            stop_child(child)
+        seed.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def stage_server(coord):
+    """Helper mode (``--stage-server COORD``): the actor_pipeline
+    phase's server process. ResNet-50's six ``stage_split`` units from
+    seed-0 weights on the card, each a ``StageActor`` (Adam 1e-3) on its
+    own ``ActorServer``, joined to the TCP coordinator at COORD as
+    ``<pipeline>-stage<i>``: the bf16 train-mode pipeline AP_PIPE, its
+    eval-mode twin AP_EVAL, and the f32 train-mode AP_F32 (TF32 off).
+    Prints one JSON line and serves until killed."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ptype_tpu_torch import ActorServer, Config, PlatformConfig, join
+    from ptype_tpu_torch.models import resnet
+    from ptype_tpu_torch.train.actor_pipeline import (StageActor,
+                                                      stage_service)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    servers, clusters = [], []
+    for pipe, dtype, train in ((AP_PIPE, torch.bfloat16, True),
+                               (AP_EVAL, torch.bfloat16, False),
+                               (AP_F32, torch.float32, True)):
+        cfg = resnet.preset("resnet-50", dtype=dtype)
+        params = resnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cuda")
+        for i, (_, fn, p) in enumerate(resnet.stage_split(params, cfg,
+                                                          train)):
+            server = ActorServer()
+            server.register(StageActor(fn, p), "Stage")
+            server.serve()
+            servers.append(server)
+            name = f"{pipe}-{i}-{os.getpid()}"
+            clusters.append(join(Config(
+                service_name=stage_service(pipe, i), node_name=name,
+                port=server.port, initial_cluster_client_urls=[coord],
+                platform=PlatformConfig(name=name, coordinator_address=coord,
+                                        lease_ttl=CLUSTER_TTL))))
+    serve_forever(servers, clusters)
+
+
+class StageServer:
+    """The actor_pipeline phase's server process (``--stage-server``)
+    and the TCP coordinator it joins, started ahead of the phase (its
+    start overlaps the phase before) and stopped on exit."""
+
+    def __enter__(self):
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_ap_")
+        self.seed, addr = seed_cluster("ap-seed")
+        self.t0 = time.monotonic()
+        self.child, self.out_path, self.log_path = start_child(
+            "--stage-server", addr, self.work)
+        return self
+
+    def __exit__(self, *exc):
+        stop_child(self.child)
+        self.seed.close()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+class HopClock:
+    """A stage's RPC client with its Forward and Backward calls timed on
+    the host clock, with the bytes of the tensor each carries."""
+
+    def __init__(self, client, hops):
+        self.client, self.hops = client, hops
+
+    def call(self, method, *args):
+        t0 = time.perf_counter()
+        out = self.client.call(method, *args)
+        if method in ("Stage.Forward", "Stage.Backward"):
+            self.hops.append((method, (time.perf_counter() - t0) * 1e3,
+                              payload_bytes(args[1])))
+        return out
+
+    def close(self):
+        self.client.close()
+
+
+def ce_grad(torch, labels):
+    """``loss_grad_fn`` of ``PipelineClient.train_step``: softmax cross
+    entropy of a microbatch's logits against ``labels`` (every
+    microbatch's, as the function sees only the logits)."""
+
+    def fn(logits):
+        y = logits.detach().float().requires_grad_(True)
+        logz = torch.logsumexp(y, -1)
+        loss = (logz - y.gather(-1, labels[:, None])[:, 0]).mean()
+        return loss.detach(), torch.autograd.grad(loss, y)[0]
+
+    return fn
+
+
+def actor_pipeline_phase(torch, card, server):
+    """ResNet-50 actor-per-layer pipeline at full width (224×224×3,
+    1,000 classes, B=32, 4 microbatches): the six ``stage_split`` units
+    as ``resnet-stage<i>`` in a server process (``--stage-server``)
+    apart from this one, found with ``discover_stages``: ``infer``
+    equals an in-process ``forward(train=False)`` in bf16; at f32 one
+    ``train_step`` equals the same stages chained here with the same
+    optimizer (its loss, then the logits after it); three bf16 sweeps
+    of one batch lower the loss. Sweep ms, images/s, bytes and ms a
+    hop. ``server`` is the running :class:`StageServer`."""
+    from ptype_tpu_torch import ConnConfig
+    from ptype_tpu_torch.models import resnet
+    from ptype_tpu_torch.train.actor_pipeline import (PipelineClient,
+                                                      StageActor,
+                                                      discover_stages)
+
+    row = {"phase": "actor_pipeline", "preset": "resnet-50", "B": AP_B,
+           "microbatches": AP_M, "image": [3, AP_HW, AP_HW], "card": card}
+    seed = server.seed
+    clients = []
+    try:
+        cfg = resnet.preset("resnet-50")
+        cfg32 = resnet.preset("resnet-50", dtype=torch.float32)
+        params = resnet.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(AP_B, 3, AP_HW, AP_HW, generator=g, device="cuda")
+        labels = torch.randint(0, cfg.n_classes, (AP_B // AP_M,),
+                               generator=g, device="cuda")
+        want = resnet.forward(params, x, cfg)[0]
+        wait_child_line(server.child, server.out_path, server.log_path,
+                        300, "actor_pipeline")
+        row["server_ready_s_after_start"] = time.monotonic() - server.t0
+        n_stages = len(cfg.depths) + 2        # stem, the stages, head
+        names = discover_stages(seed.registry, AP_PIPE)
+        row["stages"] = names
+        check(len(names) == n_stages, f"actor_pipeline: discovered {names}")
+        conn = ConnConfig(initial_node_timeout=60, debounce_time=0.1,
+                          retries=0, call_timeout=600)
+
+        def client(pipe):
+            clients.append(PipelineClient(seed, pipe, conn_cfg=conn))
+            return clients[-1]
+
+        got = client(AP_EVAL).infer(x)
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        row["infer"] = {"rel_err": err, "tol": AP_BF16_TOL}
+        check(got.shape == (AP_B, cfg.n_classes) and err <= AP_BF16_TOL,
+              f"actor_pipeline: infer {tuple(got.shape)} off the "
+              f"in-process forward by {err} of the largest logit")
+
+        # f32: sweeps through the actors, the same stages chained here
+        lg = ce_grad(torch, labels)
+        remote = client(AP_F32)
+        local = [StageActor(fn, p) for _, fn, p in resnet.stage_split(
+            params, cfg32, train=True)]
+        loss_r, loss_l = [], []
+        for _ in range(AP_F32_SWEEPS):
+            loss_r.append(remote.train_step(x, lg, AP_M))
+            losses = []
+            for m, xm in enumerate(x.chunk(AP_M)):
+                a = xm
+                for st in local:
+                    a = st.Forward(m, a)
+                lo, gr = lg(a)
+                losses.append(float(lo))
+                for st in reversed(local):
+                    gr = st.Backward(m, gr)
+            check([st.Apply() for st in local] == [AP_M] * n_stages,
+                  "actor_pipeline: a local stage applied another count")
+            loss_l.append(sum(losses) / AP_M)
+        rel = [abs(a - b) / abs(b) for a, b in zip(loss_r, loss_l)]
+        row["f32"] = {"losses_actors": loss_r, "losses_in_process": loss_l,
+                      "rel": rel, "rtol": [AP_F32_LOSS_RTOL,
+                                           AP_F32_STEP_RTOL]}
+        check(rel[0] <= AP_F32_LOSS_RTOL and rel[1] <= AP_F32_STEP_RTOL
+              and loss_r[1] < loss_r[0],
+              f"actor_pipeline: f32 sweeps through the actors {row['f32']}")
+        del local
+        torch.cuda.empty_cache()
+
+        # bf16 sweeps, each hop timed
+        pipe = client(AP_PIPE)
+        hops = []
+        pipe._clients = [HopClock(c, hops) for c in pipe._clients]
+        sweeps = []
+        for _ in range(AP_SWEEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = pipe.train_step(x, lg, AP_M)
+            torch.cuda.synchronize()
+            sweeps.append({"loss": loss,
+                           "ms": (time.perf_counter() - t0) * 1e3})
+        row["sweeps"] = sweeps
+        row["images_per_s"] = [AP_B / (s["ms"] / 1e3) for s in sweeps]
+        row["hops"] = {}
+        for method in ("Stage.Forward", "Stage.Backward"):
+            ms = sorted(h[1] for h in hops if h[0] == method)
+            row["hops"][method] = {
+                "n": len(ms), "ms_p50": ms[len(ms) // 2], "ms_max": ms[-1],
+                "bytes": sorted({h[2] for h in hops if h[0] == method})}
+        lo = [s["loss"] for s in sweeps]
+        check(all(math.isfinite(v) for v in lo) and lo[-1] < lo[0],
+              f"actor_pipeline: the loss did not fall over the sweeps: {lo}")
+        check(len(hops) == 2 * n_stages * AP_M * AP_SWEEPS,
+              f"actor_pipeline: {len(hops)} hops")
+        emit(row)
+    finally:
+        for c in clients:
+            c.close()
+
+
+def pipeline_phase(torch, tfm, flash_mod, train_mod, card):
+    """The GPipe and 1F1B pipeline over a world-1 ``stage`` mesh (NCCL)
+    at optimus-125m: PP_STEPS steps of each at B=16, S=1024, 4
+    microbatches, bf16 — step ms, tokens/s, peak memory, the flash
+    kernels' launches (GPipe 12 × 4 forward, dq and dk/dv a step; 1F1B
+    its forward twice, the backward recomputing it); then at f32 (TF32
+    off, B=4) both schedules' losses equal to the dense ``Trainer``'s.
+    Returns the bf16 run's (forward, dq, dk/dv) launches."""
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.parallel import pipeline as pp
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh({"stage": 1})
+    cfg = tfm.preset("optimus-125m")
+    L = cfg.n_layers
+    row = {"phase": "pipeline", "preset": "optimus-125m", "B": PP_B,
+           "S": PP_S, "microbatches": PP_M, "stages": 1, "card": card,
+           "schedules": {}}
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, PP_B, PP_S,
+                                             seed=3, device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    for c in counters:
+        c.launches = 0
+    for schedule in ("gpipe", "1f1b"):
+        opt = train_mod.default_optimizer(**STEP_OPT)
+        state, _ = pp.init_pipeline_state(cfg, mesh, params, opt)
+        step = pp.make_pipeline_train_step(cfg, mesh, PP_M, opt,
+                                           schedule=schedule)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [float(step(state, batch)[1]["loss"])
+                  for _ in range(PP_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row["schedules"][schedule] = {
+            "losses": losses, "step_ms": wall / PP_STEPS * 1e3,
+            "tokens_per_s": PP_B * PP_S * PP_STEPS / wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **pp.schedule_info(1, PP_M, schedule)}
+        check(all(math.isfinite(v) for v in losses),
+              f"pipeline {schedule}: loss not finite: {losses}")
+        del state, step
+        torch.cuda.empty_cache()
+    launches = [c.launches for c in counters]
+    per = PP_STEPS * L * PP_M
+    row["launches"] = launches
+    check(launches == [3 * per, 2 * per, 2 * per],
+          f"pipeline: launches fwd/dq/dkv {launches} != "
+          f"{[3 * per, 2 * per, 2 * per]}")
+
+    cfg32 = tfm.preset("optimus-125m", dtype=torch.float32)
+    b32 = {k: v[:PP_F32_B] for k, v in batch.items()}
+    losses = {}
+    tr = train_mod.Trainer(cfg32, device="cuda", params=params,
+                           optimizer=train_mod.default_optimizer(**STEP_OPT),
+                           sync_every=0)
+    losses["trainer"] = [float(tr.step(b32)["loss"])
+                         for _ in range(PP_STEPS)]
+    del tr
+    for schedule in ("gpipe", "1f1b"):
+        opt = train_mod.default_optimizer(**STEP_OPT)
+        state, _ = pp.init_pipeline_state(cfg32, mesh, params, opt)
+        step = pp.make_pipeline_train_step(cfg32, mesh, PP_M, opt,
+                                           schedule=schedule)
+        losses[schedule] = [float(step(state, b32)[1]["loss"])
+                            for _ in range(PP_STEPS)]
+        del state, step
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for s in ("gpipe", "1f1b")
+              for a, b in zip(losses[s], losses["trainer"]))
+    row["f32"] = {"B": PP_F32_B, "losses": losses, "max_rel": rel,
+                  "rtol": PIPE_LOSS_RTOL}
+    check(rel <= PIPE_LOSS_RTOL, f"pipeline: f32 losses {losses}")
+    check(losses["trainer"][-1] < losses["trainer"][0],
+          f"pipeline: the f32 loss did not fall: {losses}")
+    emit(row)
+    return launches
+
+
 def main():
+    started = last = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -4970,12 +5664,35 @@ def main():
         raise SmokeError("ptype_tpu_torch/ not found beside chip_smoke.py: "
                          "run from a checkout of the repository")
     sys.path.insert(0, root)
+    from ptype_tpu_torch.ops import _build
+
+    # 1. build: nvcc compiles while the rest of the package imports
+    t0 = time.monotonic()
+    build = {}
+
+    def run_build():
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ptype_tpu_torch import native
+
+        try:
+            build["built"] = _build.build_all()
+            names = [p.stem for p in sorted(_build.CSRC.glob("*.cu"))]
+            with ThreadPoolExecutor(len(names) + 1) as pool:
+                wire = pool.submit(native.available)  # the RPC wire's g++
+                build["sass"] = dict(zip(names, pool.map(
+                    _build.sass_counts, names)))
+                wire.result()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            build["error"] = e
+
+    build_thread = threading.Thread(target=run_build, daemon=True)
+    build_thread.start()
     import torch.nn.functional as F
 
     from ptype_tpu_torch.models import generate as gen_mod
     from ptype_tpu_torch.models import transformer as tfm
     from ptype_tpu_torch.models.weights import init_params
-    from ptype_tpu_torch.ops import _build
     from ptype_tpu_torch.ops import flash_attention as flash_mod
     from ptype_tpu_torch.ops import paged_attention as paged_mod
     from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
@@ -4987,14 +5704,22 @@ def main():
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    seconds = {}
 
-    # 1. build
-    t0 = time.monotonic()
-    built = _build.build_all()
+    def lap(name):
+        """Wall seconds since the previous lap, under ``name``."""
+        nonlocal last
+        now = time.monotonic()
+        seconds[name] = seconds.get(name, 0.0) + now - last
+        last = now
+
+    build_thread.join()
+    if "error" in build:
+        raise build["error"]
+    built = build["built"]
     regs = {n: ptxas_summary(_build, log)
             for n, log in _build.build_logs.items()}
-    sass = {p.stem: _build.sass_counts(p.stem)
-            for p in sorted(_build.CSRC.glob("*.cu"))}
+    sass = build["sass"]
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "built": built, "ptxas": regs, "sass": sass, "card": card})
     for lib, kernel in (("flash_fwd", "flash_fwd_kernel_bf16"),
@@ -5031,18 +5756,24 @@ def main():
         cases.append(flash_case(torch, F, flash_mod, B, S, H, K, dt, flush,
                                 g, Dh=Dh))
         emit(cases[-1])
+    # bert-base's full-mask instance (the param_server phase's workers)
+    cases.append(flash_case(torch, F, flash_mod, 16, 512, 12, 12,
+                            torch.bfloat16, flush, g, Dh=64, causal=False))
+    emit(cases[-1])
     for B, S, H, K, dt, causal, Dh in (
             (16, 1024, 6, 6, torch.bfloat16, True, 128),
             (4, 512, 6, 6, torch.float32, True, 128),
             (1, 2048, 32, 8, torch.bfloat16, True, 128),
             (1, 8192, 32, 8, torch.bfloat16, True, 128),
             (4, 1024, 6, 6, torch.bfloat16, False, 128),
-            (16, 1024, 12, 12, torch.bfloat16, True, 64)):
+            (16, 1024, 12, 12, torch.bfloat16, True, 64),
+            (16, 512, 12, 12, torch.bfloat16, False, 64)):
         for row in bwd_case(torch, F, flash_mod, B, S, H, K, dt, causal,
                             flush, g, Dh=Dh):
             cases.append(row)
             emit(row)
     del flush
+    lap("build_and_kernels")
 
     # 3. GeneratorActor at optimus-125m
     cfg = tfm.preset("optimus-125m")
@@ -5053,6 +5784,7 @@ def main():
     flash_launches = generator_phase(
         torch, tfm, gen_mod, flash_mod, GeneratorActor, "optimus-125m",
         params, prompt, 32, "generator_actor")
+    lap("generator_actor")
 
     # 4. PagedGeneratorActor at optimus-125m
     gp = torch.Generator().manual_seed(2)
@@ -5086,22 +5818,26 @@ def main():
           "bf16_step_logits_max_abs_diff": ldiff, "tol": LOGIT_TOL_BF16})
     del e
     torch.cuda.empty_cache()
+    lap("paged_engine")
 
     # cluster_rpc: phases 3 and 4 served over the port's cluster plane
     rpc_flash, rpc_paged = cluster_rpc_phase(
         torch, flash_mod, paged_mod, GeneratorActor, PagedGeneratorActor,
         params, prompt, 32, prompts, max_new, kw, card)
+    lap("cluster_rpc")
 
     # gateway_serving: two replica processes behind the port's gateway,
     # interleaved, disaggregated, and under open-loop load
     gw_paged = gateway_serving_phase(torch, tfm, PagedGeneratorActor,
                                      params, prompts, max_new, kw, card)
+    lap("gateway_serving")
 
     # reconciler: the port's reconciler spawns, heals and drains a fleet
     # of replica processes behind the gateway under open-loop traffic
     rec_paged, rec_flash = reconciler_phase(torch, tfm, PagedGeneratorActor,
                                             params, prompts, max_new, kw,
                                             card)
+    lap("reconciler")
 
     # 5. Trainer at optimus-125m
     row, (fwd_n, dq_n, dkv_n) = trainer_phase(torch, tfm, flash_mod,
@@ -5110,6 +5846,7 @@ def main():
     emit(row)
     emit(grad_parity(torch, tfm, train_mod, cfg))
     torch.cuda.empty_cache()
+    lap("trainer")
 
     # MoE: GeneratorActor, paged engine and Trainer at optimus-moe
     mcfg = tfm.preset("optimus-moe")
@@ -5131,17 +5868,19 @@ def main():
         torch, paged_mod, PagedGeneratorActor, "optimus-moe", mcfg,
         mparams, prompts, lens, max_new, kw, "moe_paged_engine")
     emit(row)
-    mcfg32 = tfm.preset("optimus-moe", dtype=torch.float32)
-    e = PagedGeneratorActor(mcfg32, params=mparams, attn="kernel", **kw)
+    mcfg32 = tfm.preset("optimus-moe", dtype=torch.float32,
+                        n_layers=SHORT_LAYERS)
+    mshort, _ = gen_mod.truncated_draft_params(mparams, mcfg, SHORT_LAYERS)
+    e = PagedGeneratorActor(mcfg32, params=mshort, attn="kernel", **kw)
     try:
         eng32, _ = run_requests(e, prompts, max_new)
     finally:
         e.close()
-    contiguous = [gen_mod.generate(mparams, mcfg32, p.to("cuda")[None],
+    contiguous = [gen_mod.generate(mshort, mcfg32, p.to("cuda")[None],
                                    max_new) for p in prompts]
-    div = first_divergence(torch, gen_mod, mparams, mcfg32, prompts, eng32,
+    div = first_divergence(torch, gen_mod, mshort, mcfg32, prompts, eng32,
                            contiguous)
-    emit({"phase": "moe_paged_parity",
+    emit({"phase": "moe_paged_parity", "n_layers": SHORT_LAYERS,
           "f32_kernel_engine_equals_contiguous": div is None,
           "first_divergence": div})
     check(div is None, f"moe f32 engine tokens differ from the contiguous "
@@ -5152,47 +5891,60 @@ def main():
         torch, tfm, flash_mod, train_mod, "optimus-moe", "moe_trainer")
     emit(row)
     torch.cuda.empty_cache()
+    lap("moe")
 
     # Speculative decoding on the paged engine at optimus-125m
     spec_launches, spec_syncs = spec_phase(torch, tfm, gen_mod, paged_mod,
                                PagedGeneratorActor, SpecConfig, params,
                                prompts, max_new, kw)
     torch.cuda.empty_cache()
+    lap("spec_engine")
 
     # Sampled requests, the serving ledger, disaggregated prefill/decode
     # and the batching actor, at optimus-125m
+    short, _ = gen_mod.truncated_draft_params(params, cfg, SHORT_LAYERS)
     sampled_launches = sampled_phase(torch, tfm, gen_mod, paged_mod,
-                                     PagedGeneratorActor, SpecConfig, params,
+                                     PagedGeneratorActor, SpecConfig, short,
                                      prompts, max_new, kw)
     torch.cuda.empty_cache()
+    lap("sampled_engine")
     ledger_phase(torch, serving_mod, PagedGeneratorActor, cfg, params,
                  prompts, max_new, kw, paged_ledger, spec_syncs)
     disagg_launches = disagg_phase(torch, tfm, paged_mod, PagedGeneratorActor,
-                                   params, prompts, max_new, kw)
+                                   short, prompts, max_new, kw)
     torch.cuda.empty_cache()
     batch_launches = batching_phase(torch, tfm, flash_mod,
                                     BatchingGeneratorActor, GeneratorActor,
-                                    params, prompts, 32)
+                                    short, prompts, 32)
     torch.cuda.empty_cache()
+    lap("ledger_disagg_batching")
 
     # store_dp: StoreDPTrainer through the Store, world 1 over NCCL
     rdv = tempfile.mkdtemp(prefix="chip_smoke_pg_")
     init_distributed(f"file://{rdv}/rdv", 0, 1)
     mesh = build_mesh({"data": 1})
     store_launches = store_dp_phase(torch, tfm, flash_mod, train_mod, mesh)
+    # (checkpoint's two CPU writer processes start here: their start-up
+    # overlaps store_dp_f32, whose checks time nothing)
+    writers = start_zero_writers(2)
     store_dp_f32_phase(torch, tfm, flash_mod, train_mod, mesh)
     torch.cuda.empty_cache()
+    lap("store_dp")
 
     # checkpoint and elastic: save/resume and live reshard at optimus-125m
-    ckpt_launches = checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh)
+    ckpt_launches = checkpoint_phase(torch, tfm, flash_mod, train_mod, mesh,
+                                     writers)
+    lap("checkpoint")
     elastic_launches = elastic_phase(torch, tfm, flash_mod, train_mod, mesh)
     torch.cuda.empty_cache()
+    lap("elastic")
 
     # llama_remat: llama-3-8b at full width (depth cut) through the mesh
     # Trainer with remat off, "none" and "dots", at S=8192
     llama_launches = llama_remat_phase(torch, tfm, flash_mod, train_mod,
                                        card)
     torch.cuda.empty_cache()
+    lap("llama_remat")
 
     # health: goodput, the sampler's cost, a replica profiled over RPC,
     # alerts and the obs views, at optimus-125m
@@ -5200,11 +5952,33 @@ def main():
         torch, tfm, flash_mod, train_mod, mesh, params, prompts, max_new,
         card)
     torch.cuda.empty_cache()
+    lap("health")
+
+    # param_server: bert-base async param-server mode, a server process
+    # and two workers over RPC (exact and int8), and the CLI's MODE=async
+    # (the actor_pipeline phase's server process starting meanwhile)
+    with StageServer() as stage_server:
+        ps_launches = param_server_phase(torch, tfm, flash_mod, train_mod,
+                                         mesh, card)
+        torch.cuda.empty_cache()
+        lap("param_server")
+
+        # actor_pipeline: ResNet-50's stage actors in a server process
+        actor_pipeline_phase(torch, card, stage_server)
+        torch.cuda.empty_cache()
+        lap("actor_pipeline")
+
+    # pipeline: GPipe and 1F1B over a world-1 stage mesh at optimus-125m
+    pp_launches = pipeline_phase(torch, tfm, flash_mod, train_mod, card)
+    torch.cuda.empty_cache()
+    lap("pipeline")
 
     # failover: coordinator failover and the operator CLI, every process
     # a python -m ptype_tpu_torch verb, at optimus-125m
     fo_launches, fo_records = failover_phase(torch, tfm, flash_mod, prompts,
                                              card)
+    lap("failover")
+
 
     # 6. profiles, after every host-timed phase: one engine decode
     # iteration, one train step of each model, one speculation window,
@@ -5215,12 +5989,15 @@ def main():
               **engine_iteration_profile(torch, eng, prompts, 32)})
     finally:
         eng.close()
+    lap("profile_engine")
     emit(trainer_profile(torch, tfm, train_mod, "optimus-125m"))
     torch.cuda.empty_cache()
     emit(trainer_profile(torch, tfm, train_mod, "optimus-moe", MOE_RANGES))
     torch.cuda.empty_cache()
+    lap("profile_trainers")
     emit(llama_profile(torch, tfm, train_mod))
     torch.cuda.empty_cache()
+    lap("profile_llama")
     dp, dc = gen_mod.truncated_draft_params(params, cfg, n_layers=2)
     eng = PagedGeneratorActor(
         cfg, params=params, attn="kernel",
@@ -5231,11 +6008,15 @@ def main():
     finally:
         eng.close()
     torch.cuda.empty_cache()
+    lap("profile_spec")
     for zero, overlap in ((0, False), (0, True), (2, False)):
         emit(store_dp_profile(torch, tfm, train_mod, mesh, zero, overlap))
         torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
     shutil.rmtree(rdv, ignore_errors=True)
+    lap("profile_store_dp")
+    emit({"phase_seconds": seconds,
+          "total_s": time.monotonic() - started})
 
     def main_row(name, source, replaces, launches, row, by_path, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -5246,15 +6027,15 @@ def main():
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "vs_library": row["vs_library"], "dtype": row["dtype"],
-                "shape": {k: row[k] for k in ("B", "S", "H", "K", "Kh", "Dh")
-                          if k in row},
+                "shape": {k: row[k] for k in ("B", "S", "H", "K", "Kh", "Dh",
+                                              "causal") if k in row},
                 **extra}
 
-    def pick(kernel, B, H, Dh, S=None):
+    def pick(kernel, B, H, Dh, S=None, causal=True):
         return next(c for c in cases if c["kernel"] == kernel
                     and c.get("S") == S and c["B"] == B and c["H"] == H
                     and c["Dh"] == Dh and c["dtype"] == "bf16"
-                    and c.get("causal", True))
+                    and c.get("causal", True) == causal)
 
     fwd_src = "ptype_tpu_torch/ops/csrc/flash_fwd.cu"
     bwd_src = "ptype_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -5270,7 +6051,8 @@ def main():
               "checkpoint": ckpt_launches[0],
               "elastic": elastic_launches[0],
               "health": health_own[0] + health_rep_fwd,
-              "failover": fo_launches[0] + fo_records}
+              "failover": fo_launches[0] + fo_records,
+              "pipeline": pp_launches[0]}
     if rec_flash:
         fwd128["reconciler"] = rec_flash
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
@@ -5314,7 +6096,7 @@ def main():
              {"trainer": dq_n, "store_dp": store_launches[1],
               "checkpoint": ckpt_launches[1],
               "elastic": elastic_launches[1], "health": health_own[1],
-              "failover": fo_launches[1]}),
+              "failover": fo_launches[1], "pipeline": pp_launches[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
              {"moe_trainer": moe_dq_n}),
@@ -5323,10 +6105,19 @@ def main():
              {"trainer": dkv_n, "store_dp": store_launches[2],
               "checkpoint": ckpt_launches[2],
               "elastic": elastic_launches[2], "health": health_own[2],
-              "failover": fo_launches[2]}),
+              "failover": fo_launches[2], "pipeline": pp_launches[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
              {"moe_trainer": moe_dkv_n}),
+        rows("flash_fwd", fwd_src, fwd_ref,
+             pick("flash_fwd", 16, 12, 64, 512, causal=False),
+             {"param_server": ps_launches[0]}),
+        rows("flash_bwd_dq", bwd_src, dq_ref,
+             pick("flash_bwd_dq", 16, 12, 64, 512, causal=False),
+             {"param_server": ps_launches[1]}),
+        rows("flash_bwd_dkv", bwd_src, dkv_ref,
+             pick("flash_bwd_dkv", 16, 12, 64, 512, causal=False),
+             {"param_server": ps_launches[2]}),
         rows("paged_decode", paged_src, paged_ref, paged_rows[0], paged128,
              device_ms=paged_rows[0]["device_ms"],
              host_us=paged_rows[0]["host_us"]),
@@ -5341,6 +6132,12 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--zero-writer"]:
         zero_writer(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--ps-server"]:
+        ps_server(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--stage-server"]:
+        stage_server(sys.argv[2])
         sys.exit(0)
     if sys.argv[1:2] == ["--actor-server"]:
         opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))

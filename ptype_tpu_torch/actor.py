@@ -29,7 +29,7 @@ import struct
 import threading
 import traceback
 
-from ptype_tpu_torch import codec, logs, trace
+from ptype_tpu_torch import codec, logs, threadpool, trace
 from ptype_tpu_torch.coord import wire
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.errors import ShedError
@@ -174,11 +174,8 @@ class ActorServer:
                     except (wire.WireError, OSError):
                         return
                 # net/rpc services requests concurrently; so do we.
-                threading.Thread(
-                    target=self._handle_request,
-                    args=(conn, send_lock, msg, args_blob),
-                    daemon=True,
-                ).start()
+                threadpool.spawn(self._handle_request, conn, send_lock,
+                                 msg, args_blob)
         finally:
             with self._conns_lock:
                 self._conns.discard(conn)

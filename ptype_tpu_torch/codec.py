@@ -30,6 +30,12 @@ from typing import Any
 import numpy as np
 
 _LEN = struct.Struct(">I")
+#: The keys :func:`decode` reads as markers, so no payload dict may use
+#: them. (The reference refuses every ``__dunder__`` key, so it cannot
+#: send the collectives' quantized wires ``__ptype_q8__`` /
+#: ``__ptype_q8_tree__``; the port sends them, and either decoder reads
+#: them back as plain dicts.)
+_MARKERS = frozenset({"__tensor__", "__bytes__", "__list__", "__tuple__"})
 
 
 class CodecError(ValueError):
@@ -98,7 +104,7 @@ def _encode_impl(payload: Any) -> tuple[bytes, list]:
             for k in x:
                 if not isinstance(k, str):
                     raise CodecError(f"dict keys must be str, got {type(k)}")
-                if k.startswith("__") and k.endswith("__"):
+                if k in _MARKERS:
                     raise CodecError(f"reserved key name: {k!r}")
             return {k: enc(v) for k, v in x.items()}
         raise CodecError(f"cannot encode {type(x).__name__}")

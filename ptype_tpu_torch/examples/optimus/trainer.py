@@ -3,7 +3,7 @@
 Join the cluster described by ``$CONFIG`` and train a transformer on a
 synthetic token stream, with the reference's environment knobs and
 printed lines (the banner, ``step … loss …``, ``resumed …`` and
-``checkpointed step N``). Two modes:
+``checkpointed step N``). Three modes:
 
 - ``gspmd`` (default): the port's :class:`~ptype_tpu_torch.train.Trainer`
   with ``Checkpointer`` save and resume — on one device, or, when the
@@ -11,7 +11,11 @@ printed lines (the banner, ``step … loss …``, ``resumed …`` and
   on the mesh of the cluster's ranks (each rank a process; the
   reference's FSDP/TP/ZeRO-1 placements);
 - ``store``: Store-backed DP (``train/store_dp.py``) — push/pull IS the
-  gradient exchange, manifests published through the cluster's KV.
+  gradient exchange, manifests published through the cluster's KV;
+- ``async``: param-server mode (``train/param_server.py``) — an
+  un-barriered pull → grads → push loop against a ``ParamServer``
+  publishing through the Store (the BASELINE "BERT-base async
+  param-server mode" with ``PRESET=bert-base``).
 
 Env knobs: PRESET (optimus-125m), STEPS, BATCH, SEQ, MODE,
 LR/WARMUP/WEIGHT_DECAY/DECAY_STEPS (optimizer), METRICS_PATH (JSONL
@@ -19,9 +23,9 @@ sink), COMPRESS (store mode: bf16|int8 gradient-push wire compression),
 ZERO=1 (store mode: sharded weight update, ``ZeroCheckpoint`` beside the
 params), SHARD_UPDATE=1 (gspmd mode: the moments split over ``data``),
 CKPT_DIR and CKPT_EVERY (save/resume), and PTYPE_DEVICE (the device,
-``cuda`` when unset; set it to ``cpu`` to train on the CPU).
-
-Not ported: ``MODE=async`` (the parameter server, ROADMAP A8) raises.
+``cuda`` when unset; set it to ``cpu`` to train on the CPU). ``store``
+and ``async`` build their Store on the platform's ``mesh_axes`` (``{data:
+1}`` for one process).
 """
 
 from __future__ import annotations
@@ -64,15 +68,10 @@ def _mfu(out) -> str:
 def main() -> None:
     cfg = config_from_env()
     mode = os.environ.get("MODE", "gspmd")
-    if mode == "async":
-        raise NotImplementedError(
-            "optimus trainer: MODE=async needs the parameter server "
-            "(train/param_server.py), which the port does not have yet "
-            "(ROADMAP A8)")
-    if mode not in ("gspmd", "store"):
+    if mode not in ("gspmd", "store", "async"):
         raise SystemExit(f"unknown MODE {mode!r}")
     shard_update = os.environ.get("SHARD_UPDATE") == "1"
-    on_mesh = mode == "store" or shard_update or math.prod(
+    on_mesh = mode != "gspmd" or shard_update or math.prod(
         cfg.platform.mesh_axes.values()) > 1
     device = resolve_device(os.environ.get("PTYPE_DEVICE") or None)
 
@@ -164,7 +163,7 @@ def main() -> None:
                 if ck.latest_step() != final:
                     trainer.save(ck)
                 print(f"checkpointed step {final}", flush=True)
-        else:
+        elif mode == "store":
             from ptype_tpu_torch.parallel.tensorstore import TensorStore
             from ptype_tpu_torch.train.store_dp import StoreDPTrainer
 
@@ -248,6 +247,22 @@ def main() -> None:
                       flush=True)
                 if zc is not None:
                     zc.save(out["step"], trainer.zero_state())
+        else:
+            from ptype_tpu_torch.parallel.tensorstore import TensorStore
+            from ptype_tpu_torch.train.param_server import (AsyncWorker,
+                                                            ParamServer)
+
+            store = TensorStore(mesh, kv=cluster.store, device=device)
+            server = ParamServer(model_cfg, store, optimizer=optimizer)
+            worker = AsyncWorker(model_cfg, server, device=device)
+            for i in range(steps):
+                out = worker.step(next(stream))
+                if i % 10 == 0 or i == steps - 1:
+                    print(f"step {i:5d} loss {out['loss']:.4f} "
+                          f"applied={out['applied']}", flush=True)
+                    if mw is not None:
+                        mw.emit(i, loss=out["loss"],
+                                applied=float(out["applied"]))
     finally:
         if mw is not None:
             mw.close()

@@ -45,9 +45,8 @@ replica, forcing the route elsewhere; ``delay``).
 from __future__ import annotations
 
 import threading
-import time
 
-from ptype_tpu_torch import chaos, lockcheck, logs, retry
+from ptype_tpu_torch import chaos, lockcheck, logs, retry, threadpool
 from ptype_tpu_torch import rpc as rpc_mod
 from ptype_tpu_torch.gateway.slo import Stopwatch
 from ptype_tpu_torch.registry import Node, Registry
@@ -319,16 +318,10 @@ class ReplicaPool:
         if len(reps) == 1:
             self._probe_one(reps[0])
             return
-        threads = [threading.Thread(target=self._probe_one, args=(r,),
-                                    name=f"gw-probe-{r.key}",
-                                    daemon=True)
-                   for r in reps]
-        for t in threads:
-            t.start()
-        deadline = (time.monotonic() + self.dial_timeout
-                    + self.probe_timeout + 1.0)
-        for t in threads:
-            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        probes = threadpool.Group()
+        for r in reps:
+            probes.spawn(self._probe_one, r)
+        probes.wait(self.dial_timeout + self.probe_timeout + 1.0)
 
     def _probe_one(self, r: Replica) -> None:
         f = chaos.hit("gateway.probe", r.key)

@@ -48,7 +48,7 @@ import threading
 import time
 from dataclasses import dataclass
 
-from ptype_tpu_torch import chaos, lockcheck
+from ptype_tpu_torch import chaos, lockcheck, threadpool
 from ptype_tpu_torch.errors import ShedError
 from ptype_tpu_torch.loadgen.arrivals import TrafficTrace, prompt_tokens
 from ptype_tpu_torch.loadgen.ledger import Outcome, TrafficLedger
@@ -96,7 +96,10 @@ class OpenLoopDriver:
     def run(self) -> TrafficLedger:
         cfg, led = self.cfg, self.ledger
         t0 = time.monotonic()
-        threads: list[threading.Thread] = []
+        # Arrivals in flight, each on a reused worker thread (a new
+        # thread's first run can wait a whole scheduling slice on a busy
+        # host, and the pacer would wait with it).
+        fired = threadpool.Group()
         for arr in self.trace.arrivals:
             sched = t0 + arr.t
             delay = sched - time.monotonic()
@@ -123,13 +126,8 @@ class OpenLoopDriver:
                                    t_offered=arr.t))
                 continue
             led.issued(lag * 1000.0)
-            th = threading.Thread(target=self._fire,
-                                  args=(arr, t0, key), daemon=True)
-            th.start()
-            threads.append(th)
-        deadline = time.monotonic() + cfg.join_timeout_s
-        for th in threads:
-            th.join(timeout=max(0.0, deadline - time.monotonic()))
+            fired.spawn(self._fire, arr, t0, key)
+        fired.wait(cfg.join_timeout_s)
         led.seal(time.monotonic() - t0)
         return led
 

@@ -8,7 +8,13 @@ mixture-of-experts ``router (L,D,E)``, ``w_gate/w_up (L,E,D,F)`` and
 ``w_down (L,E,F,D)`` — the norms, ``embed (V,D)``, ``final_norm (D,)``
 and, untied, ``lm_head (D,V)``. The port keeps exactly that layout and
 those names, so a tree moves between the packages as numpy arrays, bit
-for bit.
+for bit. :func:`stage_params_from_numpy` gives one pipeline stage's
+share of it (its layers of every block leaf, the rest whole).
+
+A reference ResNet tree (``ptype_tpu/models/resnet.py``) holds HWIO
+convolutions; the port's are OIHW (:func:`resnet_params_from_numpy`
+and back). Batch-norm scale, bias and running statistics, and the
+head, move as they are.
 """
 
 from __future__ import annotations
@@ -34,6 +40,65 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
         return t.to(device=device, dtype=cfg.param_dtype)
 
     return conv(tree)
+
+
+def stage_params_from_numpy(tree: dict, cfg: TransformerConfig,
+                            stage: int, n_stages: int,
+                            device="cpu") -> dict:
+    """:func:`params_from_numpy` of one pipeline stage: every block leaf
+    cut to the stage's ``L / n_stages`` layers (what a stage rank holds,
+    ``parallel/pipeline.py``), the other leaves whole. ``tree`` is the
+    reference's tree, its blocks stacked ``(L, ...)`` or already split
+    ``(n_stages, L / n_stages, ...)`` by its ``split_stages``."""
+    L = cfg.n_layers
+    if L % n_stages:
+        raise ValueError(f"{L} layers do not split into {n_stages} stages")
+    per = L // n_stages
+    shapes = param_shapes(cfg)["blocks"]
+
+    def mine(name, x):
+        x = np.asarray(x)
+        if x.ndim == len(shapes[name]) + 1:  # split: (S, L/S, ...)
+            return x[stage]
+        return x[stage * per:(stage + 1) * per]
+
+    out = dict(tree)
+    out["blocks"] = {k: mine(k, v) for k, v in tree["blocks"].items()}
+    return params_from_numpy(out, cfg, device)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def resnet_params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
+    """A reference ResNet tree (numpy arrays, or anything ``np.asarray``
+    takes) → the port's, on ``device`` in ``cfg.param_dtype``: each
+    HWIO convolution transposed to OIHW, every other leaf as it is."""
+
+    def conv(x):
+        a = np.asarray(x)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(device=device, dtype=cfg.param_dtype)
+
+    return _map_leaves(conv, tree)
+
+
+def resnet_params_to_numpy(params: dict) -> dict:
+    """Inverse of :func:`resnet_params_from_numpy`: the reference's
+    tree of numpy arrays (convolutions HWIO)."""
+
+    def conv(t):
+        a = t.detach().float().cpu().numpy()
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+    return _map_leaves(conv, params)
 
 
 def params_to_numpy(params: dict) -> dict:

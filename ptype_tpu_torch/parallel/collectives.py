@@ -36,6 +36,11 @@ The autograd-aware collectives at the end (:func:`gather_for_use`,
 :func:`ring_send`, :func:`all_to_all_dims`) are the sharded trainer's:
 each is the identity on an axis of size 1.
 
+The tree codec (:func:`quantize_tree`, :func:`dequantize_tree`) is the
+param server's int8 RPC wire: one quantized leaf a gradient, in the
+reference's leaf order, so a tree either package quantized decodes in
+the other.
+
 Not ported yet (ROADMAP A6(b)): the hierarchical two-leg bodies and the
 ``measure_*`` probes.
 """
@@ -62,6 +67,8 @@ DEFAULT_QUANT_BLOCK = 512
 
 #: Marker key of a quantized leaf (the reference's wire name).
 _Q8_KEY = "__ptype_q8__"
+#: Marker key of a quantized tree (:func:`quantize_tree`).
+_Q8_TREE_KEY = "__ptype_q8_tree__"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -939,3 +946,36 @@ def dequantize_leaf(wire: dict) -> torch.Tensor:
     q, s = torch.as_tensor(wire["q"]), torch.as_tensor(wire["s"])
     out = _dq_int8_blockwise(q[None], s[None].to(q.device), n)
     return out.reshape(wire["shape"]).to(_DTYPES[wire["dtype"]])
+
+
+def quantize_tree(tree: dict, q_block: int | None = DEFAULT_QUANT_BLOCK,
+                  residuals: list | None = None, *,
+                  want_residuals: bool = True):
+    """Encode a tree for the RPC wire: ``({"__ptype_q8_tree__": [leaf
+    wires in the reference's leaf order]}, new_residuals)``, a
+    :func:`quantize_leaf` a leaf (``residuals[i]`` added into leaf i).
+    The receiver reassembles against its own tree
+    (:func:`dequantize_tree`): both ends of a param-server push share
+    the parameter structure."""
+    wires, new_res = [], []
+    for i, (_, leaf) in enumerate(tree_flatten(tree)):
+        r = residuals[i] if residuals is not None else None
+        w, nr = quantize_leaf(leaf, q_block, r, want_residual=want_residuals)
+        wires.append(w)
+        new_res.append(nr)
+    return {_Q8_TREE_KEY: wires}, new_res
+
+
+def is_quantized_tree(obj) -> bool:
+    return isinstance(obj, dict) and _Q8_TREE_KEY in obj
+
+
+def dequantize_tree(obj: dict, like: dict) -> dict:
+    """Decode :func:`quantize_tree` output into the structure of
+    ``like`` (a tree with the same paths: the receiver's parameters)."""
+    paths = [p for p, _ in tree_flatten(like)]
+    wires = obj[_Q8_TREE_KEY]
+    if len(wires) != len(paths):
+        raise ValueError(f"dequantize_tree: {len(wires)} leaves on the "
+                         f"wire, {len(paths)} in the tree")
+    return tree_unflatten(paths, [dequantize_leaf(w) for w in wires])

@@ -42,7 +42,7 @@ from concurrent.futures import TimeoutError as FuturesTimeoutError
 from dataclasses import dataclass
 
 from ptype_tpu_torch import actor as actor_mod
-from ptype_tpu_torch import chaos, codec, logs, retry, trace
+from ptype_tpu_torch import chaos, codec, logs, retry, threadpool, trace
 from ptype_tpu_torch.coord import wire
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.errors import (NoClientAvailableError, RemoteError,
@@ -329,7 +329,7 @@ class _LocalConn:
                 fut.set_exception(RemoteError(f"{type(e).__name__}: {e}",
                                               traceback.format_exc()))
 
-        threading.Thread(target=run, daemon=True).start()
+        threadpool.spawn(run)
         return fut
 
     def forget(self, fut: Future) -> None:
@@ -597,7 +597,7 @@ class Client:
             except Exception as e:  # noqa: BLE001
                 fut.set_exception(e)
 
-        threading.Thread(target=run, daemon=True).start()
+        threadpool.spawn(run)
         if done is not None:
             if isinstance(done, queue.Queue):
                 fut.add_done_callback(done.put)

@@ -31,8 +31,11 @@ restore reads back only the rank's own block.
 Mixture-of-experts configs train on one device (or a mesh of one),
 their experts unsharded. Data-parallel training through the Store, with
 the ZeRO ladder, is ``train/store_dp.py``; it applies the same AdamW
-arithmetic (:func:`adamw_leaf_`). Out of scope here (ROADMAP): expert
-parallelism, ``param_server`` and ``actor_pipeline``.
+arithmetic (:func:`adamw_leaf_`). The async param server and the stage
+actors (``train/param_server.py``, ``train/actor_pipeline.py``) step
+through :func:`make_apply_fn`, the stage actors with :class:`Adam` or
+:class:`SGD` (``optax.adam`` / ``optax.sgd``). Out of scope here
+(ROADMAP): expert parallelism.
 """
 
 from __future__ import annotations
@@ -78,8 +81,23 @@ def _unflatten(pairs) -> dict:
     return tree
 
 
-def tree_map(fn: Callable, tree: dict) -> dict:
-    return _unflatten((p, fn(x)) for p, x in _flatten(tree))
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of a tree of dicts, lists and tuples (a bare
+    tensor is a tree of one leaf); the structure is kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
 
 
 @dataclass
@@ -282,6 +300,90 @@ class AdamW:
             p.copy_(gather(pv.contiguous(), dim))
         state.count += 1
         return None if scale is not None else gnorm
+
+
+@dataclass
+class AdamState:
+    count: int
+    mu: Any
+    nu: Any
+
+
+class Adam:
+    """``optax.adam(lr, b1, b2, eps, eps_root)`` written out
+    elementwise, in optax's order of operations: ``mu = (1-b1)·g +
+    b1·mu``, ``nu = (1-b2)·g² + b2·nu``, ``u = (mu/(1-b1^t)) /
+    (sqrt(nu/(1-b2^t) + eps_root) + eps)``, ``p += -lr·u`` — no clip,
+    no decay. Any tree of tensors (dicts, lists, a bare tensor); the
+    moments take the params' dtype, as optax's do."""
+
+    def __init__(self, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, eps_root: float = 0.0):
+        self.lr, self.b1, self.b2 = lr, b1, b2
+        self.eps, self.eps_root = eps, eps_root
+
+    def init(self, params) -> AdamState:
+        def zeros(p):
+            return torch.zeros_like(p, requires_grad=False)
+
+        return AdamState(0, tree_map(zeros, params), tree_map(zeros, params))
+
+    @torch.no_grad()
+    def update(self, params, grads, state: AdamState) -> None:
+        """One step on ``params`` and ``state`` IN PLACE."""
+        f32 = np.float32
+        t = state.count + 1
+        bc1 = float(f32(1) - f32(self.b1) ** f32(t))
+        bc2 = float(f32(1) - f32(self.b2) ** f32(t))
+        for p, g, m, n in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state.mu), tree_leaves(state.nu)):
+            g = g.to(m.dtype)
+            m.mul_(self.b1).add_(g * (1 - self.b1))
+            n.mul_(self.b2).add_((g * g) * (1 - self.b2))
+            v = n / bc2
+            if self.eps_root:
+                v = v + self.eps_root
+            u = (m / bc1) / (_sqrt(v) + self.eps)
+            p.add_((-self.lr * u).to(p.dtype))
+        state.count = t
+
+
+@dataclass
+class SGDState:
+    count: int
+
+
+class SGD:
+    """``optax.sgd(lr)`` (no momentum): ``p += -lr·g``, on any tree."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params) -> SGDState:
+        return SGDState(0)
+
+    @torch.no_grad()
+    def update(self, params, grads, state: SGDState) -> None:
+        """One step on ``params`` IN PLACE."""
+        for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+            p.add_((g * -self.lr).to(p.dtype))
+        state.count += 1
+
+
+def make_apply_fn(optimizer):
+    """``(params, grads, opt_state) -> (params, opt_state)``: one
+    optimizer step — the helper the eager trainers share (the param
+    server, the stage actors). The step runs on a copy of ``params``, so
+    a tree a caller already holds (a pulled snapshot, a stage's params
+    mid-sweep) never changes under it, as the reference's immutable
+    arrays never do; the optimizer state is updated in place."""
+
+    def apply(params, grads, opt_state):
+        new = tree_map(lambda p: p.detach().clone(), params)
+        optimizer.update(new, grads, opt_state)
+        return new, opt_state
+
+    return apply
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,

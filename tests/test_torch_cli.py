@@ -231,7 +231,7 @@ def _step_losses(out: str) -> list[float]:
                                          re.M)]
 
 
-@pytest.mark.parametrize("mode", ["gspmd", "store"])
+@pytest.mark.parametrize("mode", ["gspmd", "store", "async"])
 def test_train_losses_equal_the_reference_trainer(tmp_path, monkeypatch,
                                                   mode):
     """The port's trainer and the reference's ``examples/optimus/
@@ -244,6 +244,7 @@ def test_train_losses_equal_the_reference_trainer(tmp_path, monkeypatch,
     from ptype_tpu.train import data as jdata
     from ptype_tpu_torch.examples.optimus import trainer as twin
     from ptype_tpu_torch.models.weights import params_from_numpy
+    from ptype_tpu_torch.train import param_server as tps
     from ptype_tpu_torch.train import store_dp as tsd
     from ptype_tpu_torch.train import trainer as ttr
 
@@ -282,6 +283,7 @@ def test_train_losses_equal_the_reference_trainer(tmp_path, monkeypatch,
 
     monkeypatch.setattr(ttr, "init_params", ref_weights)
     monkeypatch.setattr(tsd, "init_params", ref_weights)
+    monkeypatch.setattr(tps, "init_params", ref_weights)
     monkeypatch.setattr(twin, "synthetic_batches", ref_stream)
     got = run(twin.main, "port")
     lg, lw = _step_losses(got), _step_losses(want)
@@ -290,21 +292,26 @@ def test_train_losses_equal_the_reference_trainer(tmp_path, monkeypatch,
 
 
 def test_async_mode_and_shard_update_raise(tmp_path, monkeypatch, capsys):
-    """``MODE=async`` still raises (the parameter server, ROADMAP A8);
-    ``SHARD_UPDATE=1`` now trains on the mesh Trainer (on a one-rank
-    mesh it warns and keeps the moments whole)."""
+    """``MODE=async`` (the parameter server) now trains, and an unknown
+    mode still raises; ``SHARD_UPDATE=1`` trains on the mesh Trainer (on
+    a one-rank mesh it warns and keeps the moments whole)."""
     from ptype_tpu_torch.examples.optimus import trainer as twin
 
+    for k, v in dict(PRESET="tiny", STEPS="2", BATCH="2", SEQ="16",
+                     PTYPE_DEVICE="cpu").items():
+        monkeypatch.setenv(k, v)
     monkeypatch.setenv("CONFIG", _seed_config(tmp_path, "seed"))
-    monkeypatch.setenv("PTYPE_DEVICE", "cpu")
     monkeypatch.setenv("MODE", "async")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    twin.main()
+    out = capsys.readouterr().out
+    assert "optimus[async] tiny on 1 devices, batch=2 seq=16" in out
+    assert re.search(r"step +1 loss \d+\.\d{4} applied=True", out), out
+    monkeypatch.setenv("MODE", "nope")
+    with pytest.raises(SystemExit, match="unknown MODE"):
         twin.main()
     monkeypatch.setenv("CONFIG", _seed_config(tmp_path, "seed2"))
     monkeypatch.setenv("MODE", "gspmd")
     monkeypatch.setenv("SHARD_UPDATE", "1")
-    for k, v in dict(PRESET="tiny", STEPS="2", BATCH="2", SEQ="16").items():
-        monkeypatch.setenv(k, v)
     twin.main()
     out = capsys.readouterr().out
     assert "optimus[gspmd] tiny on 1 devices" in out

@@ -113,6 +113,16 @@ def test_flash_backward_kernels_match_plain(cuda, dtype, B, S, H, K, Dh,
                                            floor), name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bert_base_full_mask_instance_matches_plain(cuda, dtype):
+    """bert-base's attention as the async param server's workers run it
+    (B=16, S=512, 12 heads of 64, no causal mask): the forward, dq and
+    dk/dv kernels against their plain twins."""
+    shape = (16, 512, 12, 12, 64, False)
+    test_flash_kernel_matches_plain(cuda, dtype, *shape)
+    test_flash_backward_kernels_match_plain(cuda, dtype, *shape)
+
+
 def test_flash_grad_goes_through_the_kernels(cuda):
     q, k, v = (torch.randn(2, 128, 4, 128, generator=cuda, device="cuda",
                            requires_grad=True) for _ in range(3))

@@ -124,6 +124,29 @@ def test_the_health_plane_imports_without_torch():
     assert out.stdout.startswith("ok")
 
 
+def test_the_training_modes_and_pipeline_modules_are_guarded():
+    """The async param server, ResNet, the actor-per-layer pipeline and
+    the GPipe/1F1B pipeline (with the tree codec, ``make_apply_fn``,
+    ``Adam`` and ``SGD`` they use) are among the modules imported with
+    JAX blocked and scanned, as is chip_smoke.py."""
+    mods = set(_modules())
+    want = {"ptype_tpu_torch.train.param_server",
+            "ptype_tpu_torch.train.actor_pipeline",
+            "ptype_tpu_torch.models.resnet",
+            "ptype_tpu_torch.parallel.pipeline"}
+    assert want <= mods, sorted(want - mods)
+    assert {PKG / "train" / "param_server.py",
+            PKG / "parallel" / "pipeline.py",
+            ROOT / "chip_smoke.py"} <= set(SOURCES)
+    from ptype_tpu_torch.parallel import collectives
+    from ptype_tpu_torch.train import trainer
+
+    for name in ("quantize_tree", "is_quantized_tree", "dequantize_tree"):
+        assert callable(getattr(collectives, name))
+    for name in ("make_apply_fn", "Adam", "SGD"):
+        assert callable(getattr(trainer, name))
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference_package(path):
     tree = ast.parse(path.read_text())
@@ -181,6 +204,10 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceGateway(None)
+    from ptype_tpu_torch.train.param_server import AsyncWorker
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AsyncWorker(cfg, None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 

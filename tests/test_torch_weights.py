@@ -97,3 +97,62 @@ def test_init_params_place_keeps_blocks_of_the_same_draws():
         assert sorted(seen) == sorted(whole)
         for name, leaf in whole.items():
             assert torch.equal(kept[name], leaf.narrow(-1, 0, 1))
+
+
+def test_stage_params_cut_each_stage_layers():
+    """One pipeline stage's share of the reference's tree: its L/S
+    layers of every block leaf, the rest whole, from the stacked tree or
+    the reference's ``split_stages`` form alike; the stages' blocks laid
+    end to end are the whole stack."""
+    from ptype_tpu.parallel.pipeline import split_stages
+    from ptype_tpu_torch.models.weights import stage_params_from_numpy
+
+    jcfg = jtfm.preset("tiny", n_layers=4, dtype=jnp.float32)
+    cfg = ttfm.preset("tiny", n_layers=4, dtype=torch.float32)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jtfm.init_params(jax.random.PRNGKey(0), jcfg))
+    split = dict(tree, blocks=jax.tree_util.tree_map(
+        np.asarray, split_stages(tree["blocks"], 2)))
+    stages = [stage_params_from_numpy(tree, cfg, s, 2) for s in range(2)]
+    for s in range(2):
+        again = stage_params_from_numpy(split, cfg, s, 2)
+        for (k, a), b in zip(_flat(stages[s]).items(),
+                             _flat(again).values()):
+            assert torch.equal(a, b), k
+        assert stages[s]["blocks"]["wq"].shape[0] == 2
+        assert torch.equal(stages[s]["embed"], torch.from_numpy(
+            np.array(tree["embed"])))
+    for k, leaf in tree["blocks"].items():
+        whole = torch.cat([st["blocks"][k] for st in stages])
+        assert np.array_equal(whole.numpy(), leaf), k
+
+
+def test_resnet_round_trip_is_bit_exact():
+    """A reference ResNet tree (HWIO convolutions) to the port's (OIHW)
+    and back, bit for bit; batch-norm statistics and the head as they
+    are."""
+    from ptype_tpu.models import resnet as jresnet
+    from ptype_tpu_torch.models import resnet
+    from ptype_tpu_torch.models.weights import (resnet_params_from_numpy,
+                                                resnet_params_to_numpy)
+
+    jcfg = jresnet.preset("tiny", dtype=jnp.float32)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jresnet.init_params(jax.random.PRNGKey(0), jcfg))
+    params = resnet_params_from_numpy(tree, resnet.preset("tiny"))
+    stem = params["stem"]["conv"]
+    assert tuple(stem.shape) == (64, 3, 7, 7)
+    assert np.array_equal(stem[:, :, 1, 2].numpy(),
+                          tree["stem"]["conv"][1, 2].T)
+    assert torch.equal(params["stage2"][0]["bn1"]["var"], torch.from_numpy(
+        np.array(tree["stage2"][0]["bn1"]["var"])))
+    back = resnet_params_to_numpy(params)
+    a, b = (jax.tree_util.tree_leaves(t) for t in (back, tree))
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and np.array_equal(x.view(np.uint32),
+                                                     y.view(np.uint32))
+    own = resnet.init_params(torch.Generator().manual_seed(0),
+                             resnet.preset("tiny"))
+    assert [tuple(t.shape) for t in jax.tree_util.tree_leaves(
+        resnet_params_to_numpy(own))] == [y.shape for y in b]

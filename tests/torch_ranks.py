@@ -945,9 +945,102 @@ def elastic_trainer_suite(mesh, inp: dict) -> dict:
     return _np(out)
 
 
+def pipeline_suite(mesh, inp: dict) -> dict:
+    """The GPipe and 1F1B schedules on a ``stage`` mesh of every rank:
+    pipelined logits, losses and grads (the block grads gathered whole),
+    train-step losses, the held state's shapes, a checkpoint of it, and
+    the counted cost of a step. Which cases run depends on the world
+    size, as in the reference's tests (2 stages, or 4)."""
+    from ptype_tpu_torch.checkpoint import Checkpointer
+    from ptype_tpu_torch.health import profiling
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.models.weights import (params_from_numpy,
+                                                stage_params_from_numpy)
+    from ptype_tpu_torch.parallel import pipeline as pp
+    from ptype_tpu_torch.parallel.mesh import axis_index, gather
+    from ptype_tpu_torch.train import trainer as tr
+
+    S, s = mesh.size, axis_index(mesh, "stage")
+    cfg = tfm.preset("tiny", n_layers=4, dtype=torch.float32)
+    out: dict = {}
+
+    def whole(grads):
+        g = dict(grads)
+        g["blocks"] = {k: gather(v, ("stage",), mesh)
+                       for k, v in grads["blocks"].items()}
+        return g
+
+    def gpipe_grads(tokens, n_mb, mask=None):
+        params = stage_params_from_numpy(inp["params"], cfg, s, S)
+        paths, leaves = zip(*tr._flatten(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {"tokens": tokens, "targets": tokens, "loss_mask": mask}
+        logits = pp.transformer_pipeline_forward(params, tokens, cfg, mesh,
+                                                 n_mb)
+        loss = tfm.nll_from_logits(logits, batch)
+        grads = tr._unflatten(zip(paths, torch.autograd.grad(loss, leaves)))
+        return float(loss), whole(grads)
+
+    def train(c, schedule, n_mb, batch, steps=3):
+        state, placements = pp.init_pipeline_state(
+            c, mesh, params_from_numpy(inp["params"], c),
+            tr.default_optimizer(**inp["opt"]))
+        step = pp.make_pipeline_train_step(
+            c, mesh, n_mb, tr.default_optimizer(**inp["opt"]),
+            schedule=schedule)
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
+        return state, placements, losses
+
+    ta, tb = _t(inp["tokens_a"]).long(), _t(inp["tokens_b"]).long()
+    params = params_from_numpy(inp["params"], cfg)
+    if S == 2:
+        for n_mb in (2, 4):
+            out[f"fwd{n_mb}"] = pp.transformer_pipeline_forward(
+                params, ta, cfg, mesh, n_mb)
+        out["gpipe_loss"], out["gpipe_grads"] = gpipe_grads(ta, 2)
+        flash = tfm.preset("tiny", n_layers=4, dtype=torch.float32,
+                           attn_impl="flash")
+        out["flash_fwd"] = pp.transformer_pipeline_forward(params, ta, flash,
+                                                           mesh, 2)
+    if S == 4:
+        ws, x = _t(inp["chain_w"]), _t(inp["chain_x"])
+        out["chain"] = pp.pipeline_apply(
+            lambda w, xm: xm @ w[0], ws.reshape(4, 1, 8, 8)[s], x, mesh, 3)
+        out["gpipe8_loss"], out["gpipe8_grads"] = gpipe_grads(tb, 8)
+        loss, grads = pp.pipeline_loss_and_grads_1f1b(
+            params, {"tokens": tb, "targets": tb}, cfg, mesh, 8)
+        out["f1b_loss"], out["f1b_grads"] = float(loss), whole(grads)
+        batch = {"tokens": tb, "targets": tb, "loss_mask": _t(inp["mask"])}
+        for schedule in ("gpipe", "1f1b"):
+            state, placements, losses = train(cfg, schedule, 8, batch)
+            out[f"train_{schedule}"] = losses
+        out["held"] = {"wq": tuple(state.params["blocks"]["wq"].shape),
+                       "mu_wq": tuple(state.opt_state.mu["blocks"]["wq"]
+                                      .shape),
+                       "spec": placements["0"]["blocks"]["wq"],
+                       "embed": tuple(state.params["embed"].shape)}
+        ck = Checkpointer(inp["ckpt_dir"], mesh=mesh)
+        ck.save(3, tr.state_tree(state, placements, mesh))
+        out["final_wq"] = gather(state.params["blocks"]["wq"].detach(),
+                                 ("stage",), mesh)
+        bf16 = tfm.preset("tiny", n_layers=4)
+        _, _, out["train_bf16"] = train(bf16, "gpipe", 4,
+                                        {"tokens": tb, "targets": tb})
+        state, _ = pp.init_pipeline_state(bf16, mesh, params_from_numpy(
+            inp["params"], bf16))
+        step = pp.make_pipeline_train_step(bf16, mesh, 4)
+        out["cost"] = profiling.compiled_cost(
+            step, state, {"tokens": tb, "targets": tb})
+    return _np(out)
+
+
 SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite,
           "elastic": elastic_suite, "sharded_train": sharded_train_suite,
-          "ring": ring_suite, "elastic_trainer": elastic_trainer_suite}
+          "ring": ring_suite, "elastic_trainer": elastic_trainer_suite,
+          "pipeline": pipeline_suite}
+#: The one mesh axis a suite's ranks lie on ("data" unless named here).
+SUITE_AXIS = {"pipeline": "stage"}
 
 
 def main(argv: list[str]) -> None:
@@ -959,7 +1052,8 @@ def main(argv: list[str]) -> None:
     torch.set_num_threads(1)
     init_distributed(f"file://{workdir}/rdv", rank, world, device="cpu")
     try:
-        mesh = build_mesh({"data": world}, device="cpu")
+        mesh = build_mesh({SUITE_AXIS.get(suite, "data"): world},
+                          device="cpu")
         with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
             inputs = pickle.load(f)
         out = SUITES[suite](mesh, inputs)
