@@ -34,7 +34,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
    concurrent requests of 100-700 tokens sharing a 96-token prefix,
    64 new tokens each: the paged kernel must run decode steps x 12
    layers times; greedy tokens in f32 equal the attn="gather" engine's;
-   one bf16 decode step's logits agree between the two paths;
+   one bf16 decode step's logits agree between the two paths; its row
+   also gives the host cost of the profiler gate's ``device_work()``
+   with no session open, alone and against a second thread, beside
+   the engine's mean iteration;
    cluster_rpc: phases 3 and 4 served over the port's cluster plane.
    The script seeds a TCP coordinator with ``join`` (lease TTL 1 s)
    and starts a server process of itself (``--actor-server COORD``:
@@ -229,7 +232,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
    on its data dir refuses a write fenced with that term; (d) ``obs`` of
    the promoted cluster writes trace.json and spans.jsonl and lists the
    replica, and ``obs profile`` under load ships a trace with at least
-   12 flash_fwd_kernel_bf16 records; (e) the ``train`` verb in this
+   12 flash_fwd_kernel_bf16 records (the row gives the loaders' median
+   and longest request, which waits at the gate through the stop);
+   (e) the ``train`` verb in this
    process (``__main__.main()``, store mode, B=16, S=1024, 8 steps,
    CKPT_EVERY 4) on a fresh seed and wal-stream standby, the seed
    SIGKILLed after the first step, beside an uninterrupted run of the
@@ -238,6 +243,25 @@ Run from the root of a checkout. Phases, each printing its own lines:
    step's ms and the stall of the steps after the kill; ``eval`` of its
    checkpoint (3 steps) reads step 8; (f) ``info`` reads the card;
    (g) no child process outlives the phase;
+   walkthroughs: the example twins (``ptype_tpu_torch.examples``) on
+   the card, each a process with no PTYPE_DEVICE, all started together:
+   (a) the calculator's server and client print the reference's lines
+   ("3 * 7 = 21", "tensor multiply: [0. 2. 4. 6.]"), the multiply's
+   operands on cuda; (b) two prime workers and the scatter-gather
+   coordinator answer /test?target=104729 and 600851475143; (c)
+   health_demo's straggler alert names w2; (d) demo's Chrome trace
+   holds gateway.request → admit → route → rpc.call → actor/Work.Do
+   and the chaos.fault instant; (e) serve_demo in this process at
+   optimus-125m (f32, two replicas behind the gateway, a 6-request
+   shared-prefix burst) with attn="kernel": paged launches = decode
+   steps x 12 over the replicas that decoded, the burst's greedy tokens
+   equal to the same run with attn="gather", the ledgers' TTFT/TPOT;
+   store_probes: at world 1 over NCCL, measure_push_tree at optimus-125m
+   (bucketed and per-leaf ms, payload MB), measure_wire_gbps and
+   measure_allreduce_gbps (0.0 GB/s by the ring convention at world 1,
+   beside the ms of the bucketing and quantize legs they time), and
+   measure_zero at optimus-125m (3 steps: the ratio 1.0, both final
+   losses equal at 1e-3);
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -259,6 +283,9 @@ checkpoint, elastic and the store_dp profiles run the first 4 of the
 model's 12 layers (``SHORT_LAYERS``). Weights are random, from a fixed
 seed. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
+
+Other modes: ``--failover N`` runs the failover phase alone N times
+(one line of its profile records a run).
 """
 
 import dataclasses
@@ -713,6 +740,37 @@ def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
            "max_live_slots": info["max_live_slots"],
            "prefill_stall_ms": info["prefill_stall_ms"]}
     return row, launches, outs, ledger
+
+
+def gate_cost_us(n=20000):
+    """Host µs of one ``device_work()`` entry and exit with no profiler
+    session open: alone, and with a second thread entering and leaving
+    without pause (a second replica of the process)."""
+    from ptype_tpu_torch.device import device_work
+
+    def per_call():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with device_work():
+                pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+    alone = per_call()
+    stop = threading.Event()
+
+    def rival():
+        while not stop.is_set():
+            with device_work():
+                pass
+
+    t = threading.Thread(target=rival, daemon=True)
+    t.start()
+    try:
+        contended = per_call()
+    finally:
+        stop.set()
+        t.join(timeout=30)
+    return {"alone_us": alone, "contended_us": contended}
 
 
 def first_divergence(torch, gen_mod, params, cfg, prompts, got, want):
@@ -4467,7 +4525,7 @@ def free_addr():
         return f"127.0.0.1:{s.getsockname()[1]}"
 
 
-def cli_config(work, name, service, urls=(), **platform):
+def cli_config(work, name, service, urls=(), port=0, **platform):
     """A two-level config tree of the CLI (``CONFIG`` names a cluster
     file whose ``platform_config_file`` is beside it), written as JSON,
     which is YAML."""
@@ -4476,17 +4534,19 @@ def cli_config(work, name, service, urls=(), **platform):
     with open(os.path.join(d, "platform.yaml"), "w") as f:
         json.dump({"name": name, **platform}, f)
     with open(os.path.join(d, "node.yaml"), "w") as f:
-        json.dump({"service_name": service, "node_name": name, "port": 0,
+        json.dump({"service_name": service, "node_name": name, "port": port,
                    "initial_cluster_client_urls": list(urls),
                    "platform_config_file": "platform.yaml"}, f)
     return os.path.join(d, "node.yaml")
 
 
 class CliProc:
-    """``python -m ptype_tpu_torch VERB...`` of this checkout as a child
-    process, its output (stdout and stderr) in a log under ``work``."""
+    """``python -m ptype_tpu_torch VERB...`` (or ``python -m MODULE``) of
+    this checkout as a child process, its output (stdout and stderr) in a
+    log under ``work``."""
 
-    def __init__(self, verb, cfg, work, name, phase="failover", **env):
+    def __init__(self, verb, cfg, work, name, phase="failover",
+                 module="ptype_tpu_torch", **env):
         root = os.path.dirname(os.path.abspath(__file__))
         self.name, self.phase = name, phase
         self.log = os.path.join(work, f"{name}.log")
@@ -4498,7 +4558,7 @@ class CliProc:
         with open(self.log, "w") as f:
             self.t0 = time.monotonic()
             self.proc = subprocess.Popen(
-                [sys.executable, "-m", "ptype_tpu_torch", *verb.split()],
+                [sys.executable, "-m", module, *verb.split()],
                 stdout=f, stderr=subprocess.STDOUT, env=e, cwd=root)
 
     def text(self):
@@ -4872,12 +4932,14 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
         warm_s = time.monotonic() - t_warm
         prof = start("obs profile", obs_cfg, "obs-profile", OBS_DIR=obs_dir,
                      PROFILE_DURATION="1")
-        load_errors = []
+        load_errors, load_ms = [], []
 
         def load():
             while prof.proc.poll() is None:
                 try:
+                    t0 = time.monotonic()
                     gen.call("Generator.Generate", x512, 8)
+                    load_ms.append((time.monotonic() - t0) * 1e3)
                 except Exception as e:  # noqa: BLE001 — checked below
                     load_errors.append(repr(e))
                     return
@@ -4901,8 +4963,16 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
         ops = profiling.summarize(rep_dirs[0], top=100_000)["top_ops"]
         records = sum(op["count"] for op in ops
                       if "flash_fwd_kernel_bf16" in op["name"])
+        # A request that spans the session's start or stop waits at the
+        # device gate: the longest request against the median.
+        load_ms.sort()
         row["obs_profile"] = {"warm_up_s": warm_s,
                               "capture_wall_s": prof_s,
+                              "requests": len(load_ms),
+                              "request_ms_median": load_ms[len(load_ms) // 2]
+                              if load_ms else None,
+                              "request_ms_max": load_ms[-1] if load_ms
+                              else None,
                               "flash_fwd_kernel_bf16_records": records,
                               "kernels": trace_kernels(rep_dirs[0])}
         check(records >= FO_FLASH_RECORDS,
@@ -5653,6 +5723,286 @@ def pipeline_phase(torch, tfm, flash_mod, train_mod, card):
     return launches
 
 
+WT_PRESET = "optimus-125m"
+#: The reference's probes of the scatter-gather walkthrough and their
+#: answers (examples/optimus/run; tests/test_examples.py).
+WT_PRIMES = {104729: "104729 is prime",
+             600851475143: "600851475143 is divisible by 71"}
+WT_EXAMPLES = "ptype_tpu_torch.examples"
+
+
+def http_get(url, timeout=60):
+    """The body of a GET, retried while the server comes up."""
+    import urllib.request
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.read().decode()
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def walkthroughs_phase(torch, paged_mod, card):
+    """The port's twins of the reference's example apps on the card,
+    each a ``python -m ptype_tpu_torch.examples...`` process with no
+    ``PTYPE_DEVICE`` (so ``cuda``), all started together: (a) the
+    calculator's server and client: both of the reference's lines, the
+    tensor multiply's operands on ``cuda``; (b) two prime workers and
+    the scatter-gather coordinator: both probes answered; (c)
+    ``health_demo``: the straggler alert names ``w2``; (d) ``demo``: the
+    Chrome trace holds the request chain; then in this process (e)
+    ``serve_demo`` at optimus-125m with ``attn="kernel"``: paged launches
+    = decode steps x 12 layers over the replicas that decoded, the
+    burst's greedy tokens (f32) equal to the same burst through
+    ``attn="gather"``, and the ledgers' TTFT/TPOT. Returns (e)'s paged
+    launches."""
+    import numpy as np
+
+    from ptype_tpu_torch.examples.observability import serve_demo
+
+    t_phase = time.monotonic()
+    row = {"phase": "walkthroughs", "card": card}
+    work = tempfile.mkdtemp(prefix="chip_smoke_wt_")
+    procs = []
+
+    def start(module, name, cfg=None, **env):
+        p = CliProc("", cfg, work, name, "walkthroughs",
+                    module=f"{WT_EXAMPLES}.{module}", **env)
+        procs.append(p)
+        return p
+
+    def ready_s(p, needle, timeout=300):
+        return p.wait(needle, timeout) / 1e3
+
+    try:
+        calc_addr, prime_addr = free_addr(), free_addr()
+        http_port = int(free_addr().rpartition(":")[2])
+        server = start("calculator.server", "calc-server", cli_config(
+            work, "calc-server", "calculator",
+            coordinator_address=calc_addr, is_coordinator=True))
+        w1 = start("optimus.worker", "prime-w1", cli_config(
+            work, "prime-w1", "prime_worker",
+            coordinator_address=prime_addr, is_coordinator=True))
+        w2 = start("optimus.worker", "prime-w2", cli_config(
+            work, "prime-w2", "prime_worker",
+            coordinator_address=prime_addr))
+        health = start("observability.health_demo", "health-demo")
+        obs_dir = os.path.join(work, "obs")
+        demo = start("observability.demo", "demo", OBS_DIR=obs_dir)
+
+        # (a) the calculator
+        row["calculator"] = {"server_ready_s": ready_s(server, "serving")}
+        check("(cuda)" in server.text(), f"walkthroughs: the calculator "
+              f"server is not on cuda:\n{server.text()[-2000:]}")
+        t0 = time.monotonic()
+        client = start("calculator.client", "calc-client", cli_config(
+            work, "calc-client", "calc_client",
+            coordinator_address=calc_addr))
+        out = client.finish(120)
+        server.wait("tensor multiply on", 30)
+        row["calculator"].update(client_s=time.monotonic() - t0,
+                                 lines=[ln for ln in out.splitlines()
+                                        if ln.startswith(("3 * 7",
+                                                          "tensor multiply"))])
+        check("3 * 7 = 21" in out and "tensor multiply: [0. 2. 4. 6.]"
+              in out, f"walkthroughs: the calculator client printed:\n"
+              f"{out[-2000:]}")
+        check("tensor multiply on cuda:0 and cuda:0" in server.text(),
+              f"walkthroughs: the multiply's operands were not on cuda:\n"
+              f"{server.text()[-2000:]}")
+
+        # (b) the scatter-gather walkthrough
+        row["optimus"] = {"workers_ready_s": [ready_s(w, "serving")
+                                              for w in (w1, w2)]}
+        check(all("(cuda)" in w.text() for w in (w1, w2)),
+              "walkthroughs: a prime worker is not on cuda")
+        coord = start("optimus.coordinator", "prime-coordinator",
+                      cli_config(work, "prime-coordinator",
+                                 "optimus_coordinator", port=http_port,
+                                 coordinator_address=prime_addr))
+        row["optimus"]["coordinator_ready_s"] = ready_s(
+            coord, "optimus coordinator")
+        answers = {}
+        for target, want in WT_PRIMES.items():
+            t0 = time.monotonic()
+            got = http_get(f"http://127.0.0.1:{http_port}/test?"
+                           f"target={target}")
+            answers[target] = {"answer": got.strip(),
+                               "s": time.monotonic() - t0}
+            check(want in got, f"walkthroughs: /test?target={target} "
+                  f"answered {got!r}")
+        row["optimus"]["probes"] = answers
+
+        # (c) and (d): the two observability processes
+        out = health.finish(300)
+        row["health_demo_s"] = time.monotonic() - health.t0
+        for needle in ("straggler alert names the afflicted node",
+                       "ptype health @", "ALERTS (1 recent)", "(= w2)"):
+            check(needle in out, f"walkthroughs: health_demo printed no "
+                  f"{needle!r}:\n{out[-3000:]}")
+        out = demo.finish(300)
+        row["demo_s"] = time.monotonic() - demo.t0
+        check("spans with chaos events" in out and "chrome trace:" in out,
+              f"walkthroughs: demo printed:\n{out[-3000:]}")
+        with open(os.path.join(obs_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e["name"] for e in events if e["ph"] == "X"}
+        chain = {"gateway.request", "gateway.admit", "gateway.route",
+                 "rpc.call", "actor/Work.Do"}
+        check(chain <= names and any(
+            e["ph"] == "i" and e["name"] == "chaos.fault" for e in events),
+              f"walkthroughs: demo's trace lacks {chain - names} or the "
+              f"chaos.fault instant")
+    finally:
+        for p in reversed(procs):
+            p.stop()
+
+    # (e) serve_demo at full width through the paged kernel, then the
+    # same burst through the gather path
+    saved = os.environ.get("OBS_DIR")
+    os.environ["OBS_DIR"] = work
+    try:
+        runs = {}
+        for attn in ("kernel", "gather"):
+            paged_mod.paged_attention.launches = 0
+            t0 = time.monotonic()
+            got = serve_demo.main(preset=WT_PRESET, attn=attn,
+                                  device="cuda")
+            torch.cuda.synchronize()
+            runs[attn] = dict(got, launches=paged_mod.paged_attention.launches,
+                              s=time.monotonic() - t0)
+            torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("OBS_DIR", None)
+        else:
+            os.environ["OBS_DIR"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+    k, g = runs["kernel"], runs["gather"]
+    steps = {n: v for n, v in k["engine_steps"].items() if v > 0}
+    want = sum(steps.values()) * k["n_layers"]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(k["tokens"],
+                                                       g["tokens"])]
+    row["serve_demo"] = {
+        "preset": WT_PRESET, "dtype": "f32", "attn": "kernel",
+        "decode_steps": k["engine_steps"], "replicas_decoded": len(steps),
+        "paged_launches": k["launches"], "gather_launches": g["launches"],
+        "tokens_equal_gather": same, "prefix_hits": k["prefix_hits"],
+        "kernel_s": k["s"], "gather_s": g["s"],
+        "ledgers": {n: {key: v[key] for key in (
+            "requests_retired", "ttft_p50_ms", "ttft_p99_ms",
+            "tpot_p50_ms", "tpot_p99_ms") if key in v}
+            for n, v in k["ledgers"].items()}}
+    row["seconds"] = time.monotonic() - t_phase
+    emit(row)
+    check(k["launches"] == want and want > 0,
+          f"walkthroughs: serve_demo's paged launches {k['launches']} != "
+          f"decode steps {k['engine_steps']} x {k['n_layers']}")
+    check(g["launches"] == 0, f"walkthroughs: the gather run launched the "
+          f"paged kernel {g['launches']} times")
+    check(all(same) and len(same) == serve_demo.BURST,
+          f"walkthroughs: serve_demo's kernel tokens differ from gather's: "
+          f"{same}")
+    print(f"serve_demo ledgers ({card}): "
+          + "; ".join(f"{n} ttft p50 {v.get('ttft_p50_ms')} ms p99 "
+                      f"{v.get('ttft_p99_ms')} ms, tpot p50 "
+                      f"{v.get('tpot_p50_ms')} ms"
+                      for n, v in row["serve_demo"]["ledgers"].items()),
+          flush=True)
+    return k["launches"]
+
+
+STORE_PROBE_ITERS = 5
+
+
+def store_probes_phase(torch, mesh, card):
+    """The Store probes at world 1 over NCCL: ``measure_push_tree`` at
+    optimus-125m (bucketed and per-leaf ms, payload MB),
+    ``measure_wire_gbps`` and ``measure_allreduce_gbps`` — 0.0 GB/s by the
+    ring convention at world 1, so the milliseconds they time are the
+    bucketing and quantize legs alone — and ``measure_zero`` at
+    optimus-125m (both runs' final losses equal, the ratio 1.0)."""
+    from ptype_tpu_torch.parallel import collectives as C
+    from ptype_tpu_torch.parallel.tensorstore import measure_push_tree
+    from ptype_tpu_torch.train.store_dp import measure_zero
+
+    t_phase = time.monotonic()
+    row = {"phase": "store_probes", "card": card, "world": 1,
+           "note": "world 1: bucketing and quantize legs only"}
+    row["push_tree"] = measure_push_tree(mesh, preset="optimus-125m",
+                                         iters=STORE_PROBE_ITERS,
+                                         device="cuda")
+    row["wire"] = C.measure_wire_gbps(mesh, iters=STORE_PROBE_ITERS)
+    row["allreduce"] = C.allreduce_probe(mesh, iters=STORE_PROBE_ITERS)
+    row["allreduce_gbps"] = C.measure_allreduce_gbps(mesh, mbytes=1,
+                                                     iters=1)
+    torch.cuda.empty_cache()
+    row["zero"] = measure_zero(mesh, preset="optimus-125m", steps=3,
+                               device="cuda")
+    torch.cuda.empty_cache()
+    row["seconds"] = time.monotonic() - t_phase
+    emit(row)
+    pt, w, z = row["push_tree"], row["wire"], row["zero"]
+    check(pt["bucketed_ms"] > 0 and pt["per_leaf_ms"] > 0
+          and pt["n_buckets"] <= pt["n_leaves"] and pt["gbps"] == 0.0,
+          f"store_probes: push_tree {pt}")
+    gbps = [w["fp32_gbps"], w["int8_chunk_gbps"],
+            *w["int8_block_gbps"].values(), row["allreduce"]["gbps"],
+            row["allreduce_gbps"]]
+    ms = [w["fp32_ms"], w["int8_chunk_ms"], *w["int8_block_ms"].values(),
+          row["allreduce"]["ms"]]
+    check(all(g == 0.0 for g in gbps) and all(m > 0 for m in ms),
+          f"store_probes: world-1 GB/s {gbps}, ms {ms}")
+    check(z["opt_mem_ratio"] == 1.0 and math.isclose(
+        z["final_loss_zero"], z["final_loss_repl"], rel_tol=1e-3)
+          and math.isfinite(z["final_loss_zero"]),
+          f"store_probes: measure_zero {z}")
+
+
+PHASE4_LENS = (100, 180, 260, 340, 420, 500, 600, 700)
+
+
+def phase4_prompts(torch, cfg):
+    """Phase 4's requests: PHASE4_LENS tokens sharing a 96-token prefix,
+    from seed 2."""
+    gp = torch.Generator().manual_seed(2)
+    shared = torch.randint(1, cfg.vocab_size, (96,), generator=gp)
+    return [torch.cat([shared, torch.randint(
+        1, cfg.vocab_size, (n - 96,), generator=gp)]) for n in PHASE4_LENS]
+
+
+def failover_repeat(n):
+    """``--failover N``: the failover phase alone, N times in one process
+    (after the kernels' build and a world-1 NCCL group, as ``main``
+    has), one line of its profile records a run."""
+    import torch
+
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.ops import _build
+    from ptype_tpu_torch.ops import flash_attention as flash_mod
+    from ptype_tpu_torch.parallel.mesh import init_distributed
+
+    _build.build_all()
+    card = card_line()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    init_distributed(f"file://{rdv}/rdv", 0, 1)
+    prompts = phase4_prompts(torch, tfm.preset("optimus-125m"))
+    try:
+        for i in range(n):
+            t0 = time.monotonic()
+            _, records = failover_phase(torch, tfm, flash_mod, prompts, card)
+            emit({"failover_run": i, "flash_fwd_kernel_bf16_records":
+                  records, "seconds": time.monotonic() - t0, "card": card})
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
 def main():
     started = last = time.monotonic()
     import torch
@@ -5787,16 +6137,18 @@ def main():
     lap("generator_actor")
 
     # 4. PagedGeneratorActor at optimus-125m
-    gp = torch.Generator().manual_seed(2)
-    shared = torch.randint(1, cfg.vocab_size, (96,), generator=gp)
-    lens = (100, 180, 260, 340, 420, 500, 600, 700)
-    prompts = [torch.cat([shared, torch.randint(
-        1, cfg.vocab_size, (n - 96,), generator=gp)]) for n in lens]
+    prompts = phase4_prompts(torch, cfg)
+    lens = PHASE4_LENS
     max_new = 64
     kw = dict(device="cuda", n_slots=8, block_tokens=16, prefill_chunk=256)
     row, paged_main_launches, _, paged_ledger = engine_phase(
         torch, paged_mod, PagedGeneratorActor, "optimus-125m", cfg, params,
         prompts, lens, max_new, kw, "paged_engine")
+    # What the profiler gate costs an engine iteration with no session.
+    row["iteration_ms_mean"] = paged_ledger["iterations"]["step_ms_mean"]
+    row["gate"] = gate_cost_us()
+    row["gate"]["share_of_iteration"] = (
+        row["gate"]["contended_us"] / 1e3 / row["iteration_ms_mean"])
     emit(row)
 
     # f32: greedy tokens of the kernel and gather engines are identical.
@@ -5979,6 +6331,16 @@ def main():
                                              card)
     lap("failover")
 
+    # walkthroughs: the example twins — the calculator, the
+    # scatter-gather walkthrough and the three observability demos
+    wt_paged = walkthroughs_phase(torch, paged_mod, card)
+    torch.cuda.empty_cache()
+    lap("walkthroughs")
+
+    # store_probes: the Store's push/wire/allreduce/ZeRO probes at world 1
+    store_probes_phase(torch, mesh, card)
+    lap("store_probes")
+
 
     # 6. profiles, after every host-timed phase: one engine decode
     # iteration, one train step of each model, one speculation window,
@@ -6064,7 +6426,8 @@ def main():
                 "spec_engine_plain_run": spec_launches["plain"],
                 "sampled_engine": sampled_launches,
                 "disagg_engine": disagg_launches,
-                "health": health_rep_paged}
+                "health": health_rep_paged,
+                "walkthroughs": wt_paged}
     paged64 = {"moe_paged_engine": moe_paged_launches}
 
     def rows(name, src, ref, row, by_path, **extra):
@@ -6138,6 +6501,14 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--stage-server"]:
         stage_server(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--failover"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        try:
+            failover_repeat(int(sys.argv[2]))
+        except SmokeError as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
         sys.exit(0)
     if sys.argv[1:2] == ["--actor-server"]:
         opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))

@@ -179,10 +179,15 @@ class ActorServer:
         finally:
             with self._conns_lock:
                 self._conns.discard(conn)
-            try:
-                conn.close()
-            except OSError:
-                pass
+            # This reader closes the fd once it has stopped reading, and
+            # under the send lock: a handler's reply (a GIL-free writev
+            # on the fd number) must never land on a socket that reused
+            # the number.
+            with send_lock:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
 
     def _handle_request(self, conn, send_lock, msg: dict, args_blob) -> None:
         req_id = msg.get("id")
@@ -264,11 +269,8 @@ class ActorServer:
         with self._conns_lock:
             conns = list(self._conns)
         for c in conns:
+            # Wakes the conn's reader, which closes it (_serve_conn).
             try:
                 c.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-            try:
-                c.close()
             except OSError:
                 pass

@@ -58,6 +58,19 @@ registrations would lapse and its node drop out of the registry. So
 :func:`stop` holds them on leases of at least :data:`STOP_LEASE_S`
 (``registry.leases_held``), and a node being profiled stays listed.
 
+**Quiet switches.** CUPTI switches its kernel recording on at a
+session's start and off at its stop. Switched while another thread
+launches kernels (a serving replica under load), it could stop
+recording kernels altogether: the session — and, as a rule, every later
+one in the process — came back with a handful of kernel records where
+tens of thousands ran, its CPU ops and copies all there (seen after the
+1st to the 14th session under load; never in 40 sessions switched with
+nothing in flight). So a session's start and stop pass through
+``device.DEVICE_GATE``: they wait for every entry point inside
+``device.device_work`` to leave, drain the card, and switch with no
+launch in flight; device work waits the while, the stop's record
+processing included.
+
 Only this module imports torch, and only inside the functions that use
 it: ``import ptype_tpu_torch.health`` stays torch-free.
 """
@@ -73,6 +86,7 @@ import threading
 import time
 
 from ptype_tpu_torch import logs
+from ptype_tpu_torch.device import DEVICE_GATE
 
 log = logs.get_logger("profiling")
 
@@ -175,9 +189,12 @@ def _session(sess: dict) -> None:
 
     try:
         prof = torch.profiler.profile(**sess["kwargs"])
-        prof.start()
-        if sess["cuda"]:
-            _marker(torch)
+        with DEVICE_GATE.switch():
+            if sess["cuda"]:
+                torch.cuda.synchronize()
+            prof.start()
+            if sess["cuda"]:
+                _marker(torch)
     except Exception as e:  # noqa: BLE001 — handed to start()
         sess["error"] = e
         sess["ready"].set()
@@ -185,10 +202,11 @@ def _session(sess: dict) -> None:
     sess["ready"].set()
     sess["stop"].wait()
     try:
-        if sess["cuda"]:
-            _marker(torch)
-            torch.cuda.synchronize()
-        prof.stop()
+        with DEVICE_GATE.switch():
+            if sess["cuda"]:
+                _marker(torch)
+                torch.cuda.synchronize()
+            prof.stop()
         name = f"{socket.gethostname()}_{os.getpid()}.pt.trace.json"
         raw = os.path.join(sess["dir"], name)
         prof.export_chrome_trace(raw)
@@ -210,6 +228,9 @@ def start(label: str = "", base: str | None = None) -> dict:
     global _active
     import torch
 
+    if DEVICE_GATE.held():
+        raise ProfileError("profile start inside device_work(): the "
+                           "switch would wait for this thread")
     d = os.path.join(base or base_dir(),
                      f"{label or 'capture'}-{time.monotonic_ns()}")
     with _lock:
@@ -265,6 +286,9 @@ def stop(include_data: bool = False,
     global _active
     from ptype_tpu_torch import registry
 
+    if DEVICE_GATE.held():
+        raise ProfileError("profile stop inside device_work(): the "
+                           "switch would wait for this thread")
     with _lock:
         if _active is None:
             raise ProfileError("no profile capture active")

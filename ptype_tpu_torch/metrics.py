@@ -1,10 +1,12 @@
 """Metrics — the port's copy of ``ptype_tpu/metrics.py``.
 
 - Throughput and MFU for training loops (:class:`StepStats`,
-  :func:`mfu`). The peak table names the card. A device it does not
-  know has no peak, and then :func:`mfu` is ``None``: the port never
-  credits a run against another chip's rate (the reference falls back
-  to the TPU v5e peak).
+  :func:`mfu`). The peak comes from :func:`device_peak_tflops`: a
+  process pin (:func:`set_peak_tflops`), then the
+  :data:`PEAK_TFLOPS_ENV` override, then the table, which names the
+  card. A device none of them knows has no peak, and then :func:`mfu`
+  is ``None``: the port never credits a run against another chip's
+  rate (the reference falls back to the TPU v5e peak).
 - The registry: :class:`Counter`, :class:`Timing`, :class:`Gauge`,
   :class:`Histogram` (exact windowed percentiles, with trace-id
   exemplars), :class:`MetricsRegistry`, the process-global
@@ -33,24 +35,97 @@ from ptype_tpu_torch import lockcheck
 from ptype_tpu_torch import trace as trace_mod
 
 #: Dense bf16 tensor-core peak, TFLOP/s, by a substring of the device
-#: name. H100 SXM: 989 TFLOP/s (NVIDIA's H100 data sheet), at its full
-#: 700 W power limit.
+#: name (matched case-blind). H100 SXM: 989 TFLOP/s (NVIDIA's H100 data
+#: sheet), at its full 700 W power limit.
 PEAK_TFLOPS = {"H100": 989.0}
+
+#: Env override for the peak: either one bare float (the peak of
+#: whatever device this process computes on — the operator knows better
+#: than the substring table) or ``kind=tflops`` pairs matched before the
+#: table (``"h200=989,b200=2250"``). A new card must be one env var
+#: away from a correct MFU, not a code change.
+PEAK_TFLOPS_ENV = "PTYPE_PEAK_TFLOPS"
+
+#: Process-level pin (:func:`set_peak_tflops`): wins over env and table.
+_peak_override: float | None = None
+#: Device kinds already warned about: an unknown card logs ONCE per
+#: kind, not once per MFU computation.
+_peak_warned: set = set()
+
+
+def set_peak_tflops(value: float | None) -> None:
+    """Pin (or clear, with ``None``) the per-device peak every MFU
+    computation of this process uses — the config-file seam; the env
+    seam is :data:`PEAK_TFLOPS_ENV`."""
+    global _peak_override
+    _peak_override = None if value is None else float(value)
+
+
+def _peak_env() -> tuple[float | None, dict]:
+    """(flat override, ``kind=value`` additions) parsed from the env
+    var; malformed entries are ignored (a typo must not break MFU)."""
+    import os
+
+    raw = os.environ.get(PEAK_TFLOPS_ENV, "").strip()
+    if not raw:
+        return None, {}
+    extra: dict = {}
+    flat = None
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            key, _, val = part.partition("=")
+            try:
+                extra[key.strip().lower()] = float(val)
+            except ValueError:
+                pass
+        else:
+            try:
+                flat = float(part)
+            except ValueError:
+                pass
+    return flat, extra
 
 
 def device_peak_tflops(device=None) -> float | None:
-    """The bf16 peak of ``device`` (a CUDA device; the current one when
-    None), or None for a device the table does not name — the CPU
-    included."""
+    """The bf16 peak of ``device`` (default: the current card, or the
+    CPU on a host without one). Resolution order: the
+    :func:`set_peak_tflops` pin, a bare-float :data:`PEAK_TFLOPS_ENV`,
+    the env's ``kind=value`` pairs, then :data:`PEAK_TFLOPS`; a kind is
+    the card's name (``torch.cuda.get_device_name``) or ``cpu``,
+    matched by substring, case-blind. None for a device none of them
+    names — the CPU included — and an unknown card logs one warning
+    per kind naming the env var. Unlike the reference, there is no
+    fallback to another chip's peak."""
+    if _peak_override is not None:
+        return _peak_override
+    flat, extra = _peak_env()
+    if flat is not None:
+        return flat
     import torch
 
-    device = torch.device(device if device is not None else "cuda")
-    if device.type != "cuda" or not torch.cuda.is_available():
-        return None
-    name = torch.cuda.get_device_name(device)
-    for key, tf in PEAK_TFLOPS.items():
-        if key in name:
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_available():
+        kind = torch.cuda.get_device_name(device).lower()
+    else:
+        kind = device.type
+    for key, tf in extra.items():
+        if key in kind:
             return tf
+    for key, tf in PEAK_TFLOPS.items():
+        if key.lower() in kind:
+            return tf
+    if device.type != "cpu" and kind not in _peak_warned:
+        _peak_warned.add(kind)
+        from ptype_tpu_torch import logs
+
+        logs.get_logger("metrics").warning(
+            f"unknown accelerator kind; no MFU without its peak — set "
+            f"it with {PEAK_TFLOPS_ENV}", kv={"device_kind": kind})
     return None
 
 

@@ -41,8 +41,14 @@ param server's int8 RPC wire: one quantized leaf a gradient, in the
 reference's leaf order, so a tree either package quantized decodes in
 the other.
 
-Not ported yet (ROADMAP A6(b)): the hierarchical two-leg bodies and the
-``measure_*`` probes.
+The probes (:func:`measure_allreduce_gbps`, :func:`measure_wire_gbps`)
+time the exact allreduce and one bucketed allreduce a wire format on
+this rank, GB/s by the reference's ring convention (2(n-1)/n of the f32
+buffer a rank): at world 1 nothing crosses a wire, so they read 0.0
+GB/s and the milliseconds they time are the bucketing and quantize legs
+alone.
+
+Not ported yet (ROADMAP A6(b)): the hierarchical two-leg bodies.
 """
 
 from __future__ import annotations
@@ -979,3 +985,105 @@ def dequantize_tree(obj: dict, like: dict) -> dict:
         raise ValueError(f"dequantize_tree: {len(wires)} leaves on the "
                          f"wire, {len(paths)} in the tree")
     return tree_unflatten(paths, [dequantize_leaf(w) for w in wires])
+
+
+# ------------------------------------------------------------ probes
+
+
+def _drain(device: torch.device) -> None:
+    """Wait for the device before a clock read (a CPU collective on gloo
+    has returned when it is done)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _ring_bytes(n: int, nbytes: int) -> float:
+    """Bytes a rank moves in a ring allreduce of ``nbytes``: 2(n-1)/n of
+    them (0 at n = 1)."""
+    return 2 * (n - 1) / n * nbytes
+
+
+def allreduce_probe(mesh, axis: str = "data", mbytes: int = 64,
+                    iters: int = 10) -> dict:
+    """Time the exact allreduce of an ``mbytes`` MB f32 contribution over
+    ``axis`` after one warm call: ``{"gbps", "ms", "payload_mb", "n"}``,
+    ``ms`` a call. Every rank of the axis must call."""
+    import time
+
+    n = axis_n(mesh, axis)
+    elems = mbytes * 1024 * 1024 // 4
+    x = torch.ones(elems, dtype=torch.float32, device=mesh.device)
+    all_reduce(x, mesh, axis, "sum")
+    _drain(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        all_reduce(x, mesh, axis, "sum")
+    _drain(mesh.device)
+    dt = (time.perf_counter() - t0) / iters
+    return {"gbps": _ring_bytes(n, elems * 4) / dt / 1e9, "ms": dt * 1e3,
+            "payload_mb": mbytes, "n": n}
+
+
+def measure_allreduce_gbps(mesh, axis: str = "data", mbytes: int = 64,
+                           iters: int = 10) -> float:
+    """Measured algorithmic allreduce bandwidth (GB/s) over ``axis`` —
+    the BASELINE "Store push/pull collective bandwidth" metric
+    (:func:`allreduce_probe`'s ``gbps``)."""
+    return allreduce_probe(mesh, axis, mbytes, iters)["gbps"]
+
+
+def measure_wire_gbps(mesh, axis: str = "data", mbytes: int = 32,
+                      iters: int = 5,
+                      blocks: tuple = (256, 512, 1024)) -> dict:
+    """Algorithmic bandwidth of one bucketed allreduce under each wire
+    format: fp32 (exact), int8 with one scale a chunk, and the
+    block-scaled int8 wire at each of ``blocks``.
+
+    GB/s is app-level (f32 payload bytes reduced per second, ring
+    convention 2(n-1)/n), so a wire that spends less time on the same
+    payload scores higher whatever bytes it moved. ``wire_bytes_pct`` is
+    the analytic wire footprint of each int8 format against fp32. Beside
+    the reference's keys, ``*_ms`` give each format's milliseconds a
+    call. Every rank of the axis must call."""
+    import time
+
+    n = axis_n(mesh, axis)
+    elems = mbytes * 1024 * 1024 // 4
+    leaf = torch.full((elems,), 0.5, dtype=torch.float32,
+                      device=mesh.device)
+    app_bytes = _ring_bytes(n, elems * 4)
+
+    def timed(compress, q_block):
+        def run():
+            return bucketed_all_reduce(
+                [leaf], mesh, axis, "sum", compress=compress,
+                int8_min_bytes=0, q_block=q_block)[0]
+
+        run()
+        _drain(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        _drain(mesh.device)
+        dt = (time.perf_counter() - t0) / iters
+        return round(app_bytes / dt / 1e9, 3), dt * 1e3
+
+    def wire_pct(q_block):
+        if q_block is None:
+            q_block = elems // n
+        return round(100.0 * (elems + elems / q_block * 4)
+                     / (elems * 4), 2)
+
+    fp32, chunk = timed(None, None), timed("int8", None)
+    block = {str(b): timed("int8", b) for b in blocks}
+    return {
+        "payload_mb": mbytes,
+        "fp32_gbps": fp32[0],
+        "int8_chunk_gbps": chunk[0],
+        "int8_chunk_wire_pct": wire_pct(None),
+        "int8_block_gbps": {b: v[0] for b, v in block.items()},
+        "int8_block_wire_pct": {str(b): wire_pct(b) for b in blocks},
+        "fp32_ms": fp32[1],
+        "int8_chunk_ms": chunk[1],
+        "int8_block_ms": {b: v[1] for b, v in block.items()},
+    }

@@ -41,6 +41,7 @@ import dataclasses
 
 import torch
 
+from ptype_tpu_torch.device import device_work
 from ptype_tpu_torch.errors import ClusterError
 from ptype_tpu_torch.models import transformer as tfm
 from ptype_tpu_torch.parallel import collectives as C
@@ -429,6 +430,10 @@ def make_pipeline_train_step(cfg, mesh, n_microbatches: int,
                         f"got {type(optimizer).__name__}")
 
     def step(state, batch: dict):
+        with device_work():
+            return _step(state, batch)
+
+    def _step(state, batch: dict):
         batch = _batch_on(batch, mesh.device)
         params = state.params
         if schedule == "1f1b":

@@ -35,7 +35,9 @@ value still in flight; a torch tensor cannot be read before its
 collective is waited, so the port commits at the wait.
 
 :meth:`TensorStore.reshard` re-homes the store on a survivor mesh (the
-live elastic reshard's store leg).
+live elastic reshard's store leg). :func:`measure_push_tree` times a
+whole gradient push of a model's parameter tree, bucketed against leaf
+by leaf.
 
 Not ported yet (ROADMAP A6(b)): the hierarchical wire (a ``topology``
 raises).
@@ -757,3 +759,59 @@ def _flatten(prefix: str, tree: dict) -> list[tuple[str, object]]:
                    for path, leaf in collectives.tree_flatten(tree)),
                   key=lambda kv: kv[0])
 
+
+
+# ---------------------------------------------------------------- probes
+
+
+def measure_push_tree(mesh: Mesh, axis="data", preset: str = "tiny",
+                      iters: int = 3, compress: str | None = None,
+                      bucket_bytes: int | None = None,
+                      wire: collectives.WireConfig | None = None,
+                      topology=None, device=None) -> dict:
+    """Wall-clock a full param-tree gradient push, bucketed against
+    per-leaf — the ``store_push_tree_ms`` metric.
+
+    Builds the ``preset`` transformer's parameter tree (seed 0), pushes
+    it as this rank's contribution (the reference stacks one copy a
+    device) and times ``push_tree`` both ways after a warm push, the
+    device drained before each clock read. GB/s is the ring convention,
+    2(n-1)/n of the tree's bytes a rank: 0.0 at world 1, where the
+    milliseconds time the bucketing alone. Every rank must call."""
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.models.weights import init_params
+
+    device = resolve_device(device)
+    cfg = tfm.preset(preset)
+    params = init_params(torch.Generator(device=device).manual_seed(0),
+                         cfg, device=device)
+    n = axis_n(mesh, axis)
+    store = TensorStore(mesh, axis, compress=compress, wire=wire,
+                        topology=topology, device=device)
+    leaves = [t for _, t in collectives.tree_flatten(params)]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    def timed(bucketed: bool) -> float:
+        store.push_tree("g", params, op="mean", bucketed=bucketed,
+                        bucket_bytes=bucket_bytes)
+        collectives._drain(device)
+        t0 = _time.perf_counter()
+        for _ in range(iters):
+            store.push_tree("g", params, op="mean", bucketed=bucketed,
+                            bucket_bytes=bucket_bytes)
+        collectives._drain(device)
+        return (_time.perf_counter() - t0) / iters
+
+    per_leaf = timed(False)
+    bucketed = timed(True)
+    plan = collectives.plan_buckets(
+        leaves, n, bucket_bytes or collectives.DEFAULT_BUCKET_BYTES)
+    return {
+        "bucketed_ms": round(bucketed * 1e3, 2),
+        "per_leaf_ms": round(per_leaf * 1e3, 2),
+        "speedup": round(per_leaf / bucketed, 2) if bucketed else None,
+        "n_leaves": len(leaves),
+        "n_buckets": len(plan),
+        "payload_mb": round(nbytes / 2**20, 2),
+        "gbps": round(2 * (n - 1) / n * nbytes / bucketed / 1e9, 2),
+    }

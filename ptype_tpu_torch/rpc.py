@@ -132,6 +132,24 @@ class _Conn:
         return not self._closed.is_set()
 
     def _read_loop(self) -> None:
+        try:
+            self._read_frames()
+        finally:
+            self.close()
+            # The reader closes the fd, and only once it has stopped
+            # reading: the native recv runs without the GIL on the fd
+            # NUMBER, so a close from another thread could free that
+            # number for the next socket (another connection's dial)
+            # while this thread still reads it — it would steal that
+            # connection's frames. Under the send lock, so no sender is
+            # mid-writev on the number either.
+            with self._send_lock:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
+
+    def _read_frames(self) -> None:
         while not self._closed.is_set():
             try:
                 msg = wire.recv_msg(self._sock)
@@ -164,7 +182,6 @@ class _Conn:
                     RemoteError(msg.get("error", "remote error"),
                                 msg.get("traceback", ""))
                 )
-        self.close()
 
     def call_async(self, method: str, args) -> Future:
         if self._closed.is_set():
@@ -250,13 +267,10 @@ class _Conn:
         import socket
 
         try:
-            # shutdown() wakes the read loop parked in recv(2); close()
-            # alone leaves it wedged until process exit.
+            # shutdown() wakes the read loop parked in recv(2), which
+            # then closes the fd (see _read_loop); close() alone would
+            # leave it wedged until process exit.
             self._sock.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
-        try:
-            self._sock.close()
         except OSError:
             pass
         with self._pending_lock:

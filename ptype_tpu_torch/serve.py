@@ -19,7 +19,7 @@ import torch
 
 from ptype_tpu_torch import lockcheck, logs
 from ptype_tpu_torch import metrics as metrics_mod
-from ptype_tpu_torch.device import resolve_device
+from ptype_tpu_torch.device import device_work, resolve_device
 from ptype_tpu_torch.errors import ShedError
 from ptype_tpu_torch.models import generate as gen
 from ptype_tpu_torch.models import transformer as tfm
@@ -36,7 +36,9 @@ LIFECYCLE_CODES = {name: i for i, name in enumerate(LIFECYCLES)}
 def _norm_prompt(prompt, device) -> torch.Tensor:
     """Tokens → (B, S) int64 on ``device`` (a bare (S,) gets a batch
     dim)."""
-    prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.int64)
+    with device_work():
+        prompt = torch.as_tensor(prompt).to(device=device,
+                                            dtype=torch.int64)
     return prompt[None] if prompt.dim() == 1 else prompt
 
 
@@ -121,7 +123,7 @@ class GeneratorActor:
             self._check_draining()
             with self._load_lock:
                 self._calls += 1
-            with self._lock:
+            with device_work(), self._lock:
                 generator = torch.Generator(
                     device=self.device).manual_seed(int(seed))
                 return gen.generate(
@@ -140,7 +142,7 @@ class GeneratorActor:
         self._enter_request()
         try:
             self._check_draining()
-            with self._lock:
+            with device_work(), self._lock:
                 return tfm.forward(self.params, tokens, self.cfg)
         finally:
             self._exit_request()
@@ -275,7 +277,8 @@ class BatchingGeneratorActor(GeneratorActor):
                         break
                     batch.append(self._queue.pop(0))
                     rows += nxt_rows
-            self._run_round(batch)
+            with device_work():
+                self._run_round(batch)
 
     def _run_round(self, batch: list[_Pending]) -> None:
         """Group by max_new only: mixed prompt lengths coalesce through

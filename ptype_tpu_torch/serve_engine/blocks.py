@@ -104,6 +104,11 @@ class BlockPool:
         with self._lock:
             return max(0, self._available() - self._reserved)
 
+    def used_blocks(self) -> int:
+        """Blocks held by live sequences (refcount > 0)."""
+        with self._lock:
+            return len(self._ref)
+
     def try_reserve(self, n: int) -> bool:
         with self._lock:
             if self._available() - self._reserved < n:

@@ -77,6 +77,7 @@ import torch
 
 from ptype_tpu_torch import chaos, lockcheck, logs, trace
 from ptype_tpu_torch import metrics as metrics_mod
+from ptype_tpu_torch.device import device_work
 from ptype_tpu_torch.errors import ShedError
 from ptype_tpu_torch.health.serving import ServingLedger
 from ptype_tpu_torch.models import generate as gen
@@ -550,7 +551,7 @@ class PagedGeneratorActor(GeneratorActor):
         # Under the dispatch lock, on the engine's stream: the pack's
         # device-to-host copy (the one sanctioned sync) reads a
         # finished bank.
-        with self._lock, self._on_engine_stream():
+        with device_work(), self._lock, self._on_engine_stream():
             for i in want:
                 h = row.hashes[i] if i < nfull else None
                 payload, nb = self._migrator.pack_block(
@@ -698,7 +699,7 @@ class PagedGeneratorActor(GeneratorActor):
             bid = self.pool.alloc()  # consumes one reserved unit
             t["reserve_left"] -= 1
             t["table"][i] = bid
-        with self._lock, self._on_engine_stream():
+        with device_work(), self._lock, self._on_engine_stream():
             for i in sorted(entries):
                 self._migrator.unpack_block(self.pool.k, self.pool.v,
                                             entries[i], t["table"][i],
@@ -817,31 +818,38 @@ class PagedGeneratorActor(GeneratorActor):
                     pending_stall = 0.0  # idle time is not stall
                 if self._closed:
                     return
-            # Cancelled rows retire before admission: their blocks are
-            # the headroom the queue head may be waiting on.
-            for slot in list(self._slot_state):
-                if self._active[slot] and self._slot_state[slot].cancelled:
-                    self._retire(slot, "cancelled")
-            # The admission round is bounded by prefill_chunk prompt
-            # tokens: that budget is the stall a co-batched decode sees,
-            # charged only when a decode was live to wait on it.
-            if self._active.any():
-                pending_stall += self._admission_round()
-            else:
-                # A prefill-only iteration is still metered, so
-                # serve.steps advances and its chunks land on their own
-                # iteration record.
-                with self.ledger.iteration(active=0, stall_ms=0.0):
-                    self._admission_round()
-                pending_stall = 0.0
-            if not self._active.any():
-                continue
-            stall_ms, pending_stall = pending_stall * 1e3, 0.0
-            self._record_stall(stall_ms)
-            with metrics_mod.annotate("serve.step"):
-                with self.ledger.iteration(int(self._active.sum()),
-                                           stall_ms) as it:
-                    self._step(it)
+            with device_work():
+                pending_stall = self._iteration(pending_stall)
+
+    def _iteration(self, pending_stall: float) -> float:
+        """One engine iteration: retire cancelled rows, an admission
+        round, and a decode step when a slot is live. Returns the
+        prefill stall still owed to the next step."""
+        # Cancelled rows retire before admission: their blocks are the
+        # headroom the queue head may be waiting on.
+        for slot in list(self._slot_state):
+            if self._active[slot] and self._slot_state[slot].cancelled:
+                self._retire(slot, "cancelled")
+        # The admission round is bounded by prefill_chunk prompt tokens:
+        # that budget is the stall a co-batched decode sees, charged
+        # only when a decode was live to wait on it.
+        if self._active.any():
+            pending_stall += self._admission_round()
+        else:
+            # A prefill-only iteration is still metered, so serve.steps
+            # advances and its chunks land on their own iteration record.
+            with self.ledger.iteration(active=0, stall_ms=0.0):
+                self._admission_round()
+            pending_stall = 0.0
+        if not self._active.any():
+            return pending_stall
+        stall_ms = pending_stall * 1e3
+        self._record_stall(stall_ms)
+        with metrics_mod.annotate("serve.step"):
+            with self.ledger.iteration(int(self._active.sum()),
+                                       stall_ms) as it:
+                self._step(it)
+        return 0.0
 
     def _admission_round(self) -> float:
         """Prefill up to ``prefill_chunk`` prompt tokens; returns the

@@ -35,6 +35,7 @@ from typing import Callable, Sequence
 import torch
 
 from ptype_tpu_torch import logs
+from ptype_tpu_torch.device import device_work
 from ptype_tpu_torch.errors import ClusterError
 from ptype_tpu_torch.train.trainer import (Adam, make_apply_fn, tree_leaves,
                                            tree_map)
@@ -102,11 +103,12 @@ class StageActor:
     def Forward(self, mb: int, x):
         """Run the stage on microbatch ``mb``, stashing ``x`` for its
         backward."""
-        with self._lock:
-            self._stash[mb] = x
-            params = self.params
-        with torch.no_grad():
-            return self.fn(params, x)
+        with device_work():
+            with self._lock:
+                self._stash[mb] = x
+                params = self.params
+            with torch.no_grad():
+                return self.fn(params, x)
 
     def _vjp(self, params, x, g):
         """(parameter grads, input grad | None): the stage recomputed
@@ -129,25 +131,26 @@ class StageActor:
     def Backward(self, mb: int, g):
         """The input gradient of microbatch ``mb`` against the frozen
         parameters; its parameter gradient is added to the sweep's."""
-        with self._lock:
-            x = self._stash.pop(mb)
-            params = self.params
-        dparams, dx = self._vjp(params, x, g)
-        with self._lock:
-            if self._accum is None:
-                self._accum = dparams
-            else:
-                summed = [a + b for a, b in zip(tree_leaves(self._accum),
-                                                tree_leaves(dparams))]
-                self._accum = _like(self._accum, summed)
-            self._accum_count += 1
-        return dx
+        with device_work():
+            with self._lock:
+                x = self._stash.pop(mb)
+                params = self.params
+            dparams, dx = self._vjp(params, x, g)
+            with self._lock:
+                if self._accum is None:
+                    self._accum = dparams
+                else:
+                    summed = [a + b for a, b in zip(
+                        tree_leaves(self._accum), tree_leaves(dparams))]
+                    self._accum = _like(self._accum, summed)
+                self._accum_count += 1
+            return dx
 
     def Apply(self, mean: bool = True):
         """One optimizer step on the grads added up this sweep (their
         mean over microbatches by default, matching the dense loss's
         mean). Returns the number of microbatches folded in."""
-        with self._lock:
+        with device_work(), self._lock:
             grads, n = self._accum, self._accum_count
             self._accum, self._accum_count = None, 0
             if grads is None:
@@ -160,10 +163,11 @@ class StageActor:
 
     def Infer(self, x):
         """Stateless forward (no stash) — the inference path."""
-        with self._lock:
-            params = self.params
-        with torch.no_grad():
-            return self.fn(params, x)
+        with device_work():
+            with self._lock:
+                params = self.params
+            with torch.no_grad():
+                return self.fn(params, x)
 
 
 class PipelineClient:

@@ -34,7 +34,7 @@ import threading
 
 import torch
 
-from ptype_tpu_torch.device import resolve_device
+from ptype_tpu_torch.device import device_work, resolve_device
 from ptype_tpu_torch.models import transformer as tfm
 from ptype_tpu_torch.models.weights import init_params
 from ptype_tpu_torch.parallel import collectives
@@ -113,6 +113,10 @@ class ParamServer:
         is the parameter version they were computed against. ``grads``
         is a tree or a quantized tree wire, reassembled against the
         server's own parameter structure."""
+        with device_work():
+            return self._push(grads, version)
+
+    def _push(self, grads, version: int) -> dict:
         quantized = collectives.is_quantized_tree(grads)
         if quantized:
             # Staleness needs only the version: reject BEFORE paying the
@@ -195,15 +199,19 @@ class AsyncWorker:
 
     def step(self, batch: dict) -> dict:
         snap = self.server.Pull()
-        loss, grads = self._grads(snap["params"], batch)
         prev_residuals = self._residuals
-        if self.wire is not None and self.wire.compress == "int8":
-            ef = self.wire.error_feedback
-            grads, res = collectives.quantize_tree(
-                grads, self.wire.q_block, self._residuals if ef else None,
-                want_residuals=ef)
-            if ef:
-                self._residuals = res
+        # The pull and the push stay outside device_work: over RPC the
+        # server's handler enters it on another thread, which a pending
+        # profiler switch holds back while it waits for this one.
+        with device_work():
+            loss, grads = self._grads(snap["params"], batch)
+            if self.wire is not None and self.wire.compress == "int8":
+                ef = self.wire.error_feedback
+                grads, res = collectives.quantize_tree(
+                    grads, self.wire.q_block,
+                    self._residuals if ef else None, want_residuals=ef)
+                if ef:
+                    self._residuals = res
         try:
             out = self.server.Push(grads, snap["version"])
         except Exception as e:  # noqa: BLE001 — see _is_stale

@@ -47,6 +47,10 @@ the checkpoint round trip it replaces, in step units.
 Counted cost: :meth:`StoreDPTrainer.compiled_cost` gives the FLOPs and
 bytes of a step (the gradient program and the optimizer apply of the
 trainer's mode) for the goodput ledger's ``mfu_compiled``.
+
+Probes: :func:`measure_overlap`, :func:`measure_zero` (replicated
+against ZeRO: optimizer bytes a replica, step time, final losses),
+:func:`measure_zero_ladder` and :func:`measure_reshard`.
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ import time as _time
 import numpy as np
 import torch
 
-from ptype_tpu_torch.device import resolve_device
+from ptype_tpu_torch.device import device_work, resolve_device
 from ptype_tpu_torch.errors import ClusterError
 from ptype_tpu_torch.metrics import (annotate, metrics,
                                      set_annotate_observer)
@@ -247,7 +251,7 @@ class StoreDPTrainer:
         multiple of the rank count), inside a ``train.step`` region.
         Returns the mean loss over the ranks (a host float: the step's
         one host read), the step count and the grad epoch."""
-        with annotate("train.step"):
+        with annotate("train.step"), device_work():
             out = self._step(batch)
         metrics.gauge("train.loss").set(out["loss"])
         metrics.counter("train.steps").add(1)
@@ -629,6 +633,53 @@ def measure_overlap(mesh, preset: str = "tiny", steps: int = 6,
                                    if share_base else 0.0),
         "drain_step_ms": drain_ms, "overlap_step_ms": over_ms,
         "steps": steps, "bucket_bytes": bucket_bytes, "compress": compress,
+    }
+
+
+def measure_zero(mesh, preset: str = "tiny", steps: int = 6,
+                 batch: int = 16, compress: str | None = None,
+                 device=None) -> dict:
+    """Optimizer-state bytes a replica and step time of ZeRO (``zero=True``,
+    the reference's) against the replicated store-DP baseline, the same
+    seed and stream: measured resident bytes of the moments (not a
+    formula), the step ms (host clock, the device drained by the loss
+    read) after one warm step, and both final losses, which must agree.
+    Every rank must call."""
+    device = resolve_device(device)
+    cfg = tfm.preset(preset)
+    seq = min(cfg.max_seq, 128)
+
+    def run(zero: bool):
+        wire = WireConfig(compress=compress, int8_min_bytes=0)
+        trainer = _probe_trainer(cfg, mesh, device, wire, zero=zero)
+        stream = _batches(cfg, batch, seq, device, seed=5)
+        trainer.step(next(stream))
+        t0 = _time.perf_counter()
+        for _ in range(steps):
+            out = trainer.step(next(stream))
+        dt = (_time.perf_counter() - t0) / steps
+        if zero:
+            nbytes = trainer.zero_state().moment_bytes_per_replica()
+        else:
+            st = trainer.opt_state
+            nbytes = sum(_nbytes(t) for _, t in
+                         tree_flatten(st.mu) + tree_flatten(st.nu))
+        return dt, nbytes, out["loss"]
+
+    repl_dt, repl_bytes, repl_loss = run(False)
+    zero_dt, zero_bytes, zero_loss = run(True)
+    return {
+        "zero_opt_mem_mb": round(zero_bytes / 2**20, 3),
+        "repl_opt_mem_mb": round(repl_bytes / 2**20, 3),
+        "opt_mem_ratio": (round(repl_bytes / zero_bytes, 2)
+                          if zero_bytes else None),
+        "zero_step_ms": round(zero_dt * 1e3, 2),
+        "repl_step_ms": round(repl_dt * 1e3, 2),
+        "final_loss_zero": round(float(zero_loss), 5),
+        "final_loss_repl": round(float(repl_loss), 5),
+        "n_replicas": axis_n(mesh, "data"),
+        "steps": steps,
+        "compress": compress,
     }
 
 

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from ptype_tpu_torch import logs, metrics
-from ptype_tpu_torch.device import resolve_device
+from ptype_tpu_torch.device import device_work, resolve_device
 from ptype_tpu_torch.models import transformer as tfm
 from ptype_tpu_torch.models.weights import init_params, param_shapes
 from ptype_tpu_torch.parallel import collectives as C
@@ -891,7 +891,7 @@ class Trainer:
         # which reads the loss every step, is the per-step-accurate
         # goodput source.
         with metrics.annotate("train.step"), \
-                metrics.step_annotation(self.state.step):
+                metrics.step_annotation(self.state.step), device_work():
             self.state, out = self._step_fn(self.state, batch)
         metrics.metrics.counter("train.steps").add(1)
         self._pending_tokens += n_tokens

@@ -713,6 +713,64 @@ def test_profile_on_the_card_captures_cuda_kernels(cuda, tmp_path):
     assert out["memory"]["memory_profile_size"] > 0
 
 
+#: A fresh CUDA process: a loader thread launches kernels inside
+#: ``device_work`` without pause while the main thread runs 12 profiler
+#: sessions one after another; one line a session: its kernel records.
+_SESSIONS_UNDER_LOAD = """
+import gzip, json, os, sys, threading, time
+import torch
+from ptype_tpu_torch.device import device_work
+from ptype_tpu_torch.health import profiling
+stop = threading.Event()
+def load():
+    a = torch.randn(256, 256, device="cuda")
+    while not stop.is_set():
+        with device_work():
+            for _ in range(8):
+                a = torch.tanh(a @ a) * 0.5
+        torch.cuda.synchronize()
+t = threading.Thread(target=load, daemon=True)
+t.start()
+time.sleep(1.0)
+for i in range(12):
+    profiling.start(label=f"s{i}", base=sys.argv[1])
+    time.sleep(0.3)
+    out = profiling.stop()
+    n = 0
+    for f in out["files"]:
+        if f["path"].endswith(".trace.json.gz"):
+            with gzip.open(os.path.join(out["dir"], f["path"]), "rt") as fp:
+                n += sum(1 for e in json.load(fp)["traceEvents"]
+                         if e.get("ph") == "X" and e.get("cat") == "kernel")
+    print(n, flush=True)
+stop.set()
+t.join(timeout=30)
+"""
+
+
+def test_sessions_under_load_keep_their_kernel_records(cuda, tmp_path):
+    """CUPTI switched on or off while another thread launches kernels
+    could stop recording kernels for that session and the process's
+    later ones (a replica's capture with none of the 12 flash records
+    failover (d) needs). Sessions switch only with no device work in
+    flight, so each of 12 back-to-back sessions under a launching
+    thread holds that thread's kernels."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-c", _SESSIONS_UNDER_LOAD, str(tmp_path)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    counts = [int(x) for x in out.stdout.split()]
+    assert len(counts) == 12
+    assert min(counts) >= 100, counts
+
+
 def test_store_dp_compiled_cost_on_the_card(meshes):
     """``StoreDPTrainer.compiled_cost`` of a card trainer counts on
     ``meta`` skeletons: the same FLOPs as the CPU count, and the card

@@ -147,6 +147,54 @@ def test_the_training_modes_and_pipeline_modules_are_guarded():
         assert callable(getattr(trainer, name))
 
 
+def test_the_walkthroughs_and_store_probes_are_guarded():
+    """The example twins (the calculator, the scatter-gather walkthrough,
+    the three observability demos) are among the modules imported with
+    JAX blocked and scanned; the Store probes, the peak seam and
+    ``BlockPool.used_blocks`` exist under the reference's names."""
+    mods = set(_modules())
+    ex = "ptype_tpu_torch.examples"
+    want = {f"{ex}.calculator.{m}" for m in ("calculator", "server",
+                                             "client")}
+    want |= {f"{ex}.optimus.{m}" for m in ("prime", "worker",
+                                           "coordinator")}
+    want |= {f"{ex}.observability.{m}" for m in ("demo", "health_demo",
+                                                 "serve_demo")}
+    assert want <= mods, sorted(want - mods)
+    from ptype_tpu_torch import metrics
+    from ptype_tpu_torch.parallel import collectives, tensorstore
+    from ptype_tpu_torch.serve_engine import BlockPool
+    from ptype_tpu_torch.train import store_dp
+
+    for mod, name in ((collectives, "measure_allreduce_gbps"),
+                      (collectives, "measure_wire_gbps"),
+                      (tensorstore, "measure_push_tree"),
+                      (store_dp, "measure_zero"),
+                      (metrics, "set_peak_tflops"),
+                      (BlockPool, "used_blocks")):
+        assert callable(getattr(mod, name)), name
+    assert metrics.PEAK_TFLOPS_ENV == "PTYPE_PEAK_TFLOPS"
+
+
+@pytest.mark.parametrize("module", [
+    "calculator.server", "calculator.client", "optimus.worker",
+    "observability.demo", "observability.health_demo",
+    "observability.serve_demo"])
+def test_example_twins_raise_without_a_card(tmp_path, module):
+    """An example twin with no card and no PTYPE_DEVICE raises instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    env = {k: v for k, v in os.environ.items() if k != "PTYPE_DEVICE"}
+    env.update(PYTHONPATH=str(ROOT), OBS_DIR=str(tmp_path),
+               CONFIG=_cli_config(tmp_path, "127.0.0.1:1"))
+    out = subprocess.run(
+        [sys.executable, "-m", f"ptype_tpu_torch.examples.{module}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_source_imports_jax_or_the_reference_package(path):
     tree = ast.parse(path.read_text())

@@ -23,6 +23,7 @@ from ptype_tpu import metrics as jmetrics
 from ptype_tpu.health import profiling as jprofiling
 from ptype_tpu.models import transformer as jtfm
 from ptype_tpu_torch import metrics
+from ptype_tpu_torch.device import DeviceGate, device_work
 from ptype_tpu_torch.health import (AlertCapture, AlertEngine, ClusterView,
                                     GoodputLedger, MfuGapRule,
                                     default_rules, profiling)
@@ -102,6 +103,89 @@ def test_start_and_stop_on_different_threads(tmp_path):
     t.start()
     t.join()
     assert box["o"]["dir"] == box["s"]["dir"] and box["o"]["files"]
+
+
+def test_device_gate_switch_waits_for_work_and_queues_new_work():
+    """A switch waits for the device work inside to leave; work that
+    arrives while a switch waits or runs queues behind it; work already
+    inside may re-enter without deadlocking a waiting switch."""
+    import threading
+    import time
+
+    gate = DeviceGate()
+    events, release = [], threading.Event()
+
+    def worker():
+        with gate.work():
+            events.append("work in")
+            release.wait(10)
+            with gate.work():  # re-entry while the switch waits
+                events.append("re-entered")
+            events.append("work out")
+
+    def switcher():
+        with gate.switch():
+            events.append("switch")
+            time.sleep(0.05)
+        events.append("switch out")
+
+    def late():
+        with gate.work():
+            events.append("late work")
+
+    w = threading.Thread(target=worker)
+    w.start()
+    while "work in" not in events:
+        time.sleep(0.001)
+    s = threading.Thread(target=switcher)
+    s.start()
+    time.sleep(0.05)
+    l = threading.Thread(target=late)
+    l.start()
+    time.sleep(0.05)
+    assert events == ["work in"]        # the switch and late work wait
+    release.set()
+    for t in (w, s, l):
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert events.index("work out") < events.index("switch")
+    assert events.index("switch out") < events.index("late work")
+    assert "re-entered" in events
+
+
+def test_a_session_starts_and_stops_outside_device_work(tmp_path):
+    """``start`` and ``stop`` wait for a thread inside ``device_work``
+    to leave before they switch the profiler."""
+    import threading
+    import time
+
+    done = {}
+
+    def busy(key):
+        with device_work():
+            time.sleep(0.3)
+            done[key] = time.monotonic()
+
+    t = threading.Thread(target=busy, args=("before_start",))
+    t.start()
+    time.sleep(0.05)
+    profiling.start(label="gate", base=str(tmp_path))
+    started = time.monotonic()
+    t.join(timeout=10)
+    assert started >= done["before_start"]
+    t = threading.Thread(target=busy, args=("before_stop",))
+    t.start()
+    time.sleep(0.05)
+    with device_work():  # a stop from inside would self-wait
+        with pytest.raises(profiling.ProfileError, match="device_work"):
+            profiling.stop()
+    profiling.stop()
+    stopped = time.monotonic()
+    t.join(timeout=10)
+    assert stopped >= done["before_stop"]
+    with device_work():
+        with pytest.raises(profiling.ProfileError, match="device_work"):
+            profiling.start(label="inside", base=str(tmp_path))
 
 
 def test_capture_ships_data_and_fetch_blocks_traversal(tmp_path):

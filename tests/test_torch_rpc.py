@@ -592,3 +592,41 @@ def test_rpc_chaos_seams_fire_and_recover(monkeypatch):
             client.close()
         for s in servers:
             s.close()
+
+
+def test_short_lived_connections_never_read_each_others_frames(monkeypatch):
+    """Dial, call, close, over and over from several threads: every
+    call gets its own reply. A connection's reader reads its fd NUMBER
+    without the GIL, so a close from another thread could free that
+    number for the next dial while the old reader still reads it — it
+    stole the new connection's frames ("connection closed", malformed
+    or oversized frames). The reader now closes its own fd."""
+    monkeypatch.setattr(tactor, "lookup_local", lambda a, p: None)
+    server = make_server(Echo())
+    errors, calls = [], [0]
+    lock = threading.Lock()
+
+    def churn(k):
+        for i in range(60):
+            c = rpc._dial(Node("127.0.0.1", server.port), 5.0, "cpu")
+            try:
+                got = c.call_async("Echo.Add", (k, i)).result(timeout=10)
+                assert got == k + i, (k, i, got)
+                with lock:
+                    calls[0] += 1
+            except Exception as e:  # noqa: BLE001 — collected below
+                errors.append(repr(e))
+            finally:
+                c.close()
+
+    threads = [threading.Thread(target=churn, args=(k,)) for k in range(8)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        server.close()
+    assert errors == []
+    assert calls[0] == 8 * 60

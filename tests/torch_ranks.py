@@ -1035,10 +1035,41 @@ def pipeline_suite(mesh, inp: dict) -> dict:
     return _np(out)
 
 
+def store_probes_suite(mesh, inp: dict) -> dict:
+    """The Store probes: ``measure_allreduce_gbps``, ``measure_wire_gbps``,
+    ``measure_push_tree`` and ``measure_zero`` as the port runs them,
+    then ``measure_zero`` again from the reference's weights and token
+    stream (``inp["ref"]``: its seed-0 params and the batches its
+    ``synthetic_batches`` draws at seed 5) in place of the port's."""
+    from ptype_tpu_torch.models.weights import params_from_numpy
+    from ptype_tpu_torch.parallel import collectives as C
+    from ptype_tpu_torch.parallel import tensorstore as ts
+    from ptype_tpu_torch.train import store_dp as sd
+
+    out = {"allreduce_gbps": C.measure_allreduce_gbps(mesh, mbytes=1,
+                                                      iters=1),
+           "wire": C.measure_wire_gbps(mesh, **inp["wire"]),
+           "push_tree": ts.measure_push_tree(mesh, preset="tiny", iters=2,
+                                             device="cpu"),
+           "zero": sd.measure_zero(mesh, steps=2, batch=8, device="cpu")}
+    ref = inp["ref"]
+    init0, batches0 = sd.init_params, sd._batches
+    sd.init_params = lambda generator, cfg, device=None: params_from_numpy(
+        ref["params"], cfg, device)
+    sd._batches = lambda cfg, batch, seq, device, seed: iter(
+        [{k: _t(v) for k, v in b.items()} for b in ref["batches"]])
+    try:
+        out["zero_ref_inputs"] = sd.measure_zero(mesh, steps=2, batch=8,
+                                                 device="cpu")
+    finally:
+        sd.init_params, sd._batches = init0, batches0
+    return out
+
+
 SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite,
           "elastic": elastic_suite, "sharded_train": sharded_train_suite,
           "ring": ring_suite, "elastic_trainer": elastic_trainer_suite,
-          "pipeline": pipeline_suite}
+          "pipeline": pipeline_suite, "store_probes": store_probes_suite}
 #: The one mesh axis a suite's ranks lie on ("data" unless named here).
 SUITE_AXIS = {"pipeline": "stage"}
 
