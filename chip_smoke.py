@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases, each printing its own lines:
+Run from the root of a checkout. The card may be shared: at the start
+and before llama_remat the script waits up to CARD_WAIT_S for
+CARD_FREE_GIB of its memory to be free (one ``card_memory`` line each,
+with what other processes held), and fails if it stays held. On exit
+it kills any process of its own still running. Phases, each printing
+its own lines:
 
 1. build — every CUDA kernel under ptype_tpu_torch/ops/csrc is compiled
    by nvcc for sm_90a (one nvcc per source, all at once, while the
@@ -168,6 +173,13 @@ Run from the root of a checkout. Phases, each printing its own lines:
    step-1 losses equal; then every gradient of one batch at 2 layers,
    S=2048, with and without remat: bit for bit in bf16, or else held in
    f32 at 1e-4; the kernels phase has the flash rows at its shape;
+   ep_trainer: optimus-moe at full width, B=16, S=1024, 8 steps (2 of
+   warm-up) through the mesh Trainer's expert-parallel branch on a
+   world-1 NCCL mesh {data: 1, expert: 1}: forward, dq and dk/dv
+   launched steps x 12 times, the branch as often, a finite loss that
+   falls, step ms, tokens/s, MFU, peak memory; then SHORT_LAYERS layers
+   in f32 (B=4, 3 steps): the mesh Trainer's losses within 1e-4 of the
+   local Trainer's on the same seed and batch;
    health: the port's health plane at optimus-125m: (a) a GoodputLedger
    on the annotate seam (analytic and counted FLOPs, the default
    Sampler armed) over 8 StoreDPTrainer steps (ZeRO 0, exact, B=16,
@@ -261,7 +273,11 @@ Run from the root of a checkout. Phases, each printing its own lines:
    measure_allreduce_gbps (0.0 GB/s by the ring convention at world 1,
    beside the ms of the bucketing and quantize legs they time), and
    measure_zero at optimus-125m (3 steps: the ratio 1.0, both final
-   losses equal at 1e-3);
+   losses equal at 1e-3), measure_hier_allreduce on a 1x1 topology
+   (both legs of size 1: no slow-leg bytes), and 4 StoreDPTrainer steps
+   at SHORT_LAYERS through a TensorStore on that topology's mesh (the
+   two-leg wire) bit for bit equal to the flat store's, the forward,
+   dq and dk/dv launched steps x 4 times a rung;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -355,6 +371,65 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
+
+
+#: Device memory (GiB) the run needs free before it starts and before
+#: llama_remat: the most one phase adds over what the process already
+#: holds (llama_remat, 63.7 GiB on an H100 80GB), with 2 GiB of slack.
+CARD_FREE_GIB = 66.0
+#: Seconds each of those two points waits, polling, for memory that
+#: other processes hold on the card to be released.
+CARD_WAIT_S = 240.0
+
+
+def wait_for_card(torch, where, need_gib=CARD_FREE_GIB,
+                  limit_s=CARD_WAIT_S):
+    """Wait until ``need_gib`` of the card's memory is free: the card may
+    be shared, and a process that held it may still be exiting. Prints
+    one line with the wait; raises if the memory stays held."""
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    free, total = torch.cuda.mem_get_info()
+    while free < need_gib * 2**30 and time.monotonic() - t0 < limit_s:
+        time.sleep(2.0)
+        free, total = torch.cuda.mem_get_info()
+    own = torch.cuda.memory_reserved()
+    row = {"card_memory": where, "waited_s": time.monotonic() - t0,
+           "free_gib": free / 2**30, "total_gib": total / 2**30,
+           "reserved_here_gib": own / 2**30,
+           "held_elsewhere_gib": (total - free - own) / 2**30}
+    emit(row)
+    if free < need_gib * 2**30:
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        raise SmokeError(f"{where}: {free / 2**30:.2f} GiB of the card's "
+                         f"memory free after {limit_s:.0f} s, {need_gib} "
+                         f"needed: {row}; compute apps: {apps or 'none'}")
+
+
+def stop_children():
+    """SIGKILL every process still descended from this one: a phase that
+    failed may leave its servers behind, holding card memory."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                pass
+    mine, frontier = set(), {os.getpid()}
+    while frontier:
+        frontier = {p for p, pp in parent.items()
+                    if pp in frontier and p not in mine}
+        mine |= frontier
+    for p in mine:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except OSError:
+            pass
 
 
 def time_ms(torch, fn, iters=10, flush=None):
@@ -2646,6 +2721,108 @@ def llama_remat_phase(torch, tfm, flash_mod, train_mod, card):
                           "tol_f32": REMAT_GRAD_TOL_F32},
           "seconds": time.monotonic() - t_phase, "card": card})
     return total
+
+
+#: ep_trainer's f32 check: SHORT_LAYERS layers, B=EP_F32_B, S=1024,
+#: EP_F32_STEPS steps, the mesh Trainer's losses against the local one's.
+EP_F32_B = 4
+EP_F32_STEPS = 3
+EP_F32_RTOL = 1e-4
+
+
+def ep_trainer_phase(torch, tfm, flash_mod, train_mod, card, moe_row):
+    """optimus-moe at full width through the mesh Trainer's expert-
+    parallel branch (``MeshLayout.moe``) on a world-1 NCCL mesh
+    ``{data: 1, expert: 1}``, B=16, S=1024, 8 steps with 2 of warm-up:
+    flash launches steps × layers each, the branch's calls the same, a
+    finite falling loss, step ms, tokens/s, MFU, peak memory; then
+    SHORT_LAYERS layers in f32 against the local Trainer on the same
+    seed and batch. ``moe_row`` is the local ``moe_trainer``'s row of
+    this run, set beside it. Returns the launches (fwd, dq, dkv) of the
+    main run."""
+    from dataclasses import replace
+
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+
+    t_phase = time.monotonic()
+    mesh = build_mesh({"data": 1, "expert": 1})
+    cfg = tfm.preset("optimus-moe")
+    B, S, steps, warm = 16, 1024, 8, 2
+
+    def trainer(c, **kw):
+        return train_mod.Trainer(
+            c, generator=torch.Generator(device="cuda").manual_seed(0),
+            optimizer=train_mod.default_optimizer(lr=1e-3, warmup=2),
+            sync_every=0, **kw)
+
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, B, S, seed=3,
+                                             device="cuda"))
+    tr = trainer(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    for c in counters:
+        c.launches = 0
+    tfm.MeshLayout.moe_calls = 0
+    losses = []
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        losses.append(tr.step(batch)["loss"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = [c.launches for c in counters]
+    ep_calls = tfm.MeshLayout.moe_calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    del tr
+    torch.cuda.empty_cache()
+    want = steps * cfg.n_layers
+    check(launches == [want] * 3,
+          f"ep_trainer: launches fwd/dq/dkv {launches} != {want} each")
+    check(ep_calls == want,
+          f"ep_trainer: the expert-parallel branch ran {ep_calls} times, "
+          f"not {want}")
+    check(all(math.isfinite(x) for x in losses),
+          f"ep_trainer: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"ep_trainer: loss did not fall: {losses}")
+    timed = steps - warm
+    tok_s = timed * B * S / wall
+    fpt = tfm.flops_per_token(cfg, S)
+
+    # f32, SHORT_LAYERS: the mesh Trainer's losses against the local's.
+    c32 = replace(cfg, n_layers=SHORT_LAYERS, dtype=torch.float32)
+    small = {k: v[:EP_F32_B] for k, v in batch.items()}
+    f32 = {}
+    for name, kw in (("local", {"device": "cuda"}), ("mesh", {"mesh": mesh})):
+        t = trainer(c32, **kw)
+        f32[name] = [float(t.step(small)["loss"])
+                     for _ in range(EP_F32_STEPS)]
+        del t
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(f32["mesh"],
+                                                      f32["local"]))
+    row = {"phase": "ep_trainer", "preset": "optimus-moe",
+           "mesh": {"data": 1, "expert": 1}, "B": B, "S": S, "steps": steps,
+           "timed_steps": timed, "losses": losses,
+           "launches": {"flash_fwd": launches[0], "flash_bwd_dq":
+                        launches[1], "flash_bwd_dkv": launches[2]},
+           "ep_branch_calls": ep_calls,
+           "step_ms": wall / timed * 1e3, "tokens_per_s": tok_s,
+           "flops_per_token": fpt, "mfu": tok_s * fpt / PEAK_OPS["bf16"],
+           "peak_mem_gib": peak,
+           "f32": {"layers": SHORT_LAYERS, "B": EP_F32_B, **f32,
+                   "max_rel_diff": worst, "rtol": EP_F32_RTOL},
+           "moe_trainer": {k: moe_row[k] for k in (
+               "step_ms", "tokens_per_s", "mfu", "peak_mem_gib")},
+           "seconds": time.monotonic() - t_phase, "card": card}
+    emit(row)
+    check(worst <= EP_F32_RTOL,
+          f"ep_trainer: f32 mesh losses {f32['mesh']} vs local "
+          f"{f32['local']} differ by {worst} > {EP_F32_RTOL}")
+    return launches
 
 
 # ------------------------------------------------------- cluster_rpc phase
@@ -5919,15 +6096,29 @@ def walkthroughs_phase(torch, paged_mod, card):
 STORE_PROBE_ITERS = 5
 
 
-def store_probes_phase(torch, mesh, card):
+#: The two-leg store rung: steps at SHORT_LAYERS of optimus-125m.
+HIER_RUNG_STEPS = 4
+
+
+def store_probes_phase(torch, tfm, flash_mod, train_mod, mesh, card):
     """The Store probes at world 1 over NCCL: ``measure_push_tree`` at
     optimus-125m (bucketed and per-leaf ms, payload MB),
     ``measure_wire_gbps`` and ``measure_allreduce_gbps`` — 0.0 GB/s by the
     ring convention at world 1, so the milliseconds they time are the
-    bucketing and quantize legs alone — and ``measure_zero`` at
-    optimus-125m (both runs' final losses equal, the ratio 1.0)."""
+    bucketing and quantize legs alone — ``measure_zero`` at
+    optimus-125m (both runs' final losses equal, the ratio 1.0),
+    ``measure_hier_allreduce`` on ``Topology.emulated_host(1, 1)``, and
+    a StoreDPTrainer rung at SHORT_LAYERS through a ``TensorStore`` on
+    that topology's mesh (the two-leg wire, each leg of size 1) whose
+    losses must equal the flat store's bit for bit. Returns the two
+    rungs' flash launches (fwd, dq, dkv)."""
+    from ptype_tpu_torch.metrics import metrics
+    from ptype_tpu_torch.models.weights import init_params
     from ptype_tpu_torch.parallel import collectives as C
-    from ptype_tpu_torch.parallel.tensorstore import measure_push_tree
+    from ptype_tpu_torch.parallel.tensorstore import (TensorStore,
+                                                      measure_push_tree)
+    from ptype_tpu_torch.parallel.topology import Topology
+    from ptype_tpu_torch.train import store_dp as sd
     from ptype_tpu_torch.train.store_dp import measure_zero
 
     t_phase = time.monotonic()
@@ -5944,8 +6135,51 @@ def store_probes_phase(torch, mesh, card):
     row["zero"] = measure_zero(mesh, preset="optimus-125m", steps=3,
                                device="cuda")
     torch.cuda.empty_cache()
+    topo = Topology.emulated_host(1, 1)
+    row["hier_allreduce"] = C.measure_hier_allreduce(
+        topo, iters=STORE_PROBE_ITERS, device="cuda")
+    cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, 16, 1024,
+                                             seed=3, device="cuda"))
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv)
+    launches, rungs, hier_buckets = [0, 0, 0], {}, {}
+    for name, store in (("flat", TensorStore(mesh)),
+                        ("hier", TensorStore(topo.mesh(), topology=topo))):
+        tr = sd.StoreDPTrainer(cfg, store, params=params,
+                               optimizer=train_mod.default_optimizer(
+                                   **STORE_DP_OPT))
+        for c in counters:
+            c.launches = 0
+        before = metrics.snapshot()["counters"].get(
+            "collectives.hier_launches", 0)
+        rungs[name] = [float(tr.step(batch)["loss"])
+                       for _ in range(HIER_RUNG_STEPS)]
+        hier_buckets[name] = metrics.snapshot()["counters"].get(
+            "collectives.hier_launches", 0) - before
+        for i, c in enumerate(counters):
+            launches[i] += c.launches
+        del tr, store
+        torch.cuda.empty_cache()
+    row["hier_rung"] = {"layers": SHORT_LAYERS, "steps": HIER_RUNG_STEPS,
+                        "store_axis": list(topo.flat_axis), **rungs,
+                        "hier_bucket_launches": hier_buckets,
+                        "bit_for_bit": rungs["hier"] == rungs["flat"]}
     row["seconds"] = time.monotonic() - t_phase
     emit(row)
+    h = row["hier_allreduce"]
+    check(h["flat_step_ms"] > 0 and h["hier_step_ms"] > 0
+          and h["hier_slow_leg_bytes"] == 0 and h["flat_outer_bytes"] == 0,
+          f"store_probes: measure_hier_allreduce at 1x1 {h}")
+    check(rungs["hier"] == rungs["flat"],
+          f"store_probes: two-leg rung losses {rungs['hier']} != flat "
+          f"{rungs['flat']}")
+    check(hier_buckets["hier"] > 0 and hier_buckets["flat"] == 0,
+          f"store_probes: two-leg bucket launches {hier_buckets}")
+    want = 2 * HIER_RUNG_STEPS * SHORT_LAYERS
+    check(launches == [want] * 3,
+          f"store_probes: rungs' launches fwd/dq/dkv {launches} != {want}")
     pt, w, z = row["push_tree"], row["wire"], row["zero"]
     check(pt["bucketed_ms"] > 0 and pt["per_leaf_ms"] > 0
           and pt["n_buckets"] <= pt["n_leaves"] and pt["gbps"] == 0.0,
@@ -5961,6 +6195,7 @@ def store_probes_phase(torch, mesh, card):
         z["final_loss_zero"], z["final_loss_repl"], rel_tol=1e-3)
           and math.isfinite(z["final_loss_zero"]),
           f"store_probes: measure_zero {z}")
+    return launches
 
 
 PHASE4_LENS = (100, 180, 260, 340, 420, 500, 600, 700)
@@ -6054,6 +6289,7 @@ def main():
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    wait_for_card(torch, "start")
     seconds = {}
 
     def lap(name):
@@ -6239,9 +6475,9 @@ def main():
           f"path's: {div}")
     del e, eng32, contiguous
     torch.cuda.empty_cache()
-    row, (moe_fwd_n, moe_dq_n, moe_dkv_n) = trainer_phase(
+    moe_row, (moe_fwd_n, moe_dq_n, moe_dkv_n) = trainer_phase(
         torch, tfm, flash_mod, train_mod, "optimus-moe", "moe_trainer")
-    emit(row)
+    emit(moe_row)
     torch.cuda.empty_cache()
     lap("moe")
 
@@ -6293,10 +6529,19 @@ def main():
 
     # llama_remat: llama-3-8b at full width (depth cut) through the mesh
     # Trainer with remat off, "none" and "dots", at S=8192
+    wait_for_card(torch, "llama_remat")
+    lap("card_wait")
     llama_launches = llama_remat_phase(torch, tfm, flash_mod, train_mod,
                                        card)
     torch.cuda.empty_cache()
     lap("llama_remat")
+
+    # ep_trainer: optimus-moe through the mesh Trainer's expert-parallel
+    # branch on a world-1 {data, expert} mesh
+    ep_launches = ep_trainer_phase(torch, tfm, flash_mod, train_mod, card,
+                                   moe_row)
+    torch.cuda.empty_cache()
+    lap("ep_trainer")
 
     # health: goodput, the sampler's cost, a replica profiled over RPC,
     # alerts and the obs views, at optimus-125m
@@ -6338,7 +6583,8 @@ def main():
     lap("walkthroughs")
 
     # store_probes: the Store's push/wire/allreduce/ZeRO probes at world 1
-    store_probes_phase(torch, mesh, card)
+    probe_launches = store_probes_phase(torch, tfm, flash_mod, train_mod,
+                                        mesh, card)
     lap("store_probes")
 
 
@@ -6414,10 +6660,12 @@ def main():
               "elastic": elastic_launches[0],
               "health": health_own[0] + health_rep_fwd,
               "failover": fo_launches[0] + fo_records,
-              "pipeline": pp_launches[0]}
+              "pipeline": pp_launches[0],
+              "store_probes": probe_launches[0]}
     if rec_flash:
         fwd128["reconciler"] = rec_flash
-    fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n}
+    fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n,
+             "ep_trainer": ep_launches[0]}
     paged128 = {"paged_engine": paged_main_launches,
                 "cluster_rpc": rpc_paged,
                 "gateway_serving": gw_paged,
@@ -6459,19 +6707,21 @@ def main():
              {"trainer": dq_n, "store_dp": store_launches[1],
               "checkpoint": ckpt_launches[1],
               "elastic": elastic_launches[1], "health": health_own[1],
-              "failover": fo_launches[1], "pipeline": pp_launches[1]}),
+              "failover": fo_launches[1], "pipeline": pp_launches[1],
+              "store_probes": probe_launches[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
-             {"moe_trainer": moe_dq_n}),
+             {"moe_trainer": moe_dq_n, "ep_trainer": ep_launches[1]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 6, 128, 1024),
              {"trainer": dkv_n, "store_dp": store_launches[2],
               "checkpoint": ckpt_launches[2],
               "elastic": elastic_launches[2], "health": health_own[2],
-              "failover": fo_launches[2], "pipeline": pp_launches[2]}),
+              "failover": fo_launches[2], "pipeline": pp_launches[2],
+              "store_probes": probe_launches[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
-             {"moe_trainer": moe_dkv_n}),
+             {"moe_trainer": moe_dkv_n, "ep_trainer": ep_launches[2]}),
         rows("flash_fwd", fwd_src, fwd_ref,
              pick("flash_fwd", 16, 12, 64, 512, causal=False),
              {"param_server": ps_launches[0]}),
@@ -6525,3 +6775,5 @@ if __name__ == "__main__":
     except Exception:  # noqa: BLE001 — any failure is a failed run
         traceback.print_exc()
         sys.exit(1)
+    finally:
+        stop_children()

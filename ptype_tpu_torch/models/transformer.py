@@ -43,8 +43,10 @@ embedding is split over the vocabulary (a masked lookup and an
 allreduce), and the LM head is gathered whole over ``model`` for the
 fused loss.
 
-Not ported yet (ROADMAP): expert parallelism, and a mixture-of-experts
-config on a mesh of more than one rank.
+A mixture-of-experts config trains on every mesh the placements name:
+the expert bank split over ``expert`` (and ``fsdp`` on D, ``model`` on
+F), with the reference's global capacity, token order and router aux
+(:meth:`MeshLayout.moe`).
 """
 
 from __future__ import annotations
@@ -326,6 +328,10 @@ class LocalLayout:
     def mlp_out(self, y):
         return y
 
+    def moe(self, h, layer, cfg, capacity=None):
+        """The mixture-of-experts MLP: (y, aux)."""
+        return _moe_mlp(h, layer, cfg, capacity=capacity)
+
 
 _LOCAL = LocalLayout()
 
@@ -350,32 +356,53 @@ def attn_residual(x, o, layer, cfg: TransformerConfig, hooks=_LOCAL):
     return x + hooks.attn_out(o.reshape(B, S, H * Dh) @ wo)
 
 
-def _moe_route(x, router, cfg: TransformerConfig):
+def _moe_router(x, router, cfg: TransformerConfig):
     """Router in f32: softmax over experts, top-k, gates renormalised
-    over the k picks, and the Switch load-balancing aux
-    ``E · Σ_e frac_tokens_e · frac_prob_e``. x: (T, D) → (gate_w (T, k)
-    f32, gate_e (T, k) int64, aux f32 scalar)."""
+    over the k picks. x: (T, D) → (probs (T, E), gate_w (T, k) f32,
+    gate_e (T, k) int64, dispatched (T, E): each token's picks one-hot
+    summed)."""
     E, topk = cfg.n_experts, cfg.expert_top_k
     probs = torch.softmax(x.float() @ router.float(), dim=-1)  # (T, E)
     gate_w, gate_e = torch.topk(probs, topk, dim=-1)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
     experts = torch.arange(E, device=x.device)
     dispatched = (gate_e[..., None] == experts).float().sum(1)  # (T, E)
-    ce = dispatched.mean(0) / topk
-    aux = E * (probs.mean(0) * ce).sum()
+    return probs, gate_w, gate_e, dispatched
+
+
+def _moe_route(x, router, cfg: TransformerConfig):
+    """:func:`_moe_router` and the Switch load-balancing aux
+    ``E · Σ_e frac_tokens_e · frac_prob_e`` over the tokens of ``x``.
+    x: (T, D) → (gate_w (T, k) f32, gate_e (T, k) int64, aux f32
+    scalar)."""
+    probs, gate_w, gate_e, dispatched = _moe_router(x, router, cfg)
+    ce = dispatched.mean(0) / cfg.expert_top_k
+    aux = cfg.n_experts * (probs.mean(0) * ce).sum()
     return gate_w, gate_e, aux
 
 
-def _moe_dispatch(x, gate_e, C: int, cfg: TransformerConfig):
+def _moe_dispatch(x, gate_e, C: int, cfg: TransformerConfig, offset=None,
+                  lo: int = 0, n_local: int | None = None,
+                  C_buf: int | None = None):
     """Token-priority slots and the inverse-index gather. Each (token,
     pick) assignment, flattened t-major as ``(T, k) → (T·k)``, takes
     the next slot of its expert; slots ≥ ``C`` overflow and drop. Each
     kept assignment scatters its token id (one integer) into an
     ``(E, C)`` map, overflow into a trash column; token rows are then
     GATHERED into the ``(E, C, D)`` expert buffer in the compute dtype.
-    Returns (X (E, C, D), flat_e (T·k,), slot (T·k,), keep (T·k,))."""
+    Returns (X (E, C, D), flat_e (T·k,), slot (T·k,), keep (T·k,)).
+
+    On a mesh (:meth:`MeshLayout.moe`) the slots are global: ``offset``
+    (T·k,) adds the assignments of the same expert that come before
+    each one in the global token order, so ``keep`` is the global
+    capacity's; the buffer holds only experts ``lo .. lo+n_local-1``
+    and ``C_buf`` slots each (this rank's kept assignments of an expert
+    are the first of its own, so their local slots stay below both
+    ``C`` and its token count)."""
     T, D = x.shape
     E = cfg.n_experts
+    n_local = E if n_local is None else n_local
+    C_buf = C if C_buf is None else C_buf
     dev = x.device
     flat_e = gate_e.reshape(-1)
     n = flat_e.shape[0]
@@ -386,19 +413,24 @@ def _moe_dispatch(x, gate_e, C: int, cfg: TransformerConfig):
     run = torch.cumsum(onehot.reshape(-1), dim=0).reshape(E, n)
     start = torch.cat([run.new_zeros(1), run[:-1, -1]])
     pos = (run - start[:, None]).gather(0, flat_e[None])[0] - 1
-    keep = pos < C
+    keep = pos < C if offset is None else pos + offset < C
+    mine = keep
+    if n_local != E:
+        mine = keep & (flat_e >= lo) & (flat_e < lo + n_local)
     tok = torch.arange(n, device=dev) // cfg.expert_top_k
-    inv = torch.zeros((E, C + 1), dtype=torch.int64, device=dev)
-    inv[flat_e, torch.where(keep, pos, C)] = tok + 1  # 0 = empty
-    inv = inv[:, :C]
+    inv = torch.zeros((n_local, C_buf + 1), dtype=torch.int64, device=dev)
+    inv[torch.clamp(flat_e - lo, 0, n_local - 1),
+        torch.where(mine, pos, C_buf)] = tok + 1  # 0 = empty
+    inv = inv[:, :C_buf]
     # Empty slots read rows spread over the tokens and are zeroed, so the
     # gather's backward (an index_add_) adds into any row a few times at
     # most, and only exact zeros beyond a token's k real picks.
-    spread = torch.arange(E * C, device=dev).reshape(E, C) % T
+    spread = torch.arange(n_local * C_buf, device=dev).reshape(
+        n_local, C_buf) % T
     src = torch.where(inv > 0, inv - 1, spread)
-    rows = x.index_select(0, src.reshape(-1)).reshape(E, C, D)
+    rows = x.index_select(0, src.reshape(-1)).reshape(n_local, C_buf, D)
     X = torch.where((inv > 0)[..., None], rows.to(cfg.dtype), 0.0)
-    return X, flat_e, torch.clamp(pos, 0, C - 1), keep
+    return X, flat_e, torch.clamp(pos, 0, C_buf - 1), keep
 
 
 def _moe_experts(X, layer, cfg: TransformerConfig):
@@ -410,11 +442,18 @@ def _moe_experts(X, layer, cfg: TransformerConfig):
     return torch.bmm(torch.nn.functional.silu(g) * u, layer["w_down"].to(dt))
 
 
-def _moe_combine(Y, flat_e, slot, keep, gate_w, cfg: TransformerConfig):
+def _moe_combine(Y, flat_e, slot, keep, gate_w, cfg: TransformerConfig,
+                 lo: int = 0):
     """Gather each assignment's expert output back, zero the dropped
-    ones, weight by the gates and sum a token's k picks: → (T, D)."""
+    ones, weight by the gates and sum a token's k picks: → (T, D).
+    ``Y`` may hold experts ``lo ..`` only (a rank's share on a mesh):
+    assignments to other experts then count zero here."""
     dt = cfg.dtype
     E, C, D = Y.shape
+    if E != cfg.n_experts:
+        local = flat_e - lo
+        keep = keep & (local >= 0) & (local < E)
+        flat_e = torch.clamp(local, 0, E - 1)
     y_tok = Y.reshape(E * C, D).index_select(0, flat_e * C + slot)
     y_tok = y_tok * keep[:, None].to(dt)
     y_tok = y_tok * gate_w.reshape(-1)[:, None].to(dt)
@@ -450,7 +489,7 @@ def mlp_residual(x, layer, cfg: TransformerConfig,
     dt = cfg.dtype
     h = rms_norm(x, layer["mlp_norm"])
     if cfg.n_experts:
-        y, aux = _moe_mlp(h, layer, cfg, capacity=moe_capacity)
+        y, aux = hooks.moe(h, layer, cfg, moe_capacity)
         return x + y, aux
     h = hooks.mlp_in(h)
     gate = h @ layer["w_gate"].to(dt)
@@ -777,18 +816,30 @@ class MeshLayout(LocalLayout):
     allreduced) and each row-parallel product leaves through "g"
     (allreduced); K/V weights kept whole under a split attention get
     "f" too, since each rank uses its own heads of them. Gradients over
-    the batch axes are the trainer's to sum."""
+    the batch axes are the trainer's to sum.
+
+    A mixture-of-experts MLP (:meth:`moe`) keeps the reference's global
+    program: the capacity is the global batch's, each assignment's slot
+    counts the same expert's assignments of every token before it in
+    the global ``(b, s)`` order (an exclusive prefix of per-row counts
+    allgathered over the token axes: ``data``, ``fsdp`` and ``seq``),
+    and the router's aux is taken over the global batch. The bank is
+    split over ``expert`` (and ``model`` on F); the batch is replicated
+    along ``expert``, so each rank routes its tokens in full, runs its
+    own experts' SwiGLUs and the partial outputs are summed over
+    ``expert`` and ``model``: "f" on the token rows and gates entering
+    the experts, "g" on their output. Every mesh that names ``expert``
+    takes this branch, whatever the axis size (``moe_calls`` counts
+    it)."""
+
+    #: Calls of :meth:`moe` (the mesh's MoE branch), summed over layers.
+    moe_calls = 0
 
     def __init__(self, cfg: TransformerConfig, mesh):
         from ptype_tpu_torch.parallel.mesh import axis_index
 
         self.cfg, self.mesh = cfg, mesh
         self.sizes = {n: int(mesh.shape[n]) for n in mesh.axis_names}
-        if cfg.n_experts and mesh.size > 1:
-            raise NotImplementedError(
-                "a mixture-of-experts config on a mesh of more than one "
-                "rank (expert parallelism and the router's aux over the "
-                "batch axes) is not ported (ROADMAP)")
         self.specs = param_specs(cfg, self.sizes)
         live = {n for n, s in self.sizes.items() if s > 1}
         b = self.specs["blocks"]
@@ -804,8 +855,25 @@ class MeshLayout(LocalLayout):
         #: over those it is not split on.
         self.batch_axes = tuple(a for a in ("data", "fsdp", "seq")
                                 if a in live)
+        #: The axes that split the batch's rows (not its sequence).
+        self.row_axes = tuple(a for a in mesh.axis_names
+                              if a in live and a in ("data", "fsdp"))
         self.m = self.sizes.get("model", 1)
         self.m_rank = axis_index(mesh, "model") if self.model else 0
+        if cfg.n_experts:
+            split = b["w_gate"][1] == "expert"
+            self.n_experts_local = (cfg.n_experts // self.sizes["expert"]
+                                    if split else cfg.n_experts)
+            self.expert_lo = (axis_index(mesh, "expert")
+                              * self.n_experts_local if split else 0)
+            #: The axes a rank's expert outputs are partial over.
+            self.moe_axes = tuple(
+                a for a in mesh.axis_names if a in live and (
+                    (a == "expert" and split)
+                    or (a == "model" and b["w_gate"][-1] == "model")))
+            #: The axes whose ranks hold different tokens, mesh order.
+            self.token_axes = tuple(a for a in mesh.axis_names
+                                    if a in self.batch_axes)
 
     def use(self, w: torch.Tensor, spec) -> torch.Tensor:
         """``w`` whole over ``fsdp`` (allgathered on each split dim)."""
@@ -890,3 +958,76 @@ class MeshLayout(LocalLayout):
 
     def mlp_out(self, y):
         return self._g(y, self.mlp_tp)
+
+    def _slot_offsets(self, gate_e, B: int, S: int) -> torch.Tensor:
+        """Per assignment (T·k,), the count of assignments of its expert
+        that come before it in the global token order but not before it
+        in this rank's own (the flat ``(b, s)`` order: the row blocks
+        of the batch ranks in turn, and within a row the sequence
+        blocks of the ``seq`` ranks); None when this rank's tokens are
+        all the tokens."""
+        from ptype_tpu_torch.parallel import collectives as C
+        from ptype_tpu_torch.parallel.mesh import axis_index
+
+        if not self.token_axes:
+            return None
+        E, k = self.cfg.n_experts, self.cfg.expert_top_k
+        flat_e = gate_e.reshape(-1)
+        hits = torch.arange(E, device=flat_e.device)[:, None] == flat_e
+        cnt = hits.to(torch.int64).reshape(E, B, S * k).sum(-1)  # (E, B)
+        axes = self.token_axes
+        got = C.all_gather(cnt, self.mesh, axes)         # (n, E, B)
+        rows = tuple(a for a in axes if a != "seq")
+        order = [axes.index(a) for a in rows] + (
+            [axes.index("seq")] if self.seq else [])
+        got = got.reshape(*(self.sizes[a] for a in axes), E, B).permute(
+            *order, len(axes), len(axes) + 1)
+        got = got.reshape(-1, self.sizes["seq"] if self.seq else 1, E, B)
+        j = axis_index(self.mesh, rows) if rows else 0
+        q = axis_index(self.mesh, "seq") if self.seq else 0
+        mine = got[j]                                     # (n_s, E, B)
+        row_tot = mine.sum(0)
+        before = (got[:j].sum((0, 1, 3))[:, None]          # earlier ranks
+                  + torch.cumsum(row_tot, 1) - row_tot     # earlier rows
+                  + mine[:q].sum(0))                       # earlier seq
+        own = mine[q]
+        delta = before - (torch.cumsum(own, 1) - own)
+        row = torch.arange(flat_e.shape[0], device=flat_e.device) // (S * k)
+        return delta[flat_e, row]
+
+    def moe(self, h, layer, cfg, capacity=None):
+        """The mixture-of-experts MLP on this rank's tokens as a piece of
+        the reference's global program (the class docstring): (y, this
+        rank's share of the global aux). The shares sum to the aux over
+        the token axes, and the aux's gradient comes out global once the
+        trainer sums the gradients over them."""
+        from ptype_tpu_torch.parallel import collectives as C
+
+        MeshLayout.moe_calls += 1
+        B, S, D = h.shape
+        T = B * S
+        E, k = cfg.n_experts, cfg.expert_top_k
+        x = h.reshape(T, D)
+        probs, gate_w, gate_e, dispatched = _moe_router(x, layer["router"],
+                                                        cfg)
+        axes = self.token_axes
+        n_tok = math.prod(self.sizes[a] for a in axes)
+        T_g = T * n_tok
+        me = C.sum_over(probs.sum(0), self.mesh, axes) / T_g
+        ce = dispatched.sum(0)
+        if axes:
+            ce = C.all_reduce(ce, self.mesh, axes)
+        aux = E * (me * (ce / T_g / k)).sum() / n_tok
+        cap = (capacity if capacity is not None
+               else max(math.ceil(k * T_g / E * cfg.capacity_factor), 1))
+        offset = self._slot_offsets(gate_e, B, S)
+        part = self.moe_axes
+        X, flat_e, slot, keep = _moe_dispatch(
+            C.copy_to(x, self.mesh, part), gate_e, cap, cfg, offset=offset,
+            lo=self.expert_lo, n_local=self.n_experts_local,
+            C_buf=min(cap, T))
+        Y = _moe_experts(X, layer, cfg)
+        y = _moe_combine(Y, flat_e, slot, keep,
+                         C.copy_to(gate_w, self.mesh, part), cfg,
+                         lo=self.expert_lo)
+        return C.reduce_from(y, self.mesh, part).reshape(B, S, D), aux

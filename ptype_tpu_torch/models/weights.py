@@ -28,18 +28,22 @@ from ptype_tpu_torch.models.transformer import TransformerConfig
 
 
 def params_from_numpy(tree: dict, cfg: TransformerConfig,
-                      device="cpu") -> dict:
+                      device="cpu", place=None) -> dict:
     """A reference parameter tree (numpy arrays, or anything
     ``np.asarray`` takes) → the port's dict of tensors on ``device``,
-    in ``cfg.param_dtype``."""
+    in ``cfg.param_dtype``. ``place(path, leaf)``, when given, keeps
+    what a mesh rank holds of each leaf, as for :func:`init_params`
+    (``path`` the leaf's key tuple)."""
 
-    def conv(x):
+    def conv(x, path):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, path + (k,)) for k, v in x.items()}
         t = torch.from_numpy(np.array(x, copy=True))
+        if place is not None:
+            t = place(path, t)
         return t.to(device=device, dtype=cfg.param_dtype)
 
-    return conv(tree)
+    return conv(tree, ())
 
 
 def stage_params_from_numpy(tree: dict, cfg: TransformerConfig,
@@ -141,7 +145,9 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     (``path`` its key tuple, as ``train.trainer._flatten`` names it)
     and returns what the tree keeps: a mesh rank keeps its block, so
     no more than one whole leaf exists at a time. The draws, and so the
-    values, are the same either way."""
+    values, are the same either way. On the ``meta`` device nothing is
+    drawn: the leaves are shapes alone, so the placements of a model no
+    host could hold can be checked without allocating it."""
     L, D, H, K = cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads
     Dh, F, V = cfg.head_dim, cfg.d_ff, cfg.vocab_size
     pd = cfg.param_dtype
@@ -152,6 +158,8 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         return x if place is None else place(path, x)
 
     def norm(path, shape, scale):
+        if device.type == "meta":
+            return kept(path, torch.empty(shape, device=device, dtype=pd))
         x = torch.randn(shape, generator=generator, device=gdev,
                         dtype=torch.float32) * scale
         return kept(path, x).to(device=device, dtype=pd)

@@ -33,8 +33,8 @@ each call is handed).
 
 The autograd-aware collectives at the end (:func:`gather_for_use`,
 :func:`gather_replicated`, :func:`reduce_from`, :func:`copy_to`,
-:func:`ring_send`, :func:`all_to_all_dims`) are the sharded trainer's:
-each is the identity on an axis of size 1.
+:func:`sum_over`, :func:`ring_send`, :func:`all_to_all_dims`) are the
+sharded trainer's: each is the identity on an axis of size 1.
 
 The tree codec (:func:`quantize_tree`, :func:`dequantize_tree`) is the
 param server's int8 RPC wire: one quantized leaf a gradient, in the
@@ -48,7 +48,19 @@ buffer a rank): at world 1 nothing crosses a wire, so they read 0.0
 GB/s and the milliseconds they time are the bucketing and quantize legs
 alone.
 
-Not ported yet (ROADMAP A6(b)): the hierarchical two-leg bodies.
+The hierarchical wire (a :class:`~ptype_tpu_torch.parallel.topology.
+Topology` passed to the bucketed streams, over the composite ``("inner",
+"outer")`` axis of ``Topology.mesh``): each sum or mean bucket
+reduce-scatters inside the fast inner domain, exchanges only its
+``1/n_inner`` chunk over the slow outer leg and allgathers back out,
+every leg with its own wire format (``Topology.resolve_leg``) and its
+own error feedback; a leg of size 1 is skipped. The reduce-scatter
+leaves each rank the same flat shard as the flat composite scatter, so
+ZeRO's shards ride either wire. Counters: ``collectives.hier_launches``
+and the analytic per-leg bytes ``collectives.leg_bytes.inner``,
+``.outer`` and ``.flat_outer`` (the flat ring's bytes, all charged to
+the slow leg). :func:`measure_hier_allreduce` times the two wires on
+one composite mesh.
 """
 
 from __future__ import annotations
@@ -60,6 +72,8 @@ import torch.distributed as dist
 
 from ptype_tpu_torch.metrics import metrics
 from ptype_tpu_torch.parallel.mesh import axis_group, axis_index, axis_n
+from ptype_tpu_torch.parallel.topology import (INNER_AXIS, OUTER_AXIS,
+                                               Topology)
 
 _REDUCERS = ("sum", "mean", "max", "min")
 #: ``mean`` is a sum divided after the wire, as the reference's pmean.
@@ -516,7 +530,8 @@ class Reduction:
 
     def __init__(self, bucket: Bucket, wire: str | None, works, finish):
         self.bucket = bucket
-        #: The bucket's wire format (None: exact).
+        #: The bucket's wire format (None: exact); for a hierarchical
+        #: bucket its inner leg's, which carries the per-leaf residuals.
         self.wire = wire
         self._works = list(works)
         self._finish = finish
@@ -538,13 +553,223 @@ def _check_stream_args(name: str, op: str, ops, compress) -> None:
         raise ValueError(f"{name}: unknown compression {compress!r}")
 
 
+# ------------------------------------------------- the hierarchical wire
+#
+# Error feedback on the two-leg wire, per leg, as the reference keeps it:
+# the INNER residual is the rank's own phase-1 error across its whole
+# contribution (on the allreduce plus its share of the gather-leg error
+# at its own chunk, divided by n_outer: every domain holds a copy of
+# that chunk and folds the same error); the OUTER residual is the error
+# of quantizing the inner chunk this rank carries across the slow leg,
+# which it carries again next step. The outer residual is a flat vector
+# a bucket (the chunk boundaries cut across leaf slots), keyed by the
+# bucket's index in the caller's dict.
+
+
+def _leg_sum(x: torch.Tensor, mesh, leg: str, wire, block,
+             res: torch.Tensor | None = None):
+    """The exact, bf16 or int8 allreduce (sum) of ``x`` over one leg:
+    ``(sum, new_res | None)``."""
+    if wire == "int8":
+        return _int8_all_reduce_body(x, mesh, leg, "sum", block, res)
+    w = x.to(torch.bfloat16) if wire == "bf16" else x
+    return all_reduce(w, mesh, leg).to(x.dtype), None
+
+
+def _leg_scatter(x: torch.Tensor, mesh, leg: str, wire, block):
+    """The reduce-scatter (sum) of ``x`` over one leg: ``(this rank's
+    chunk, the int8 phase-1 error of all of x | None)``."""
+    if wire == "int8":
+        return _int8_phase1(x, mesh, leg, "sum", block)
+    w = x.to(torch.bfloat16) if wire == "bf16" else x
+    return reduce_scatter(w, mesh, leg).to(x.dtype), None
+
+
+def _hier_allreduce_body(flat: torch.Tensor, mesh, op: str, wire_in,
+                         wire_out, qb_in, qb_out, res_in=None, res_out=None):
+    """Three legs on this rank's flat contribution (length ``E``, a
+    multiple of ``n_inner · n_outer``): inner reduce-scatter, outer
+    allreduce of the ``E/n_inner`` chunk, inner allgather. A size-1 leg
+    is the identity, so every factorization runs this body. Returns
+    ``(out (E,), new_res_in (E,) | None, new_res_out (E/n_inner,) |
+    None)``; the error terms are in sum space (``mean`` divides at the
+    very end, as the flat bodies do)."""
+    ni, no = axis_n(mesh, INNER_AXIS), axis_n(mesh, OUTER_AXIS)
+    c1 = flat.shape[0] // ni
+    quant = "int8" in (wire_in, wire_out)
+    xf = flat.to(torch.float32) if quant else flat
+    if res_in is not None:
+        xf = xf + res_in.to(torch.float32)
+    new_res_in = None
+    if ni == 1:
+        red = xf
+    else:
+        red, err1 = _leg_scatter(xf, mesh, INNER_AXIS, wire_in, qb_in)
+        if res_in is not None:
+            new_res_in = err1.reshape(xf.shape)
+    new_res_out = None
+    if no > 1:
+        red, new_res_out = _leg_sum(red, mesh, OUTER_AXIS, wire_out, qb_out,
+                                    res_out)
+    if ni == 1:
+        out = red
+    elif wire_in == "int8":
+        group = axis_group(mesh, INNER_AXIS)
+        q2, s2 = _q_int8_blockwise(red[None], qb_in)
+        err3 = red - _dq_int8_blockwise(q2, s2, c1)[0]
+        out = _dq_int8_blockwise(_gather(q2[0], group, ni),
+                                 _gather(s2[0], group, ni), c1
+                                 ).reshape(xf.shape)
+        if new_res_in is not None:
+            idx = axis_index(mesh, INNER_AXIS)
+            new_res_in[idx * c1:(idx + 1) * c1] += _div(err3, no)
+    else:
+        w = red.to(torch.bfloat16) if wire_in == "bf16" else red
+        out = all_gather_dim(w, mesh, INNER_AXIS, 0).to(xf.dtype)
+    if op == "mean":
+        out = _div(out, ni * no)
+    return out, new_res_in, new_res_out
+
+
+def _hier_reduce_scatter_body(flat: torch.Tensor, mesh, op: str, wire_in,
+                              wire_out, qb_in, qb_out, res_in=None,
+                              res_out=None):
+    """The scatter half of :func:`_hier_allreduce_body`: inner
+    reduce-scatter, then outer reduce-scatter of the chunk. The rank at
+    (outer o, inner i) must end with chunk ``o·n_inner + i`` of the
+    reduction, the flat composite scatter's; inner-then-outer alone
+    would leave it chunk ``i·n_outer + o``, so the contribution's
+    chunks are first laid out inner-major. Returns ``(shard (E/n,),
+    new_res_in (E,) | None, new_res_out (E/n_inner,) | None)``, the
+    inner residual in the contribution's own layout."""
+    ni, no = axis_n(mesh, INNER_AXIS), axis_n(mesh, OUTER_AXIS)
+    E = flat.shape[0]
+    quant = "int8" in (wire_in, wire_out)
+    xf = flat.to(torch.float32) if quant else flat
+    if res_in is not None:
+        xf = xf + res_in.to(torch.float32)
+    new_res_in = None
+    if ni == 1:
+        red = xf
+    else:
+        swapped = xf.reshape(no, ni, -1).transpose(0, 1).reshape(E)
+        red, err1 = _leg_scatter(swapped, mesh, INNER_AXIS, wire_in, qb_in)
+        if res_in is not None:
+            new_res_in = err1.reshape(ni, no, -1).transpose(0, 1).reshape(E)
+    new_res_out = None
+    if no > 1:
+        if wire_out == "int8" and res_out is not None:
+            red = red.to(torch.float32) + res_out.to(torch.float32)
+        red, err_o = _leg_scatter(red, mesh, OUTER_AXIS, wire_out, qb_out)
+        if wire_out == "int8" and res_out is not None:
+            new_res_out = err_o.reshape(-1)
+    if op == "mean":
+        red = _div(red, ni * no)
+    return red, new_res_in, new_res_out
+
+
+def _wire_scale(wire, q_block, itemsize: int) -> float:
+    """Bytes on the wire of a leg's format against the bucket's own
+    dtype (the int8 scales included)."""
+    if wire == "bf16":
+        return 2.0 / itemsize
+    if wire == "int8":
+        qb = q_block if q_block else DEFAULT_QUANT_BLOCK
+        return (1.0 + 4.0 / qb) / itemsize
+    return 1.0
+
+
+def _resolve_leg_wires(topo: Topology, bucket: Bucket, op: str, compress,
+                       int8_min_bytes: int, q_block):
+    """Each leg's wire for one bucket: the topology's leg policy over the
+    caller's setting, then the bucket's eligibility (:func:`_bucket_wire`)
+    per leg; a size-1 leg is exact (it moves nothing). Returns
+    ``(wire_in, wire_out, qb_in, qb_out, restore)``."""
+    c_in, qb_in = topo.resolve_leg(INNER_AXIS, compress, q_block)
+    c_out, qb_out = topo.resolve_leg(OUTER_AXIS, compress, q_block)
+    wire_in = _bucket_wire(bucket, op, c_in, int8_min_bytes)
+    wire_out = _bucket_wire(bucket, op, c_out, int8_min_bytes)
+    if int(topo.n_inner) == 1:
+        wire_in = None
+    if int(topo.n_outer) == 1:
+        wire_out = None
+    return wire_in, wire_out, qb_in, qb_out, (c_in is not None
+                                              or c_out is not None)
+
+
+def _count_leg_bytes(topo: Topology, bucket: Bucket, kind: str, wire_in,
+                     wire_out, qb_in, qb_out) -> None:
+    """The analytic per-leg wire bytes of one hierarchical bucket, per
+    rank and scaled by each leg's format: the counters ``obs topo``
+    reads."""
+    itemsize = torch_dtype(bucket.dtype).itemsize
+    legs = topo.leg_bytes(bucket.elems * itemsize, kind)
+    inner = legs["inner"] * _wire_scale(wire_in, qb_in, itemsize)
+    outer = legs["outer"] * _wire_scale(wire_out, qb_out, itemsize)
+    metrics.counter("collectives.leg_bytes.inner").add(int(inner))
+    metrics.counter("collectives.leg_bytes.outer").add(int(outer))
+    metrics.counter("collectives.leg_bytes.flat_outer").add(
+        int(legs["flat_outer"]))
+    metrics.counter("collectives.hier_launches").add(1)
+
+
+def _seed_outer_residual(outer_residuals: dict, bi: int, size: int,
+                         device) -> torch.Tensor:
+    """Bucket ``bi``'s outer-leg residual from the caller's dict; zeros
+    when absent or stale-shaped (a replan changed the bucket)."""
+    r = outer_residuals.get(bi)
+    if r is None or tuple(r.shape) != (size,):
+        r = torch.zeros(size, dtype=torch.float32, device=device)
+    return r
+
+
+def _hier_bucket(b: Bucket, bi: int, leaves, mesh, op: str, kind: str,
+                 topology: Topology, compress, int8_min_bytes: int,
+                 q_block, residuals, outer_residuals):
+    """One bucket through the two-leg wire (``kind`` "allreduce" or
+    "reduce_scatter"): the legs run in order at dispatch, the outer
+    residual is updated in ``outer_residuals`` then. Returns the
+    bucket's :class:`Reduction`, whose wait gives the stream's result
+    (the reduced leaves, or the flat shard) and the new inner
+    residuals by slot (None unless the inner leg carried int8
+    feedback)."""
+    wire_in, wire_out, qb_in, qb_out, restore = _resolve_leg_wires(
+        topology, b, op, compress, int8_min_bytes, q_block)
+    ef_in = wire_in == "int8" and residuals is not None
+    ef_out = wire_out == "int8" and outer_residuals is not None
+    flat = _pack_flat([leaves[s.index] for s in b.slots], b.pad)
+    res_in = (_pack_flat(_seeded(residuals, leaves, b), b.pad) if ef_in
+              else None)
+    res_out = (_seed_outer_residual(outer_residuals, bi,
+                                    b.elems // int(topology.n_inner),
+                                    flat.device) if ef_out else None)
+    body = (_hier_allreduce_body if kind == "allreduce"
+            else _hier_reduce_scatter_body)
+    out, nri, nro = body(flat, mesh, op, wire_in, wire_out, qb_in, qb_out,
+                         res_in, res_out)
+    if ef_out:
+        outer_residuals[bi] = nro
+    _count_launch()
+    _count_leg_bytes(topology, b, kind, wire_in, wire_out, qb_in, qb_out)
+    dtype = torch_dtype(b.dtype)
+
+    def finish():
+        red = out.to(dtype) if restore else out
+        new = _unpack(nri.to(dtype), b.slots) if ef_in else None
+        return (_unpack(red, b.slots) if kind == "allreduce" else red), new
+
+    return Reduction(b, wire_in, [], finish)
+
+
 def bucketed_all_reduce_stream(leaves, mesh, axis: str = "data",
                                op: str = "sum", *,
                                bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                                compress: str | None = None,
                                int8_min_bytes: int = INT8_MIN_BUCKET_BYTES,
                                q_block: int | None = DEFAULT_QUANT_BLOCK,
-                               residuals: list | None = None):
+                               residuals: list | None = None,
+                               topology: Topology | None = None,
+                               outer_residuals: dict | None = None):
     """Dispatch one collective per bucket of ``leaves`` (this rank's
     contributions) and yield ``(bucket, reduction)`` right after each
     dispatch; ``reduction.wait()`` gives ``(reduced_by_slot,
@@ -553,11 +778,22 @@ def bucketed_all_reduce_stream(leaves, mesh, axis: str = "data",
 
     ``residuals``: per-leaf error-feedback residuals aligned with
     ``leaves`` (None entries seed zeros). They engage only on buckets
-    whose wire resolves to int8; other buckets give ``None``."""
+    whose wire resolves to int8; other buckets give ``None``.
+
+    ``topology``: the sum and mean buckets take the two-leg wire
+    (``axis`` is the composite ``("inner", "outer")`` of the topology's
+    mesh); max and min take the flat program over the same axis.
+    ``outer_residuals``: the caller's dict of outer-leg residuals by
+    bucket index, read for the seed and updated at each dispatch."""
     _check_stream_args("bucketed_all_reduce", op, _REDUCERS, compress)
     group, n = axis_group(mesh, axis), axis_n(mesh, axis)
     restore = compress is not None
-    for b in plan_buckets(leaves, n, bucket_bytes):
+    for bi, b in enumerate(plan_buckets(leaves, n, bucket_bytes)):
+        if topology is not None and op in ("sum", "mean"):
+            yield b, _hier_bucket(b, bi, leaves, mesh, op, "allreduce",
+                                  topology, compress, int8_min_bytes,
+                                  q_block, residuals, outer_residuals)
+            continue
         wire = _bucket_wire(b, op, compress, int8_min_bytes)
         flat = _pack_flat([leaves[s.index] for s in b.slots], b.pad)
         dtype = torch_dtype(b.dtype)
@@ -594,15 +830,19 @@ def bucketed_all_reduce(leaves, mesh, axis: str = "data", op: str = "sum",
                         compress: str | None = None,
                         int8_min_bytes: int = INT8_MIN_BUCKET_BYTES,
                         q_block: int | None = DEFAULT_QUANT_BLOCK,
-                        residuals: list | None = None):
+                        residuals: list | None = None,
+                        topology: Topology | None = None,
+                        outer_residuals: dict | None = None):
     """Allreduce a list of leaves through dtype buckets, every bucket on
     the wire before the first wait. Returns the reduced leaves in input
     order; with ``residuals``, ``(reduced, new_residuals)`` where a leaf
-    that rode no int8 bucket keeps its input residual."""
+    that rode no int8 bucket keeps its input residual. ``topology`` and
+    ``outer_residuals`` as for :func:`bucketed_all_reduce_stream`."""
     pending = list(bucketed_all_reduce_stream(
         leaves, mesh, axis, op, bucket_bytes=bucket_bytes,
         compress=compress, int8_min_bytes=int8_min_bytes, q_block=q_block,
-        residuals=residuals))
+        residuals=residuals, topology=topology,
+        outer_residuals=outer_residuals))
     out: list = [None] * len(leaves)
     new_res = list(residuals) if residuals is not None else None
     for b, red in pending:
@@ -621,19 +861,29 @@ def bucketed_reduce_scatter_stream(leaves, mesh, axis: str = "data",
                                    int8_min_bytes: int =
                                    INT8_MIN_BUCKET_BYTES,
                                    q_block: int | None = DEFAULT_QUANT_BLOCK,
-                                   residuals: list | None = None):
+                                   residuals: list | None = None,
+                                   topology: Topology | None = None,
+                                   outer_residuals: dict | None = None):
     """The ZeRO gradient leg: one reduce-scatter per bucket, yielding
     ``(bucket, reduction)``; ``reduction.wait()`` gives ``(shard,
     new_residuals_by_slot | None)``, ``shard`` being this rank's
     contiguous ``elems/n`` piece of the bucket's reduced flat (half the
     allreduce's bytes, and the form the shard-local optimizer reads).
     Under int8+EF the residual is the phase-1 error of this rank's
-    whole contribution: the scatter has no gather leg."""
+    whole contribution: the scatter has no gather leg. ``topology``
+    routes every bucket through the two-leg scatter, which hands each
+    rank the same shard; ``outer_residuals`` as for
+    :func:`bucketed_all_reduce_stream`."""
     _check_stream_args("bucketed_reduce_scatter", op, ("sum", "mean"),
                        compress)
     group, n = axis_group(mesh, axis), axis_n(mesh, axis)
     restore = compress is not None
-    for b in plan_buckets(leaves, n, bucket_bytes):
+    for bi, b in enumerate(plan_buckets(leaves, n, bucket_bytes)):
+        if topology is not None:
+            yield b, _hier_bucket(b, bi, leaves, mesh, op, "reduce_scatter",
+                                  topology, compress, int8_min_bytes,
+                                  q_block, residuals, outer_residuals)
+            continue
         wire = _bucket_wire(b, op, compress, int8_min_bytes)
         flat = _pack_flat([leaves[s.index] for s in b.slots], b.pad)
         dtype = torch_dtype(b.dtype)
@@ -765,6 +1015,21 @@ class _CopyTo(torch.autograd.Function):
         return all_reduce(g, ctx.mesh, ctx.axis), None, None
 
 
+class _SumOver(torch.autograd.Function):
+    """Allreduce forward and backward: a sum that every rank's loss
+    uses whole (the router aux's batch statistics), so each rank's
+    gradient of it is the sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
 class _RingSend(torch.autograd.Function):
     """:func:`ring_shift` whose backward sends the gradient back the
     other way."""
@@ -820,6 +1085,12 @@ def reduce_from(x, mesh, axis):
 def copy_to(x, mesh, axis):
     """Enter a column-parallel region ("f"): the gradient is summed."""
     return _CopyTo.apply(x, mesh, axis) if _live(mesh, axis) else x
+
+
+def sum_over(x, mesh, axis):
+    """The sum of every rank's ``x`` over ``axis``, for a loss each rank
+    computes from it whole: the gradient is summed too."""
+    return _SumOver.apply(x, mesh, axis) if _live(mesh, axis) else x
 
 
 def ring_send(x, mesh, axis, shift: int = 1):
@@ -1086,4 +1357,71 @@ def measure_wire_gbps(mesh, axis: str = "data", mbytes: int = 32,
         "fp32_ms": fp32[1],
         "int8_chunk_ms": chunk[1],
         "int8_block_ms": {b: v[1] for b, v in block.items()},
+    }
+
+
+def measure_hier_allreduce(topology: Topology | None = None,
+                           mbytes: int = 16, iters: int = 5, group=None,
+                           device=None) -> dict:
+    """The hierarchical against the flat bucketed allreduce over the SAME
+    composite mesh (``topology.mesh``, over ``group``, the default
+    group when None; the reference's ``make hier-bench`` probe). Both
+    at the exact wire, after one warm call each, the device drained
+    before each clock read: ``flat_step_ms``, ``hier_step_ms``; the
+    per-rank leg bytes of a hierarchical launch from the counters
+    (``hier_slow_leg_bytes`` at most ``flat_outer_bytes / n_inner``);
+    and the topology's model of the two (``model_*``). With no topology,
+    one of the group's size: two domains when it is even and at least
+    4, else one. Every rank of the group calls."""
+    import time
+
+    if topology is None:
+        n = dist.get_world_size(group)
+        no = 2 if n % 2 == 0 and n >= 4 else 1
+        topology = Topology.emulated_host(no, max(n // no, 1))
+    topo = topology
+    mesh, ax = topo.mesh(group=group, device=device), topo.flat_axis
+    elems = mbytes * 1024 * 1024 // 4
+    payload = elems * 4
+    leaf = torch.full((elems,), 0.5, dtype=torch.float32, device=mesh.device)
+
+    def timed(**kw):
+        bucketed_all_reduce([leaf], mesh, ax, "sum", **kw)
+        _drain(mesh.device)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            bucketed_all_reduce([leaf], mesh, ax, "sum", **kw)
+        _drain(mesh.device)
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    flat_ms = timed()
+    keys = ("leg_bytes.inner", "leg_bytes.outer", "leg_bytes.flat_outer",
+            "hier_launches")
+
+    def snap():
+        c = metrics.snapshot()["counters"]
+        return {k: c.get(f"collectives.{k}", 0) for k in keys}
+
+    base = snap()
+    hier_ms = timed(topology=topo)
+    d = {k: v - base[k] for k, v in snap().items()}
+    launches = max(int(d["hier_launches"]), 1)
+    slow = d["leg_bytes.outer"] / launches
+    flat_outer = d["leg_bytes.flat_outer"] / launches
+    model_flat = topo.flat_allreduce_ms(payload)
+    model_hier = topo.hier_allreduce_ms(payload)
+    return {
+        "geometry": topo.describe(),
+        "payload_mb": mbytes,
+        "flat_step_ms": flat_ms,
+        "hier_step_ms": hier_ms,
+        "hier_slow_leg_bytes": int(slow),
+        "hier_inner_leg_bytes": int(d["leg_bytes.inner"] / launches),
+        "flat_outer_bytes": int(flat_outer),
+        "slow_leg_pct": (round(100.0 * slow / flat_outer, 2)
+                         if flat_outer else None),
+        "model_flat_ms": round(model_flat, 3),
+        "model_hier_ms": round(model_hier, 3),
+        "model_speedup": (round(model_flat / model_hier, 2)
+                          if model_hier else None),
     }

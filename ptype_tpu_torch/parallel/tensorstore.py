@@ -39,8 +39,13 @@ live elastic reshard's store leg). :func:`measure_push_tree` times a
 whole gradient push of a model's parameter tree, bucketed against leaf
 by leaf.
 
-Not ported yet (ROADMAP A6(b)): the hierarchical wire (a ``topology``
-raises).
+A ``topology`` (``parallel/topology.py``, the store built on its
+``Topology.mesh``) routes every bucketed push through the two-leg wire
+over the composite ``("inner", "outer")`` axis, which is then the
+store's default axis: each leg with its own wire format, the per-leaf
+residuals carried by the inner leg, and each push site's outer-leg
+residuals (one flat a bucket) kept by the store across pushes and
+dropped on a reshard, as the per-leaf ones are.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from ptype_tpu_torch.metrics import annotate, metrics
 from ptype_tpu_torch.parallel import collectives
 from ptype_tpu_torch.parallel.mesh import (Mesh, axis_group, axis_index,
                                            axis_n)
+from ptype_tpu_torch.parallel.topology import INNER_AXIS, OUTER_AXIS
 
 log = logs.get_logger("tensorstore")
 
@@ -199,19 +205,20 @@ class TensorStore:
                 device.index is not None and device != mesh.device):
             raise ClusterError(f"TensorStore: device {device} is not the "
                                f"mesh's {mesh.device}")
-        if topology is not None:
-            raise NotImplementedError(
-                "TensorStore: the hierarchical wire (a Topology) is not "
-                "ported yet (ROADMAP A6(b), the hierarchical wire)")
         if (wire is not None and compress is not None
                 and compress != wire.compress):
             raise ValueError(
                 f"TensorStore: conflicting compress={compress!r} and "
                 f"wire.compress={wire.compress!r} — pass one")
+        #: A hierarchical topology: every bucketed push takes the two-leg
+        #: wire, over the composite axis, which the default axis becomes
+        #: (so the trainers on the store need no change).
+        self.topology = topology
+        if topology is not None and axis == "data":
+            axis = topology.flat_axis
         axis_group(mesh, axis)
         self.wire = (wire if wire is not None
                      else collectives.WireConfig(compress=compress))
-        self.topology = None
         self.mesh = mesh
         self.axis = axis
         self.device = mesh.device
@@ -224,6 +231,11 @@ class TensorStore:
         self._manifest_failed: set[str] = set()
         #: Per-key error-feedback residuals of THIS rank (the int8 wire).
         self._residuals: dict[str, torch.Tensor] = {}
+        #: The two-leg wire's outer-leg residuals of THIS rank: push site
+        #: → {bucket index → flat f32}. A bucket's slow-leg chunk cuts
+        #: across leaf slots, so they are kept a bucket, popped and
+        #: stored back as the per-leaf ones are.
+        self._outer_residuals: dict[str, dict[int, torch.Tensor]] = {}
         #: Dispatched stream buckets not yet committed, in order.
         self._inflight: list[_Push] = []
         self._seq = 0
@@ -353,6 +365,7 @@ class TensorStore:
                     self._entries[key] = _Entry(entry.value, entry.epoch,
                                                 entry.binding, seq)
             self._residuals.clear()
+            self._outer_residuals.clear()
             self.mesh = mesh
             self.axis = axis
 
@@ -414,16 +427,19 @@ class TensorStore:
             self._settle()
             items = [(key, local)]
             res = self._group_residuals(items)
+            ores = self._pop_outer(key)
             try:
                 outs = collectives.bucketed_all_reduce(
                     [local], self.mesh, self.axis, op, residuals=res,
-                    **self._wire_kwargs(None))
+                    outer_residuals=ores, **self._wire_kwargs(None))
             except BaseException:
                 self._restore_residuals(items, res)
+                self._restore_outer(key, ores)
                 raise
             if res is not None:
                 outs, new_res = outs
                 self._store_residuals([key], new_res)
+            self._store_outer(key, ores)
         return self._commit_reduced(key, outs[0])
 
     def push_scatter(self, key: str, local,
@@ -518,17 +534,21 @@ class TensorStore:
             self._settle()
             for group_op, items in groups.items():
                 res = self._group_residuals(items)
+                site = f"{prefix}|{group_op}"
+                ores = self._pop_outer(site)
                 try:
                     outs = collectives.bucketed_all_reduce(
                         [leaf for _, leaf in items], self.mesh, self.axis,
-                        group_op, residuals=res,
+                        group_op, residuals=res, outer_residuals=ores,
                         **self._wire_kwargs(bucket_bytes))
                 except BaseException:
                     self._restore_residuals(items, res)
+                    self._restore_outer(site, ores)
                     raise
                 if res is not None:
                     outs, new_res = outs
                     self._store_residuals([k for k, _ in items], new_res)
+                self._store_outer(site, ores)
                 for (key, _), out in zip(items, outs):
                     reduced[key] = out
         out = {key: self._commit_reduced(key, reduced[key])
@@ -552,14 +572,29 @@ class TensorStore:
         return {"bucket_bytes": bucket_bytes or self.wire.bucket_bytes,
                 "compress": self.compress,
                 "int8_min_bytes": self.wire.int8_min_bytes,
-                "q_block": self.wire.q_block}
+                "q_block": self.wire.q_block, "topology": self.topology}
+
+    def _leg_armed(self, leg: str) -> bool:
+        """Whether the topology's ``leg`` resolves to int8 with error
+        feedback on."""
+        t = self.topology
+        if t is None or not self.wire.error_feedback:
+            return False
+        return t.resolve_leg(leg, self.compress, self.wire.q_block)[0] == \
+            "int8"
+
+    def _feedback_armed(self) -> bool:
+        """Per-leaf feedback is armed by the int8+EF wire, or by a
+        topology whose inner leg (which carries the per-leaf residual)
+        resolves to int8 while the wire is exact."""
+        return self.wire.feedback_armed or self._leg_armed(INNER_AXIS)
 
     def _group_residuals(self, items) -> list | None:
         """Per-leaf EF residuals for one push group (None when the wire
         carries no feedback; missing entries stay None and seed zeros).
         POPPED, not read: a concurrent pusher of the same key folds
         zeros instead of applying the same error twice."""
-        if not self.wire.feedback_armed:
+        if not self._feedback_armed():
             return None
         with self._lock:
             return [self._residuals.pop(key, None) for key, _ in items]
@@ -579,6 +614,31 @@ class TensorStore:
             for (key, _), r in zip(items, popped):
                 if r is not None:
                     self._residuals.setdefault(key, r)
+
+    def _pop_outer(self, site: str) -> dict | None:
+        """A push site's outer-leg residuals, popped (the collectives
+        update the dict in place a bucket; :meth:`_store_outer` puts it
+        back); None unless the outer leg carries int8 feedback."""
+        if not self._leg_armed(OUTER_AXIS):
+            return None
+        with self._lock:
+            return self._outer_residuals.pop(site, {})
+
+    def _store_outer(self, site: str, ores: dict | None) -> None:
+        """Write a push's outer residuals back: its buckets' are the
+        freshest."""
+        if ores:
+            with self._lock:
+                self._outer_residuals.setdefault(site, {}).update(ores)
+
+    def _restore_outer(self, site: str, ores: dict | None) -> None:
+        """A failed push's popped outer residuals back, never over a
+        fresher one."""
+        if ores:
+            with self._lock:
+                cur = self._outer_residuals.setdefault(site, {})
+                for bi, r in ores.items():
+                    cur.setdefault(bi, r)
 
     def _settle(self, upto: _Push | None = None) -> None:
         """Wait and commit in-flight stream buckets in dispatch order —
@@ -606,12 +666,15 @@ class TensorStore:
         first, bucket_no = True, 0
         for group_op, items in groups.items():
             res = self._group_residuals(items)
+            site = f"{prefix}|{group_op}"
+            ores = self._pop_outer(site)
             pending = ({i: r for i, r in enumerate(res) if r is not None}
                        if res is not None else {})
             done = False
             try:
                 it = stream([leaf for _, leaf in items], self.mesh,
                             self.axis, group_op, residuals=res,
+                            outer_residuals=ores,
                             **self._wire_kwargs(bucket_bytes))
                 while True:
                     # Each bucket's dispatch in its own region: the
@@ -650,6 +713,7 @@ class TensorStore:
                     with self._lock:
                         for i, r in pending.items():
                             self._residuals.setdefault(items[i][0], r)
+                self._store_outer(site, ores)
         metrics.timing("store.push_tree").observe(_time.perf_counter() - t0)
         metrics.counter("store.push_tree.leaves").add(len(pairs))
         chaos.note_ok("store.push", prefix)

@@ -7,11 +7,15 @@ nodes). A hierarchical wire reduce-scatters inside the fast domain,
 exchanges only ``1/n_inner`` of the bytes across the slow leg, and
 allgathers back out, with the int8+EF wire resolved per leg.
 
-Ported here: the axis-name constants, :class:`LegWire`, and
-:class:`Topology`'s geometry, per-leg wire policy, analytic cost and
-byte model and JSON/env forms. Not ported yet (ROADMAP A6(b), the
-hierarchical wire): ``Topology.mesh`` and the two-leg collective
-bodies; a ``TensorStore`` given a topology raises.
+:class:`Topology` holds the geometry, the per-leg wire policy
+(:class:`LegWire`), the analytic cost and byte model and the JSON/env
+forms. :meth:`Topology.mesh` builds the 2-D mesh over the process
+group, ``{"outer": n_outer, "inner": n_inner}``: rank ``r`` sits in
+domain ``r // n_inner`` (domains are contiguous rank blocks), and the
+composite axis :data:`HIER_AXIS` spans every rank, its linear index the
+rank itself (outer-major, the mesh's own order). The two-leg bodies are
+``parallel/collectives.py``'s; a ``TensorStore`` given a topology
+pushes through them (``parallel/tensorstore.py``).
 
 Env/JSON configuration (``Topology.from_env``): ``PTYPE_TOPOLOGY``
 accepts ``"2x4"`` shorthand (outer×inner), an inline JSON object, or
@@ -140,15 +144,29 @@ class Topology:
         byte costs than a fast-leg byte."""
         return float(self.inner_gbps) / float(self.outer_gbps)
 
+    def mesh(self, group=None, device=None):
+        """The 2-D mesh ``{"outer": n_outer, "inner": n_inner}`` over
+        ``group`` (the default group when None), whose size must be
+        :attr:`n`; ``device`` as for ``build_mesh``. Rank ``r`` sits at
+        inner index ``r % n_inner``, outer index ``r // n_inner``, and
+        every sub-axis has its group: each leg's, and the composite's
+        (the whole mesh)."""
+        from ptype_tpu_torch.parallel.mesh import build_mesh
+
+        return build_mesh({OUTER_AXIS: int(self.n_outer),
+                           INNER_AXIS: int(self.n_inner)}, group=group,
+                          device=device)
+
     def domain_of_device(self, ordinal: int) -> int:
         """Outer-domain index of a flat device ordinal."""
         return int(ordinal) // int(self.n_inner)
 
     def domain_of_linear(self, lin: int) -> int:
-        """Outer-domain index of a composite-axis linear index
-        (``lax.axis_index(("inner", "outer"))`` yields
-        ``i_inner * n_outer + i_outer``)."""
-        return int(lin) % int(self.n_outer)
+        """Outer-domain index of a composite-axis linear index: on
+        :meth:`mesh` that index is the rank, ``i_outer * n_inner +
+        i_inner`` (the reference's composite runs inner-major, so its
+        answer is ``lin % n_outer``)."""
+        return int(lin) // int(self.n_inner)
 
     def domains(self) -> list:
         """Device ordinals grouped by domain: ``[[0..n_inner-1], ...]``."""
@@ -325,3 +343,25 @@ class Topology:
         ratio = float(env.get(RATIO_ENV) or DEFAULT_RATIO)
         return Topology.emulated_host(n_outer, n_inner, ratio=ratio)
 
+
+def factorizations(n: int) -> list:
+    """All ``(outer, inner)`` splits of ``n`` (for 8: 1x8, 2x4, 4x2,
+    8x1)."""
+    return [(o, n // o) for o in range(1, n + 1) if n % o == 0]
+
+
+def topology_for(mesh) -> "Topology | None":
+    """A geometry-only :class:`Topology` of a hierarchical mesh (both
+    hierarchy axes present), else None. Its bandwidths are the
+    defaults: for byte accounting, not step-cost claims."""
+    names = tuple(mesh.axis_names)
+    if INNER_AXIS in names and OUTER_AXIS in names:
+        return Topology(n_outer=int(mesh.shape[OUTER_AXIS]),
+                        n_inner=int(mesh.shape[INNER_AXIS]))
+    return None
+
+
+def is_hier_axis(axis) -> bool:
+    """True when ``axis`` is the composite hierarchy tuple."""
+    return (isinstance(axis, tuple) and len(axis) == 2
+            and tuple(axis) == HIER_AXIS)

@@ -28,14 +28,17 @@ allgathered over ``data``. Checkpoints write each block at its offset,
 so a step directory is the reference's global layout either way, and
 restore reads back only the rank's own block.
 
-Mixture-of-experts configs train on one device (or a mesh of one),
-their experts unsharded. Data-parallel training through the Store, with
-the ZeRO ladder, is ``train/store_dp.py``; it applies the same AdamW
-arithmetic (:func:`adamw_leaf_`). The async param server and the stage
-actors (``train/param_server.py``, ``train/actor_pipeline.py``) step
-through :func:`make_apply_fn`, the stage actors with :class:`Adam` or
-:class:`SGD` (``optax.adam`` / ``optax.sgd``). Out of scope here
-(ROADMAP): expert parallelism.
+Mixture-of-experts configs train on one device or on any mesh, the
+expert bank split over ``expert`` (expert parallelism,
+``models/transformer.py`` ``MeshLayout.moe``): the capacity, the token
+order and the router aux are the global batch's, and with
+``grad_accum > 1`` each microbatch is the reference's slice of the
+global batch. Data-parallel training through the Store, with the ZeRO
+ladder, is ``train/store_dp.py``; it applies the same AdamW arithmetic
+(:func:`adamw_leaf_`). The async param server and the stage actors
+(``train/param_server.py``, ``train/actor_pipeline.py``) step through
+:func:`make_apply_fn`, the stage actors with :class:`Adam` or
+:class:`SGD` (``optax.adam`` / ``optax.sgd``).
 """
 
 from __future__ import annotations
@@ -522,7 +525,10 @@ def grads_of(params: dict, batch: dict, cfg: tfm.TransformerConfig,
     ``batch`` are this rank's blocks: the normalizer is the GLOBAL one
     (the mask sums over the batch axes), so the loss and grads returned
     are this rank's terms of the global ones, before any sum across
-    ranks."""
+    ranks. An MoE config's microbatches are the reference's: microbatch
+    i is rows ``[i·B/g, (i+1)·B/g)`` of the GLOBAL batch
+    (:func:`_microbatch_rows`), since its capacity and aux depend on
+    which tokens share one."""
     paths, leaves = zip(*_flatten(params))
     mesh = layout.mesh if layout is not None else None
     if grad_accum == 1 and mesh is None:
@@ -539,6 +545,8 @@ def grads_of(params: dict, batch: dict, cfg: tfm.TransformerConfig,
                  if mask is not None else float(batch["targets"].numel()))
     else:
         denom = _global_denom(batch, layout)
+    if mesh is not None and cfg.n_experts:
+        batch = _microbatch_rows(batch, layout, grad_accum)
     loss, grads = 0.0, None
     for i in range(grad_accum):
         mb = {k: v.chunk(grad_accum)[i] for k, v in batch.items()}
@@ -561,6 +569,28 @@ def _sum_over(x: torch.Tensor, layout) -> torch.Tensor:
     if not layout.batch_axes:
         return x
     return C.all_reduce(x, layout.mesh, layout.batch_axes)
+
+
+def _microbatch_rows(batch: dict, layout, grad_accum: int) -> dict:
+    """This rank's rows regrouped so that chunk i of them is its block
+    of global microbatch i, the global rows ``[i·B/g, (i+1)·B/g)``: the
+    rows are allgathered over the row axes (``data``, ``fsdp``) and each
+    microbatch cut into the ranks' blocks in their order."""
+    axes = layout.row_axes
+    if grad_accum == 1 or not axes:
+        return batch
+    n, j = axis_n(layout.mesh, axes), axis_index(layout.mesh, axes)
+    out = {}
+    for key, v in batch.items():
+        full = C.all_gather_dim(v, layout.mesh, axes, 0)
+        if full.shape[0] % (grad_accum * n):
+            raise ValueError(f"global batch {full.shape[0]} does not split "
+                             f"into {grad_accum} microbatches of {n} "
+                             "rank blocks")
+        per = full.shape[0] // (grad_accum * n)
+        out[key] = torch.cat([full[(i * n + j) * per:(i * n + j + 1) * per]
+                              for i in range(grad_accum)])
+    return out
 
 
 def _global_denom(batch: dict, layout) -> torch.Tensor:

@@ -424,7 +424,7 @@ def test_entry_points_refuse_the_wrong_device_and_backend(world):
     """No fallback hides the device or the backend: a cuda mesh on a
     gloo group, axes that do not cover the group, a store or trainer
     with no device named on a host without CUDA and a hierarchical
-    topology all raise; a collective over a sub-axis runs on its own
+    topology on a mesh without its axes all raise; a collective over a sub-axis runs on its own
     group (the sums are held in ``test_torch_sharded_train.py``)."""
     _, _, outs, _ = world
     if torch.cuda.is_available():
@@ -436,7 +436,7 @@ def test_entry_points_refuse_the_wrong_device_and_backend(world):
         assert got["axes_past_the_group"].startswith("ClusterError")
         for name in ("store_without_device", "trainer_without_device"):
             assert got[name].startswith("RuntimeError: no CUDA device")
-        assert got["hierarchical_topology"].startswith(
-            "NotImplementedError")
-        assert "ROADMAP" in got["hierarchical_topology"]
+        # A topology on a mesh without its (outer, inner) axes.
+        assert got["hierarchical_topology"].startswith("ClusterError")
+        assert "inner" in got["hierarchical_topology"]
         assert got["sub_axis_collective"] is None

@@ -776,6 +776,59 @@ def sharded_train_suite(mesh, inp: dict) -> dict:
     return _np(out)
 
 
+def moe_ep_suite(mesh, inp: dict) -> dict:
+    """The mesh ``Trainer`` on a mixture-of-experts config, one case a
+    layout of ``inp["cases"]`` (name, axes, knobs: ``capacity_factor``,
+    ``grad_accum``, ``shard_update``, ``ring``): loss and grad-norm
+    curves, the final state whole, this rank's expert-bank shape, the
+    moments' resident elements and the EP branch's calls; a sharded
+    save of ``inp["save_case"]``; and the reference's save restored
+    into the EP layout ``inp["restore_axes"]``."""
+    from dataclasses import replace
+
+    from ptype_tpu_torch.checkpoint import Checkpointer
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel.mesh import build_mesh
+    from ptype_tpu_torch.train import trainer as tr
+
+    base = tfm.preset("tiny-moe", dtype=torch.float32, attn_impl="xla")
+    out: dict = {"cases": {}}
+
+    def trainer(m, cfg, **kw):
+        return tr.Trainer(cfg, mesh=m, params=inp["params"], sync_every=0,
+                          optimizer=tr.default_optimizer(**inp["opt"]), **kw)
+
+    for name, axes, knobs in inp["cases"]:
+        cfg = replace(base, capacity_factor=knobs.get("capacity_factor",
+                                                      base.capacity_factor),
+                      attn_impl="ring" if knobs.get("ring") else "xla")
+        m = build_mesh(axes, device="cpu")
+        t = trainer(m, cfg, shard_update=knobs.get("shard_update", False))
+        g = knobs.get("grad_accum", 1)
+        if g > 1:
+            t._step_fn = tr.make_train_step(cfg, t.optimizer, t._attn_fn,
+                                            grad_accum=g, mesh=m)
+        calls = tfm.MeshLayout.moe_calls
+        steps = [t.step(b) for b in inp["batches"]]
+        row = {"losses": [float(o["loss"]) for o in steps],
+               "grad_norms": [float(o["grad_norm"]) for o in steps],
+               "moe_calls": tfm.MeshLayout.moe_calls - calls,
+               "bank": tuple(t.state.params["blocks"]["w_gate"].shape),
+               "moment_elems": _moment_elems(t), "state": _full_state(t)}
+        if name == inp["save_case"]:
+            t.save(Checkpointer(inp["port_ckpt"], mesh=m))
+        out["cases"][name] = row
+
+    # The reference's save, read into an expert-split layout.
+    m = build_mesh(inp["restore_axes"], device="cpu")
+    t = trainer(m, base)
+    row = {"step": t.restore(Checkpointer(inp["ref_ckpt"], mesh=m)),
+           "state": _full_state(t)}
+    row["next"] = float(t.step(inp["next_batch"])["loss"])
+    out["restored"] = row
+    return _np(out)
+
+
 def ring_suite(mesh, inp: dict) -> dict:
     """Ring and Ulysses attention on the cases of this world size: each
     rank's blocks of q, k, v, the attention's output and the grads of
@@ -1066,10 +1119,144 @@ def store_probes_suite(mesh, inp: dict) -> dict:
     return out
 
 
+def _ef_bias(mesh, topo, g, exact, ef: bool, steps: int = 24) -> float:
+    """The mean of ``steps`` int8 (q_block 32) hierarchical pushes of the
+    same contribution, against the exact mean: its largest bias."""
+    from ptype_tpu_torch.parallel import collectives as C
+
+    res, outer = [None], {}
+    acc = torch.zeros_like(exact)
+    for _ in range(steps):
+        kw = dict(residuals=res, outer_residuals=outer) if ef else {}
+        out = C.bucketed_all_reduce([g], mesh, topo.flat_axis, "mean",
+                                    compress="int8", int8_min_bytes=0,
+                                    q_block=32, topology=topo, **kw)
+        if ef:
+            out, res = out
+        acc += out[0]
+    return float((acc / steps - exact).abs().max())
+
+
+def topology_suite(mesh, inp: dict) -> dict:
+    """The hierarchical wire on every (outer, inner) factorization of
+    the world: the flat and the two-leg allreduce (mean) and
+    reduce-scatter (sum) shards of ``inp["leaves"]``; and on the
+    topology ``inp["geom"]``: the max op, per-leg error feedback against
+    naive int8, the slow-leg-only int8 wire, the leg counters, the
+    ``TensorStore``'s push and scatter, its outer residuals, and ZeRO-2
+    and ZeRO-3 curves through the flat and the two-leg store."""
+    from ptype_tpu_torch.metrics import metrics
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.parallel import collectives as C
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.parallel.mesh import axis_index, axis_n
+    from ptype_tpu_torch.parallel.topology import (LegWire, Topology,
+                                                   factorizations,
+                                                   topology_for)
+    from ptype_tpu_torch.train import store_dp as sd
+    from ptype_tpu_torch.train import trainer as tr
+
+    r, n = mesh.rank, mesh.size
+    leaves = [_t(x[r]) for x in inp["leaves"]]
+    out: dict = {"fact": {}}
+    for no, ni in factorizations(n):
+        topo = Topology.emulated_host(no, ni)
+        m, ax = topo.mesh(device="cpu"), topo.flat_axis
+
+        def shards(**kw):
+            return [red.wait()[0] for _, red in
+                    C.bucketed_reduce_scatter_stream(leaves[:2], m, ax,
+                                                     "sum", **kw)]
+
+        out["fact"][(no, ni)] = {
+            "flat": C.bucketed_all_reduce(leaves, m, ax, "mean"),
+            "hier": C.bucketed_all_reduce(leaves, m, ax, "mean",
+                                          topology=topo),
+            "rs_flat": shards(), "rs_hier": shards(topology=topo),
+            "index": m.rank}
+
+    no, ni = inp["geom"]
+    topo = Topology.emulated_host(no, ni)
+    m, ax = topo.mesh(device="cpu"), topo.flat_axis
+    found = topology_for(m)
+    out["geometry"] = {
+        "shape": dict(m.shape), "n": axis_n(m, ax),
+        "lin": axis_index(m, ax), "inner": axis_index(m, "inner"),
+        "outer": axis_index(m, "outer"),
+        "topology_for": (found.n_outer, found.n_inner),
+        "flat_topology_for": topology_for(mesh)}
+    out["max"] = {k: C.bucketed_all_reduce(leaves[:1], m, ax, "max", **kw)[0]
+                  for k, kw in (("flat", {}), ("hier", {"topology": topo}))}
+    g = _t(inp["g"][r])
+    exact = C.bucketed_all_reduce([g], m, ax, "mean")[0]
+    out["ef"] = {"naive": _ef_bias(m, topo, g, exact, False),
+                 "ef": _ef_bias(m, topo, g, exact, True)}
+    slow = Topology(n_outer=no, n_inner=ni,
+                    outer_wire=LegWire(compress="int8", q_block=32))
+    outer: dict = {}
+    got, res = C.bucketed_all_reduce([g], m, ax, "mean", int8_min_bytes=0,
+                                     residuals=[None], topology=slow,
+                                     outer_residuals=outer)
+    out["slow_leg"] = {"err": float((got[0] - exact).abs().max()),
+                       "inner_res": res[0], "outer_keys": sorted(outer)}
+    base = dict(metrics.snapshot()["counters"])
+    C.bucketed_all_reduce(leaves[:2], m, ax, "mean", topology=topo)
+    snap = metrics.snapshot()["counters"]
+    out["counters"] = {k: snap.get(k, 0) - base.get(k, 0) for k in (
+        "collectives.leg_bytes.inner", "collectives.leg_bytes.outer",
+        "collectives.leg_bytes.flat_outer", "collectives.hier_launches")}
+
+    tree = {k: _t(v[r]) for k, v in inp["tree"].items()}
+    s_flat = TensorStore(mesh, "data", device="cpu")
+    s_hier = TensorStore(m, topology=topo, device="cpu")
+    out["store_axis"] = s_hier.axis
+    out["push_tree"] = {"flat": s_flat.push_tree("g", tree),
+                        "hier": s_hier.push_tree("g", tree)}
+    for s_ in (s_hier, s_flat):
+        for h in s_.push_tree_scatter_iter("gs", tree):
+            h.wait()
+    keys = [k for k in s_hier.keys() if k.startswith("gs/")]
+    out["scatter"] = {k: (s_hier.pull(k, gather=True),
+                          s_flat.pull(k, gather=True)) for k in keys}
+    mean = {k: C.all_reduce(v, mesh, "data", "mean") for k, v in tree.items()}
+    biases = {}
+    for label, fb in (("ef", True), ("naive", False)):
+        wire = C.WireConfig(compress="int8", int8_min_bytes=0, q_block=32,
+                            error_feedback=fb)
+        store = TensorStore(m, wire=wire, topology=topo, device="cpu")
+        acc = {k: torch.zeros_like(v) for k, v in mean.items()}
+        for _ in range(12):
+            for k, v in store.push_tree("q", tree).items():
+                acc[k.split("/")[-1]] += v
+        biases[label] = max(float((acc[k] / 12 - mean[k]).abs().max())
+                            for k in acc)
+        if fb:
+            out["residuals_kept"] = {"outer": sorted(store._outer_residuals),
+                                     "inner": sorted(store._residuals)}
+            store.reshard(m)
+            out["residuals_after_reshard"] = (len(store._outer_residuals),
+                                              len(store._residuals))
+    out["store_bias"] = biases
+
+    cfg = tfm.preset("tiny", dtype=torch.float32, attn_impl="xla")
+    out["zero"] = {}
+    for stage in (2, 3):
+        for mode in ("flat", "hier"):
+            store = (TensorStore(mesh, "data", device="cpu") if mode == "flat"
+                     else TensorStore(m, topology=topo, device="cpu"))
+            t = sd.StoreDPTrainer(cfg, store, zero=stage, device="cpu",
+                                  params=inp["params"],
+                                  zero_hparams=tr.OptHParams(**inp["opt"]))
+            out["zero"][(stage, mode)] = [float(t.step(b)["loss"])
+                                          for b in inp["batches"]]
+    return _np(out)
+
+
 SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite,
           "elastic": elastic_suite, "sharded_train": sharded_train_suite,
           "ring": ring_suite, "elastic_trainer": elastic_trainer_suite,
-          "pipeline": pipeline_suite, "store_probes": store_probes_suite}
+          "pipeline": pipeline_suite, "store_probes": store_probes_suite,
+          "moe_ep": moe_ep_suite, "topology": topology_suite}
 #: The one mesh axis a suite's ranks lie on ("data" unless named here).
 SUITE_AXIS = {"pipeline": "stage"}
 
