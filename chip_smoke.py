@@ -278,6 +278,21 @@ its own lines:
    at SHORT_LAYERS through a TensorStore on that topology's mesh (the
    two-leg wire) bit for bit equal to the flat store's, the forward,
    dq and dk/dv launched steps x 4 times a rung;
+   audits: at optimus-125m over the world-1 NCCL mesh, (a) progaudit's
+   fourteen programs (train.grads at B=4, S=512; the decode step at 8
+   slots over 64 blocks of 16) with no host synchronisation, no f64,
+   their pinned launches and consumed donations, the flash kernels
+   launched 12 times each inside train.grads and the paged kernel 12
+   times inside serve.decode_step; (b) jitwatch armed over an 8-slot
+   kernel engine serving phase 4's requests (16 new tokens) four
+   rounds, steady after the first: no build, the decode guard never
+   tripped, one sanctioned read and five slot-state uploads a step,
+   tokens equal to a disarmed round's; (c) 4 armed StoreDPTrainer steps
+   at B=16, S=1024 with losses equal to a disarmed run's bit for bit;
+   (d) measure_jitwatch_overhead on the card; (e) the CUDA detector: an
+   .item() and a pageable upload raise in an armed region, pass counted
+   in a sanctioned one, and another thread's .cpu() meanwhile does not
+   raise;
 6. after every host-timed phase (a process that has run a
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
@@ -301,7 +316,8 @@ seed. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
 
 Other modes: ``--failover N`` runs the failover phase alone N times
-(one line of its profile records a run).
+(one line of its profile records a run); ``--audits`` runs the audits
+phase alone.
 """
 
 import dataclasses
@@ -1604,11 +1620,12 @@ def count_syncs(torch, fn):
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
+        prior = torch.cuda.get_sync_debug_mode()  # an armed jitwatch's
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
-            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.set_sync_debug_mode(prior)
     return len(sites), sites
 
 
@@ -6198,6 +6215,217 @@ def store_probes_phase(torch, tfm, flash_mod, train_mod, mesh, card):
     return launches
 
 
+#: The audits phase's armed engine: new tokens a request.
+AUDIT_MAX_NEW = 16
+#: The audits phase's armed StoreDPTrainer steps (B=16, S=1024).
+AUDIT_DP_STEPS = 4
+
+
+def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
+                 PagedGeneratorActor, mesh, params, prompts, card):
+    """The audits at optimus-125m (bf16 compute, f32 params) on the card,
+    over the world-1 NCCL mesh: (a) ``progaudit``'s fourteen programs
+    (``train.grads`` at B=4, S=512, the decode step at 8 slots over 64
+    blocks of 16), each with no host synchronisation, no f64, its pinned
+    launches and consumed donations, and the flash and paged launch
+    counters moving inside the programs that run them; (b) jitwatch armed
+    over an 8-slot kernel engine: phase 4's requests (AUDIT_MAX_NEW new
+    tokens) once, ``mark_steady``, three more rounds: no build after the
+    warmup, the decode guard live and never tripped, a step's one read
+    and five slot-state uploads on the books, tokens equal to a disarmed
+    round's; (c) the same over AUDIT_DP_STEPS StoreDPTrainer steps at
+    B=16, S=1024: losses equal to a disarmed run's bit for bit; (d)
+    ``measure_jitwatch_overhead`` on the card; (e) the CUDA detector
+    itself: an ``.item()`` and a pageable upload in an armed region
+    raise, pass counted in a sanctioned one, and another thread's
+    ``.cpu()`` made meanwhile outside any region does not raise. The
+    watchdog is disarmed at the end. Returns the launches its programs
+    made (fwd, dq, dkv, paged)."""
+    import numpy as np
+
+    from ptype_tpu_torch import jitwatch, progaudit
+    from ptype_tpu_torch.health.bench import measure_jitwatch_overhead
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.parallel.tensorstore import TensorStore
+    from ptype_tpu_torch.train import store_dp as sd
+
+    t_phase = time.monotonic()
+    cfg = tfm.preset("optimus-125m")
+    counters = (flash_mod.flash_attention, flash_mod.flash_attention_dq,
+                flash_mod.flash_attention_dkv, paged_mod.paged_attention)
+    launches = [0, 0, 0, 0]
+    row = {"phase": "audits", "card": card, "world": 1, "programs": {}}
+
+    # (a) the programs, one at a time, their kernels' launches counted
+    progaudit.register_default_programs(
+        "optimus-125m", batch=4, seq=512, device="cuda",
+        dtype=cfg.dtype, mesh=mesh, n_slots=8, n_blocks=64,
+        block_tokens=16)
+    t0 = time.monotonic()
+    for name in progaudit.DEFAULT_PROGRAMS:
+        for c in counters:
+            c.launches = 0
+        rep = progaudit.audit_all(raise_on_failure=True, names=[name])[name]
+        torch.cuda.synchronize()
+        ran = [c.launches for c in counters]
+        launches = [a + b for a, b in zip(launches, ran)]
+        row["programs"][name] = dict(rep.to_dict(), launches=dict(zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode"),
+            ran)))
+        check(rep.callbacks == [] and rep.f64_sites == []
+              and rep.donated_consumed == rep.donated_expected,
+              f"audits: {name}: {rep.to_dict()}")
+    row["programs_s"] = time.monotonic() - t0
+    progs = row["programs"]
+    L = cfg.n_layers
+    check(list(progs["train.grads"]["launches"].values()) == [L, L, L, 0],
+          f"audits: train.grads launches {progs['train.grads']['launches']}")
+    check(list(progs["serve.decode_step"]["launches"].values())
+          == [0, 0, 0, L], f"audits: serve.decode_step launches "
+          f"{progs['serve.decode_step']['launches']}")
+    torch.cuda.empty_cache()
+
+    # (b) the armed engine
+    t0 = time.monotonic()
+    eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                              device="cuda", n_slots=8, block_tokens=16,
+                              prefill_chunk=256)
+    try:
+        jw = jitwatch.enable()
+        paged_mod.paged_attention.launches = 0
+        steps0 = eng.Info()["engine_steps"]
+        run_requests(eng, prompts, AUDIT_MAX_NEW)
+        jw.mark_steady()
+        rounds = [run_requests(eng, prompts, AUDIT_MAX_NEW)[0]
+                  for _ in range(3)]
+        steps = eng.Info()["engine_steps"] - steps0
+        torch.cuda.synchronize()
+        engine_launches = paged_mod.paged_attention.launches
+        rep = jw.report()
+        jitwatch.disable()
+        plain, _ = run_requests(eng, prompts, AUDIT_MAX_NEW)
+    finally:
+        jitwatch.disable()
+        eng.close()
+    launches[3] += engine_launches
+    books = rep["sanctioned_transfers"]
+    row["engine"] = {
+        "requests": len(prompts), "rounds": 4, "max_new": AUDIT_MAX_NEW,
+        "decode_steps": steps, "paged_launches": engine_launches,
+        "report": rep,
+        "sanctioned_per_step": {k: v / steps for k, v in books.items()},
+        "seconds": time.monotonic() - t0}
+    check(rep["steady_since"] == {} and rep["storms"] == []
+          and rep["recompiles"] == {},
+          f"audits: armed engine built after steady: {rep}")
+    check(rep["hot_regions"] >= steps > 0,
+          f"audits: {rep['hot_regions']} hot regions, {steps} steps")
+    check(books.get("serve.decode_read") == steps
+          and books.get("serve.slot_state") == 5 * steps,
+          f"audits: engine books {books} for {steps} steps")
+    check(engine_launches == steps * L,
+          f"audits: paged launches {engine_launches} != {steps} x {L}")
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    check(all(same(r, rounds[0]) for r in rounds) and same(plain, rounds[-1]),
+          "audits: armed tokens differ between rounds or from the "
+          "disarmed round's")
+    torch.cuda.empty_cache()
+
+    # (c) the armed store-DP steps
+    t0 = time.monotonic()
+    dp_params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    batch = next(train_mod.synthetic_batches(cfg.vocab_size, 16, 1024,
+                                             seed=3, device="cuda"))
+    for c in counters:
+        c.launches = 0
+
+    def dp_run(armed):
+        tr = sd.StoreDPTrainer(cfg, TensorStore(mesh), params=dp_params,
+                               optimizer=train_mod.default_optimizer(
+                                   **STORE_DP_OPT))
+        jw = jitwatch.enable() if armed else None
+        try:
+            losses = []
+            for _ in range(AUDIT_DP_STEPS):
+                losses.append(float(tr.step(batch)["loss"]))
+                if jw is not None and len(losses) == 1:
+                    jw.mark_steady()
+            return losses, jw.report() if jw is not None else None
+        finally:
+            jitwatch.disable()
+            del tr
+            torch.cuda.empty_cache()
+
+    dp_plain, _ = dp_run(False)
+    dp_armed, dp_rep = dp_run(True)
+    ran = [c.launches for c in counters[:3]]
+    launches = [a + b for a, b in zip(launches, ran + [0])]
+    row["store_dp"] = {"B": 16, "S": 1024, "steps": AUDIT_DP_STEPS,
+                       "losses_armed": dp_armed, "losses_plain": dp_plain,
+                       "report": dp_rep, "launches": ran,
+                       "seconds": time.monotonic() - t0}
+    check(dp_armed == dp_plain and all(math.isfinite(x) for x in dp_armed),
+          f"audits: armed store-DP losses {dp_armed} != {dp_plain}")
+    check(dp_rep["steady_since"] == {} and dp_rep["hot_regions"] ==
+          AUDIT_DP_STEPS and dp_rep["sanctioned_transfers"] ==
+          {"train.data": AUDIT_DP_STEPS},
+          f"audits: armed store-DP books {dp_rep}")
+    check(ran == [2 * AUDIT_DP_STEPS * L] * 3,
+          f"audits: store-DP launches fwd/dq/dkv {ran}")
+
+    # (d) the armed price
+    row["overhead"] = measure_jitwatch_overhead(device="cuda")
+
+    # (e) the CUDA detector
+    x = torch.ones(4, device="cuda")
+    host = np.ones(4, np.float32)
+    jw = jitwatch.enable()
+    caught, errs = [], []
+    try:
+        with jitwatch.hot_region("audits.detector"):
+            for what, call in (("item", lambda: x.sum().item()),
+                               ("pageable_upload", lambda: torch.as_tensor(
+                                   host, device="cuda"))):
+                try:
+                    call()
+                except jitwatch.HostSyncError as e:
+                    caught.append((what, str(e)))
+            with jitwatch.sanctioned_transfer("audits.read"):
+                x.sum().item()
+                torch.as_tensor(host, device="cuda")
+
+            def other():
+                try:
+                    x.cpu()
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append(repr(e))
+
+            t = threading.Thread(target=other)
+            t.start()
+            t.join(timeout=60)
+        books = jw.sanctioned()
+    finally:
+        jitwatch.disable()
+    row["detector"] = {"raised": caught, "sanctioned": books,
+                       "other_thread_errors": errs,
+                       "sync_debug_mode_after": torch.cuda.get_sync_debug_mode()}
+    check([w for w, _ in caught] == ["item", "pageable_upload"]
+          and all("audits.detector" in m for _, m in caught),
+          f"audits: the CUDA detector raised {caught}")
+    check(books == {"audits.read": 1} and errs == [] and not t.is_alive(),
+          f"audits: sanctioned {books}, other thread {errs}")
+    check(jitwatch.active() is None
+          and torch.cuda.get_sync_debug_mode() == 0,
+          "audits: the watchdog is still armed")
+    row["seconds"] = time.monotonic() - t_phase
+    emit(row)
+    return launches
+
+
 PHASE4_LENS = (100, 180, 260, 340, 420, 500, 600, 700)
 
 
@@ -6233,6 +6461,39 @@ def failover_repeat(n):
             emit({"failover_run": i, "flash_fwd_kernel_bf16_records":
                   records, "seconds": time.monotonic() - t0, "card": card})
             torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def audits_only():
+    """``--audits``: the audits phase alone (after the kernels' build and
+    a world-1 NCCL group, as ``main`` has), then the last line."""
+    import torch
+
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import _build
+    from ptype_tpu_torch.ops import flash_attention as flash_mod
+    from ptype_tpu_torch.ops import paged_attention as paged_mod
+    from ptype_tpu_torch.parallel.mesh import build_mesh, init_distributed
+    from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+    import ptype_tpu_torch.train as train_mod
+
+    if not torch.cuda.is_available():
+        raise SmokeError("no CUDA device: chip_smoke.py runs on a GPU")
+    _build.build_all()
+    card = card_line()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    init_distributed(f"file://{rdv}/rdv", 0, 1)
+    cfg = tfm.preset("optimus-125m")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    try:
+        launches = audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
+                                PagedGeneratorActor,
+                                build_mesh({"data": 1}), params,
+                                phase4_prompts(torch, cfg), card)
+        emit({"audits_launches": launches, "card": card})
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
@@ -6587,6 +6848,14 @@ def main():
                                         mesh, card)
     lap("store_probes")
 
+    # audits: progaudit's programs and jitwatch armed over the engine and
+    # the store-DP step, at optimus-125m
+    audit_launches = audits_phase(torch, tfm, flash_mod, paged_mod,
+                                  train_mod, PagedGeneratorActor, mesh,
+                                  params, prompts, card)
+    torch.cuda.empty_cache()
+    lap("audits")
+
 
     # 6. profiles, after every host-timed phase: one engine decode
     # iteration, one train step of each model, one speculation window,
@@ -6661,7 +6930,8 @@ def main():
               "health": health_own[0] + health_rep_fwd,
               "failover": fo_launches[0] + fo_records,
               "pipeline": pp_launches[0],
-              "store_probes": probe_launches[0]}
+              "store_probes": probe_launches[0],
+              "audits": audit_launches[0]}
     if rec_flash:
         fwd128["reconciler"] = rec_flash
     fwd64 = {"moe_generator": moe_flash_launches, "moe_trainer": moe_fwd_n,
@@ -6675,7 +6945,8 @@ def main():
                 "sampled_engine": sampled_launches,
                 "disagg_engine": disagg_launches,
                 "health": health_rep_paged,
-                "walkthroughs": wt_paged}
+                "walkthroughs": wt_paged,
+                "audits": audit_launches[3]}
     paged64 = {"moe_paged_engine": moe_paged_launches}
 
     def rows(name, src, ref, row, by_path, **extra):
@@ -6708,7 +6979,8 @@ def main():
               "checkpoint": ckpt_launches[1],
               "elastic": elastic_launches[1], "health": health_own[1],
               "failover": fo_launches[1], "pipeline": pp_launches[1],
-              "store_probes": probe_launches[1]}),
+              "store_probes": probe_launches[1],
+              "audits": audit_launches[1]}),
         rows("flash_bwd_dq", bwd_src, dq_ref,
              pick("flash_bwd_dq", 16, 12, 64, 1024),
              {"moe_trainer": moe_dq_n, "ep_trainer": ep_launches[1]}),
@@ -6718,7 +6990,8 @@ def main():
               "checkpoint": ckpt_launches[2],
               "elastic": elastic_launches[2], "health": health_own[2],
               "failover": fo_launches[2], "pipeline": pp_launches[2],
-              "store_probes": probe_launches[2]}),
+              "store_probes": probe_launches[2],
+              "audits": audit_launches[2]}),
         rows("flash_bwd_dkv", bwd_src, dkv_ref,
              pick("flash_bwd_dkv", 16, 12, 64, 1024),
              {"moe_trainer": moe_dkv_n, "ep_trainer": ep_launches[2]}),
@@ -6756,6 +7029,14 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         try:
             failover_repeat(int(sys.argv[2]))
+        except SmokeError as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--audits"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        try:
+            audits_only()
         except SmokeError as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
             sys.exit(1)

@@ -13,9 +13,8 @@ signal):
 - ledger: ``observe cost × regions/step / step time`` — the observer
   fires once per annotate region.
 
-Acceptance bar (the reference's): sampler overhead < 1% of step time.
-The reference's ``measure_jitwatch_overhead`` waits for a counterpart
-of ``jitwatch`` (ROADMAP A8).
+Acceptance bar (the reference's): sampler overhead < 1% of step time;
+armed jitwatch (:func:`measure_jitwatch_overhead`) < 5% of the step.
 """
 
 from __future__ import annotations
@@ -197,4 +196,96 @@ def measure_lockcheck_overhead(ticks: int = 1500,
         "lockcheck_acquires_per_tick": round(per_tick, 1),
         "lockcheck_wrap_us_per_acquire": round(max(wrap_us, 0.0), 3),
         "lockcheck_cycles": len(report.get("cycles", [])),
+    }
+
+
+def measure_jitwatch_overhead(iters: int = 1500, repeats: int = 5,
+                              device=None) -> dict:
+    """Backs ``jitwatch_overhead_pct`` (the reference's bar: armed < 5%
+    of the step), on ``device`` (``cuda`` unless named).
+
+    The armed watchdog costs per STEP, not per compile: the compile
+    hook fires only on a kernel-cache miss (none in steady state), so
+    the recurring price is ONE hot-region entry around each dispatch.
+    The reference's method: price the region directly (a bare-dispatch
+    A/B microloop), then charge it against the step it wraps — an
+    engine-shaped step with its one host read, measured in the same
+    process. A wall A/B of the bare microloop would report the guard at
+    100% duty cycle, a workload no armed engine runs. Best of
+    ``repeats`` a side; ``jitwatch_region_us`` is the raw price of one
+    region, and the probe books its own steady-state recompiles. An
+    armed watchdog is re-armed on exit (fresh books, its storm
+    threshold and level)."""
+    import torch
+
+    from ptype_tpu_torch import jitwatch
+    from ptype_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # The region-cost microloop: bare async dispatch against dispatch
+    # under the guard — the difference is the armed price of a step.
+    x = torch.ones(256, device=dev)
+
+    def f(v):
+        return v * 2.0 + 1.0
+
+    # The engine-shaped step the guard wraps: a forward-sized program
+    # with the one host read a step the engine pays.
+    w = torch.full((256, 256), 0.01, device=dev)
+    sx = torch.ones((64, 256), device=dev)
+
+    def step():
+        return (torch.tanh(sx @ w) @ w).cpu()
+
+    f(x)
+    step()
+    sync()
+
+    def drive(armed: bool) -> float:
+        t0 = time.perf_counter()
+        if armed:
+            for _ in range(iters):
+                with jitwatch.hot_region("bench.step", dev):
+                    f(x)
+        else:
+            for _ in range(iters):
+                f(x)
+        sync()
+        return time.perf_counter() - t0
+
+    def drive_step(n: int = 60) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        return (time.perf_counter() - t0) / n
+
+    was = jitwatch.active()
+    jitwatch.disable()
+    try:
+        drive(False)  # warm the loop path
+        t_off = min(drive(False) for _ in range(repeats))
+        step_s = min(drive_step() for _ in range(3))
+        jw = jitwatch.enable()
+        jw.mark_steady()
+        drive(True)
+        t_on = min(drive(True) for _ in range(repeats))
+        steady = jw.recompiles_since_steady()
+    finally:
+        jitwatch.disable()
+        if was is not None:
+            jitwatch.enable(was.storm_threshold, was.transfer_level)
+    region_s = max(0.0, (t_on - t_off) / iters)
+    return {
+        "jitwatch_overhead_pct": round(
+            100.0 * region_s / max(step_s, 1e-12), 3),
+        "jitwatch_region_us": round(region_s * 1e6, 3),
+        "jitwatch_dispatch_us": round(t_off / iters * 1e6, 2),
+        "jitwatch_step_ms": round(step_s * 1e3, 3),
+        "jitwatch_steady_recompiles": sum(steady.values()),
+        "device": str(dev),
     }

@@ -747,17 +747,17 @@ class ServeStallRule(Rule):
 class RecompileStormRule(Rule):
     """Dispatch-discipline breach at runtime: a node's
     ``jit.recompiles`` counter (the jitwatch seam — same-signature
-    backend compiles the trace cache should have served) grew by
+    kernel builds or loads the build cache should have served) grew by
     ``threshold`` or more inside the window. A steady-state process
-    compiles NOTHING; sustained recompiles mean a hot loop is paying
-    trace+XLA-compile per iteration — the 0.77x class a green test
-    suite never sees. The alert NAMES the worst-offending function
+    builds NOTHING; sustained recompiles mean a hot loop is paying a
+    kernel build or load per iteration — a class a green test suite
+    never sees. The alert NAMES the worst-offending function
     from the per-function ``jit.fn.*`` books, which is what makes the
     page actionable (and lets the profile-capture hook grab the right
     node's timeline). Structural: the series only exists on
-    jitwatch-armed processes, so a disarmed fleet never pays a false
-    page. Nothing in the port feeds ``jit.*`` yet (the counterpart of
-    the reference's jitwatch is ROADMAP A8): it stays quiet here."""
+    jitwatch-armed processes (``ptype_tpu_torch.jitwatch``, whose
+    compile seam is the kernel build cache), so a disarmed fleet never
+    pays a false page."""
 
     name = "recompile-storm"
     severity = "page"

@@ -510,9 +510,9 @@ def render_topo(snapshot: dict, alerts=(),
 def render_jit(snapshot: dict, alerts=(), max_nodes: int = 32,
                max_fns: int = 12) -> str:
     """``obs jit``: the dispatch-discipline one-pager —
-    per-node compile/recompile totals from the jitwatch seam
-    (``jit.compiles``/``jit.recompiles`` counters, sampled into
-    series) plus the per-function ``jit.fn.*`` recompile books, worst
+    per-node compile/recompile totals from the jitwatch seam (the
+    kernel build cache: ``jit.compiles``/``jit.recompiles`` counters,
+    sampled into series) plus the per-function ``jit.fn.*`` recompile books, worst
     offender first. A node with no ``jit.*`` families is disarmed
     (``PTYPE_JITWATCH=1`` arms it) — shown so an operator chasing a
     recompile-storm page can tell 'quiet' from 'blind'."""

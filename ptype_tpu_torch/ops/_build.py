@@ -15,6 +15,12 @@ C entry point enqueues on the stream it is given and returns
 ``cudaGetLastError()``; :func:`bind` gives an entry point with its ctypes
 signature set (once per process), and :func:`check` turns a non-zero
 code into an exception.
+
+This cache is the port's program cache, and so the compile seam of
+:mod:`ptype_tpu_torch.jitwatch`: armed, :func:`load` books each library
+built or opened in this process (``csrc/<name>`` at the target's file
+name) and :func:`bind` each first bind of an entry point; a second load
+of one target is a recompile.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from ptype_tpu_torch import jitwatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -101,6 +109,8 @@ def load(name: str) -> ctypes.CDLL:
                 build_all([name])
             lib = ctypes.CDLL(str(out))
             _libs[name] = lib
+            if jitwatch._watch is not None:
+                jitwatch._watch.on_compile(f"csrc/{name}", out.name)
         return lib
 
 
@@ -114,6 +124,9 @@ def bind(name: str, fn: str, argtypes, restype=ctypes.c_int):
         f.restype = restype
         f.argtypes = argtypes
         _fns[(name, fn)] = f
+        if jitwatch._watch is not None:
+            jitwatch._watch.on_compile(f"csrc/{name}:{fn}",
+                                       _target(name).name)
     return f
 
 

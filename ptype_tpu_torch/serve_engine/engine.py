@@ -35,7 +35,11 @@ composition and ``kv.*`` pressure gauges. The seams take host ints the
 engine already has and never read a device tensor: the TTFT stamp
 follows the first token's host read, and a step keeps its one host
 read. Steps and prefill chunks run inside ``metrics.annotate`` ranges
-(``serve.step``, ``serve.prefill``).
+(``serve.step``, ``serve.prefill``). With :mod:`~ptype_tpu_torch.jitwatch`
+armed, the decode step, the speculation window and the KV export and
+import run in hot regions that refuse an unsanctioned host
+synchronisation; the step's read, its five slot-state uploads and the
+wire hop are the sanctioned transfers on the books.
 
 Speculative decoding (``spec=SpecConfig(...)``): a draft model with
 its own block tables in a second :class:`BlockPool` proposes ``k``
@@ -75,7 +79,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ptype_tpu_torch import chaos, lockcheck, logs, trace
+from ptype_tpu_torch import chaos, jitwatch, lockcheck, logs, trace
 from ptype_tpu_torch import metrics as metrics_mod
 from ptype_tpu_torch.device import device_work
 from ptype_tpu_torch.errors import ShedError
@@ -551,7 +555,8 @@ class PagedGeneratorActor(GeneratorActor):
         # Under the dispatch lock, on the engine's stream: the pack's
         # device-to-host copy (the one sanctioned sync) reads a
         # finished bank.
-        with device_work(), self._lock, self._on_engine_stream():
+        with device_work(), self._lock, self._on_engine_stream(), \
+                jitwatch.hot_region("serve.migrate", self.device):
             for i in want:
                 h = row.hashes[i] if i < nfull else None
                 payload, nb = self._migrator.pack_block(
@@ -699,7 +704,8 @@ class PagedGeneratorActor(GeneratorActor):
             bid = self.pool.alloc()  # consumes one reserved unit
             t["reserve_left"] -= 1
             t["table"][i] = bid
-        with device_work(), self._lock, self._on_engine_stream():
+        with device_work(), self._lock, self._on_engine_stream(), \
+                jitwatch.hot_region("serve.migrate", self.device):
             for i in sorted(entries):
                 self._migrator.unpack_block(self.pool.k, self.pool.v,
                                             entries[i], t["table"][i],
@@ -1104,23 +1110,20 @@ class PagedGeneratorActor(GeneratorActor):
         rows = np.arange(self.n_slots)
         blk = np.minimum(self._pos // bt, self.nb - 1)
         wr_b = np.where(self._active, self._tables[rows, blk], 0)
-        dev = self.device
-        with self._lock:
+        up = self._slot_state_upload
+        with self._lock, jitwatch.hot_region("serve.decode", self.device):
             logits, _, _ = gen.decode_step_paged(
-                self.params, torch.as_tensor(self._tok, device=dev),
-                torch.as_tensor(self._pos, device=dev), self.cfg,
-                self.pool.k, self.pool.v,
-                torch.as_tensor(self._tables, device=dev),
-                torch.as_tensor(wr_b, device=dev),
-                torch.as_tensor(self._pos % bt, device=dev),
-                attn_impl=self.attn)
+                self.params, up(self._tok), up(self._pos), self.cfg,
+                self.pool.k, self.pool.v, up(self._tables), up(wr_b),
+                up(self._pos % bt), attn_impl=self.attn)
             if (self._temps[self._active] > 0.0).any():
                 nxt = gen.sample_token_rows(logits, self._gens,
                                             self._temps, self._topk,
                                             self._topp)
             else:
                 nxt = torch.argmax(logits, dim=-1)
-        nxt = nxt.cpu().numpy()  # the step's one host read
+        with jitwatch.sanctioned_transfer("serve.decode_read"):
+            nxt = nxt.cpu().numpy()  # the step's one host read
         self._steps += 1
         self._max_live = max(self._max_live, int(self._active.sum()))
         self._pos[self._active] += 1
@@ -1139,6 +1142,14 @@ class PagedGeneratorActor(GeneratorActor):
                 self._retire(slot, "complete")
         if self._steps % 32 == 0:
             self._export_gauges()
+
+    def _slot_state_upload(self, arr: np.ndarray) -> torch.Tensor:
+        """One of the plain step's five slot-state uploads: a pageable
+        host-to-device copy, which blocks the host on CUDA (the
+        reference's step keeps device mirrors and uploads nothing), so
+        each is a sanctioned transfer on the books."""
+        with jitwatch.sanctioned_transfer("serve.slot_state"):
+            return torch.as_tensor(arr, device=self.device)
 
     def _retire(self, slot: int, reason: str = "complete") -> None:
         self._active[slot] = False
@@ -1317,12 +1328,14 @@ class PagedGeneratorActor(GeneratorActor):
         sampled = bool((self._temps[self._active] > 0.0).any())
         self._steps += 1
         self._max_live = max(self._max_live, len(live))
-        with self._lock:
+        with self._lock, jitwatch.hot_region("serve.spec_window",
+                                             self.device):
             out, n_acc = self._spec_window(W, sampled,
                                            self._upload(self._tok),
                                            self._upload(self._pos))
             host = torch.cat([out, n_acc[:, None]], dim=1)
-        host = host.cpu().numpy()  # the window's one host read
+        with jitwatch.sanctioned_transfer("serve.spec_read"):
+            host = host.cpu().numpy()  # the window's one host read
         emit_recs, emit_counts = [], []
         retires: list[tuple[int, str]] = []
         total_acc = total_emit = 0

@@ -41,8 +41,11 @@ import collections
 import numpy as np
 import torch
 
+from ptype_tpu_torch import jitwatch
 from ptype_tpu_torch.parallel.collectives import (_Q8_KEY,
                                                   DEFAULT_QUANT_BLOCK,
+                                                  _dq_int8_blockwise,
+                                                  _q_int8_blockwise,
                                                   dequantize_leaf,
                                                   quantize_leaf)
 
@@ -71,7 +74,10 @@ def _unwire_leaf(leaf: dict) -> torch.Tensor:
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().contiguous().cpu()
+    """The pack's wire hop: a device-to-host copy, the one sanctioned
+    synchronisation of a migration."""
+    with jitwatch.sanctioned_transfer("serve.migrate"):
+        return t.detach().contiguous().cpu()
 
 
 def _upload(arr, device: torch.device) -> torch.Tensor:
@@ -122,13 +128,16 @@ class KVMigrator:
             nbytes = (k.numel() * k.element_size()
                       + v.numel() * v.element_size())
             return payload, nbytes
-        rk = rv = None
-        if h is not None:
+        if h is None:  # the partial tail: no residual is kept
+            wk = quantize_leaf(kb[:, bid], self.q_block,
+                               want_residual=False)[0]
+            wv = quantize_leaf(vb[:, bid], self.q_block,
+                               want_residual=False)[0]
+        else:
             rk, rv = self._res.pop(h, (None, None))
-        wk, nrk = quantize_leaf(kb[:, bid], self.q_block, rk)
-        wv, nrv = quantize_leaf(vb[:, bid], self.q_block, rv)
-        if h is not None:
-            self._res[h] = (nrk, nrv)
+            wk, rk = self._quantize_into(kb[:, bid], rk)
+            wv, rv = self._quantize_into(vb[:, bid], rv)
+            self._res[h] = (rk, rv)
             while len(self._res) > self.max_residuals:
                 self._res.popitem(last=False)
         # One device-to-host copy of the four wire tensors.
@@ -139,6 +148,24 @@ class KVMigrator:
         nbytes = sum(t.numel() * t.element_size()
                      for t in (qk, sk, qv, sv))
         return payload, nbytes
+
+    def _quantize_into(self, x: torch.Tensor, res: torch.Tensor | None):
+        """:func:`quantize_leaf` of one block with its residual consumed
+        in place (the reference's pack program donates it): the
+        pre-quantization sum is built in a fresh f32 buffer and the new
+        error is written into ``res``'s own storage, allocated on a
+        block's first pack. Returns ``(wire, res)``."""
+        flat = x.to(torch.float32, copy=True).reshape(1, -1)
+        if res is not None and res.shape == x.shape:
+            flat.add_(res.reshape(1, -1))
+        else:
+            res = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        q, scale = _q_int8_blockwise(flat, self.q_block)
+        torch.sub(flat, _dq_int8_blockwise(q, scale, flat.shape[1]),
+                  out=res.view(1, -1))
+        return {_Q8_KEY: 1, "q": q[0], "s": scale[0],
+                "shape": list(x.shape),
+                "dtype": str(x.dtype).removeprefix("torch.")}, res
 
     # ----------------------------------------------------------- unpack
 

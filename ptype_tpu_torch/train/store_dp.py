@@ -60,6 +60,7 @@ import time as _time
 import numpy as np
 import torch
 
+from ptype_tpu_torch import jitwatch
 from ptype_tpu_torch.device import device_work, resolve_device
 from ptype_tpu_torch.errors import ClusterError
 from ptype_tpu_torch.metrics import (annotate, metrics,
@@ -265,7 +266,11 @@ class StoreDPTrainer:
         b = B // self.n_workers
         r = axis_index(self.mesh, self.axis)
         self._cost_shape = (b, int(batch["tokens"].shape[1]))
-        with annotate("train.data"):
+        # The data leg's upload is the step's sanctioned host-to-device
+        # seam: typed and counted, so the train.step region can refuse
+        # every other host synchronisation.
+        with annotate("train.data"), \
+                jitwatch.sanctioned_transfer("train.data"):
             return _batch_on({k: v[r * b:(r + 1) * b]
                               for k, v in batch.items()}, self.device)
 
@@ -278,6 +283,17 @@ class StoreDPTrainer:
 
     def _step(self, batch: dict) -> dict:
         rows = self._stage(batch)
+        with jitwatch.hot_region("train.step", self.device):
+            loss = self._grads_reduce_apply(rows)
+        self.step_count += 1
+        mean = collectives.all_reduce(loss, self.mesh, self.axis, "mean")
+        return {"loss": float(mean), "step": self.step_count,
+                "grad_epoch": self.store.epoch(self._grad_key0())}
+
+    def _grads_reduce_apply(self, rows: dict) -> torch.Tensor:
+        """The step's device work on staged ``rows``: grads, the
+        exchange of the trainer's mode, the apply. Returns the local
+        loss (a device value)."""
         tree = self.params()
         leaves = [_at(tree, p) for p in self._paths]
         # Under zero=3 the gathered leaves are transient: they die with
@@ -306,10 +322,7 @@ class StoreDPTrainer:
             with annotate("train.opt"):
                 self.optimizer.update(self._tree(), reduced, self.opt_state)
             self._params_seq = self.store.put_tree("params", self._tree())
-        self.step_count += 1
-        mean = collectives.all_reduce(loss, self.mesh, self.axis, "mean")
-        return {"loss": float(mean), "step": self.step_count,
-                "grad_epoch": self.store.epoch(self._grad_key0())}
+        return loss
 
     # ------------------------------------------------ streamed pushes
 

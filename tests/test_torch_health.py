@@ -541,9 +541,9 @@ def test_default_rules_and_engine_over_every_firing():
 
 
 def test_recompile_storm_rule_stays_quiet_on_a_port_snapshot():
-    """Nothing in the port feeds ``jit.*`` until jitwatch's counterpart
-    exists (ROADMAP A8): the rule is ported as it is and stays quiet
-    on what a port node publishes."""
+    """A DISARMED port node publishes no ``jit.*`` (jitwatch's seams
+    book nothing until it is armed): the rule stays quiet on what such
+    a node publishes, and ``obs jit`` calls it disarmed."""
     reg = metrics.MetricsRegistry()
     reg.counter("train.steps").add(3)
     reg.gauge("goodput.step_ms").set(100.0)

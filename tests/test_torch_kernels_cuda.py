@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain
-PyTorch version, and the serving and training paths' launch counts.
+PyTorch version, and the serving and training paths' launch counts;
+and the audits' card side (jitwatch's CUDA detector, an armed engine,
+the audit's dispatch mode on autograd's device thread).
 Every test here
 needs a CUDA device (a hand-written kernel has no CPU mode) and skips
 without one. The file imports neither JAX nor the reference package,
@@ -881,3 +883,113 @@ def test_sequence_parallel_attention_at_world_1_runs_the_flash_kernels(
         assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
         ref = ttfm._attention(q, k, v, NARROW)
         assert (o - ref).abs().max().item() < FLASH_TOL[torch.float32]
+
+
+# ----------------------------------------------------- jitwatch on the card
+
+
+@pytest.fixture
+def armed(cuda):
+    from ptype_tpu_torch import jitwatch
+
+    jw = jitwatch.enable()
+    yield jw
+    jitwatch.disable()
+
+
+def test_cuda_detector_raises_sanctions_and_spares_other_threads(armed):
+    """The card's own sync check behind the armed guard: an ``.item()``
+    and a pageable upload inside a hot region raise; inside
+    ``sanctioned_transfer`` they pass and are counted; another thread's
+    ``.cpu()`` outside any region, made while this thread sits in one,
+    does not raise; ``disable`` puts the prior sync debug mode back."""
+    import threading
+
+    import numpy as np
+
+    from ptype_tpu_torch import jitwatch
+
+    x = torch.ones(4, device="cuda")
+    host = np.ones(4, np.float32)
+    with jitwatch.hot_region("card.test"):
+        x * 2
+        for call in (lambda: x.sum().item(),
+                     lambda: torch.as_tensor(host, device="cuda")):
+            with pytest.raises(jitwatch.HostSyncError, match="card.test"):
+                call()
+        with jitwatch.sanctioned_transfer("card.read"):
+            x.sum().item()
+            torch.as_tensor(host, device="cuda")
+        errs = []
+
+        def other():
+            try:
+                x.cpu()
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+
+        t = threading.Thread(target=other)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive() and errs == []
+    assert armed.sanctioned() == {"card.read": 1}
+    prior = torch.cuda.get_sync_debug_mode()
+    jitwatch.disable()
+    assert prior == 1 and torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_armed_paged_engine_steady_state_on_the_card(armed):
+    """An armed kernel engine at a narrow width: steady requests build
+    nothing, the decode guard holds, each step books its one read and
+    five slot-state uploads, and the tokens equal a disarmed run's."""
+    from ptype_tpu_torch import jitwatch
+
+    a = PagedGeneratorActor(NARROW, device="cuda", n_slots=2, attn="kernel")
+    try:
+        p = torch.randint(1, 256, (1, 21), generator=torch.Generator(
+            device="cuda").manual_seed(3), device="cuda")
+        warm = a.Generate(p, 8)
+        armed.mark_steady()
+        for _ in range(2):
+            assert torch.equal(a.Generate(p, 8), warm)
+        assert armed.recompiles_since_steady() == {}
+        books = armed.sanctioned()
+        assert armed.report()["hot_regions"] > 0
+        assert books["serve.slot_state"] == 5 * books["serve.decode_read"]
+        jitwatch.disable()
+        assert torch.equal(a.Generate(p, 8), warm)
+    finally:
+        a.close()
+
+
+def test_audit_sees_a_host_read_in_a_backward_on_the_card(cuda):
+    """Autograd runs a CUDA graph's backward on its device thread and
+    carries the dispatch-mode stack there: an ``.item()`` inside a custom
+    Function's backward is a host synchronisation of the audited
+    program."""
+    import threading
+
+    from ptype_tpu_torch import progaudit
+
+    threads = []
+
+    class ReadsInBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a):
+            return a * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            threads.append(threading.get_ident())
+            g.sum().item()
+            return g * 2
+
+    a = torch.ones(4, device="cuda", requires_grad=True)
+
+    def step(a):
+        ReadsInBackward.apply(a).sum().backward()
+        return a.grad
+
+    rep = progaudit.audit(step, (a,), name="bwd")
+    assert rep.callbacks == ["aten::_local_scalar_dense"], rep.to_dict()
+    assert threads and threads[0] != threading.get_ident()

@@ -122,6 +122,50 @@ def test_q8_leaf_codec_equals_the_reference_bit_for_bit(dtype):
     assert tcoll._Q8_KEY == jcoll._Q8_KEY
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pack_consumes_the_residual_in_place_with_the_codecs_bits(dtype):
+    """The pack writes a block's new residual into the old residual's
+    own storage (the donation the reference's pack program makes), with
+    the bits ``quantize_leaf`` gives: over two packs of one block, the
+    wire and the residual equal the eager codec's, and the second pack
+    leaves the residual where the first put it."""
+    tdt, _ = DTYPES[dtype]
+    k, v = (torch.from_numpy(a).to(tdt) for a in _banks(dtype, 9))
+    mig = KVMigrator(SHAPE, tdt)
+    rk = rv = None
+    for i in range(2):
+        payload, _ = mig.pack_block(k, v, 2, 5, "q8")
+        got_k, got_v = mig._res[5]
+        if i:
+            assert got_k.data_ptr() == ptr_k and got_v.data_ptr() == ptr_v
+        ptr_k, ptr_v = got_k.data_ptr(), got_v.data_ptr()
+        for name, bank, r, got in (("k", k, rk, got_k), ("v", v, rv, got_v)):
+            want, new = tcoll.quantize_leaf(bank[:, 2], tmig.DEFAULT_QUANT_BLOCK,
+                                            r)
+            np.testing.assert_array_equal(payload[name]["q"],
+                                          want["q"].numpy())
+            np.testing.assert_array_equal(payload[name]["s"],
+                                          want["s"].numpy())
+            assert got.dtype == tdt and torch.equal(got, new)
+        rk, rv = got_k.clone(), got_v.clone()
+        k, v = k * 1.5, v - 0.25
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kv_pack_unpack_programs_audit_clean(dtype):
+    """The twin of the reference's: both wire programs run with their
+    donations consumed in place (the residuals, the banks), no
+    collectives, no host synchronisation, no f64."""
+    from ptype_tpu_torch import progaudit
+
+    progaudit.register_default_programs(device="cpu",
+                                        dtype=DTYPES[dtype][0])
+    for name in ("serve.kv_pack", "serve.kv_unpack"):
+        rep = progaudit.audit_registered(name).raise_if_failed()
+        assert rep.donated_consumed == rep.donated_expected == 2
+        assert rep.collectives == {} and rep.callbacks == []
+
+
 def test_kv_migrator_roundtrip_and_residual_lru():
     k, v = _banks("float32", 3)
     kb, vb = torch.from_numpy(k), torch.from_numpy(v)

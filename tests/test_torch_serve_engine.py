@@ -467,3 +467,46 @@ def test_prompt_normalization_and_pow2_match_reference():
     p = _norm_prompt(np.arange(5), "cpu")
     assert p.shape == (1, 5) and p.dtype == torch.int64
     assert _norm_prompt([[1, 2]], "cpu").shape == (1, 2)
+
+
+# --------------------------------------------- dispatch discipline
+
+
+def test_steady_state_decode_builds_nothing_armed():
+    """The armed serve tier, twin of the reference's: after one warmup
+    request a steady stream of same-shaped requests builds nothing, the
+    decode region's guard held (an unsanctioned host synchronisation in
+    a step would have raised, failing the drive), and the books show a
+    step's one host read and its five slot-state uploads. Greedy tokens
+    equal the reference engine's on the same weights."""
+    from ptype_tpu_torch import jitwatch
+
+    pj = jtfm.init_params(jax.random.PRNGKey(0), JCFG)
+    pt = params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), CFG)
+    p = _prompt(5, np.random.default_rng(11))
+    ref = JPaged(JCFG, params=pj, n_slots=2, block_tokens=16)
+    try:
+        want = np.asarray(ref.Generate(jnp.asarray(p.numpy()), 8))
+    finally:
+        ref.close()
+    jw = jitwatch.enable()
+    actor = _engine(params=pt, n_slots=2)
+    try:
+        warm = actor.Generate(p, 8).numpy()
+        jw.mark_steady()
+        for _ in range(3):
+            np.testing.assert_array_equal(actor.Generate(p, 8).numpy(),
+                                          warm)
+        assert jw.recompiles_since_steady() == {}
+        assert jw.recompiles() == {} and jw.storms() == []
+        rep = jw.report()
+        assert rep["hot_regions"] > 0  # the guard was LIVE
+        books = jw.sanctioned()
+        # Four requests of 8 tokens: the first from the prefill, then
+        # seven decode steps each.
+        assert books["serve.decode_read"] == actor._steps == 4 * 7
+        assert books["serve.slot_state"] == 5 * books["serve.decode_read"]
+    finally:
+        actor.close()
+        jitwatch.disable()
+    np.testing.assert_array_equal(warm, want)

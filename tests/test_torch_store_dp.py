@@ -64,6 +64,8 @@ CASES = {
                    [0, 0, 0, 0]),
 }
 EXACT_CASES = ["barrier", "drain", "overlap", "zero1", "zero2", "zero3"]
+#: Cases the port also runs with jitwatch armed.
+ARMED = ["overlap", "zero2"]
 
 
 def jcfg():
@@ -140,6 +142,8 @@ def world(request, tmp_path_factory):
             "params": np_tree(z2.params())}
     cases = [dict(name=name, params=p0, batches=idxs, **knobs)
              for name, (knobs, idxs) in CASES.items()]
+    cases += [dict(name=f"{name}_armed", params=p0, batches=CASES[name][1],
+                   armed=True, **CASES[name][0]) for name in ARMED]
     cases.append(dict(name="load", params=snap["params"], batches=[2, 3],
                       zero=2, zero_hp=BIND, wire=SMALL,
                       load={"tree": snap["tree"], "plan": snap["plan"]}))
@@ -296,3 +300,20 @@ def test_zero_state_of_a_replicated_trainer_raises(world):
     _, outs, _ = world
     for out in outs:
         assert "no ZeRO state" in out["barrier"]["zero_state_error"]
+
+
+@pytest.mark.parametrize("case", ARMED)
+def test_armed_steady_state_equals_the_disarmed_run(world, case):
+    """Armed, the store-DP steps take the same losses bit for bit as the
+    disarmed run, build nothing after the first step, and held the
+    ``train.step`` guard (an unsanctioned host synchronisation in the
+    grads, exchange or apply would have raised, failing the run); the
+    batch upload is the one sanctioned pass a step."""
+    n, outs, _ = world
+    for r in range(n):
+        armed, plain = outs[r][f"{case}_armed"], outs[r][case]
+        assert armed["losses"] == plain["losses"]
+        jit = armed["jit"]
+        assert jit["steady"] == {} and jit["recompiles"] == {}
+        assert jit["hot_regions"] == 4
+        assert jit["sanctioned_transfers"] == {"train.data": 4}

@@ -293,9 +293,12 @@ def _refusals(mesh) -> dict:
 def store_dp_suite(mesh, inp: dict) -> dict:
     """``StoreDPTrainer`` cases: each a trainer from the given params,
     stepped on the given batches; per case the loss curve, the final
-    params, the ladder's resident bytes and the store's keys."""
+    params, the ladder's resident bytes and the store's keys. An
+    ``armed`` case steps with jitwatch armed (steady after its first
+    step) and returns its books."""
     import functools
 
+    from ptype_tpu_torch import jitwatch
     from ptype_tpu_torch.models import transformer as tfm
     from ptype_tpu_torch.parallel.collectives import WireConfig
     from ptype_tpu_torch.parallel.tensorstore import TensorStore
@@ -319,13 +322,21 @@ def store_dp_suite(mesh, inp: dict) -> dict:
         if case.get("pieces"):
             sd.default_optimizer_pieces = functools.partial(
                 tr.default_optimizer_pieces, **case["pieces"])
+        jw = None
         try:
             t = sd.StoreDPTrainer(cfg, store, **kw)
             if case.get("load"):
                 t.zero_state().load_state_tree(case["load"]["tree"],
                                                case["load"]["plan"])
-            steps = [t.step(batches[i]) for i in case["batches"]]
+            if case.get("armed"):
+                jw = jitwatch.enable()
+            steps = []
+            for i in case["batches"]:
+                steps.append(t.step(batches[i]))
+                if jw is not None and len(steps) == 1:
+                    jw.mark_steady()
         finally:
+            jitwatch.disable()
             sd.default_optimizer_pieces = pieces
         row = {"losses": [s["loss"] for s in steps],
                "grad_epochs": [s["grad_epoch"] for s in steps],
@@ -335,6 +346,9 @@ def store_dp_suite(mesh, inp: dict) -> dict:
                               if k.startswith("params/")],
                "residual_keys": sorted(store._residuals),
                "param_leaves_none": t._param_leaves is None}
+        if jw is not None:
+            row["jit"] = dict(jw.report(),
+                              steady=jw.recompiles_since_steady())
         if t.zero:
             z = t.zero_state()
             row["moment_bytes"] = z.moment_bytes_per_replica()
@@ -1252,11 +1266,62 @@ def topology_suite(mesh, inp: dict) -> dict:
     return _np(out)
 
 
+def progaudit_suite(mesh, inp: dict) -> dict:
+    """The collective and ZeRO programs of ``progaudit``'s registry on
+    this world (their reports as dicts), and the synthetic un-fusions
+    that must break their pins: per-leaf psums, a bucket split into two
+    reduce-scatters, an allgather after the reduce-scatter, per-leaf
+    param gathers."""
+    from ptype_tpu_torch import progaudit
+    from ptype_tpu_torch.parallel import collectives as C
+
+    n = mesh.size
+    progaudit.register_default_programs(device="cpu", mesh=mesh)
+    out = {"programs": {k: r.to_dict() for k, r in progaudit.audit_all(
+        names=inp["programs"]).items()}}
+    g = torch.Generator().manual_seed(mesh.rank)
+    a, b = torch.randn(4, generator=g), torch.randn(2, generator=g)
+    x = torch.randn(n * 8, 16, generator=g)
+
+    def per_leaf_psum(a, b):
+        return C.all_reduce(a, mesh), C.all_reduce(b, mesh)
+
+    def split(x):
+        h = x.shape[-1] // 2
+        return torch.cat([C.reduce_scatter(x[:, :h].contiguous(), mesh),
+                          C.reduce_scatter(x[:, h:].contiguous(), mesh)], 1)
+
+    def rs_then_gather(x):
+        return C.all_gather(C.reduce_scatter(x, mesh), mesh)
+
+    def per_leaf_gather(a, b):
+        return C.all_gather(a, mesh), C.all_gather(b, mesh)
+
+    audit = progaudit.audit
+    out["unfusions"] = {k: r.to_dict() for k, r in {
+        "per_leaf_psum": audit(per_leaf_psum, (a, b), name="unfused",
+                               expect_collectives=1),
+        "per_leaf_psum_pinned_2": audit(per_leaf_psum, (a, b),
+                                        expect_collectives={"psum": 2}),
+        "split_rs": audit(split, (x,), name="split-rs",
+                          expect_collectives={"reduce_scatter": 1}),
+        "rs_then_gather": audit(rs_then_gather, (x,),
+                                name="sneaky-gather",
+                                expect_collectives={"reduce_scatter": 1,
+                                                    "all_gather": 0}),
+        "per_leaf_gather": audit(per_leaf_gather, (a, b),
+                                 name="per-leaf-gather",
+                                 expect_collectives={"all_gather": 1}),
+    }.items()}
+    return out
+
+
 SUITES = {"collectives": collectives_suite, "store_dp": store_dp_suite,
           "elastic": elastic_suite, "sharded_train": sharded_train_suite,
           "ring": ring_suite, "elastic_trainer": elastic_trainer_suite,
           "pipeline": pipeline_suite, "store_probes": store_probes_suite,
-          "moe_ep": moe_ep_suite, "topology": topology_suite}
+          "moe_ep": moe_ep_suite, "topology": topology_suite,
+          "progaudit": progaudit_suite}
 #: The one mesh axis a suite's ranks lie on ("data" unless named here).
 SUITE_AXIS = {"pipeline": "stage"}
 
