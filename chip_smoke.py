@@ -77,7 +77,7 @@ its own lines:
    TTFT yardstick); (e) the decode replica SIGKILLed halfway
    through a run at half the knee: no arrival lost, the ms to its
    eviction. Paged launches on both replicas = decode steps x 12 in
-   (a) and (b);
+   (a) and (b); no gateway's probe reads a listed replica as warm;
    reconciler: the port's Reconciler (min 2, max 3, one warm standby,
    cooldown 2 s, tick 0.2 s) over replica worker processes
    (``ProcessLauncher``, ``python -m ptype_tpu_torch.reconciler.worker``
@@ -92,10 +92,12 @@ its own lines:
    to its leaving the registry, to the replacement's activation and
    first answer, and to the warm pool's refill, and the fleet's answered
    rps and tails before and after; (d) scripted hints grow the fleet to
-   3 and shrink it under traffic: one drain, nothing lost, no
-   escalation, its wall time; (e) a ``kind="paged"`` worker with no
-   device variable serves on the card. Every replica's paged launches =
-   its decode steps x 12; no worker process outlives the phase;
+   3 and shrink it under traffic: one drain, its order answered (no
+   "drain order failed"), nothing lost, no escalation, its wall time;
+   (e) a ``kind="paged"`` worker with no device variable serves on the
+   card. Every replica's paged launches = its decode steps x 12; no
+   gateway's probe reads a listed replica as warm; no worker process
+   outlives the phase;
 5. Trainer at optimus-125m full width, B=16, S=1024, 8 AdamW steps on
    one repeated batch: forward, dq and dk/dv kernels each launched
    steps x 12 times, a finite loss that falls; steps/s, tokens/s, MFU
@@ -244,8 +246,12 @@ its own lines:
    on its data dir refuses a write fenced with that term; (d) ``obs`` of
    the promoted cluster writes trace.json and spans.jsonl and lists the
    replica, and ``obs profile`` under load ships a trace with at least
-   12 flash_fwd_kernel_bf16 records (the row gives the loaders' median
-   and longest request, which waits at the gate through the stop);
+   12 flash_fwd_kernel_bf16 records (a line gives the loaders' median
+   and longest request, which waits at the gate and for the GIL through
+   the stop, beside the seconds of each part of the replica's profiler
+   start and stop, ``held_s``, and the seconds and bytes of gzipping
+   its trace at levels 6 and 9), and the device records the replica
+   counted equal a parse of the trace it shipped;
    (e) the ``train`` verb in this
    process (``__main__.main()``, store mode, B=16, S=1024, 8 steps,
    CKPT_EVERY 4) on a fresh seed and wal-stream standby, the seed
@@ -322,6 +328,7 @@ phase alone.
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
@@ -3304,6 +3311,40 @@ def wait_for(cond, timeout, what, phase="gateway_serving"):
         time.sleep(0.01)
 
 
+def watch_warm(gw, seen):
+    """Appends to ``seen`` each probe of ``gw``'s pool that read a
+    replica's lifecycle as ``warm``. The pool holds only the replicas the
+    registry lists, so each is a listed replica that reported itself
+    warm: a probe inside its activation's window."""
+    probe = gw.pool._probe_one
+
+    def probe_one(r):
+        probe(r)
+        if r.lifecycle() == "warm":
+            seen.append({"replica": r.key, "t": time.monotonic()})
+
+    gw.pool._probe_one = probe_one
+
+
+class LogTap(logging.Handler):
+    """The messages one logger of the port emits while the block runs."""
+
+    def __init__(self, name):
+        super().__init__()
+        self.messages = []
+        self._logger = logging.getLogger(f"ptype_tpu_torch.{name}")
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+
+
 def gateway_generate_all(torch, gw, prompts, max_new):
     """Every prompt through ``gw.generate`` at once (a thread each, CUDA
     int32 prompts); the answers in prompt order."""
@@ -3417,7 +3458,7 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
     coord = seed._owned_server.address
     work = tempfile.mkdtemp(prefix="chip_smoke_gw_")
     procs = {c: start_replica(coord, c, work) for c in ("prefill", "decode")}
-    gws = []
+    gws, warm_seen = [], []
 
     def gateway(reg, **over):
         gcfg = GatewayConfig(probe_interval_s=GW_PROBE_S,
@@ -3429,6 +3470,7 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
             setattr(gcfg, k, v)
         gw = InferenceGateway(seed.registry, GW_SERVICE, gcfg,
                               metrics_registry=reg, device="cuda")
+        watch_warm(gw, warm_seen)
         gws.append(gw)
         wait_for(lambda: gw.pool.n_healthy() == 2
                  and all(r.serve_class() for r in gw.pool.healthy()), 120,
@@ -3714,6 +3756,7 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         launches = {c: d["paged_decode"]
                     for c, d in kill.get("counters", {}).items()}
         row["paged_launches_to_the_kill"] = launches
+        row["warm_sightings"] = warm_seen
         row["phase_s"] = time.monotonic() - t_phase
         emit({**row, "part": "all"})
 
@@ -3754,6 +3797,8 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         check(e["kill_to_evicted_ms"] is not None,
               "gateway_serving (e): the dead replica was not evicted")
         check(len(launches) == 2, "gateway_serving (e): no kill counters")
+        check(not warm_seen, f"gateway_serving: a gateway's probe read a "
+              f"listed replica as warm: {warm_seen}")
         return sum(launches.values())
     finally:
         if trace.enabled():
@@ -3910,6 +3955,8 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         GatewayConfig(probe_interval_s=GW_PROBE_S, default_deadline_s=600.0,
                       per_replica_inflight=kw["n_slots"]),
         metrics_registry=MetricsRegistry(), device="cuda")
+    warm_seen = []
+    watch_warm(gw, warm_seen)
     hint = {"fn": gw.scale_hint}
     rec = None
     row = {"phase": "reconciler", "preset": "optimus-125m", "card": card,
@@ -4026,6 +4073,7 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
                           per_replica_inflight=kw["n_slots"],
                           affinity_slack=float("inf")),
             metrics_registry=MetricsRegistry(), device="cuda")
+        watch_warm(gw_b, warm_seen)
         try:
             wait(lambda: gw_b.pool.n_healthy() == 2, 30,
                  "the pinned gateway did not see both replicas")
@@ -4183,11 +4231,14 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
 
         dt = threading.Thread(target=drainer, daemon=True)
         dt.start()
-        OpenLoopDriver(tr_d, counting_d, ledger=led_d, cfg=dcfg).run()
-        dt.join(timeout=90)
-        hint["fn"] = gw.scale_hint
-        wait(lambda: not rec.status()["pending_spawns"], 120,
-             "the warm pool's refill did not land")
+        # The reconciler logs "drain order failed" where the victim's
+        # answer to Replica.Drain was lost (an unreachable victim).
+        with LogTap("reconciler") as tap_d:
+            OpenLoopDriver(tr_d, counting_d, ledger=led_d, cfg=dcfg).run()
+            dt.join(timeout=90)
+            hint["fn"] = gw.scale_hint
+            wait(lambda: not rec.status()["pending_spawns"], 120,
+                 "the warm pool's refill did not land")
         check("exited" in drain, f"reconciler (d): no drain finished: "
               f"{ {k: v for k, v in drain.items() if k != 'h'} }")
         wait(lambda: all(f"{n.address}:{n.port}" != drain["h"].addr
@@ -4203,6 +4254,8 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
             "hint_to_order_ms": (drain["t"] - drain["t_hint"]) * 1e3,
             "drain_wall_ms": (drain["exited"] - drain["t"]) * 1e3,
             "exit_code": drain["h"]._proc.returncode,
+            "drain_orders_failed": [m for m in tap_d.messages
+                                    if m.startswith("drain order failed")],
             "drains": counter("drains") - drains0,
             "drain_escalations": counter("drain_escalations") - esc0}
         emit({"phase": "reconciler", "part": "d", **row["d"]})
@@ -4253,6 +4306,7 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
             "replica_counters": per_replica,
             "paged_launches": paged_n, "flash_launches": flash_n,
             "leaked_workers": leaked,
+            "warm_sightings": warm_seen,
             "phase_s": time.monotonic() - t_phase}
         emit({**row, "part": "end"})
 
@@ -4282,6 +4336,11 @@ def reconciler_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         check(d["drains"] == 1 and d["drain_escalations"] == 0,
               f"reconciler (d): drains {d['drains']}, escalations "
               f"{d['drain_escalations']}")
+        check(not d["drain_orders_failed"],
+              f"reconciler (d): the drain order got no answer: "
+              f"{d['drain_orders_failed']}")
+        check(not warm_seen, f"reconciler: a gateway's probe read a listed "
+              f"replica as warm: {warm_seen}")
         check(e["device"].startswith("cuda") and e["shape"] == [1, 8]
               and e["exit_code"] == 0,
               f"reconciler (e): the paged worker: {e}")
@@ -4837,6 +4896,51 @@ class StepClock:
         self.cls.step = self.orig
 
 
+def profile_costs(out):
+    """Node key -> the ``session`` object (device events, held seconds)
+    that ``obs profile`` printed under the node's line."""
+    costs, key = {}, None
+    for line in out.splitlines():
+        if "artifacts ->" in line and not line.startswith(" "):
+            key = line.split(": ", 1)[0]
+        elif line.startswith("  session ") and key is not None:
+            costs[key] = json.loads(line[len("  session "):])
+    return costs
+
+
+def device_records(d, categories):
+    """Device-side records (``ph`` X of ``categories``) in the gzipped
+    Chrome traces under ``d``, by a parse of each whole trace."""
+    import gzip
+
+    n = 0
+    for name in os.listdir(d):
+        if name.endswith(".trace.json.gz"):
+            with gzip.open(os.path.join(d, name), "rt") as fp:
+                n += sum(1 for ev in json.load(fp)["traceEvents"]
+                         if ev.get("ph") == "X"
+                         and ev.get("cat") in categories)
+    return n
+
+
+def gzip_levels(d, levels=(6, 9)):
+    """The seconds and bytes of gzipping the Chrome trace under ``d`` at
+    each of ``levels``, in this process: what the stop's choice of
+    ``profiling.TRACE_GZIP_LEVEL`` trades. ``raw_bytes`` is the trace's
+    size before."""
+    import gzip
+
+    (name,) = [n for n in os.listdir(d) if n.endswith(".trace.json.gz")]
+    with gzip.open(os.path.join(d, name), "rb") as fp:
+        raw = fp.read()
+    out = {"raw_bytes": len(raw)}
+    for level in levels:
+        t0 = time.perf_counter()
+        n = len(gzip.compress(raw, compresslevel=level))
+        out[str(level)] = {"s": time.perf_counter() - t0, "bytes": n}
+    return out
+
+
 def failover_phase(torch, tfm, flash_mod, prompts, card):
     """Coordinator failover and the operator CLI at optimus-125m, every
     process a ``python -m ptype_tpu_torch`` verb: (a) a witness, a seed
@@ -5158,7 +5262,19 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
         records = sum(op["count"] for op in ops
                       if "flash_fwd_kernel_bf16" in op["name"])
         # A request that spans the session's start or stop waits at the
-        # device gate: the longest request against the median.
+        # device gate and for the GIL the stop holds: the longest
+        # request against the median, beside the seconds of each part
+        # of the replica's start and stop.
+        costs = [c for k, c in profile_costs(out).items()
+                 if k.startswith(FO_SERVICE + "/")]
+        check(len(costs) == 1, f"failover: obs profile printed no session "
+              f"cost of the replica:\n{out[-3000:]}")
+        cost = costs[0]
+        # The parse the replica's stop made before it counted on the fly:
+        # the same json.load of the same trace, here in this process.
+        t_parse = time.perf_counter()
+        parsed = device_records(rep_dirs[0], profiling.DEVICE_CATEGORIES)
+        parse_s = time.perf_counter() - t_parse
         load_ms.sort()
         row["obs_profile"] = {"warm_up_s": warm_s,
                               "capture_wall_s": prof_s,
@@ -5167,8 +5283,22 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
                               if load_ms else None,
                               "request_ms_max": load_ms[-1] if load_ms
                               else None,
+                              "held_s": cost["held_s"],
+                              "device_events": cost["device_events"],
+                              "device_records_parsed": parsed,
+                              "device_records_parse_s": parse_s,
+                              "gzip_levels": gzip_levels(rep_dirs[0]),
                               "flash_fwd_kernel_bf16_records": records,
                               "kernels": trace_kernels(rep_dirs[0])}
+        emit({"phase": "failover", "part": "d", "card": card,
+              **{k: row["obs_profile"][k]
+                 for k in ("requests", "request_ms_median", "request_ms_max",
+                           "capture_wall_s", "held_s", "device_events",
+                           "device_records_parsed",
+                           "device_records_parse_s", "gzip_levels")}})
+        check(cost["device_events"] == parsed,
+              f"failover: the replica counted {cost['device_events']} device "
+              f"records, its shipped trace holds {parsed}")
         check(records >= FO_FLASH_RECORDS,
               f"failover: the replica's shipped trace holds {records} "
               f"flash_fwd_kernel_bf16 records (< {FO_FLASH_RECORDS}):\n"

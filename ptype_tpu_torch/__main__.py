@@ -401,6 +401,12 @@ def _obs_profile(registry) -> None:
     for key in sorted(res["nodes"]):
         n = res["nodes"][key]
         print(f"{key}: {len(n['files'])} artifacts -> {n['dir']}")
+        if n.get("held_s") is not None:
+            # What the capture cost the node: the seconds of each part
+            # of its start and stop (profiling.stop's ``held_s``).
+            cost = {"device_events": n["device_events"],
+                    "held_s": n["held_s"]}
+            print(f"  session {json.dumps(cost, sort_keys=True)}")
         s = profiling.summarize(n["dir"], top=8)
         for op in s["top_ops"]:
             print(f"  {op['total_us']:>12.1f} us  x{op['count']:<6} "

@@ -36,6 +36,14 @@ from ptype_tpu_torch.errors import ShedError
 
 log = logs.get_logger("actor")
 
+#: The longest :meth:`ActorServer.quiesce` waits for the replies of
+#: requests already running: long enough for a control reply, short
+#: enough that a handler wedged in its actor cannot hold the process's
+#: exit for ever.
+QUIESCE_S = 5.0
+#: The retry hint of the refusal a quiescing server answers with.
+CLOSING_RETRY_S = 0.05
+
 # Process-local server registry for zero-copy same-process dispatch.
 _local_servers: dict[tuple[str, int], "ActorServer"] = {}
 _local_lock = threading.Lock()
@@ -90,6 +98,13 @@ class ActorServer:
         #: would otherwise outlive the server as a wedged thread.
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
+        #: Requests read off a connection whose reply is not written yet
+        #: (counted where the reader spawns the handler, uncounted once
+        #: the reply is out), and whether new ones are refused
+        #: (:meth:`quiesce`); both under ``_idle``.
+        self._inflight = 0
+        self._quiescing = False
+        self._idle = threading.Condition()
 
     # ------------------------------------------------------------ handlers
 
@@ -121,7 +136,8 @@ class ActorServer:
 
     @property
     def serving(self) -> bool:
-        return self._thread is not None and not self._closed.is_set()
+        return (self._thread is not None and not self._closed.is_set()
+                and not self._quiescing)
 
     def serve(self) -> "ActorServer":
         """Start serving in the background; returns self."""
@@ -173,6 +189,19 @@ class ActorServer:
                         args_blob = wire._recv_exact(conn, msg["args_len"])
                     except (wire.WireError, OSError):
                         return
+                with self._idle:
+                    refuse = self._quiescing
+                    if not refuse:
+                        self._inflight += 1
+                if refuse:
+                    # Typed, so the caller routes elsewhere; answered
+                    # here, so it cannot outlive the quiesce's wait.
+                    self._send_reply(conn, send_lock, {
+                        "id": msg.get("id"), "ok": False, "shed": True,
+                        "closing": True, "retry_after_s": CLOSING_RETRY_S,
+                        "error": f"server {self.host}:{self.port} is "
+                                 f"closing"}, [])
+                    continue
                 # net/rpc services requests concurrently; so do we.
                 threadpool.spawn(self._handle_request, conn, send_lock,
                                  msg, args_blob)
@@ -190,6 +219,15 @@ class ActorServer:
                     pass
 
     def _handle_request(self, conn, send_lock, msg: dict, args_blob) -> None:
+        try:
+            self._run_request(conn, send_lock, msg, args_blob)
+        finally:
+            with self._idle:
+                self._inflight -= 1
+                if not self._inflight:
+                    self._idle.notify_all()
+
+    def _run_request(self, conn, send_lock, msg: dict, args_blob) -> None:
         req_id = msg.get("id")
         method = msg.get("method", "")
         try:
@@ -219,6 +257,10 @@ class ActorServer:
             # configured; rate-limited inside).
             trace.maybe_dump(f"actor error in {method}: "
                              f"{type(e).__name__}")
+        self._send_reply(conn, send_lock, reply, result_parts)
+
+    @staticmethod
+    def _send_reply(conn, send_lock, reply: dict, result_parts) -> None:
         try:
             payload = json.dumps(reply, separators=(",", ":")).encode()
             # One writev (native) / one sendall keeps the header frame and
@@ -247,10 +289,7 @@ class ActorServer:
                 return fn(*args)
             return fn(args)
 
-    def close(self) -> None:
-        if self._closed.is_set():
-            return
-        self._closed.set()
+    def _stop_accepting(self) -> None:
         with _local_lock:
             for key in [k for k, v in _local_servers.items() if v is self]:
                 del _local_servers[key]
@@ -266,6 +305,33 @@ class ActorServer:
             self._sock.close()
         except OSError:
             pass
+
+    def quiesce(self) -> bool:
+        """The first half of a graceful close: stop accepting
+        connections, refuse every request read from now on with a
+        typed :class:`~ptype_tpu_torch.errors.ServerClosingError`, and
+        wait up to :data:`QUIESCE_S` seconds until each request read before
+        has had its reply written. Returns whether all have. Call
+        :meth:`close` next; a close without a quiesce drops the replies
+        of handlers still running."""
+        with self._idle:
+            self._quiescing = True
+        self._stop_accepting()
+        with self._idle:
+            done = self._idle.wait_for(lambda: not self._inflight,
+                                       QUIESCE_S)
+            pending = self._inflight
+        if not done:
+            log.warning("quiesce timed out",
+                        kv={"addr": f"{self.host}:{self.port}",
+                            "pending": pending, "timeout_s": QUIESCE_S})
+        return done
+
+    def close(self) -> None:
+        if self._closed.is_set():
+            return
+        self._closed.set()
+        self._stop_accepting()
         with self._conns_lock:
             conns = list(self._conns)
         for c in conns:

@@ -39,6 +39,11 @@ class ShedError(RPCError):
         self.retry_after_s = float(retry_after_s)
 
 
+class ServerClosingError(ShedError):
+    """The server is closing and refused the request before running it
+    (``ActorServer.quiesce``). A shed: route elsewhere."""
+
+
 class NoKeyError(ClusterError, KeyError):
     """Key could not be found."""
 

@@ -50,13 +50,15 @@ where this torch has it) the trace holds every thread's ops; without
 it, only the session thread's. The manifest says which
 (``cpu_threads``: ``"all"`` or ``"session"``).
 
-**Leases.** A session's stop (Kineto's event processing and the Chrome
-trace export, both C++) and the trace's read-back hold the GIL for
-seconds when the session recorded a busy process, and no keepalive
-runs meanwhile: on a lease of a second or two the process's
-registrations would lapse and its node drop out of the registry. So
-:func:`stop` holds them on leases of at least :data:`STOP_LEASE_S`
-(``registry.leases_held``), and a node being profiled stays listed.
+**Leases.** A session's stop holds the GIL for seconds when the session
+recorded a busy process: Kineto's ``_disable_profiler()`` (it switches
+CUPTI off and collects the window's records in one C++ call) and the
+Chrome trace export, and no keepalive runs meanwhile. On a lease of a
+second or two the process's registrations would lapse and its node drop
+out of the registry. So :func:`stop` holds them on leases of
+:data:`STOP_LEASE_S` (``registry.leases_held``): a node being profiled
+stays listed. The stop counts the trace's device records on the bytes
+it gzips, where a parse of the whole trace would hold the GIL again.
 
 **Quiet switches.** CUPTI switches its kernel recording on at a
 session's start and off at its stop. Switched while another thread
@@ -80,7 +82,7 @@ from __future__ import annotations
 import gzip
 import json
 import os
-import shutil
+import re
 import socket
 import threading
 import time
@@ -106,12 +108,32 @@ MAX_SHIP_BYTES = 32 * 2**20
 CAPTURE_MIN_INTERVAL_S = 60.0
 #: Chrome-trace categories of device-side records (CUPTI activity).
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: A device-side record as Kineto's Chrome trace spells it: ``"ph":
+#: "X"`` then its ``"cat"``, on one line or two (by Kineto's version).
+_DEVICE_RECORD = re.compile(
+    rb'"ph":\s*"X",\s*"cat":\s*"(?:'
+    + b"|".join(c.encode() for c in DEVICE_CATEGORIES) + rb')"')
+#: Bytes of the trace read, gzipped and scanned at a time, and the tail
+#: of one chunk carried into the next scan (longer than any record's
+#: match, so a record split by the boundary is counted once).
+_CHUNK = 1 << 20
+_CARRY = 256
+#: gzip level of the shipped trace: zlib's default. gzip's own 9 took 3.4
+#: times as long (2.52 s against 0.75 s) for a file 5.7% smaller, on the
+#: 62 MB trace of a 1 s window of a loaded optimus-125m replica on an
+#: H100 at 700 W (``chip_smoke.py`` failover (d), ``gzip_levels``).
+TRACE_GZIP_LEVEL = 6
 #: Seconds a session thread may take to start or stop its profiler.
 SESSION_TIMEOUT_S = 120.0
-#: The least lease the process's registrations hold through a stop
-#: (``registry.leases_held``): the profiler's stop and export hold the
-#: GIL, so no keepalive runs, for seconds under load.
-STOP_LEASE_S = 30.0
+#: Seconds of lease the process's registrations hold through a stop
+#: (``registry.leases_held``). Kineto's ``_disable_profiler()`` holds the
+#: GIL, so no keepalive runs, while it collects the window's records,
+#: and the export holds it again right after: the longest pair measured
+#: was 7.24 s (5.75 + 1.49) for a 1 s window of a loaded optimus-125m
+#: replica on an H100 at 700 W (``chip_smoke.py`` failover (d), its
+#: ``held_s``); 20 s is 2.76 times that. Longer windows are not
+#: measured.
+STOP_LEASE_S = 20.0
 
 
 class ProfileError(RuntimeError):
@@ -183,18 +205,45 @@ def _marker(torch) -> None:
     torch.empty(1, device="cuda").fill_(0.0)
 
 
+def _gzip_counting(raw: str, dst: str) -> int:
+    """Gzip the Chrome trace ``raw`` into ``dst`` and return its
+    device-side records, counted on the bytes as they pass: no parse of
+    the whole trace, which would hold the GIL for seconds (zlib lets it
+    go while it compresses)."""
+    n, carry = 0, b""
+    with open(raw, "rb") as src, gzip.open(
+            dst, "wb", compresslevel=TRACE_GZIP_LEVEL) as out:
+        while chunk := src.read(_CHUNK):
+            out.write(chunk)
+            buf = carry + chunk
+            n += sum(1 for m in _DEVICE_RECORD.finditer(buf)
+                     if m.end() > len(carry))
+            carry = buf[-_CARRY:]
+    return n
+
+
 def _session(sess: dict) -> None:
-    """The body of a session's own thread: start, wait, stop, export."""
+    """The body of a session's own thread: start, wait, stop, export.
+    ``sess["held_s"]`` gets the seconds of each part: the wait for the
+    device gate and the switch inside it (``start_*``, ``stop_*``; in
+    the stop, the marker and the card's drain, ``stop_sync``, and
+    Kineto's ``_disable_profiler()``, ``stop_disable``), the export, and
+    the gzip and count."""
     import torch
 
+    held = sess["held_s"]
     try:
         prof = torch.profiler.profile(**sess["kwargs"])
+        t0 = time.perf_counter()
         with DEVICE_GATE.switch():
+            t1 = time.perf_counter()
             if sess["cuda"]:
                 torch.cuda.synchronize()
             prof.start()
             if sess["cuda"]:
                 _marker(torch)
+        held["start_wait"] = t1 - t0
+        held["start_switch"] = time.perf_counter() - t1
     except Exception as e:  # noqa: BLE001 — handed to start()
         sess["error"] = e
         sess["ready"].set()
@@ -202,17 +251,29 @@ def _session(sess: dict) -> None:
     sess["ready"].set()
     sess["stop"].wait()
     try:
+        t0 = time.perf_counter()
         with DEVICE_GATE.switch():
+            t1 = time.perf_counter()
             if sess["cuda"]:
                 _marker(torch)
                 torch.cuda.synchronize()
+            t2 = time.perf_counter()
             prof.stop()
+        t3 = time.perf_counter()
+        stats = getattr(prof.profiler, "_stats", None)
+        disable_us = getattr(stats, "profiler_disable_call_duration_us",
+                             None)
+        held.update(stop_wait=t1 - t0, stop_sync=t2 - t1,
+                    stop_switch=t3 - t1,
+                    stop_disable=(None if disable_us is None
+                                  else disable_us / 1e6))
         name = f"{socket.gethostname()}_{os.getpid()}.pt.trace.json"
         raw = os.path.join(sess["dir"], name)
         prof.export_chrome_trace(raw)
-        with open(raw, "rb") as src, gzip.open(raw + ".gz", "wb") as dst:
-            shutil.copyfileobj(src, dst)
+        t4 = time.perf_counter()
+        sess["device_events"] = _gzip_counting(raw, raw + ".gz")
         os.remove(raw)
+        held.update(export=t4 - t3, gzip=time.perf_counter() - t4)
         sess["trace"] = raw + ".gz"
     except Exception as e:  # noqa: BLE001 — handed to stop()
         sess["error"] = e
@@ -242,7 +303,8 @@ def start(label: str = "", base: str | None = None) -> dict:
         sess = {"dir": d, "label": label, "t0": time.perf_counter(),
                 "kwargs": kwargs, "cuda": cuda, "cpu_threads": threads,
                 "ready": threading.Event(), "stop": threading.Event(),
-                "error": None, "trace": None}
+                "error": None, "trace": None, "device_events": 0,
+                "held_s": {}}
         sess["thread"] = threading.Thread(
             target=_session, args=(sess,), name="profile-session",
             daemon=True)
@@ -259,23 +321,16 @@ def start(label: str = "", base: str | None = None) -> dict:
     return {"dir": d, "label": label, "ts": round(time.time(), 3)}
 
 
-def _device_events(path: str) -> int:
-    """Device-side records (kernels, copies, sets) in a gzipped Chrome
-    trace."""
-    with gzip.open(path, "rt", encoding="utf-8") as fp:
-        doc = json.load(fp)
-    return sum(1 for ev in doc.get("traceEvents", ())
-               if ev.get("ph") == "X"
-               and ev.get("cat") in DEVICE_CATEGORIES)
-
-
 def stop(include_data: bool = False,
          max_bytes: int = MAX_SHIP_BYTES) -> dict:
     """End the active capture. Returns the artifact manifest::
 
         {"dir", "label", "duration_s", "files": [{"path", "size"}],
-         "activities", "cpu_threads", "device_events",
+         "activities", "cpu_threads", "device_events", "held_s",
          "memory": <memory_snapshot()>, "data": {relpath: bytes}?}
+
+    ``held_s`` is the seconds of each part of the session's start and
+    stop (``_session``): what a profile cost the process it profiled.
 
     ``data`` (with ``include_data``) carries artifact bytes up to
     ``max_bytes`` total — the wire-shipping path; oversize files are
@@ -303,7 +358,7 @@ def stop(include_data: bool = False,
             if sess["error"] is not None:
                 raise ProfileError(
                     f"profiler failed to stop: {sess['error']!r}")
-            n_device = _device_events(sess["trace"])
+    n_device = sess["device_events"]
     if sess["cuda"] and n_device == 0:
         raise ProfileError(
             "the capture holds no CUDA kernel (not even its own markers): "
@@ -314,6 +369,7 @@ def stop(include_data: bool = False,
            "activities": ["cpu", "cuda"] if sess["cuda"] else ["cpu"],
            "cpu_threads": sess["cpu_threads"],
            "device_events": n_device,
+           "held_s": dict(sess["held_s"]),
            "memory": memory_snapshot()}
     if include_data:
         data: dict[str, bytes] = {}

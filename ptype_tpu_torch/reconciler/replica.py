@@ -245,10 +245,13 @@ class ReplicaHost:
             info = self.actor.Info() or {}
         except Exception:  # noqa: BLE001 — status must always answer
             pass
+        # One lock for both: activate() flips the lifecycle and
+        # registers under it, so no reply pairs "warm" with registered.
         with self._reg_lock:
+            lifecycle = self.lifecycle
             registered = self._reg_handle is not None
         return {"service": self.service, "node": self.node_name,
-                "addr": self.key, "lifecycle": self.lifecycle,
+                "addr": self.key, "lifecycle": lifecycle,
                 "registered": registered,
                 "in_flight": int(info.get("in_flight", 0) or 0),
                 "queue_depth": int(info.get("queue_depth", 0) or 0),
@@ -258,7 +261,12 @@ class ReplicaHost:
 
     def activate(self) -> None:
         """warm → active: register under the public service name; the
-        gateway's watch stream picks the replica up from here."""
+        gateway's watch stream picks the replica up from here.
+
+        The lifecycle flips to ``active`` BEFORE the registration is
+        visible (the reference registers, then flips): a gateway probe
+        that follows the watch stream's listing then never reads
+        ``warm``. A failed registration flips it back."""
         if self._exit.is_set():
             raise ClusterError("replica host is exiting")
         with self._reg_lock:
@@ -267,10 +275,14 @@ class ReplicaHost:
             meta = {"lifecycle": "active"}
             if self.domain is not None:
                 meta["domain"] = self.domain
-            self._reg_handle = self._registry.register(
-                self.service, self.node_name, self.host, self.port,
-                process_id=self.process_id, metadata=meta)
-        self._set_lifecycle("active")
+            self._set_lifecycle("active")
+            try:
+                self._reg_handle = self._registry.register(
+                    self.service, self.node_name, self.host, self.port,
+                    process_id=self.process_id, metadata=meta)
+            except Exception:
+                self._set_lifecycle("warm")
+                raise
         log.info("replica activated",
                  kv={"service": self.service, "node": self.node_name,
                      "addr": self.key})
@@ -350,10 +362,18 @@ class ReplicaHost:
         return self._exit.is_set()
 
     def close(self) -> None:
-        """Tear the replica down NOW (clean shutdown or escalation):
-        deregister, close the server, stop the actor."""
+        """Shut the replica down cleanly: deregister, quiesce the server
+        (no new request; the replies of requests already running — the
+        ``Replica.Drain`` or ``Replica.Exit`` that ended it — are
+        written, for up to ``actor.QUIESCE_S``), close it, stop the
+        actor."""
+        self._teardown(quiesce=True)
+
+    def _teardown(self, quiesce: bool) -> None:
         self._exit.set()
         self.deregister()
+        if quiesce:
+            self.server.quiesce()
         self.server.close()
         close = getattr(self.actor, "close", None)
         if callable(close):
@@ -373,7 +393,7 @@ class ReplicaHost:
         registration is revoked — the watch stream sees the loss like
         a lease expiry — and the sockets close mid-whatever."""
         self._escalated = True
-        self.close()
+        self._teardown(quiesce=False)
 
 
 # ------------------------------------------------------------- handles

@@ -45,9 +45,11 @@ zero code changes):
 The worker serves ``Generator.*`` plus the ``Replica.*`` control
 endpoints and then parks until the host's exit event fires (drain
 complete, ``Replica.Exit``, or SIGTERM), deregistering on the way
-out. Lifecycle — spawn, warm-up, activate, drain, exit — lives
-entirely in :class:`~ptype_tpu_torch.reconciler.replica.ReplicaHost`;
-this file is only the process skin around it.
+out; the replies already running (the order that ended it among them)
+are written before its server shuts their connections. Lifecycle —
+spawn, warm-up, activate, drain, exit — lives entirely in
+:class:`~ptype_tpu_torch.reconciler.replica.ReplicaHost`; this file is
+only the process skin around it.
 """
 
 from __future__ import annotations

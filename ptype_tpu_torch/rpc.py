@@ -46,7 +46,8 @@ from ptype_tpu_torch import chaos, codec, logs, retry, threadpool, trace
 from ptype_tpu_torch.coord import wire
 from ptype_tpu_torch.device import resolve_device
 from ptype_tpu_torch.errors import (NoClientAvailableError, RemoteError,
-                                    RPCError, ShedError)
+                                    RPCError, ServerClosingError,
+                                    ShedError)
 from ptype_tpu_torch.registry import Node, NodeWatch, Registry
 
 log = logs.get_logger("rpc")
@@ -171,10 +172,12 @@ class _Conn:
                 except Exception as e:  # noqa: BLE001
                     fut.set_exception(RPCError(f"decode failed: {e}"))
             elif msg.get("shed"):
-                # Typed admission refusal (gateway overload): keep the
-                # retry hint and the ShedError type across the wire —
-                # callers back off, the retry loop must NOT re-fire.
-                fut.set_exception(ShedError(
+                # Typed admission refusal (gateway overload, a closing
+                # server): keep the retry hint and the type across the
+                # wire — callers back off, the retry loop must NOT
+                # re-fire.
+                cls = ServerClosingError if msg.get("closing") else ShedError
+                fut.set_exception(cls(
                     msg.get("error", "request shed"),
                     retry_after_s=msg.get("retry_after_s", 1.0)))
             else:

@@ -239,6 +239,8 @@ def cluster_profile(registry: Registry, duration_s: float = 0.5,
             "files": [os.path.relpath(p, node_dir) for p in files],
             "remote_dir": result.get("dir"),
             "capture_s": result.get("duration_s"),
+            "device_events": result.get("device_events"),
+            "held_s": result.get("held_s"),
             "memory": result.get("memory"),
             # Files the node listed but did not ship (past its byte
             # budget): fetch them with the ``fetch`` verb.

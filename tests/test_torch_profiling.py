@@ -105,6 +105,53 @@ def test_start_and_stop_on_different_threads(tmp_path):
     assert box["o"]["dir"] == box["s"]["dir"] and box["o"]["files"]
 
 
+#: Device records as Kineto's Chrome trace writes them: one key a line
+#: (this host's torch) and ``"ph"`` beside ``"cat"`` (older Kinetos).
+_KINETO_EVENTS = (
+    '  {{\n    "ph": "X",\n    "cat": "{cat}",\n    "name": "k{i}",\n'
+    '    "pid": 0,\n    "tid": 7,\n    "ts": {i}.5, "dur": 1.0\n  }}',
+    '  {{\n    "ph": "X", "cat": "{cat}", "name": "k{i}", "pid": 0, '
+    '"tid": 7,\n    "ts": {i}.5, "dur": 1.0\n  }}')
+
+
+def test_stop_counts_device_records_while_it_gzips(tmp_path, monkeypatch):
+    """The stop counts a trace's device records on the bytes it gzips,
+    with no parse of the whole trace: the count equals a JSON parse's
+    on a trace of both Kineto layouts whose records straddle the chunk
+    boundaries at many offsets, and the gzip holds the same bytes. A
+    session's manifest carries the seconds of each part of its start
+    and stop."""
+    import gzip
+    import json
+
+    cats = ("kernel", "cpu_op", "gpu_memcpy", "gpu_user_annotation",
+            "gpu_memset", "kernel")
+    events = [_KINETO_EVENTS[i % 2].format(cat=cats[i % len(cats)], i=i)
+              for i in range(400)]
+    events.append('  {"ph": "f", "cat": "kernel", "name": "flow"}')
+    raw = tmp_path / "t.pt.trace.json"
+    raw.write_text('{\n  "traceEvents": [\n' + ",\n".join(events)
+                   + '\n  ]\n}\n')
+    doc = json.loads(raw.read_text())
+    want = sum(1 for ev in doc["traceEvents"] if ev.get("ph") == "X"
+               and ev.get("cat") in profiling.DEVICE_CATEGORIES)
+    assert 0 < want < len(events) - 1
+    for chunk in (97, 256, 4096):
+        monkeypatch.setattr(profiling, "_CHUNK", chunk)
+        dst = tmp_path / f"t{chunk}.json.gz"
+        assert profiling._gzip_counting(str(raw), str(dst)) == want
+        assert gzip.decompress(dst.read_bytes()) == raw.read_bytes()
+    monkeypatch.undo()
+    profiling.start(label="held", base=str(tmp_path))
+    _work()
+    held = profiling.stop()["held_s"]
+    assert set(held) == {"start_wait", "start_switch", "stop_wait",
+                         "stop_sync", "stop_switch", "stop_disable",
+                         "export", "gzip"}
+    assert all(v is None or v >= 0 for v in held.values())
+    assert held["stop_switch"] >= held["stop_sync"]
+
+
 def test_device_gate_switch_waits_for_work_and_queues_new_work():
     """A switch waits for the device work inside to leave; work that
     arrives while a switch waits or runs queues behind it; work already
