@@ -4760,6 +4760,22 @@ FO_TRAIN = dict(PRESET="optimus-125m", MODE="store", BATCH="16",
                 SEQ="1024", STEPS="8", CKPT_EVERY="4")
 FO_EVAL_STEPS = 3
 FO_FLASH_RECORDS = 12
+#: The longer window ``failover`` (d) captures after its 1 s one.
+FO_LONG_WINDOW_S = 5.0
+#: ``--profile-sweep``'s (window s, loader threads): ``AlertCapture``'s
+#: default window, the CLI's, then up to ``profiling.MAX_CAPTURE_S``
+#: under two loaders; the 3 s window under one and none; 1, 10 and 30 s
+#: under four and eight, each loader a request in flight at all times.
+SWEEP_RUNS = ((0.25, 2), (1.0, 2), (3.0, 2), (3.0, 1), (3.0, 0), (10.0, 2),
+              (30.0, 2), (1.0, 4), (10.0, 4), (1.0, 8), (10.0, 8),
+              (30.0, 8))
+#: ``--profile-sweep``'s last run (seconds, loader threads): the listing
+#: under its heaviest load with no capture.
+SWEEP_CONTROL = (30.0, 8)
+#: Seconds a window waits, after its verb, for the replica's stop to end.
+SWEEP_STOP_WAIT_S = 600.0
+#: Seconds between two reads of the replica's registry listing.
+LISTING_POLL_S = 0.1
 
 
 def listening(addr):
@@ -4908,21 +4924,6 @@ def profile_costs(out):
     return costs
 
 
-def device_records(d, categories):
-    """Device-side records (``ph`` X of ``categories``) in the gzipped
-    Chrome traces under ``d``, by a parse of each whole trace."""
-    import gzip
-
-    n = 0
-    for name in os.listdir(d):
-        if name.endswith(".trace.json.gz"):
-            with gzip.open(os.path.join(d, name), "rt") as fp:
-                n += sum(1 for ev in json.load(fp)["traceEvents"]
-                         if ev.get("ph") == "X"
-                         and ev.get("cat") in categories)
-    return n
-
-
 def gzip_levels(d, levels=(6, 9)):
     """The seconds and bytes of gzipping the Chrome trace under ``d`` at
     each of ``levels``, in this process: what the stop's choice of
@@ -4941,6 +4942,219 @@ def gzip_levels(d, levels=(6, 9)):
     return out
 
 
+def trace_records(d):
+    """The gzipped Chrome traces under ``d``, read as streams (a long
+    window's trace is gigabytes) by the replica's own counter
+    (``profiling.count_records``): their count, bytes gzipped and raw,
+    records by category, and file by file the device-side records
+    (``profiling.DEVICE_CATEGORIES``), the kernels and the calls that
+    launch one."""
+    import collections
+    import gzip
+
+    from ptype_tpu_torch.health import profiling
+
+    cats = collections.Counter()
+    out = {"files": 0, "gz_bytes": 0, "raw_bytes": 0,
+           **{k: [] for k in ("device_per_file", "kernel_per_file",
+                              "launch_per_file")}}
+    for root, _, files in os.walk(d):
+        for f in sorted(files):
+            if not f.endswith(".trace.json.gz"):
+                continue
+            p = os.path.join(root, f)
+            out["files"] += 1
+            out["gz_bytes"] += os.path.getsize(p)
+            with gzip.open(p, "rb") as fp:
+                def read(n):
+                    chunk = fp.read(n)
+                    out["raw_bytes"] += len(chunk)
+                    return chunk
+
+                mine = profiling.count_records(read)
+            cats.update(mine)
+            out["device_per_file"].append(
+                sum(mine[c] for c in profiling.DEVICE_CATEGORIES))
+            for k in ("kernel", "launch"):
+                out[f"{k}_per_file"].append(mine[k])
+    out["by_category"] = dict(cats)
+    out["device"] = sum(cats[c] for c in profiling.DEVICE_CATEGORIES)
+    out["cpu_op"] = cats["cpu_op"]
+    return out
+
+
+def stop_hold_s(held):
+    """The longest single GIL hold of a stop in a ``held_s``: one
+    recording's Kineto disable (its whole switch where the profiler
+    reported none) plus its export; None without a ``held_s``."""
+    if not held:
+        return None
+    return max((c.get("stop_disable") or c["stop_switch"]) + c["export"]
+               for c in held.get("chunks") or [held])
+
+
+class ListingWatch:
+    """Reads ``nodes()`` every ``LISTING_POLL_S`` on a thread of its own
+    while the block runs: the reads, those that listed no node (and the
+    seconds into the block of the first 20), those that raised, and the
+    longest wall gap between two reads that listed one (from the block's
+    start to its end)."""
+
+    def __init__(self, nodes):
+        self.nodes = nodes
+        self.reads = self.missing = self.errors = 0
+        self.missing_at = []
+        self.gap_s = 0.0
+        self._halt = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def __enter__(self):
+        self._t0 = self._last = time.monotonic()
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._halt.is_set():
+            try:
+                listed = bool(self.nodes())
+            except Exception:  # noqa: BLE001 — counted, not fatal
+                listed = None
+            now = time.monotonic()
+            self.reads += 1
+            if listed:
+                self.gap_s = max(self.gap_s, now - self._last)
+                self._last = now
+            elif listed is None:
+                self.errors += 1
+            else:
+                self.missing += 1
+                if len(self.missing_at) < 20:
+                    self.missing_at.append(round(now - self._t0, 3))
+            self._halt.wait(LISTING_POLL_S)
+
+    def __exit__(self, *exc):
+        self._halt.set()
+        self._thread.join(timeout=60)
+        self.gap_s = max(self.gap_s, time.monotonic() - self._last)
+
+    def row(self):
+        return {"listing_reads": self.reads,
+                "listing_missing": self.missing,
+                "listing_missing_at_s": self.missing_at,
+                "listing_errors": self.errors,
+                "listing_gap_max_s": self.gap_s}
+
+
+class Loaders:
+    """``n`` threads that send ``x`` with 8 new tokens through ``gen``
+    back to back while the block runs: the ms of each answer, and the
+    errors."""
+
+    def __init__(self, gen, x, n):
+        self.gen, self.x = gen, x
+        self.ms, self.errors = [], []
+        self._halt = threading.Event()
+        self._threads = [threading.Thread(target=self._run, daemon=True)
+                         for _ in range(n)]
+
+    def _run(self):
+        while not self._halt.is_set():
+            t0 = time.monotonic()
+            try:
+                self.gen.call("Generator.Generate", self.x, 8)
+                self.ms.append((time.monotonic() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001 — counted in the row
+                self.errors.append(repr(e))
+                self._halt.wait(0.1)
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._halt.set()
+        for t in self._threads:
+            t.join(timeout=120)
+
+    def row(self):
+        ms = sorted(self.ms)
+        return {"requests": len(ms), "failed_requests": len(self.errors),
+                "errors": self.errors[:3],
+                "request_ms_median": ms[len(ms) // 2] if ms else None,
+                "request_ms_max": ms[-1] if ms else None}
+
+
+def profile_window(start, cfg, work, name, window, gen, x, nodes, rep_dir,
+                   loaders=2):
+    """One ``obs profile`` of ``window`` seconds of the replica listed by
+    ``nodes()`` (its artifacts under ``rep_dir``) while ``loaders``
+    threads send ``x`` (``Loaders``), and the registry's listing of it is
+    read all through. The loaders and the reads run on until the
+    replica's session has ended, which may be after the verb gave up.
+    Nothing here fails: returns (the row, the verb's output, the shipped
+    capture's directory or None)."""
+    from ptype_tpu_torch import rpc as rpc_mod
+
+    obs_dir = os.path.join(work, name)
+    os.makedirs(obs_dir)
+    before = set(os.listdir(rep_dir)) if os.path.isdir(rep_dir) else set()
+    node = nodes()[0]
+
+    def ended():
+        """The replica's session thread has ended: its status says so."""
+        try:
+            conn = rpc_mod._dial(node, 5.0)
+            try:
+                st = conn.call_async("ptype.Profile",
+                                     ("status",)).result(timeout=10)
+            finally:
+                conn.close()
+        except Exception:  # noqa: BLE001 — a frozen replica: not yet
+            return False
+        return not (st["active"] or st["stopping"])
+
+    with ListingWatch(nodes) as listing, Loaders(gen, x, loaders) as load:
+        prof = start("obs profile", cfg, name, OBS_DIR=obs_dir,
+                     PROFILE_DURATION=str(window))
+        try:
+            rc = prof.proc.wait(timeout=window + SWEEP_STOP_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        verb_end = time.monotonic()
+        deadline = verb_end + SWEEP_STOP_WAIT_S
+        while not ended() and time.monotonic() < deadline:
+            time.sleep(0.5)
+        t_end = time.monotonic()
+    out = prof.text()
+    costs = [c for k, c in profile_costs(out).items()
+             if k.startswith(FO_SERVICE + "/")]
+    held = costs[0]["held_s"] if costs else None
+    mine = sorted(os.path.join(rep_dir, d)
+                  for d in set(os.listdir(rep_dir)) - before)
+    pdir = os.path.join(obs_dir, "profile")
+    shipped = [os.path.join(pdir, d)
+               for d in (os.listdir(pdir) if os.path.isdir(pdir) else ())
+               if d.startswith(FO_SERVICE + "_")]
+    row = {"window_s": window, "loaders": loaders, "verb_rc": rc,
+           "failed": rc != 0 or any(
+               line.startswith(FO_SERVICE + "/") and ": FAILED" in line
+               for line in out.splitlines()),
+           "verb_s": verb_end - prof.t0,
+           "capture_wall_s": t_end - prof.t0,
+           "session_ended": t_end < deadline,
+           "held_s": held,
+           "device_events": costs[0]["device_events"] if costs else None,
+           **{k: costs[0].get(k) if costs else None
+              for k in ("chunks", "recorded_s", "unrecorded_s",
+                        "kernels_lost")},
+           "stop_hold_max_s": stop_hold_s(held),
+           "trace": trace_records(mine[0]) if len(mine) == 1 else None,
+           "stayed_on_node": out.count("stayed on the node"),
+           **load.row(), **listing.row()}
+    return row, out, (shipped[0] if len(shipped) == 1 else None)
+
+
 def failover_phase(torch, tfm, flash_mod, prompts, card):
     """Coordinator failover and the operator CLI at optimus-125m, every
     process a ``python -m ptype_tpu_torch`` verb: (a) a witness, a seed
@@ -4951,7 +5165,9 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
     handover, the replica's re-listing, a fresh client's first answer,
     and the old seed restarted on its data refused by the term fence;
     (d) ``obs`` and ``obs profile`` of the promoted cluster, the
-    replica's flash forward records; (e) the ``train`` verb in this
+    replica's flash forward records, then a ``FO_LONG_WINDOW_S`` capture
+    under the same load: the replica listed throughout, no request lost,
+    every trace file with device records; (e) the ``train`` verb in this
     process (store mode, B=16, S=1024, 8 steps) through a second seed's
     SIGKILL: losses equal an uninterrupted run's, the kernels' launches,
     each step's ms, then ``eval`` of its checkpoint; (f) ``info``;
@@ -4993,6 +5209,7 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
                 flash_mod.flash_attention_dkv)
     try:
         # (a) a witness, a seed, a wal-stream standby and a replica.
+        rep_profiles = os.path.join(work, "replica-profiles")
         seed_addr, sb_addr, wit_addr = free_addr(), free_addr(), free_addr()
         quorum = dict(witness_address=wit_addr,
                       witness_ttl=FO_WITNESS_TTL)
@@ -5016,7 +5233,8 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
         rep = start("serve", cli_config(
             work, "replica", FO_SERVICE, urls=[seed_addr, sb_addr],
             coordinator_address=seed_addr, lease_ttl=FO_LEASE_TTL),
-            "replica", PRESET="optimus-125m")
+            "replica", PRESET="optimus-125m",
+            PTYPE_PROFILE_DIR=rep_profiles)
         client = join(Config(
             service_name="", node_name="fo-client", port=0,
             initial_cluster_client_urls=[seed_addr, sb_addr],
@@ -5218,9 +5436,8 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
               f"failover: obs wrote {files}, listed the replica: "
               f"{row['obs']['lists_replica']}:\n{out[-3000:]}")
         # A process's first torch.profiler session pays CUPTI's start-up
-        # (~7 s) inside the verb's reply timeout (its window + 15 s, as
-        # the reference's): a short capture with no load takes it out
-        # of the measured one.
+        # (7-14 s) inside the verb's reply: a short capture with no load
+        # takes it out of the measured ones.
         t_warm = time.monotonic()
         warm = start("obs profile", obs_cfg, "obs-profile-warm",
                      OBS_DIR=os.path.join(work, "obs-warm"),
@@ -5228,81 +5445,81 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
         check("FAILED" not in warm, f"failover: the warm-up capture "
               f"failed:\n{warm[-3000:]}")
         warm_s = time.monotonic() - t_warm
-        prof = start("obs profile", obs_cfg, "obs-profile", OBS_DIR=obs_dir,
-                     PROFILE_DURATION="1")
-        load_errors, load_ms = [], []
+        watch = RemoteCoord([sb_addr])
+        coords.append(watch)
 
-        def load():
-            while prof.proc.poll() is None:
-                try:
-                    t0 = time.monotonic()
-                    gen.call("Generator.Generate", x512, 8)
-                    load_ms.append((time.monotonic() - t0) * 1e3)
-                except Exception as e:  # noqa: BLE001 — checked below
-                    load_errors.append(repr(e))
-                    return
+        def nodes():
+            return CoordRegistry(watch).nodes(FO_SERVICE)
 
-        loaders = [threading.Thread(target=load, daemon=True)
-                   for _ in range(2)]
-        for t in loaders:
-            t.start()
-        out = prof.finish(300)
-        prof_s = time.monotonic() - prof.t0
-        for t in loaders:
-            t.join(timeout=120)
-        check(not load_errors, f"failover: requests under the profile "
-              f"failed: {load_errors}")
-        pdir = os.path.join(obs_dir, "profile")
-        rep_dirs = [os.path.join(pdir, d)
-                    for d in (os.listdir(pdir) if os.path.isdir(pdir) else ())
-                    if d.startswith(FO_SERVICE + "_")]
-        check(len(rep_dirs) == 1, f"failover: obs profile shipped no "
+        one, out, shipped = profile_window(
+            start, obs_cfg, work, "obs-profile", 1.0, gen, x512, nodes,
+            rep_profiles)
+        check(not one["failed"] and not one["failed_requests"],
+              f"failover: the 1 s capture under load failed: "
+              f"{ {k: one[k] for k in ('verb_rc', 'errors')} }:\n"
+              f"{out[-3000:]}")
+        check(shipped is not None, f"failover: obs profile shipped no "
               f"capture of the replica:\n{out[-3000:]}")
-        ops = profiling.summarize(rep_dirs[0], top=100_000)["top_ops"]
+        ops = profiling.summarize(shipped, top=100_000)["top_ops"]
         records = sum(op["count"] for op in ops
                       if "flash_fwd_kernel_bf16" in op["name"])
         # A request that spans the session's start or stop waits at the
         # device gate and for the GIL the stop holds: the longest
         # request against the median, beside the seconds of each part
         # of the replica's start and stop.
-        costs = [c for k, c in profile_costs(out).items()
-                 if k.startswith(FO_SERVICE + "/")]
-        check(len(costs) == 1, f"failover: obs profile printed no session "
-              f"cost of the replica:\n{out[-3000:]}")
-        cost = costs[0]
+        check(one["held_s"] is not None, f"failover: obs profile printed "
+              f"no session cost of the replica:\n{out[-3000:]}")
         # The parse the replica's stop made before it counted on the fly:
-        # the same json.load of the same trace, here in this process.
+        # a json.load of the same trace, here in this process.
         t_parse = time.perf_counter()
-        parsed = device_records(rep_dirs[0], profiling.DEVICE_CATEGORIES)
+        kernels = trace_kernels(shipped)
         parse_s = time.perf_counter() - t_parse
-        load_ms.sort()
+        parsed = sum(kernels["by_category"].values())
         row["obs_profile"] = {"warm_up_s": warm_s,
-                              "capture_wall_s": prof_s,
-                              "requests": len(load_ms),
-                              "request_ms_median": load_ms[len(load_ms) // 2]
-                              if load_ms else None,
-                              "request_ms_max": load_ms[-1] if load_ms
-                              else None,
-                              "held_s": cost["held_s"],
-                              "device_events": cost["device_events"],
+                              **{k: one[k] for k in (
+                                  "capture_wall_s", "requests",
+                                  "request_ms_median", "request_ms_max",
+                                  "held_s", "device_events",
+                                  "kernels_lost")},
                               "device_records_parsed": parsed,
                               "device_records_parse_s": parse_s,
-                              "gzip_levels": gzip_levels(rep_dirs[0]),
+                              "gzip_levels": gzip_levels(shipped),
                               "flash_fwd_kernel_bf16_records": records,
-                              "kernels": trace_kernels(rep_dirs[0])}
+                              "kernels": kernels}
         emit({"phase": "failover", "part": "d", "card": card,
               **{k: row["obs_profile"][k]
                  for k in ("requests", "request_ms_median", "request_ms_max",
                            "capture_wall_s", "held_s", "device_events",
-                           "device_records_parsed",
+                           "kernels_lost", "device_records_parsed",
                            "device_records_parse_s", "gzip_levels")}})
-        check(cost["device_events"] == parsed,
-              f"failover: the replica counted {cost['device_events']} device "
+        check(one["device_events"] == parsed,
+              f"failover: the replica counted {one['device_events']} device "
               f"records, its shipped trace holds {parsed}")
         check(records >= FO_FLASH_RECORDS,
               f"failover: the replica's shipped trace holds {records} "
               f"flash_fwd_kernel_bf16 records (< {FO_FLASH_RECORDS}):\n"
               f"{out[-3000:]}")
+        # A longer window under the same load: the replica stays listed,
+        # the verb reports it, and every request is answered.
+        long, out, _ = profile_window(
+            start, obs_cfg, work, "obs-profile-long", FO_LONG_WINDOW_S, gen,
+            x512, nodes, rep_profiles)
+        row["obs_profile_long"] = long
+        emit({"phase": "failover", "part": "d", "card": card,
+              **{k: v for k, v in long.items() if k != "errors"}})
+        check(not long["failed"] and long["session_ended"],
+              f"failover: obs profile of a {FO_LONG_WINDOW_S} s window "
+              f"reported the replica FAILED:\n{out[-3000:]}")
+        check(not long["failed_requests"],
+              f"failover: {long['failed_requests']} requests failed under "
+              f"a {FO_LONG_WINDOW_S} s capture: {long['errors']}")
+        check(long["listing_reads"] and not long["listing_missing"],
+              f"failover: the replica's listing lapsed under a "
+              f"{FO_LONG_WINDOW_S} s capture: {long}")
+        check(long["trace"] is not None
+              and all(long["trace"]["device_per_file"]),
+              f"failover: a trace file of the {FO_LONG_WINDOW_S} s capture "
+              f"holds no device record: {long['trace']}")
         gen.close()
 
         # (e) the train verb through a second seed's SIGKILL, beside an
@@ -6596,6 +6813,108 @@ def failover_repeat(n):
         shutil.rmtree(rdv, ignore_errors=True)
 
 
+def profile_sweep(runs=SWEEP_RUNS):
+    """``--profile-sweep``: what a profile costs a loaded replica, window
+    by window. A seed and the CLI's ``serve`` replica at optimus-125m
+    (its artifacts kept on its disk), one warm-up capture with no load,
+    then ``obs profile`` of each of ``runs``' windows under its loaders
+    of (1, 512) prompts (``profile_window``): one line a window, which
+    records what happened; it fails only if a session does not end."""
+    import torch
+
+    from ptype_tpu_torch import Config, PlatformConfig, join
+    from ptype_tpu_torch.coord.remote import RemoteCoord
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.ops import _build
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    if not torch.cuda.is_available():
+        raise SmokeError("no CUDA device: chip_smoke.py runs on a GPU")
+    _build.build_all()
+    card = card_line()
+    work = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    procs, closers = [], []
+
+    def start(verb, cfg, name, **env):
+        p = CliProc(verb, cfg, work, name, phase="profile_sweep", **env)
+        procs.append(p)
+        return p
+
+    try:
+        seed_addr = free_addr()
+        start("join", cli_config(
+            work, "seed", "sw-seed", coordinator_address=seed_addr,
+            is_coordinator=True, data_dir=os.path.join(work, "seed"),
+            lease_ttl=FO_LEASE_TTL), "seed").wait("joined as")
+        rep_dir = os.path.join(work, "replica-profiles")
+        rep = start("serve", cli_config(
+            work, "replica", FO_SERVICE, urls=[seed_addr],
+            coordinator_address=seed_addr, lease_ttl=FO_LEASE_TTL),
+            "replica", PRESET="optimus-125m", PTYPE_PROFILE_DIR=rep_dir)
+        client = join(Config(
+            service_name="", node_name="sw-client", port=0,
+            initial_cluster_client_urls=[seed_addr],
+            platform=PlatformConfig(name="sw-client",
+                                    coordinator_address=seed_addr,
+                                    lease_ttl=FO_LEASE_TTL)),
+            device="cuda")
+        closers.append(client)
+        rep.wait("serving Generator", 600)
+        gen = client.new_client(FO_SERVICE)
+        closers.append(gen)
+        prompts = phase4_prompts(torch, tfm.preset("optimus-125m"))
+        for p in prompts:  # the replica's kernels loaded, its pool warm
+            gen.call("Generator.Generate", p.to("cuda", torch.int32)[None],
+                     8)
+        x512 = prompts[-1][:512].to("cuda", torch.int32)[None]
+        watch = RemoteCoord([seed_addr])
+        closers.append(watch)
+
+        def nodes():
+            return CoordRegistry(watch).nodes(FO_SERVICE)
+
+        obs_cfg = cli_config(work, "obs", "sw-obs",
+                             coordinator_address=seed_addr)
+        def lapses(since):
+            """The replica's lease refreshes that failed, and its
+            re-registrations after a lease lapsed, in its log since
+            byte ``since``."""
+            tail = rep.text()[since:]
+            return {"lease_refresh_failed": tail.count("lease refresh failed"),
+                    "lease_lapses": tail.count("re-registered after lease "
+                                               "loss")}
+
+        for i, (window, loaders) in enumerate([(0.1, 0), *runs]):
+            since = len(rep.text())
+            row, out, _ = profile_window(
+                start, obs_cfg, work, f"obs-profile-{i}", window, gen, x512,
+                nodes, rep_dir, loaders=loaders)
+            emit({"profile_sweep": "warm-up" if i == 0 else "window",
+                  "card": card, **row, **lapses(since)})
+            if row["failed"]:
+                print(out[-2000:], flush=True)
+            check(row["session_ended"], f"profile_sweep: the replica's "
+                  f"{window} s session had not ended "
+                  f"{SWEEP_STOP_WAIT_S:.0f} s after its verb")
+            # Each window's artifacts go once read: a 30 s trace is GBs.
+            shutil.rmtree(os.path.join(work, f"obs-profile-{i}"),
+                          ignore_errors=True)
+        # The same replica under the heaviest load and no capture.
+        since = len(rep.text())
+        with ListingWatch(nodes) as listing, Loaders(
+                gen, x512, SWEEP_CONTROL[1]) as load:
+            time.sleep(SWEEP_CONTROL[0])
+        emit({"profile_sweep": "no capture", "card": card,
+              "seconds": SWEEP_CONTROL[0], "loaders": SWEEP_CONTROL[1],
+              **load.row(), **listing.row(), **lapses(since)})
+    finally:
+        for c in closers:
+            c.close()
+        for p in procs:
+            p.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def audits_only():
     """``--audits``: the audits phase alone (after the kernels' build and
     a world-1 NCCL group, as ``main`` has), then the last line."""
@@ -7162,6 +7481,16 @@ if __name__ == "__main__":
         except SmokeError as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
             sys.exit(1)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--profile-sweep"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        try:
+            profile_sweep()
+        except SmokeError as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        finally:
+            stop_children()
         sys.exit(0)
     if sys.argv[1:2] == ["--audits"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

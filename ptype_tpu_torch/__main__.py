@@ -403,10 +403,18 @@ def _obs_profile(registry) -> None:
         print(f"{key}: {len(n['files'])} artifacts -> {n['dir']}")
         if n.get("held_s") is not None:
             # What the capture cost the node: the seconds of each part
-            # of its start and stop (profiling.stop's ``held_s``).
-            cost = {"device_events": n["device_events"],
-                    "held_s": n["held_s"]}
+            # of its start and stop (profiling.stop's ``held_s``), and
+            # how much of the window its recordings hold and the
+            # kernel records each one's trace lost.
+            cost = {k: n[k] for k in ("device_events", "held_s", "chunks",
+                                      "recorded_s", "unrecorded_s",
+                                      "kernels_lost")}
             print(f"  session {json.dumps(cost, sort_keys=True)}")
+        if n.get("truncated"):
+            # Past the reply's byte budget: these stayed on the node
+            # (the ``ptype.Profile`` ``fetch`` verb reads them).
+            print(f"  {len(n['truncated'])} files stayed on the node in "
+                  f"{n['remote_dir']}: {', '.join(n['truncated'])}")
         s = profiling.summarize(n["dir"], top=8)
         for op in s["top_ops"]:
             print(f"  {op['total_us']:>12.1f} us  x{op['count']:<6} "

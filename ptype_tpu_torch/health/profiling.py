@@ -10,12 +10,14 @@ Four seams, as in the reference:
   ship over the actor wire. :func:`stop` writes the session's Chrome
   trace gzipped as ``<host>_<pid>.pt.trace.json.gz``, which
   :func:`summarize` reads as the reference's reads its profiler's
-  ``*.trace.json.gz``.
+  ``*.trace.json.gz``; a capture longer than :data:`CHUNK_S` writes
+  one such file a recording (``<host>_<pid>.<i>.pt.trace.json.gz``).
   Activities: the CPU, plus CUDA when the process computes on a card
   (it has initialised CUDA). There is no quiet fallback: a CUDA process whose profiler
   cannot trace CUDA raises :class:`ProfileError` at :func:`start`, and
-  a session whose trace holds no kernel (the session launches one
-  marker fill kernel at each end to prove it) raises at :func:`stop`.
+  a capture with a trace that holds no kernel (each recording launches
+  a marker fill kernel at each end and one half-way to prove it) raises
+  at :func:`stop`.
   One session per process: a second :func:`start` raises
   :class:`ProfileError`. Device-memory snapshots
   (:func:`memory_snapshot` — the caching allocator's counters under
@@ -52,13 +54,19 @@ it, only the session thread's. The manifest says which
 
 **Leases.** A session's stop holds the GIL for seconds when the session
 recorded a busy process: Kineto's ``_disable_profiler()`` (it switches
-CUPTI off and collects the window's records in one C++ call) and the
-Chrome trace export, and no keepalive runs meanwhile. On a lease of a
-second or two the process's registrations would lapse and its node drop
-out of the registry. So :func:`stop` holds them on leases of
-:data:`STOP_LEASE_S` (``registry.leases_held``): a node being profiled
-stays listed. The stop counts the trace's device records on the bytes
-it gzips, where a parse of the whole trace would hold the GIL again.
+CUPTI off and collects the records in one C++ call) and the Chrome trace
+export, and no keepalive runs meanwhile. On a lease of a second or two
+the process's registrations would lapse and its node drop out of the
+registry. So each stop holds them on leases of :data:`STOP_LEASE_S`
+(``registry.leases_held``): a node being profiled stays listed, and a
+process that dies during a stop stays listed for up to that long. The
+hold grows with what the session recorded, so a session records at most
+:data:`CHUNK_S` seconds: a longer capture is consecutive recordings,
+each its own trace file. On a loaded optimus-125m replica under one to
+eight loaders no hold outgrew half the lease (the comment of
+:data:`STOP_LEASE_S`); a heavier process is not measured.
+The stop counts the trace's device records on the bytes it gzips, where
+a parse of the whole trace would hold the GIL again.
 
 **Quiet switches.** CUPTI switches its kernel recording on at a
 session's start and off at its stop. Switched while another thread
@@ -79,6 +87,7 @@ it: ``import ptype_tpu_torch.health`` stays torch-free.
 
 from __future__ import annotations
 
+import collections
 import gzip
 import json
 import os
@@ -108,14 +117,14 @@ MAX_SHIP_BYTES = 32 * 2**20
 CAPTURE_MIN_INTERVAL_S = 60.0
 #: Chrome-trace categories of device-side records (CUPTI activity).
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-#: A device-side record as Kineto's Chrome trace spells it: ``"ph":
-#: "X"`` then its ``"cat"``, on one line or two (by Kineto's version).
-_DEVICE_RECORD = re.compile(
-    rb'"ph":\s*"X",\s*"cat":\s*"(?:'
-    + b"|".join(c.encode() for c in DEVICE_CATEGORIES) + rb')"')
+#: A record as Kineto's Chrome trace spells it: ``"ph": "X"``, its
+#: ``"cat"`` and the head of its ``"name"``, on one line or several (by
+#: Kineto's version).
+_RECORD = re.compile(
+    rb'"ph":\s*"X",\s*"cat":\s*"(\w+)"(?:,\s*"name":\s*"([^"]{0,120}))?')
 #: Bytes of the trace read, gzipped and scanned at a time, and the tail
-#: of one chunk carried into the next scan (longer than any record's
-#: match, so a record split by the boundary is counted once).
+#: of one chunk kept for the next scan (longer than any record's match,
+#: so a record that the boundary splits is counted once, whole).
 _CHUNK = 1 << 20
 _CARRY = 256
 #: gzip level of the shipped trace: zlib's default. gzip's own 9 took 3.4
@@ -123,17 +132,52 @@ _CARRY = 256
 #: 62 MB trace of a 1 s window of a loaded optimus-125m replica on an
 #: H100 at 700 W (``chip_smoke.py`` failover (d), ``gzip_levels``).
 TRACE_GZIP_LEVEL = 6
-#: Seconds a session thread may take to start or stop its profiler.
-SESSION_TIMEOUT_S = 120.0
-#: Seconds of lease the process's registrations hold through a stop
-#: (``registry.leases_held``). Kineto's ``_disable_profiler()`` holds the
-#: GIL, so no keepalive runs, while it collects the window's records,
-#: and the export holds it again right after: the longest pair measured
-#: was 7.24 s (5.75 + 1.49) for a 1 s window of a loaded optimus-125m
-#: replica on an H100 at 700 W (``chip_smoke.py`` failover (d), its
-#: ``held_s``); 20 s is 2.76 times that. Longer windows are not
-#: measured.
-STOP_LEASE_S = 20.0
+#: The measured worst of a process's first session start (CUPTI's
+#: start-up, 8.62-13.89 s in four runs), and of one recording's stop,
+#: which may wait for the last recording's gzip first: 16.83 s, the sum
+#: of each part's largest, 3.08 (that gzip) + 0.28 (the gate's wait) +
+#: 8.69 (Kineto's disable) + 1.70 (the export) + 3.08 (the gzip), on a
+#: loaded optimus-125m replica under one to eight loaders: an H100 80GB
+#: HBM3 at 700 W (``chip_smoke.py --profile-sweep`` and ``failover``
+#: (d)).
+FIRST_START_S = 13.89
+RECORDING_STOP_S = 16.83
+#: Seconds a session thread may take to start or to stop: 3.6 times the
+#: longer of the two above. A start or a stop that gives up leaves
+#: :func:`start` refusing until the thread has ended.
+SESSION_TIMEOUT_S = 60.0
+#: Longest stretch (s) that one ``torch.profiler`` session records. A
+#: stop's GIL hold grows with what its session recorded: Kineto's
+#: disable plus the export held a loaded optimus-125m replica 1.26-1.93
+#: s after 0.25 s and up to 10.09 s after 1 s, and one 10 s and one 30 s
+#: recording held it so long that its registration, on a 20 s lease,
+#: went unlisted for 26.3 s and 112.2 s (two loaders; H100 80GB HBM3 at
+#: 700 W, ``chip_smoke.py --profile-sweep``).
+#: So a longer capture records consecutive sessions of at most this
+#: many seconds; the stop of each, between them, goes unrecorded.
+CHUNK_S = 1.0
+#: Seconds of lease the process's registrations hold through each
+#: recording's stop (``registry.leases_held``). Kineto's
+#: ``_disable_profiler()`` holds the GIL, so no keepalive runs, while it
+#: collects the records, and the export holds it again right after:
+#: after a recording of about :data:`CHUNK_S` the longest pair measured
+#: was 10.09 s (8.69 + 1.40), a loaded optimus-125m replica under four
+#: loaders of the one to eight measured (H100 80GB HBM3 at 700 W,
+#: ``chip_smoke.py --profile-sweep``), and 25 s is 2.48 times that. The
+#: hold followed the host more than the load: recordings of 31,000 to
+#: 33,000 kernels took 0.98-8.69 s to disable. A process that dies
+#: during a stop stays listed for up to this long.
+STOP_LEASE_S = 25.0
+
+
+def reply_timeout_s(duration_s: float) -> float:
+    """Seconds a remote capture of ``duration_s`` may take to answer:
+    its window (capped at :data:`MAX_CAPTURE_S`) plus twice the measured
+    worst of a first start and of one recording's stop. A capture
+    longer than :data:`CHUNK_S` stops only its last recording after its
+    window, so no window adds stop cost past one recording's."""
+    return (min(max(float(duration_s), 0.0), MAX_CAPTURE_S)
+            + 2.0 * (FIRST_START_S + RECORDING_STOP_S))
 
 
 class ProfileError(RuntimeError):
@@ -148,6 +192,9 @@ _lock = threading.Lock()
 #: The active session: {"dir", "label", "t0", "thread", ...} — one
 #: profiler per process, so there is at most one.
 _active: dict | None = None
+#: The thread of the last session: a stop that gave up leaves it
+#: running, and no session starts until it ends.
+_thread: threading.Thread | None = None
 
 
 def base_dir() -> str:
@@ -205,52 +252,97 @@ def _marker(torch) -> None:
     torch.empty(1, device="cuda").fill_(0.0)
 
 
-def _gzip_counting(raw: str, dst: str) -> int:
+def count_records(read) -> collections.Counter:
+    """The records (``"ph": "X"``) of a Chrome trace whose bytes
+    ``read(n)`` returns in turn, counted on the bytes as they pass: no
+    parse of the whole trace. Keys: each category, and ``launch``: the
+    CUDA runtime and driver calls that launch a kernel
+    (``cudaLaunchKernel``, ``cuLaunchKernelEx``, ...)."""
+    n, buf = collections.Counter(), b""
+    while True:
+        chunk = read(_CHUNK)
+        buf += chunk
+        # A match that starts in the kept tail is counted next time,
+        # whole; at the end every match is.
+        limit = max(0, len(buf) - _CARRY) if chunk else len(buf)
+        for m in _RECORD.finditer(buf):
+            if m.start() >= limit:
+                break
+            cat, name = m.group(1), m.group(2) or b""
+            n[cat.decode()] += 1
+            if (cat in (b"cuda_runtime", b"cuda_driver") and name.startswith(
+                    (b"cudaLaunchKernel", b"cuLaunchKernel"))):
+                n["launch"] += 1
+        if not chunk:
+            return n
+        buf = buf[limit:]
+
+
+def _gzip_counting(raw: str, dst: str, counts=None) -> int:
     """Gzip the Chrome trace ``raw`` into ``dst`` and return its
-    device-side records, counted on the bytes as they pass: no parse of
-    the whole trace, which would hold the GIL for seconds (zlib lets it
-    go while it compresses)."""
-    n, carry = 0, b""
+    device-side records (:func:`count_records` on the bytes as they
+    pass, into ``counts`` where given): no parse of the whole trace,
+    which would hold the GIL for seconds (zlib lets it go while it
+    compresses)."""
+    counts = collections.Counter() if counts is None else counts
     with open(raw, "rb") as src, gzip.open(
             dst, "wb", compresslevel=TRACE_GZIP_LEVEL) as out:
-        while chunk := src.read(_CHUNK):
+        def read(size):
+            chunk = src.read(size)
             out.write(chunk)
-            buf = carry + chunk
-            n += sum(1 for m in _DEVICE_RECORD.finditer(buf)
-                     if m.end() > len(carry))
-            carry = buf[-_CARRY:]
-    return n
+            return chunk
+
+        counts.update(count_records(read))
+    return sum(counts[c] for c in DEVICE_CATEGORIES)
 
 
-def _session(sess: dict) -> None:
-    """The body of a session's own thread: start, wait, stop, export.
-    ``sess["held_s"]`` gets the seconds of each part: the wait for the
-    device gate and the switch inside it (``start_*``, ``stop_*``; in
-    the stop, the marker and the card's drain, ``stop_sync``, and
-    Kineto's ``_disable_profiler()``, ``stop_disable``), the export, and
-    the gzip and count."""
-    import torch
+def _switch_on(torch, sess: dict):
+    """A new ``torch.profiler`` session, started through the device
+    gate. Returns it and its recording's record: ``on_at``, when it
+    began to record, and ``held_s``, the seconds of its start's parts:
+    the wait for the gate (``start_wait``) and the switch inside it
+    (``start_switch``)."""
+    prof = torch.profiler.profile(**sess["kwargs"])
+    t0 = time.perf_counter()
+    with DEVICE_GATE.switch():
+        t1 = time.perf_counter()
+        if sess["cuda"]:
+            torch.cuda.synchronize()
+        prof.start()
+        on_at = time.perf_counter()
+        if sess["cuda"]:
+            _marker(torch)
+    return prof, {"on_at": on_at, "held_s": {
+        "start_wait": t1 - t0, "start_switch": time.perf_counter() - t1}}
 
-    held = sess["held_s"]
-    try:
-        prof = torch.profiler.profile(**sess["kwargs"])
-        t0 = time.perf_counter()
-        with DEVICE_GATE.switch():
-            t1 = time.perf_counter()
-            if sess["cuda"]:
-                torch.cuda.synchronize()
-            prof.start()
-            if sess["cuda"]:
-                _marker(torch)
-        held["start_wait"] = t1 - t0
-        held["start_switch"] = time.perf_counter() - t1
-    except Exception as e:  # noqa: BLE001 — handed to start()
-        sess["error"] = e
-        sess["ready"].set()
-        return
-    sess["ready"].set()
-    sess["stop"].wait()
-    try:
+
+def _record(torch, sess: dict, rec: dict, end: float) -> None:
+    """Record until the stop or until ``end``; on a card, launch one
+    more marker half-way. In a process that ran loaded sessions, a
+    session can lose the kernel records of its first milliseconds, and
+    at times of its last, though their launches are traced: the edge
+    markers' records among them (the manifest's ``kernels_lost``)."""
+    if sess["cuda"]:
+        half = (rec["on_at"] + end) / 2 - time.perf_counter()
+        if sess["stop"].wait(max(0.0, half)):
+            return
+        with DEVICE_GATE.work():
+            _marker(torch)
+    sess["stop"].wait(max(0.0, end - time.perf_counter()))
+
+
+def _switch_off(torch, sess: dict, prof, rec: dict, raw: str) -> None:
+    """Stop ``prof`` through the device gate and export its Chrome trace
+    to ``raw``. ``rec`` gets ``recorded_s``, the seconds it recorded,
+    and in ``held_s`` the seconds of each part: the wait for the gate
+    (``stop_wait``), the marker and the card's drain (``stop_sync``),
+    the switch (``stop_switch``) and, inside it, Kineto's
+    ``_disable_profiler()`` (``stop_disable``), and the export. The
+    disable and the export hold the GIL, so the process's registrations
+    are held on leases of :data:`STOP_LEASE_S` through them."""
+    from ptype_tpu_torch import registry
+
+    with registry.leases_held(STOP_LEASE_S):
         t0 = time.perf_counter()
         with DEVICE_GATE.switch():
             t1 = time.perf_counter()
@@ -260,33 +352,116 @@ def _session(sess: dict) -> None:
             t2 = time.perf_counter()
             prof.stop()
         t3 = time.perf_counter()
-        stats = getattr(prof.profiler, "_stats", None)
-        disable_us = getattr(stats, "profiler_disable_call_duration_us",
-                             None)
-        held.update(stop_wait=t1 - t0, stop_sync=t2 - t1,
-                    stop_switch=t3 - t1,
-                    stop_disable=(None if disable_us is None
-                                  else disable_us / 1e6))
-        name = f"{socket.gethostname()}_{os.getpid()}.pt.trace.json"
-        raw = os.path.join(sess["dir"], name)
         prof.export_chrome_trace(raw)
         t4 = time.perf_counter()
-        sess["device_events"] = _gzip_counting(raw, raw + ".gz")
-        os.remove(raw)
-        held.update(export=t4 - t3, gzip=time.perf_counter() - t4)
-        sess["trace"] = raw + ".gz"
+    stats = getattr(prof.profiler, "_stats", None)
+    disable_us = getattr(stats, "profiler_disable_call_duration_us", None)
+    rec["recorded_s"] = t2 - rec["on_at"]
+    rec["held_s"].update(
+        stop_wait=t1 - t0, stop_sync=t2 - t1, stop_switch=t3 - t1,
+        stop_disable=None if disable_us is None else disable_us / 1e6,
+        export=t4 - t3)
+
+
+def _gzip(raw: str, rec: dict) -> None:
+    """Gzip the trace ``raw`` beside it and delete it. ``rec`` gets the
+    trace's device records (``device_events``), its kernel launches that
+    left no kernel record (``kernels_lost``) and the seconds
+    (``held_s["gzip"]``)."""
+    t0 = time.perf_counter()
+    counts = collections.Counter()
+    rec["device_events"] = _gzip_counting(raw, raw + ".gz", counts)
+    rec["kernels_lost"] = max(0, counts["launch"] - counts["kernel"])
+    os.remove(raw)
+    rec["held_s"]["gzip"] = time.perf_counter() - t0
+
+
+def _session(sess: dict) -> None:
+    """The body of a session's own thread. It records in consecutive
+    ``torch.profiler`` sessions of at most :data:`CHUNK_S` seconds
+    each, every one started and stopped through the device gate and
+    written to a trace file of its own, so that no stop's GIL hold grows
+    with the window. The next recording starts before the last one's
+    trace is gzipped (zlib lets the GIL go), so the gzip leaves no gap.
+    A capture of a known length (``sess["window_s"]``) starts no
+    recording past its end. Each recording appends its record
+    (:func:`_switch_on`, :func:`_switch_off`, :func:`_gzip`) to
+    ``sess["chunks"]``."""
+    import torch
+
+    host = f"{socket.gethostname()}_{os.getpid()}"
+    try:
+        prof, rec = _switch_on(torch, sess)
+    except Exception as e:  # noqa: BLE001 — handed to start()
+        sess["error"] = e
+        sess["ready"].set()
+        return
+    sess["first_on"] = rec["on_at"]
+    until = (None if sess["window_s"] is None
+             else rec["on_at"] + sess["window_s"])
+    sess["ready"].set()
+
+    def over() -> bool:
+        return sess["stop"].is_set() or (
+            until is not None and time.perf_counter() >= until)
+
+    try:
+        while True:
+            end = rec["on_at"] + CHUNK_S
+            _record(torch, sess, rec, end if until is None
+                    else min(end, until))
+            i = len(sess["chunks"])
+            # One recording keeps the file name of an unchunked capture.
+            name = (f"{host}.pt.trace.json" if i == 0 and over()
+                    else f"{host}.{i:03d}.pt.trace.json")
+            raw = os.path.join(sess["dir"], name)
+            _switch_off(torch, sess, prof, rec, raw)
+            sess["chunks"].append(rec)
+            done = over()
+            if not done:
+                prof, nxt = _switch_on(torch, sess)
+            try:
+                _gzip(raw, rec)
+            except Exception:
+                if not done:  # no recording left running
+                    with DEVICE_GATE.switch():
+                        prof.stop()
+                raise
+            if done:
+                break
+            rec = nxt
     except Exception as e:  # noqa: BLE001 — handed to stop()
         sess["error"] = e
 
 
-def start(label: str = "", base: str | None = None) -> dict:
-    """Begin a capture into a fresh artifact directory.
+def _held(chunks: list[dict]) -> dict:
+    """A session's ``held_s``: its one recording's parts, or, over
+    several, each part's largest value and ``chunks``, the parts of
+    every recording in turn."""
+    parts = [c["held_s"] for c in chunks]
+    if len(parts) == 1:
+        return dict(parts[0])
+    out = {k: max((p[k] for p in parts if p.get(k) is not None),
+                  default=None) for k in parts[0]}
+    out["chunks"] = [dict(p) for p in parts]
+    return out
+
+
+def start(label: str = "", base: str | None = None, *,
+          window_s: float | None = None) -> dict:
+    """Begin a capture into a fresh artifact directory. ``window_s``,
+    where the capture's length is known (:func:`capture`), ends its
+    last recording at that many seconds after it started recording.
 
     Returns ``{"dir", "label", "ts"}``. Raises :class:`ProfileError`
-    if a capture is already running (one profiler per process), or if
-    this process runs on CUDA and the profiler cannot trace it.
+    if a capture is already running (one profiler per process), while
+    the last capture's session thread still runs (its :func:`stop` is
+    under way, or a start or a stop gave up), or if this process runs
+    on CUDA and the profiler cannot trace it. A start that gives up
+    after :data:`SESSION_TIMEOUT_S` tells the thread to stop as soon as
+    it records.
     """
-    global _active
+    global _active, _thread
     import torch
 
     if DEVICE_GATE.held():
@@ -298,18 +473,26 @@ def start(label: str = "", base: str | None = None) -> dict:
         if _active is not None:
             raise ProfileError(
                 f"profile capture already active in {_active['dir']!r}")
+        if _thread is not None and _thread.is_alive():
+            raise ProfileError(
+                "the last capture's session thread still runs (a stop "
+                "under way, or a start or a stop that gave up): no second "
+                "profiler session until it ends")
         kwargs, cuda, threads = _profiler_kwargs(torch)
         os.makedirs(d, exist_ok=True)
         sess = {"dir": d, "label": label, "t0": time.perf_counter(),
                 "kwargs": kwargs, "cuda": cuda, "cpu_threads": threads,
+                "window_s": window_s,
                 "ready": threading.Event(), "stop": threading.Event(),
-                "error": None, "trace": None, "device_events": 0,
-                "held_s": {}}
-        sess["thread"] = threading.Thread(
+                "error": None, "chunks": []}
+        _thread = sess["thread"] = threading.Thread(
             target=_session, args=(sess,), name="profile-session",
             daemon=True)
         sess["thread"].start()
         if not sess["ready"].wait(SESSION_TIMEOUT_S):
+            # The thread stops once its start ends: no recording runs
+            # on that nothing could stop, and start() refuses till then.
+            sess["stop"].set()
             raise ProfileError("profiler did not start within "
                                f"{SESSION_TIMEOUT_S:.0f} s")
         if sess["error"] is not None:
@@ -326,20 +509,33 @@ def stop(include_data: bool = False,
     """End the active capture. Returns the artifact manifest::
 
         {"dir", "label", "duration_s", "files": [{"path", "size"}],
-         "activities", "cpu_threads", "device_events", "held_s",
+         "activities", "cpu_threads", "device_events", "chunks",
+         "recorded_s", "unrecorded_s", "kernels_lost", "held_s",
          "memory": <memory_snapshot()>, "data": {relpath: bytes}?}
 
-    ``held_s`` is the seconds of each part of the session's start and
-    stop (``_session``): what a profile cost the process it profiled.
+    A capture longer than :data:`CHUNK_S` is recorded in ``chunks``
+    consecutive sessions, each its own trace file; ``recorded_s`` sums
+    the seconds they recorded, ``unrecorded_s`` is the rest of the
+    window (between them, and after the last), and ``device_events``
+    sums their device records. ``kernels_lost`` is, for each trace, its
+    kernel launches less its kernel records: the card is drained before
+    a recording starts and before it stops, so each launch it records
+    ran inside it. ``held_s`` is the seconds of each part of the
+    session's start and stop (``_switch_on``, ``_switch_off``,
+    ``_gzip``), over several sessions each part's largest and every
+    session's under ``chunks``: what a profile cost the process it
+    profiled.
 
     ``data`` (with ``include_data``) carries artifact bytes up to
     ``max_bytes`` total — the wire-shipping path; oversize files are
     listed in the manifest but skipped from ``data`` (``truncated``
     names them). Raises :class:`ProfileError` without an active
-    capture, and when a CUDA session's trace holds no device record.
+    capture, and when a trace of a CUDA session holds no device record.
+    If the session's thread has not ended after
+    :data:`SESSION_TIMEOUT_S`, raises, and :func:`start` refuses until
+    it ends.
     """
     global _active
-    from ptype_tpu_torch import registry
 
     if DEVICE_GATE.held():
         raise ProfileError("profile stop inside device_work(): the "
@@ -348,28 +544,36 @@ def stop(include_data: bool = False,
         if _active is None:
             raise ProfileError("no profile capture active")
         sess, _active = _active, None
-        with registry.leases_held(STOP_LEASE_S):
-            sess["stop"].set()
-            sess["thread"].join(SESSION_TIMEOUT_S)
-            dur = time.perf_counter() - sess["t0"]
-            if sess["thread"].is_alive():
-                raise ProfileError("profiler did not stop within "
-                                   f"{SESSION_TIMEOUT_S:.0f} s")
-            if sess["error"] is not None:
-                raise ProfileError(
-                    f"profiler failed to stop: {sess['error']!r}")
-    n_device = sess["device_events"]
-    if sess["cuda"] and n_device == 0:
+    t_stop = time.perf_counter()
+    sess["stop"].set()
+    sess["thread"].join(SESSION_TIMEOUT_S)
+    dur = time.perf_counter() - sess["t0"]
+    if sess["thread"].is_alive():
+        raise ProfileError("profiler did not stop within "
+                           f"{SESSION_TIMEOUT_S:.0f} s")
+    if sess["error"] is not None:
+        raise ProfileError(f"profiler failed to stop: {sess['error']!r}")
+    chunks = sess["chunks"]
+    recorded = sum(c["recorded_s"] for c in chunks)
+    end = (t_stop if sess["window_s"] is None
+           else min(t_stop, sess["first_on"] + sess["window_s"]))
+    if sess["cuda"] and not all(c["device_events"] for c in chunks):
         raise ProfileError(
-            "the capture holds no CUDA kernel (not even its own markers): "
-            "device activity was not traced")
+            "a trace of the capture holds no CUDA kernel (not even its "
+            "own markers): device activity was not traced "
+            f"({[c['device_events'] for c in chunks]} device records)")
     out = {"dir": sess["dir"], "label": sess["label"],
            "duration_s": round(dur, 4),
            "files": artifact_files(sess["dir"]),
            "activities": ["cpu", "cuda"] if sess["cuda"] else ["cpu"],
            "cpu_threads": sess["cpu_threads"],
-           "device_events": n_device,
-           "held_s": dict(sess["held_s"]),
+           "device_events": sum(c["device_events"] for c in chunks),
+           "chunks": len(chunks),
+           "recorded_s": round(recorded, 4),
+           "unrecorded_s": round(max(0.0, end - sess["first_on"]
+                                     - recorded), 4),
+           "kernels_lost": [c["kernels_lost"] for c in chunks],
+           "held_s": _held(chunks),
            "memory": memory_snapshot()}
     if include_data:
         data: dict[str, bytes] = {}
@@ -392,7 +596,7 @@ def stop(include_data: bool = False,
             out["truncated"] = truncated
     log.info("profile capture stopped",
              kv={"dir": sess["dir"], "files": len(out["files"]),
-                 "duration_s": out["duration_s"]})
+                 "chunks": out["chunks"], "duration_s": out["duration_s"]})
     return out
 
 
@@ -404,7 +608,7 @@ def capture(duration_s: float = DEFAULT_CAPTURE_S, label: str = "",
     :data:`MAX_CAPTURE_S`), stop. The remote-capture verb behind the
     ``ptype.Profile`` endpoint and every alert-triggered capture."""
     duration_s = min(max(float(duration_s), 0.0), MAX_CAPTURE_S)
-    start(label=label, base=base)
+    start(label=label, base=base, window_s=duration_s)
     try:
         threading.Event().wait(duration_s)
     finally:
@@ -514,7 +718,7 @@ def endpoint(cmd: str, options: dict | None = None):
     every :class:`~ptype_tpu_torch.actor.ActorServer`, sibling of
     ``ptype.Telemetry``). Verbs::
 
-        ("status",)                       -> platform + active session
+        ("status",)                       -> platform + session state
         ("start",   {"label"})            -> begin a capture
         ("stop",    {"include_data", "max_bytes"})
         ("capture", {"duration_s", "label", "include_data", ...})
@@ -530,12 +734,18 @@ def endpoint(cmd: str, options: dict | None = None):
 
         with _lock:
             sess = dict(_active) if _active is not None else None
+            stopping = (sess is None and _thread is not None
+                        and _thread.is_alive())
         cuda = _on_cuda(torch)
         return {"pid": os.getpid(), "platform": "cuda" if cuda else "cpu",
                 "device_kind": (torch.cuda.get_device_name(0) if cuda
                                 else "cpu"),
                 "devices": torch.cuda.device_count() if cuda else 1,
                 "active": sess is not None,
+                # A session's thread still running with no capture
+                # active (a stop in progress, or a start or a stop that
+                # gave up): no start until it ends.
+                "stopping": stopping,
                 "dir": sess["dir"] if sess else None}
     if cmd == "start":
         return start(label=opts.get("label", ""))
@@ -607,7 +817,7 @@ class AlertCapture:
                  duration_s: float = 0.25,
                  rules: tuple = PROFILE_ALERT_RULES,
                  min_interval_s: float = CAPTURE_MIN_INTERVAL_S,
-                 timeout_s: float = 20.0,
+                 timeout_s: float | None = None,
                  background: bool = True):
         from ptype_tpu_torch import trace as trace_mod
 
@@ -616,7 +826,9 @@ class AlertCapture:
         self.duration_s = float(duration_s)
         self.rules = tuple(rules)
         self.min_interval_s = float(min_interval_s)
-        self.timeout_s = float(timeout_s)
+        #: The reply timeout of a remote capture; None: the window's
+        #: :func:`reply_timeout_s`.
+        self.timeout_s = None if timeout_s is None else float(timeout_s)
         self.background = background
         #: Completed captures: {"rule", "node", "dir", "files"} — the
         #: post-mortem inventory (and the test surface).
@@ -1040,6 +1252,8 @@ def measure_profile_overhead(steps: int = 12, preset: str = "tiny",
         "ledger_close_us": round(close_s * 1e6, 2),
         "profile_overhead_pct": round(100.0 * close_s / step_s, 4),
         "capture_artifact_files": len(captured["files"]),
+        # One trace a recording: a capture longer than CHUNK_S has more.
+        "capture_recordings": captured["chunks"],
         "compiled_flops_per_token": round(
             cost["flops"] / cost["tokens_per_step"], 1),
         "mfu_gap_pct": mfu_gap,

@@ -313,8 +313,9 @@ def leases_held(ttl: float):
     its node drop out of the registry until it re-registered. (A
     ``torch.profiler`` session's stop processes and exports its events
     in C++ without releasing the GIL, seconds under load:
-    ``health/profiling.py``.) A process that dies inside the block
-    stays listed for up to ``ttl``."""
+    ``health/profiling.py``, which holds ``STOP_LEASE_S``, 25 s, through
+    each recording's stop.) A process that dies inside the block stays
+    listed for up to ``ttl``."""
     regs = [r for r in list(_live_registrations) if not r._stop.is_set()
             and not getattr(r._registry._coord, "closed", False)]
     held = []

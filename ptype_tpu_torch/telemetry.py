@@ -158,10 +158,14 @@ def node_profile(node: Node, duration_s: float = 0.5,
     start a ``torch.profiler`` capture, run ``duration_s``, stop, and
     ship the artifact bytes + device-memory snapshot back in the reply. Shared by
     :func:`cluster_profile` and the health plane's alert-triggered
-    capture (``label="alert"``) — one dial/capture/ship sequence."""
+    capture (``label="alert"``) — one dial/capture/ship sequence. The
+    reply timeout defaults to the window plus the port's measured worst
+    start and stop (``profiling.reply_timeout_s``)."""
     from ptype_tpu_torch import rpc as rpc_mod
+    from ptype_tpu_torch.health import profiling
 
-    timeout = (duration_s + 15.0) if timeout is None else timeout
+    if timeout is None:
+        timeout = profiling.reply_timeout_s(duration_s)
     conn = rpc_mod._dial(node, dial_timeout=dial_timeout)
     try:
         fut = conn.call_async(
@@ -241,6 +245,11 @@ def cluster_profile(registry: Registry, duration_s: float = 0.5,
             "capture_s": result.get("duration_s"),
             "device_events": result.get("device_events"),
             "held_s": result.get("held_s"),
+            # How much of the window the node's recordings hold, and
+            # the kernel records each one's trace lost.
+            **{k: result.get(k)
+               for k in ("chunks", "recorded_s", "unrecorded_s",
+                          "kernels_lost")},
             "memory": result.get("memory"),
             # Files the node listed but did not ship (past its byte
             # budget): fetch them with the ``fetch`` verb.

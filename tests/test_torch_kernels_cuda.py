@@ -773,6 +773,68 @@ def test_sessions_under_load_keep_their_kernel_records(cuda, tmp_path):
     assert min(counts) >= 100, counts
 
 
+def test_a_chunked_capture_holds_kernels_in_every_trace(cuda, tmp_path,
+                                                        monkeypatch):
+    """A session longer than ``CHUNK_S`` (0.3 s here) while another
+    thread launches kernels inside ``device_work`` (then pauses 10 ms)
+    is recorded in several sessions (stopped once three have ended, or
+    after 120 s): every trace file holds device records, each full one
+    at least 100 (the loader's kernels), the manifest's device records
+    are their sum, and its ``kernels_lost`` each file's kernel launches
+    less its kernel records, by a parse."""
+    import gzip
+    import json
+    import os
+    import threading
+    import time
+
+    from ptype_tpu_torch.device import device_work
+    from ptype_tpu_torch.health import profiling
+
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.3)
+    halt = threading.Event()
+
+    def load():
+        a = torch.randn(256, 256, device="cuda")
+        while not halt.is_set():
+            with device_work():
+                for _ in range(8):
+                    a = torch.tanh(a @ a) * 0.5
+            torch.cuda.synchronize()
+            halt.wait(0.01)
+
+    t = threading.Thread(target=load, daemon=True)
+    t.start()
+    try:
+        profiling.start(label="chunks", base=str(tmp_path))
+        deadline = time.monotonic() + 120
+        while (len(profiling._active["chunks"]) < 3
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        out = profiling.stop()
+    finally:
+        halt.set()
+        t.join(timeout=30)
+    assert out["chunks"] >= 3 and len(out["files"]) == out["chunks"]
+    per_file, lost = [], []
+    for f in out["files"]:
+        with gzip.open(os.path.join(out["dir"], f["path"]), "rt") as fp:
+            evs = [e for e in json.load(fp)["traceEvents"]
+                   if e.get("ph") == "X"]
+        per_file.append(sum(e.get("cat") in profiling.DEVICE_CATEGORIES
+                            for e in evs))
+        launches = sum(e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and e["name"].startswith(("cudaLaunchKernel",
+                                                 "cuLaunchKernel"))
+                       for e in evs)
+        lost.append(max(0, launches - sum(e.get("cat") == "kernel"
+                                          for e in evs)))
+    # The last recording is cut short by the stop; the others ran 0.3 s.
+    assert min(per_file[:-1]) >= 100 and per_file[-1] > 0, per_file
+    assert out["device_events"] == sum(per_file)
+    assert out["kernels_lost"] == lost
+
+
 def test_store_dp_compiled_cost_on_the_card(meshes):
     """``StoreDPTrainer.compiled_cost`` of a card trainer counts on
     ``meta`` skeletons: the same FLOPs as the CPU count, and the card

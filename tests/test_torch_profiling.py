@@ -15,6 +15,7 @@ end-to-end drill: the straggler alert on port ``ActorServer``s
 auto-captures a profile of the named node over its own endpoint."""
 
 import os
+import time
 
 import pytest
 import torch
@@ -601,7 +602,9 @@ def test_overhead_probes_run_on_the_cpu():
     from ptype_tpu_torch.health import bench
 
     prof = profiling.measure_profile_overhead(steps=2, device="cpu")
-    assert prof["capture_artifact_files"] == 1
+    # One trace a recording: two steps on a loaded host can outlast
+    # CHUNK_S, and are then recorded in two sessions.
+    assert prof["capture_artifact_files"] == prof["capture_recordings"] >= 1
     assert prof["mfu_gap_pct"] is not None
     assert prof["profile_overhead_pct"] >= 0.0
     health = bench.measure_health_overhead(steps=2, device="cpu")
@@ -679,3 +682,306 @@ def test_straggler_alert_auto_captures_profile_on_named_node(tmp_path):
         state.close()
         if own:
             dist.destroy_process_group()
+
+
+# ------------------- long windows: recordings, leases, a stop that gives up
+
+
+def test_a_capture_longer_than_a_chunk_writes_a_trace_a_chunk(tmp_path,
+                                                              monkeypatch):
+    """A capture of about 1.2 s with ``CHUNK_S`` at 0.25 s is recorded in
+    consecutive sessions (at least 3; the count depends on the host's
+    speed), each its own ``*.pt.trace.json.gz``: the manifest's count,
+    its records (CPU ops stand in for device records here: the CPU
+    traces none) and ``held_s`` sum and take the maximum over the
+    files, exactly; ``summarize`` reads every file."""
+    import gzip
+    import json
+    import re
+
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.25)
+    monkeypatch.setattr(profiling, "DEVICE_CATEGORIES", ("cpu_op",))
+    profiling.start(label="chunks", base=str(tmp_path))
+    t_end = time.monotonic() + 1.2
+    while time.monotonic() < t_end:
+        _work()
+        time.sleep(0.02)
+    out = profiling.stop()
+    names = [f["path"] for f in out["files"]]
+    assert out["chunks"] >= 3 and len(names) == out["chunks"]
+    assert all(re.fullmatch(r".+\.\d{3}\.pt\.trace\.json\.gz", n)
+               for n in names), names
+    per_file, x_events = [], 0
+    for n in names:
+        with gzip.open(os.path.join(out["dir"], n), "rt") as fp:
+            evs = [e for e in json.load(fp)["traceEvents"]
+                   if e.get("ph") == "X"]
+        per_file.append(sum(e.get("cat") == "cpu_op" for e in evs))
+        x_events += len(evs)
+    assert all(per_file) and out["device_events"] == sum(per_file)
+    assert out["kernels_lost"] == [0] * out["chunks"]  # no launch here
+    held = out["held_s"]
+    assert len(held["chunks"]) == out["chunks"]
+    for key in ("start_wait", "stop_switch", "export", "gzip"):
+        assert held[key] == max(c[key] for c in held["chunks"])
+    assert 0 < out["recorded_s"] < out["duration_s"]
+    assert 0 < out["unrecorded_s"] < out["duration_s"] - out["recorded_s"]
+    s = profiling.summarize(out["dir"])
+    assert s["files"] == out["files"] and s["events"] == x_events
+    if out["cpu_threads"] == "all":
+        assert any(op["name"] == "train.step" for op in s["top_ops"])
+
+
+def test_a_one_chunk_capture_keeps_its_name_and_keys(tmp_path):
+    """A capture shorter than ``CHUNK_S`` is one recording, as before
+    chunks: one trace named ``<host>_<pid>.pt.trace.json.gz``, nothing
+    unrecorded, and ``held_s`` with no ``chunks`` key."""
+    import socket
+
+    out = profiling.capture(duration_s=0.05, base=str(tmp_path))
+    assert out["chunks"] == 1 and out["unrecorded_s"] == 0
+    assert out["recorded_s"] >= 0.05
+    assert [f["path"] for f in out["files"]] == [
+        f"{socket.gethostname()}_{os.getpid()}.pt.trace.json.gz"]
+    assert "chunks" not in out["held_s"]
+
+
+def test_a_stop_that_gives_up_refuses_start_until_its_thread_ends(
+        tmp_path, monkeypatch):
+    """With the session thread's switch-off held back, a stop gives up
+    after ``SESSION_TIMEOUT_S`` (0.2 s here) with a typed error, and
+    every start raises ``ProfileError`` (the status verb reads
+    ``stopping``) until the thread has ended; then a capture runs. The
+    thread ends within 10 s of its release."""
+    import threading
+
+    release = threading.Event()
+    real = profiling._switch_off
+
+    def slow(*args, **kwargs):
+        release.wait(30)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(profiling, "_switch_off", slow)
+    monkeypatch.setattr(profiling, "SESSION_TIMEOUT_S", 0.2)
+    profiling.start(label="slow", base=str(tmp_path))
+    with pytest.raises(profiling.ProfileError, match="did not stop"):
+        profiling.stop()
+    assert not profiling.active()
+    for _ in range(3):
+        with pytest.raises(profiling.ProfileError,
+                           match="session thread still runs"):
+            profiling.start(base=str(tmp_path))
+        st = profiling.endpoint("status")
+        assert st["stopping"] is True and st["active"] is False
+        time.sleep(0.05)
+    release.set()
+    profiling._thread.join(timeout=10)
+    assert not profiling._thread.is_alive()
+    assert profiling.endpoint("status")["stopping"] is False
+    assert profiling.capture(duration_s=0.01, base=str(tmp_path))["files"]
+
+
+def test_a_start_that_gives_up_stops_its_session_once_it_records(
+        tmp_path, monkeypatch):
+    """With the session thread's first switch-on held back, a start
+    gives up after ``SESSION_TIMEOUT_S`` (0.2 s here) with a typed
+    error and no capture active, and every start raises
+    ``ProfileError`` while the thread lives. Released, the thread
+    records once and ends (within 10 s) with no one to stop it, though
+    its recordings last 0.05 s: one trace in the directory, not one a
+    chunk without end. Then a capture runs."""
+    import threading
+
+    release = threading.Event()
+    real = profiling._switch_on
+
+    def slow(*args, **kwargs):
+        release.wait(30)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(profiling, "_switch_on", slow)
+    monkeypatch.setattr(profiling, "SESSION_TIMEOUT_S", 0.2)
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.05)
+    with pytest.raises(profiling.ProfileError, match="did not start"):
+        profiling.start(label="slow", base=str(tmp_path / "slow"))
+    assert not profiling.active()
+    with pytest.raises(profiling.ProfileError,
+                       match="session thread still runs"):
+        profiling.start(base=str(tmp_path))
+    assert profiling.endpoint("status")["stopping"] is True
+    release.set()
+    profiling._thread.join(timeout=10)
+    assert not profiling._thread.is_alive()
+    (d,) = os.listdir(tmp_path / "slow")
+    assert len(profiling.artifact_files(str(tmp_path / "slow" / d))) == 1
+    assert profiling.endpoint("status")["stopping"] is False
+    assert profiling.capture(duration_s=0.01, base=str(tmp_path))["files"]
+
+
+def test_the_record_count_equals_a_parse_by_category_and_launch(
+        tmp_path, monkeypatch):
+    """``count_records`` on a trace's bytes, read in chunks of 97, 256
+    and 4,096 bytes so that records straddle the boundaries at many
+    offsets, equals a JSON parse of both Kineto layouts: records by
+    category, and ``launch``, the runtime and driver calls that launch a
+    kernel (not a copy, nor a host function, nor a kernel's record of
+    such a name)."""
+    import io
+    import json
+
+    names = {"kernel": ("void at::native::vectorized_elementwise_kernel<4, "
+                        "at::native::FillFunctor<float>, std::array<char*, "
+                        "1ul> >(int, at::native::FillFunctor<float>)",
+                        "flash_fwd_kernel_bf16", "cudaLaunchKernel"),
+             "cuda_runtime": ("cudaLaunchKernel", "cudaMemcpyAsync",
+                              "cudaLaunchKernelExC_v11060",
+                              "cudaLaunchHostFunc"),
+             "cuda_driver": ("cuLaunchKernelEx", "cuMemAlloc_v2"),
+             "cpu_op": ("aten::fill_",), "gpu_memcpy": ("Memcpy HtoD",)}
+    rows = [(c, n) for c, ns in names.items() for n in ns]
+    events = [_KINETO_EVENTS[i % 2].replace('"k{i}"', '"{n}"').format(
+        cat=rows[i % len(rows)][0], n=rows[i % len(rows)][1], i=i)
+        for i in range(500)]
+    events.append('  {"ph": "f", "cat": "kernel", "name": "flow"}')
+    raw = ('{\n  "traceEvents": [\n' + ",\n".join(events)
+           + '\n  ]\n}\n').encode()
+    want = {}
+    for ev in json.loads(raw)["traceEvents"]:
+        if ev["ph"] != "X":
+            continue
+        want[ev["cat"]] = want.get(ev["cat"], 0) + 1
+        if ev["cat"] in ("cuda_runtime", "cuda_driver") and ev[
+                "name"].startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            want["launch"] = want.get("launch", 0) + 1
+    assert 0 < want["launch"] < want["cuda_runtime"] + want["cuda_driver"]
+    for chunk in (97, 256, 4096):
+        monkeypatch.setattr(profiling, "_CHUNK", chunk)
+        assert dict(profiling.count_records(io.BytesIO(raw).read)) == want
+
+
+def test_each_recording_holds_the_leases_through_its_stop(tmp_path,
+                                                          monkeypatch):
+    """On the in-process coordinator, a registration on a 0.5 s lease
+    is on a lease of ``STOP_LEASE_S`` while each recording's trace is
+    exported (the GIL-holding part of a stop), its 0.5 s lease revoked,
+    and back on a 0.5 s lease after the capture."""
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.2)
+    state = CoordState(sweep_interval=0.05)
+    r = CoordRegistry(LocalCoord(state), lease_ttl=0.5).register(
+        "svc", "n1", "10.0.0.1", 9000)
+    seen = []
+    real = torch.profiler.profile.export_chrome_trace
+
+    def export(prof, path):
+        seen.append((r.lease_id, state._leases[r.lease_id].ttl))
+        return real(prof, path)
+
+    monkeypatch.setattr(torch.profiler.profile, "export_chrome_trace",
+                        export)
+    try:
+        first = r.lease_id
+        out = profiling.capture(duration_s=0.5, base=str(tmp_path))
+        assert len(seen) == out["chunks"] >= 2
+        assert all(ttl == profiling.STOP_LEASE_S for _, ttl in seen)
+        assert first not in state._leases
+        assert r.lease_id not in {lease for lease, _ in seen}
+        assert state._leases[r.lease_id].ttl == 0.5
+    finally:
+        r.close()
+        state.close()
+
+
+def test_obs_profile_names_the_files_that_stayed_on_the_node(
+        tmp_path, monkeypatch, capsys):
+    """``obs profile`` of a node whose capture passes the reply's byte
+    budget (10 bytes here) prints which files stayed on the node, and
+    in what directory."""
+    from unittest import mock
+
+    from ptype_tpu_torch import __main__ as cli
+    from ptype_tpu_torch import actor as actor_mod
+    from ptype_tpu_torch.actor import ActorServer
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    monkeypatch.setenv(profiling.PROFILE_DIR_ENV, str(tmp_path / "node"))
+    monkeypatch.setenv("OBS_DIR", str(tmp_path / "obs"))
+    monkeypatch.setenv("PROFILE_DURATION", "0.05")
+    monkeypatch.setattr(profiling, "MAX_SHIP_BYTES", 10)
+    state = CoordState(sweep_interval=0.05)
+    registry = CoordRegistry(LocalCoord(state), lease_ttl=5.0)
+    with mock.patch.object(actor_mod, "lookup_local", lambda a, p: None):
+        server = ActorServer("127.0.0.1", 0, device="cpu").serve()
+        reg = registry.register("work", "w0", "127.0.0.1", server.port)
+        try:
+            cli._obs_profile(registry)
+        finally:
+            reg.close()
+            server.close()
+            state.close()
+    out = capsys.readouterr().out
+    (line,) = [ln for ln in out.splitlines() if "stayed on the node" in ln]
+    remote = line.split(" in ", 1)[1].split(": ", 1)[0]
+    assert remote.startswith(str(tmp_path / "node"))
+    files = line.rsplit(": ", 1)[1].split(", ")
+    assert line.startswith(f"  {len(files)} files stayed")
+    assert sorted(files) == sorted(os.listdir(remote))
+
+
+@pytest.mark.parametrize("window", [0.25, 1.0, 3.0, 10.0, 30.0, 600.0])
+def test_node_profile_waits_the_window_and_the_measured_start_and_stop(
+        window, monkeypatch):
+    """``node_profile``'s default reply timeout is the window (capped at
+    ``MAX_CAPTURE_S``) plus twice the measured worst first start and
+    one recording's stop: at least their sum, whatever the window (a
+    longer capture stops only its last recording after its window)."""
+    from ptype_tpu_torch import rpc as rpc_mod
+    from ptype_tpu_torch import telemetry
+    from ptype_tpu_torch.registry import Node
+
+    seen = {}
+
+    class Reply:
+        def result(self, timeout):
+            seen["timeout"] = timeout
+            return {}
+
+    class Conn:
+        def call_async(self, method, args):
+            seen["call"] = (method, args)
+            return Reply()
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(rpc_mod, "_dial", lambda node, dial_timeout: Conn())
+    telemetry.node_profile(Node("127.0.0.1", 1), duration_s=window)
+    assert seen["call"][1][1]["duration_s"] == window
+    capped = min(window, profiling.MAX_CAPTURE_S)
+    assert seen["timeout"] == profiling.reply_timeout_s(window)
+    assert seen["timeout"] >= capped + 2 * (profiling.FIRST_START_S
+                                            + profiling.RECORDING_STOP_S)
+    assert seen["timeout"] < capped + 90.0
+
+
+def test_alert_capture_takes_the_reply_timeout_of_its_window(tmp_path,
+                                                             monkeypatch):
+    """``AlertCapture``'s 0.25 s capture of a remote node waits
+    ``node_profile``'s default reply timeout unless it is given one."""
+    from ptype_tpu_torch import telemetry
+
+    calls = []
+    monkeypatch.setattr(telemetry, "node_profile",
+                        lambda node, **kw: calls.append(kw) or {})
+    AlertCapture(out_dir=str(tmp_path), background=False)(
+        _alert(node="work/127.0.0.1:1"))
+    AlertCapture(out_dir=str(tmp_path), background=False, timeout_s=5.0)(
+        _alert(node="work/127.0.0.1:2"))
+    assert [(c["duration_s"], c["timeout"]) for c in calls] == [
+        (0.25, None), (0.25, 5.0)]
