@@ -4762,6 +4762,8 @@ FO_EVAL_STEPS = 3
 FO_FLASH_RECORDS = 12
 #: The longer window ``failover`` (d) captures after its 1 s one.
 FO_LONG_WINDOW_S = 5.0
+#: The idle window ``failover`` (d) captures after its loaded ones.
+FO_IDLE_WINDOW_S = 3.0
 #: ``--profile-sweep``'s (window s, loader threads): ``AlertCapture``'s
 #: default window, the CLI's, then up to ``profiling.MAX_CAPTURE_S``
 #: under two loaders; the 3 s window under one and none; 1, 10 and 30 s
@@ -5167,7 +5169,9 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
     (d) ``obs`` and ``obs profile`` of the promoted cluster, the
     replica's flash forward records, then a ``FO_LONG_WINDOW_S`` capture
     under the same load: the replica listed throughout, no request lost,
-    every trace file with device records; (e) the ``train`` verb in this
+    every trace file with device records, then a ``FO_IDLE_WINDOW_S``
+    capture of the idle replica: ok, every trace file with a kernel
+    record; (e) the ``train`` verb in this
     process (store mode, B=16, S=1024, 8 steps) through a second seed's
     SIGKILL: losses equal an uninterrupted run's, the kernels' launches,
     each step's ms, then ``eval`` of its checkpoint; (f) ``info``;
@@ -5520,6 +5524,28 @@ def failover_phase(torch, tfm, flash_mod, prompts, card):
               and all(long["trace"]["device_per_file"]),
               f"failover: a trace file of the {FO_LONG_WINDOW_S} s capture "
               f"holds no device record: {long['trace']}")
+        # The same replica idle, after its loaded captures: a recording
+        # there could lose every kernel record, its markers' too
+        # (``profiling.CUPTI_TEARDOWN_ENV``).
+        idle, out, _ = profile_window(
+            start, obs_cfg, work, "obs-profile-idle", FO_IDLE_WINDOW_S, gen,
+            x512, nodes, rep_profiles, loaders=0)
+        row["obs_profile_idle"] = idle
+        emit({"phase": "failover", "part": "d", "card": card,
+              **{k: idle[k] for k in (
+                  "window_s", "loaders", "failed", "capture_wall_s",
+                  "chunks", "recorded_s", "kernels_lost", "held_s",
+                  "listing_missing")},
+              "kernel_per_file": (idle["trace"] or {}).get(
+                  "kernel_per_file")})
+        check(not idle["failed"] and idle["session_ended"],
+              f"failover: obs profile of an idle {FO_IDLE_WINDOW_S} s window "
+              f"after loaded ones reported the replica FAILED:\n"
+              f"{out[-3000:]}")
+        check(idle["trace"] is not None and idle["trace"]["files"]
+              and all(idle["trace"]["kernel_per_file"]),
+              f"failover: a trace file of the idle {FO_IDLE_WINDOW_S} s "
+              f"capture holds no kernel record: {idle['trace']}")
         gen.close()
 
         # (e) the train verb through a second seed's SIGKILL, beside an
@@ -6813,6 +6839,47 @@ def failover_repeat(n):
         shutil.rmtree(rdv, ignore_errors=True)
 
 
+#: A line of the port's log: its wall-clock time, its message and fields.
+LOG_LINE = re.compile(r"^(\d\d):(\d\d):(\d\d)\.(\d{3}) \S+ +\S+ (.*)$")
+
+
+def lease_log(text, t0):
+    """What a replica's log ``text`` (from wall-clock ``t0`` on) says of
+    its registration's lease: refreshes that failed, lapses mended by a
+    re-registration (``lease_lapses``) and by a relet
+    (``lease_lapses_mended``), the late keepalive beats (the registry's
+    rate-bound "late lease keepalive" lines) and the largest lateness,
+    and the first 20 of those lines as ``lease_events``: the seconds
+    into the window, the line ("late", "failed" or "relet"), and its
+    lateness, wake and call, or its seconds since the last refresh."""
+    lt = time.localtime(t0)
+    day0 = lt.tm_hour * 3600 + lt.tm_min * 60 + lt.tm_sec + t0 % 1
+    out = {"lease_refresh_failed": text.count("lease refresh failed"),
+           "lease_lapses": text.count("re-registered after lease loss"),
+           "lease_lapses_mended": text.count("lease lapsed, relet"),
+           "late_beats": 0, "late_max_s": None, "lease_events": []}
+    kinds = {"late lease keepalive": ("late", "late_s", "wake_s", "call_s"),
+             "lease refresh failed": ("failed", "since_refresh_s"),
+             "lease lapsed, relet": ("relet", "since_refresh_s")}
+    for line in text.splitlines():
+        m = LOG_LINE.match(line)
+        what = m and next((v for k, v in kinds.items()
+                           if m.group(5).startswith(k)), None)
+        if not what:
+            continue
+        h, mi, sec, ms = (int(g) for g in m.groups()[:4])
+        kv = dict(re.findall(r"(\w+)=(\S+)", m.group(5)))
+        if what[0] == "late":
+            out["late_beats"] += 1
+            out["late_max_s"] = max(out["late_max_s"] or 0.0,
+                                    float(kv["late_s"]))
+        if len(out["lease_events"]) < 20:
+            at = (h * 3600 + mi * 60 + sec + ms / 1e3 - day0) % 86400
+            out["lease_events"].append(
+                [round(at, 3), what[0], *(kv.get(k) for k in what[1:])])
+    return out
+
+
 def profile_sweep(runs=SWEEP_RUNS):
     """``--profile-sweep``: what a profile costs a loaded replica, window
     by window. A seed and the CLI's ``serve`` replica at optimus-125m
@@ -6875,22 +6942,14 @@ def profile_sweep(runs=SWEEP_RUNS):
 
         obs_cfg = cli_config(work, "obs", "sw-obs",
                              coordinator_address=seed_addr)
-        def lapses(since):
-            """The replica's lease refreshes that failed, and its
-            re-registrations after a lease lapsed, in its log since
-            byte ``since``."""
-            tail = rep.text()[since:]
-            return {"lease_refresh_failed": tail.count("lease refresh failed"),
-                    "lease_lapses": tail.count("re-registered after lease "
-                                               "loss")}
 
         for i, (window, loaders) in enumerate([(0.1, 0), *runs]):
-            since = len(rep.text())
+            since, t0 = len(rep.text()), time.time()
             row, out, _ = profile_window(
                 start, obs_cfg, work, f"obs-profile-{i}", window, gen, x512,
                 nodes, rep_dir, loaders=loaders)
             emit({"profile_sweep": "warm-up" if i == 0 else "window",
-                  "card": card, **row, **lapses(since)})
+                  "card": card, **row, **lease_log(rep.text()[since:], t0)})
             if row["failed"]:
                 print(out[-2000:], flush=True)
             check(row["session_ended"], f"profile_sweep: the replica's "
@@ -6900,13 +6959,14 @@ def profile_sweep(runs=SWEEP_RUNS):
             shutil.rmtree(os.path.join(work, f"obs-profile-{i}"),
                           ignore_errors=True)
         # The same replica under the heaviest load and no capture.
-        since = len(rep.text())
+        since, t0 = len(rep.text()), time.time()
         with ListingWatch(nodes) as listing, Loaders(
                 gen, x512, SWEEP_CONTROL[1]) as load:
             time.sleep(SWEEP_CONTROL[0])
         emit({"profile_sweep": "no capture", "card": card,
               "seconds": SWEEP_CONTROL[0], "loaders": SWEEP_CONTROL[1],
-              **load.row(), **listing.row(), **lapses(since)})
+              **load.row(), **listing.row(),
+              **lease_log(rep.text()[since:], t0)})
     finally:
         for c in closers:
             c.close()

@@ -15,9 +15,10 @@ Four seams, as in the reference:
   Activities: the CPU, plus CUDA when the process computes on a card
   (it has initialised CUDA). There is no quiet fallback: a CUDA process whose profiler
   cannot trace CUDA raises :class:`ProfileError` at :func:`start`, and
-  a capture with a trace that holds no kernel (each recording launches
-  a marker fill kernel at each end and one half-way to prove it) raises
-  at :func:`stop`.
+  a capture with a trace that holds no kernel record (each recording
+  launches a marker fill kernel at each end and one half-way to prove
+  it) raises at :func:`stop`. CUPTI is torn down after each trace
+  (:data:`CUPTI_TEARDOWN_ENV`).
   One session per process: a second :func:`start` raises
   :class:`ProfileError`. Device-memory snapshots
   (:func:`memory_snapshot` — the caching allocator's counters under
@@ -55,11 +56,15 @@ it, only the session thread's. The manifest says which
 **Leases.** A session's stop holds the GIL for seconds when the session
 recorded a busy process: Kineto's ``_disable_profiler()`` (it switches
 CUPTI off and collects the records in one C++ call) and the Chrome trace
-export, and no keepalive runs meanwhile. On a lease of a second or two
-the process's registrations would lapse and its node drop out of the
-registry. So each stop holds them on leases of :data:`STOP_LEASE_S`
-(``registry.leases_held``): a node being profiled stays listed, and a
-process that dies during a stop stays listed for up to that long. The
+export, and no keepalive runs meanwhile; its start can hold it for up
+to a second under load, and a loaded process's keepalive was starved
+past a second of lease after a stop. On a lease of a second or two the
+process's registrations would lapse and its node drop out of the
+registry. So a capture holds them on leases of :data:`STOP_LEASE_S`
+from its start until its stop returns (``registry.hold_leases``; the
+keepalive goes on refreshing them): a node being profiled stays listed,
+and a process that dies during a capture stays listed for up to that
+long. The
 hold grows with what the session recorded, so a session records at most
 :data:`CHUNK_S` seconds: a longer capture is consecutive recordings,
 each its own trace file. On a loaded optimus-125m replica under one to
@@ -88,6 +93,7 @@ it: ``import ptype_tpu_torch.health`` stays torch-free.
 from __future__ import annotations
 
 import collections
+import gc
 import gzip
 import json
 import os
@@ -156,8 +162,9 @@ SESSION_TIMEOUT_S = 60.0
 #: So a longer capture records consecutive sessions of at most this
 #: many seconds; the stop of each, between them, goes unrecorded.
 CHUNK_S = 1.0
-#: Seconds of lease the process's registrations hold through each
-#: recording's stop (``registry.leases_held``). Kineto's
+#: Seconds of lease the process's registrations hold through a capture,
+#: from its start until its stop returns (``registry.hold_leases``): a
+#: keepalive that no beat reaches for this long lets them lapse. Kineto's
 #: ``_disable_profiler()`` holds the GIL, so no keepalive runs, while it
 #: collects the records, and the export holds it again right after:
 #: after a recording of about :data:`CHUNK_S` the longest pair measured
@@ -166,8 +173,25 @@ CHUNK_S = 1.0
 #: ``chip_smoke.py --profile-sweep``), and 25 s is 2.48 times that. The
 #: hold followed the host more than the load: recordings of 31,000 to
 #: 33,000 kernels took 0.98-8.69 s to disable. A process that dies
-#: during a stop stays listed for up to this long.
+#: during a capture stays listed for up to this long.
 STOP_LEASE_S = 25.0
+#: Kineto's switch (read at each trace): "1" tears CUPTI down after each
+#: trace, and the next session sets it up anew. Without it, a process
+#: that had run other sessions recorded idle sessions whose kernel
+#: records Kineto dropped as outside the session's window, their device
+#: times having drifted from the host's (its log's "Out-of-range = 3",
+#: every marker): 7 of 7 idle captures in each of two runs of the card
+#: tests' process on an H100 80GB HBM3 at 700 W; with it, 0 of 10.
+#: A CUDA capture sets it where the environment has not.
+CUPTI_TEARDOWN_ENV = "TEARDOWN_CUPTI"
+#: Kineto tears CUPTI down on a thread of its own: at the first CUDA
+#: runtime call after a trace it finalizes CUPTI, then re-arms its own
+#: callbacks. A session started before that thread is done recorded no
+#: launch and no kernel (1 recording in 27 of an idle chunked capture,
+#: on the H100 above). So with the teardown on, a CUDA session's start
+#: first makes this many runtime calls, :data:`TEARDOWN_SETTLE_S` apart.
+TEARDOWN_SETTLE_CALLS = 5
+TEARDOWN_SETTLE_S = 0.01
 
 
 def reply_timeout_s(duration_s: float) -> float:
@@ -296,13 +320,23 @@ def _gzip_counting(raw: str, dst: str, counts=None) -> int:
     return sum(counts[c] for c in DEVICE_CATEGORIES)
 
 
+def _runtime_call(torch) -> None:
+    """One CUDA runtime call that waits for nothing (a stream query)."""
+    torch.cuda.current_stream().query()
+
+
 def _switch_on(torch, sess: dict):
     """A new ``torch.profiler`` session, started through the device
-    gate. Returns it and its recording's record: ``on_at``, when it
-    began to record, and ``held_s``, the seconds of its start's parts:
-    the wait for the gate (``start_wait``) and the switch inside it
-    (``start_switch``)."""
+    gate (once the last trace's CUPTI teardown has had its runtime calls
+    and its time: :data:`TEARDOWN_SETTLE_CALLS`). Returns it and its
+    recording's record: ``on_at``, when it began to record, and
+    ``held_s``, the seconds of its start's parts: the wait for the gate
+    (``start_wait``) and the switch inside it (``start_switch``)."""
     prof = torch.profiler.profile(**sess["kwargs"])
+    if sess["cuda"] and os.environ.get(CUPTI_TEARDOWN_ENV) == "1":
+        for _ in range(TEARDOWN_SETTLE_CALLS):
+            _runtime_call(torch)
+            time.sleep(TEARDOWN_SETTLE_S)
     t0 = time.perf_counter()
     with DEVICE_GATE.switch():
         t1 = time.perf_counter()
@@ -318,10 +352,11 @@ def _switch_on(torch, sess: dict):
 
 def _record(torch, sess: dict, rec: dict, end: float) -> None:
     """Record until the stop or until ``end``; on a card, launch one
-    more marker half-way. In a process that ran loaded sessions, a
-    session can lose the kernel records of its first milliseconds, and
-    at times of its last, though their launches are traced: the edge
-    markers' records among them (the manifest's ``kernels_lost``)."""
+    more marker half-way. A session can lose the kernel records of its
+    first milliseconds, and at times of its last, though their launches
+    are traced: Kineto drops a kernel record whose device time falls
+    outside the session's window (its log's "Out-of-range" count), the
+    edge markers' among them (the manifest's ``kernels_lost``)."""
     if sess["cuda"]:
         half = (rec["on_at"] + end) / 2 - time.perf_counter()
         if sess["stop"].wait(max(0.0, half)):
@@ -338,22 +373,18 @@ def _switch_off(torch, sess: dict, prof, rec: dict, raw: str) -> None:
     (``stop_wait``), the marker and the card's drain (``stop_sync``),
     the switch (``stop_switch``) and, inside it, Kineto's
     ``_disable_profiler()`` (``stop_disable``), and the export. The
-    disable and the export hold the GIL, so the process's registrations
-    are held on leases of :data:`STOP_LEASE_S` through them."""
-    from ptype_tpu_torch import registry
-
-    with registry.leases_held(STOP_LEASE_S):
-        t0 = time.perf_counter()
-        with DEVICE_GATE.switch():
-            t1 = time.perf_counter()
-            if sess["cuda"]:
-                _marker(torch)
-                torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            prof.stop()
-        t3 = time.perf_counter()
-        prof.export_chrome_trace(raw)
-        t4 = time.perf_counter()
+    disable and the export hold the GIL."""
+    t0 = time.perf_counter()
+    with DEVICE_GATE.switch():
+        t1 = time.perf_counter()
+        if sess["cuda"]:
+            _marker(torch)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        prof.stop()
+    t3 = time.perf_counter()
+    prof.export_chrome_trace(raw)
+    t4 = time.perf_counter()
     stats = getattr(prof.profiler, "_stats", None)
     disable_us = getattr(stats, "profiler_disable_call_duration_us", None)
     rec["recorded_s"] = t2 - rec["on_at"]
@@ -365,12 +396,14 @@ def _switch_off(torch, sess: dict, prof, rec: dict, raw: str) -> None:
 
 def _gzip(raw: str, rec: dict) -> None:
     """Gzip the trace ``raw`` beside it and delete it. ``rec`` gets the
-    trace's device records (``device_events``), its kernel launches that
+    trace's device records (``device_events``), its kernel launches
+    (``launches``) and kernel records (``kernels``), the launches that
     left no kernel record (``kernels_lost``) and the seconds
     (``held_s["gzip"]``)."""
     t0 = time.perf_counter()
     counts = collections.Counter()
     rec["device_events"] = _gzip_counting(raw, raw + ".gz", counts)
+    rec["launches"], rec["kernels"] = counts["launch"], counts["kernel"]
     rec["kernels_lost"] = max(0, counts["launch"] - counts["kernel"])
     os.remove(raw)
     rec["held_s"]["gzip"] = time.perf_counter() - t0
@@ -389,6 +422,15 @@ def _session(sess: dict) -> None:
     ``sess["chunks"]``."""
     import torch
 
+    try:
+        _record_session(torch, sess)
+    finally:
+        _let_go(sess)
+
+
+def _record_session(torch, sess: dict) -> None:
+    """:func:`_session`'s recordings; a failure goes to ``sess["error"]``
+    (before ``ready``, for :func:`start`; after it, for :func:`stop`)."""
     host = f"{socket.gethostname()}_{os.getpid()}"
     try:
         prof, rec = _switch_on(torch, sess)
@@ -434,6 +476,22 @@ def _session(sess: dict) -> None:
         sess["error"] = e
 
 
+def _let_go(sess: dict) -> None:
+    """One of a capture's two holders of the process's long leases (its
+    session thread, and the :func:`start` or :func:`stop` that waits on
+    it) is done; the last one runs a garbage collection, then puts the
+    registrations back on leases of their own TTL. What a loaded
+    recording leaves is freed only by the collector, and a collection
+    that met it after a capture held a replica's GIL 0.60-1.23 s, past
+    its 1 s lease."""
+    with sess["hold_lock"]:
+        sess["holders"] -= 1
+        last = not sess["holders"]
+    if last:
+        gc.collect()
+        sess["release"]()
+
+
 def _held(chunks: list[dict]) -> dict:
     """A session's ``held_s``: its one recording's parts, or, over
     several, each part's largest value and ``chunks``, the parts of
@@ -459,10 +517,14 @@ def start(label: str = "", base: str | None = None, *,
     under way, or a start or a stop gave up), or if this process runs
     on CUDA and the profiler cannot trace it. A start that gives up
     after :data:`SESSION_TIMEOUT_S` tells the thread to stop as soon as
-    it records.
+    it records. The process's registrations are on leases of
+    :data:`STOP_LEASE_S` from here until the capture's :func:`stop`
+    returns, or its session thread ends if later.
     """
     global _active, _thread
     import torch
+
+    from ptype_tpu_torch import registry
 
     if DEVICE_GATE.held():
         raise ProfileError("profile start inside device_work(): the "
@@ -479,12 +541,16 @@ def start(label: str = "", base: str | None = None, *,
                 "under way, or a start or a stop that gave up): no second "
                 "profiler session until it ends")
         kwargs, cuda, threads = _profiler_kwargs(torch)
+        if cuda:
+            os.environ.setdefault(CUPTI_TEARDOWN_ENV, "1")
         os.makedirs(d, exist_ok=True)
         sess = {"dir": d, "label": label, "t0": time.perf_counter(),
                 "kwargs": kwargs, "cuda": cuda, "cpu_threads": threads,
                 "window_s": window_s,
                 "ready": threading.Event(), "stop": threading.Event(),
-                "error": None, "chunks": []}
+                "error": None, "chunks": [],
+                "release": registry.hold_leases(STOP_LEASE_S),
+                "hold_lock": threading.Lock(), "holders": 2}
         _thread = sess["thread"] = threading.Thread(
             target=_session, args=(sess,), name="profile-session",
             daemon=True)
@@ -493,10 +559,12 @@ def start(label: str = "", base: str | None = None, *,
             # The thread stops once its start ends: no recording runs
             # on that nothing could stop, and start() refuses till then.
             sess["stop"].set()
+            _let_go(sess)
             raise ProfileError("profiler did not start within "
                                f"{SESSION_TIMEOUT_S:.0f} s")
         if sess["error"] is not None:
             sess["thread"].join()
+            _let_go(sess)
             raise ProfileError(
                 f"profiler failed to start: {sess['error']!r}")
         _active = sess
@@ -530,7 +598,7 @@ def stop(include_data: bool = False,
     ``max_bytes`` total — the wire-shipping path; oversize files are
     listed in the manifest but skipped from ``data`` (``truncated``
     names them). Raises :class:`ProfileError` without an active
-    capture, and when a trace of a CUDA session holds no device record.
+    capture, and when a trace of a CUDA session holds no kernel record.
     If the session's thread has not ended after
     :data:`SESSION_TIMEOUT_S`, raises, and :func:`start` refuses until
     it ends.
@@ -544,6 +612,14 @@ def stop(include_data: bool = False,
         if _active is None:
             raise ProfileError("no profile capture active")
         sess, _active = _active, None
+    try:
+        return _stop_session(sess, include_data, max_bytes)
+    finally:
+        _let_go(sess)
+
+
+def _stop_session(sess: dict, include_data: bool, max_bytes: int) -> dict:
+    """:func:`stop` of the capture ``sess``."""
     t_stop = time.perf_counter()
     sess["stop"].set()
     sess["thread"].join(SESSION_TIMEOUT_S)
@@ -557,11 +633,12 @@ def stop(include_data: bool = False,
     recorded = sum(c["recorded_s"] for c in chunks)
     end = (t_stop if sess["window_s"] is None
            else min(t_stop, sess["first_on"] + sess["window_s"]))
-    if sess["cuda"] and not all(c["device_events"] for c in chunks):
+    if sess["cuda"] and not all(c["kernels"] for c in chunks):
         raise ProfileError(
             "a trace of the capture holds no CUDA kernel (not even its "
             "own markers): device activity was not traced "
-            f"({[c['device_events'] for c in chunks]} device records)")
+            f"({[c['kernels'] for c in chunks]} kernel records of "
+            f"{[c['launches'] for c in chunks]} launches)")
     out = {"dir": sess["dir"], "label": sess["label"],
            "duration_s": round(dur, 4),
            "files": artifact_files(sess["dir"]),

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import abc
 import atexit
-import contextlib
 import json
 import threading
 import time
@@ -52,6 +51,10 @@ SERVICES_PREFIX = "services"
 #: Reference hardcoded 2 s (registry.go:58-59); here it is the default,
 #: overridable via platform config ``lease_ttl``.
 DEFAULT_LEASE_TTL = 2.0
+#: A keepalive beat is due half a TTL after the last refresh; it is late
+#: when it lands more than this share of its lease's TTL past that, the
+#: lease then having less than a quarter of its TTL left.
+LATE_BEAT_SHARE = 0.25
 
 
 @dataclass(frozen=True)
@@ -191,6 +194,17 @@ class Registration:
         #: Serialises the lease id's changes (:meth:`_relet`) with the
         #: keepalive that reads it.
         self._lease_lock = lockcheck.lock("registry.lease")
+        #: The TTL of the lease the registration is on now (a hold's,
+        #: under :func:`hold_leases`), and when it was last refreshed.
+        self._lease_ttl = ttl
+        self._refreshed_at = time.monotonic()
+        #: Lapses (the lease expired and the key went unlisted until a
+        #: re-registration or a relet put it back), late keepalive beats
+        #: in all, those in a row, and the largest lateness (s).
+        self.lapses = 0
+        self.late_beats = 0
+        self._late_run = 0
+        self.late_max_s = 0.0
         # The loop holds only a WEAK reference to this handle between
         # beats: an abandoned Registration (a crash simulation's `del`,
         # a test that leaked one) becomes garbage, and its thread exits
@@ -211,13 +225,15 @@ class Registration:
         # Refresh at half the TTL, the usual heartbeat cadence
         # (ref: clientv3 KeepAlive drained in a goroutine, registry.go:69-83).
         while not stop.wait(interval):
+            woke = time.monotonic()
             self = ref()
             if self is None:
                 return  # handle was abandoned; nothing left to keep alive
-            self._keepalive_once(stop)
+            self._keepalive_once(stop, woke)
             del self  # drop the strong ref before parking on the event
 
-    def _keepalive_once(self, stop: threading.Event) -> None:
+    def _keepalive_once(self, stop: threading.Event,
+                        woke: float | None = None) -> None:
         if getattr(self._registry._coord, "closed", False):
             # Checked unconditionally, not just on error: a closed
             # LocalCoord's state still ANSWERS keepalives (close()
@@ -230,7 +246,12 @@ class Registration:
             return
         try:
             with self._lease_lock:
-                self._registry._coord.keepalive(self.lease_id)
+                sent = time.monotonic()
+                try:
+                    self._registry._coord.keepalive(self.lease_id)
+                finally:
+                    beat = self._beat(sent, woke)
+                self._beat_landed(beat)
             if self._failures:
                 log.info("lease refresh recovered",
                          kv={"service": self.service, "node": self.node})
@@ -247,12 +268,46 @@ class Registration:
             if self._failures <= 3 or self._failures % 10 == 0:  # bound spam
                 log.warning("lease refresh failed",
                             kv={"service": self.service, "node": self.node,
-                                "err": str(e), "failures": self._failures})
+                                "err": str(e), "failures": self._failures,
+                                **beat})
             # If the lease itself is gone (expired server-side during a
             # partition), a retry can never succeed — re-register with a
             # fresh lease instead of heartbeating a dead registration.
             if "not found" in str(e).lower():
                 self._reregister()
+
+    def _beat(self, sent: float, woke: float | None) -> dict:
+        """A keepalive beat's timing: its lateness (``late_s``: the
+        seconds from its due time, half a TTL after the last refresh, to
+        now), and its parts: the wake (from the due time to its thread
+        running) and the call. Called under the lease lock."""
+        now = time.monotonic()
+        due = self._refreshed_at + self.ttl / 2.0
+        return {"late_s": round(now - due, 4),
+                "wake_s": (None if woke is None
+                           else round(max(0.0, woke - due), 4)),
+                "call_s": round(now - sent, 4),
+                "since_refresh_s": round(now - self._refreshed_at, 4)}
+
+    def _beat_landed(self, beat: dict) -> None:
+        """Book a keepalive that refreshed the lease. One more than
+        :data:`LATE_BEAT_SHARE` of its lease's TTL late is counted and
+        logged (the first three in a row, then every tenth) with its
+        timing (:meth:`_beat`). Called under the lease lock."""
+        self._refreshed_at = time.monotonic()
+        late = beat["late_s"]
+        if late <= LATE_BEAT_SHARE * self._lease_ttl:
+            self._late_run = 0
+            return
+        self.late_beats += 1
+        self._late_run += 1
+        self.late_max_s = max(self.late_max_s, late)
+        if self._late_run <= 3 or self._late_run % 10 == 0:
+            log.warning("late lease keepalive",
+                        kv={"service": self.service, "node": self.node,
+                            **beat, "lease_ttl": self._lease_ttl,
+                            "late_beats": self.late_beats,
+                            "late_max_s": round(self.late_max_s, 4)})
 
     def _reregister(self) -> None:
         # A close() racing with an in-flight keepalive must not resurrect
@@ -260,7 +315,7 @@ class Registration:
         if self._stop.is_set():
             return
         try:
-            lease_id = self._relet(self.ttl)
+            lease_id = self._relet(self.ttl, lost=True)
             chaos.note_ok("coord.lease",
                           f"{self.service}/{self.node}")
             log.info("re-registered after lease loss",
@@ -271,19 +326,47 @@ class Registration:
                         kv={"service": self.service, "node": self.node,
                             "err": str(e)})
 
-    def _relet(self, ttl: float) -> int:
+    def _relet(self, ttl: float, lost: bool = False) -> int:
         """Move the registration onto a fresh lease of ``ttl`` seconds:
         the key is re-put under it and the lease it leaves revoked
-        (which no longer deletes the key). Returns the new lease id."""
+        (which no longer deletes the key). Returns the new lease id.
+
+        A relet whose caller found the lease gone (``lost``: a
+        keepalive's "not found") counts a lapse. Any other first
+        refreshes the lease it leaves: if the coordinator no longer
+        knows it, it had expired and the key was gone until this relet
+        put it back, a lapse counted and logged ("lease lapsed, relet")
+        with the seconds since the last refresh. A refresh that succeeds
+        keeps the lease alive until the new one holds the key."""
         with self._lease_lock:
             old = self.lease_id
+            lapsed = lost
+            if not lost:
+                try:
+                    self._registry._coord.keepalive(old)
+                except CoordinationError as e:
+                    if "not found" not in str(e).lower():
+                        raise
+                    lapsed = True
+            if lapsed:
+                self.lapses += 1
+            since = time.monotonic() - self._refreshed_at
+            old_ttl = self._lease_ttl
             lease_id = self._registry._coord.grant(ttl)
             self._registry._coord.put(
                 _service_key(self.service, self.node), self._node_json,
                 lease=lease_id,
             )
             self.lease_id = lease_id
+            self._lease_ttl = ttl
+            self._refreshed_at = time.monotonic()
+            self._late_run = 0
             self._registry._coord.revoke(old)
+        if lapsed and not lost:
+            log.warning("lease lapsed, relet",
+                        kv={"service": self.service, "node": self.node,
+                            "since_refresh_s": round(since, 4),
+                            "lease_ttl": old_ttl, "lapses": self.lapses})
         return lease_id
 
     def close(self, revoke: bool = True) -> None:
@@ -302,20 +385,20 @@ class Registration:
                 pass
 
 
-@contextlib.contextmanager
-def leases_held(ttl: float):
-    """Every live registration of this process on a lease of at least
-    ``ttl`` seconds while the block runs, then back on a lease of its
-    own TTL.
+def hold_leases(ttl: float):
+    """Put every live registration of this process on a lease of at
+    least ``ttl`` seconds, and return the function that puts them back
+    on leases of their own TTL (once; later calls do nothing).
 
     For work that holds the GIL longer than a lease lives: no keepalive
     runs meanwhile, and on its own TTL the registration would lapse and
     its node drop out of the registry until it re-registered. (A
-    ``torch.profiler`` session's stop processes and exports its events
-    in C++ without releasing the GIL, seconds under load:
-    ``health/profiling.py``, which holds ``STOP_LEASE_S``, 25 s, through
-    each recording's stop.) A process that dies inside the block stays
-    listed for up to ``ttl``."""
+    ``torch.profiler`` session's start and stop run in C++ without
+    releasing the GIL, seconds under load: ``health/profiling.py``
+    holds ``STOP_LEASE_S``, 25 s, through each capture.) The keepalive
+    goes on refreshing the long lease, so a hold may outlast ``ttl``; a
+    process that dies while one is held stays listed for up to
+    ``ttl``."""
     regs = [r for r in list(_live_registrations) if not r._stop.is_set()
             and not getattr(r._registry._coord, "closed", False)]
     held = []
@@ -327,10 +410,10 @@ def leases_held(ttl: float):
             log.warning("lease hold failed",
                         kv={"service": r.service, "node": r.node,
                             "err": str(e)})
-    try:
-        yield
-    finally:
-        for r in held:
+
+    def release() -> None:
+        while held:
+            r = held.pop()
             if r._stop.is_set():
                 continue
             try:
@@ -339,6 +422,8 @@ def leases_held(ttl: float):
                 log.warning("lease release failed",
                             kv={"service": r.service, "node": r.node,
                                 "err": str(e)})
+
+    return release
 
 
 class Registry(abc.ABC):

@@ -8,6 +8,7 @@ serves ``local:<name>`` in process and dials any other address over TCP
 (``tests/test_torch_coord_tcp.py`` holds the TCP tier itself)."""
 
 import importlib
+import logging
 import threading
 import time
 from types import SimpleNamespace
@@ -176,11 +177,12 @@ def test_reregisters_after_lease_loss(pkg, coord):
 
 
 def test_leases_held_keeps_a_starved_registration_listed():
-    """The port's ``registry.leases_held`` (held by a profiler's stop,
-    which holds the GIL past a lease): with no keepalive reaching the
-    coordinator, a registration on a 0.3 s lease stays listed through a
-    5 s hold, the lease it leaves revoked; after the hold it is back on a
-    0.3 s lease, which then lapses unrefreshed."""
+    """The port's ``registry.hold_leases`` (held by a profiler's
+    capture, whose start and stop hold the GIL past a lease): with no
+    keepalive reaching the coordinator, a registration on a 0.3 s lease
+    stays listed through a 5 s hold, the lease it leaves revoked; after
+    its release it is back on a 0.3 s lease, which then lapses
+    unrefreshed."""
     ns = _load(PACKAGES["port"])
     state = ns.CoordState(sweep_interval=0.05)
     coord = ns.LocalCoord(state)
@@ -190,12 +192,13 @@ def test_leases_held_keeps_a_starved_registration_listed():
     try:
         first = r.lease_id
         coord.keepalive = lambda lease_id: 0.3   # starved: none refreshes
-        with ns.leases_held(5.0):
-            held = r.lease_id
-            assert held != first and first not in state._leases
-            assert state._leases[held].ttl == 5.0
-            time.sleep(1.2)
-            assert reg.nodes("calc") == [ns.Node("10.0.0.1", 9000)]
+        release = ns.hold_leases(5.0)
+        held = r.lease_id
+        assert held != first and first not in state._leases
+        assert state._leases[held].ttl == 5.0
+        time.sleep(1.2)
+        assert reg.nodes("calc") == [ns.Node("10.0.0.1", 9000)]
+        release()
         assert r.lease_id != held and held not in state._leases
         assert state._leases[r.lease_id].ttl == 0.3
         assert wait_until(lambda: reg.nodes("calc") == [], timeout=2.0)
@@ -204,6 +207,103 @@ def test_leases_held_keeps_a_starved_registration_listed():
         r.close()
         state.close()
         ns.local_module.reset_local_coords()
+
+
+class _Sink(logging.Handler):
+    """The records of the port's registry logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        logging.getLogger("ptype_tpu_torch.registry").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("ptype_tpu_torch.registry").removeHandler(self)
+
+    def named(self, msg):
+        return [r for r in self.records if r.getMessage() == msg]
+
+
+def test_a_lease_that_lapsed_before_a_hold_relets_it_is_a_lapse():
+    """A registration whose keepalive stalled until its 0.3 s lease
+    expired (its key gone from the listing) is put back by
+    ``hold_leases``'s relet, and that relet logs and counts the lapse
+    ("lease lapsed, relet", with the seconds since its last refresh).
+    A registration beside it that did not lapse is relet the same way
+    with no lapse logged or counted."""
+    ns = _load(PACKAGES["port"])
+    state = ns.CoordState(sweep_interval=0.05)
+    coord = ns.LocalCoord(state)
+    reg = ns.CoordRegistry(coord, lease_ttl=0.3)
+    stalled = reg.register("calc", "n1", "10.0.0.1", 9000)
+    live = reg.register("calc", "n2", "10.0.0.2", 9000)
+    stalled._keepalive_once = lambda *a, **k: None
+    try:
+        assert wait_until(lambda: reg.nodes("calc") == [
+            ns.Node("10.0.0.2", 9000)], timeout=3.0)
+        with _Sink() as sink:
+            release = ns.hold_leases(5.0)
+            assert len(reg.nodes("calc")) == 2
+            assert state._leases[stalled.lease_id].ttl == 5.0
+            assert state._leases[live.lease_id].ttl == 5.0
+            release()
+        (rec,) = sink.named("lease lapsed, relet")
+        assert rec.kv["node"] == "n1" and rec.kv["lapses"] == 1
+        assert rec.kv["since_refresh_s"] >= 0.3
+        assert rec.kv["lease_ttl"] == 0.3
+        assert (stalled.lapses, live.lapses) == (1, 0)
+        assert state._leases[live.lease_id].ttl == 0.3
+    finally:
+        stalled.close()
+        live.close()
+        state.close()
+        ns.local_module.reset_local_coords()
+
+
+def test_a_keepalive_beat_held_back_logs_its_lateness():
+    """A keepalive beat of a 1 s lease whose wait is held back 0.6 s past
+    its due time (half a TTL after the last refresh) logs its lateness,
+    its wake and its call; the beats before and after it, on time, log
+    none. The registration keeps its lease and counts no lapse (no
+    sweep runs)."""
+    ns = _load(PACKAGES["port"])
+    state = ns.CoordState(sweep_interval=30.0)
+    coord = ns.LocalCoord(state)
+    with _Sink() as sink:
+        r = ns.CoordRegistry(coord, lease_ttl=1.0).register(
+            "calc", "n1", "10.0.0.1", 9000)
+        lease = r.lease_id
+        wait, waits = r._stop.wait, []
+
+        def held_back(timeout=None):
+            waits.append(timeout)
+            extra = 0.6 if len(waits) == 2 else 0.0
+            return wait(None if timeout is None else timeout + extra)
+
+        r._stop.wait = held_back
+        try:
+            assert wait_until(lambda: len(waits) >= 4, timeout=5.0)
+            late = sink.named("late lease keepalive")
+            assert [rec.kv["late_beats"] for rec in late] == [1], [
+                rec.kv for rec in late]
+            kv = late[0].kv
+            assert 0.6 <= kv["late_s"] < 0.9 and kv["lease_ttl"] == 1.0
+            assert 0.6 <= kv["wake_s"] <= kv["late_s"]
+            assert kv["call_s"] < 0.25
+            assert r.late_beats == 1 and round(r.late_max_s, 4) == kv["late_s"]
+            assert r.lease_id == lease and r.lapses == 0
+            assert ns.CoordRegistry(coord).nodes("calc") == [
+                ns.Node("10.0.0.1", 9000)]
+        finally:
+            r.close()
+            state.close()
+            ns.local_module.reset_local_coords()
 
 
 # --------------------------------------------------------------- store

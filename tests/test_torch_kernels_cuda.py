@@ -835,6 +835,97 @@ def test_a_chunked_capture_holds_kernels_in_every_trace(cuda, tmp_path,
     assert out["kernels_lost"] == lost
 
 
+#: Seconds the idle-after-load test repeats its loaded-then-idle pair.
+IDLE_AFTER_LOAD_S = 60.0
+
+
+def test_an_idle_capture_after_loaded_ones_keeps_a_kernel_in_every_trace(
+        cuda, tmp_path):
+    """An idle capture that follows loaded ones in the same process
+    (``--profile-sweep``'s order: a 0.1 s warm-up, loaded captures of
+    0.25, 1, 3 and 3 s while a thread launches kernels inside
+    ``device_work``, then an idle 3 s capture; then the loaded 1 s and
+    idle 3 s pair again until ``IDLE_AFTER_LOAD_S`` have passed, at the
+    production ``CHUNK_S`` of 1 s) ends ok, and every trace file of
+    every capture holds a kernel record. Such a recording could come
+    back with none, its markers' launches traced: the stop raised. One
+    ``idle_after_load`` line gives the captures, the idle ones, those
+    that failed (the stop raised, or a trace held no kernel record), and
+    each idle capture's kernel records by file. In the process of the
+    card tests, before ``profiling.CUPTI_TEARDOWN_ENV``, every idle
+    capture failed so."""
+    import gzip
+    import json
+    import os
+    import threading
+    import time
+
+    from ptype_tpu_torch.device import device_work
+    from ptype_tpu_torch.health import profiling
+
+    load_on, halt = threading.Event(), threading.Event()
+
+    def load():
+        a = torch.randn(512, 512, device="cuda")
+        while not halt.is_set():
+            if not load_on.wait(0.05):
+                continue
+            with device_work():
+                for _ in range(8):
+                    a = torch.tanh(a @ a) * 0.5
+            torch.cuda.synchronize()
+            halt.wait(0.002)
+
+    def kernels(d):
+        out = []
+        for f in sorted(os.listdir(d)):
+            with gzip.open(os.path.join(d, f), "rb") as fp:
+                out.append(profiling.count_records(fp.read)["kernel"])
+        return out
+
+    stats = {"captures": 0, "idle": 0, "failed": [], "idle_kernels": []}
+
+    def cap(window, loaded):
+        (load_on.set if loaded else load_on.clear)()
+        if loaded:
+            time.sleep(0.2)
+        stats["captures"] += 1
+        base = str(tmp_path / f"c{stats['captures']}")
+        try:
+            out = profiling.capture(duration_s=window, base=base)
+        except profiling.ProfileError as e:
+            (d,) = os.listdir(base)
+            stats["failed"].append([window, loaded, str(e)[-200:],
+                                    kernels(os.path.join(base, d))])
+            return
+        per_file = kernels(out["dir"])
+        if not loaded:
+            stats["idle_kernels"].append(per_file)
+        if not per_file or min(per_file) < 1:
+            stats["failed"].append([window, loaded, None, per_file])
+
+    torch.zeros(1, device="cuda")  # a CUDA process: its captures trace CUDA
+    torch.cuda.synchronize()
+    t = threading.Thread(target=load, daemon=True)
+    t.start()
+    t0 = time.monotonic()
+    try:
+        cap(0.1, False)
+        for w in (0.25, 1.0, 3.0, 3.0):
+            cap(w, True)
+        while True:
+            cap(3.0, False)
+            stats["idle"] += 1
+            if time.monotonic() - t0 > IDLE_AFTER_LOAD_S:
+                break
+            cap(1.0, True)
+    finally:
+        halt.set()
+        t.join(timeout=30)
+    print(json.dumps({"idle_after_load": stats}), flush=True)
+    assert not stats["failed"], stats
+
+
 def test_store_dp_compiled_cost_on_the_card(meshes):
     """``StoreDPTrainer.compiled_cost`` of a card trainer counts on
     ``meta`` skeletons: the same FLOPs as the CPU count, and the card

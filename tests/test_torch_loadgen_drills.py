@@ -6,6 +6,7 @@ elastic fleet must hold the TTFT p99 SLO through the spike the static
 fleet fails, and the traffic ledger must publish its ``loadgen.*``
 series into the registry it was given. Every wait has a deadline."""
 
+import json
 import threading
 import time
 
@@ -77,13 +78,20 @@ def _spike_run(spike_trace, elastic):
         svc, 1, 4 if elastic else 1, elastic=elastic)
     try:
         # Peak fleet size during the run: the trace ends in a trough,
-        # so an elastic fleet has scaled back down by the end.
+        # so an elastic fleet has scaled back down by the end. Each
+        # change of the healthy count, at its seconds into the run, is
+        # what a failure reports (when replicas came and went).
         peak = [gw.pool.n_healthy()]
+        t0 = time.monotonic()
+        fleet = [(0.0, peak[0])]
         done = threading.Event()
 
         def watch():
             while not done.is_set():
-                peak[0] = max(peak[0], gw.pool.n_healthy())
+                n = gw.pool.n_healthy()
+                peak[0] = max(peak[0], n)
+                if n != fleet[-1][1]:
+                    fleet.append((round(time.monotonic() - t0, 3), n))
                 done.wait(0.05)
 
         w = threading.Thread(target=watch, daemon=True)
@@ -96,7 +104,15 @@ def _spike_run(spike_trace, elastic):
         done.set()
         w.join(timeout=1.0)
         assert not w.is_alive()
-        return led.summary(), peak[0], mreg
+        # The driver's slip behind its schedule (ms): a host that issued
+        # late offered the spike later, or in a burst.
+        lag = led.h_lag
+        diag = {"healthy_at_s": fleet,
+                "issue_lag_ms": {"p50": lag.percentile(50),
+                                 "p99": lag.percentile(99),
+                                 "max": lag.percentile(100),
+                                 "count": lag.count}}
+        return led.summary(), peak[0], mreg, diag
     finally:
         gw.close()
         rec.close(stop_fleet=True)
@@ -108,16 +124,23 @@ def test_diurnal_spike_elastic_holds_slo_where_static_fails():
     spike = synth_trace(SEED, process="diurnal", duration_s=8.0,
                         trough_rps=15.0, peak_rps=180.0,
                         sharpness=2.0)
-    static_sum, static_n, _ = _spike_run(spike, elastic=False)
-    elastic_sum, elastic_n, mreg = _spike_run(spike, elastic=True)
+    static_sum, static_n, _, static_diag = _spike_run(spike, elastic=False)
+    elastic_sum, elastic_n, mreg, elastic_diag = _spike_run(spike,
+                                                            elastic=True)
+    # What a failure needs for its diagnosis, whole (a string message is
+    # not cut short): each fleet's healthy replicas over the run, the
+    # driver's issue lag, the peak fleet.
+    why = json.dumps({"elastic_n": elastic_n, "elastic": elastic_diag,
+                      "static": static_diag})
 
-    assert static_n == 1
+    assert static_n == 1, why
     assert elastic_n >= 2, (
         "the scale-hint path should have grown the fleet through "
-        f"the spike (got {elastic_n} replicas)")
-    assert static_sum["ttft_p99_ms"] > SLO_TTFT_MS, static_sum
-    assert elastic_sum["ttft_p99_ms"] <= SLO_TTFT_MS, elastic_sum
-    assert elastic_sum["goodput_pct"] > static_sum["goodput_pct"]
+        f"the spike (got {elastic_n} replicas): {why}")
+    assert static_sum["ttft_p99_ms"] > SLO_TTFT_MS, f"{static_sum} {why}"
+    assert elastic_sum["ttft_p99_ms"] <= SLO_TTFT_MS, f"{elastic_sum} {why}"
+    assert elastic_sum["goodput_pct"] > static_sum["goodput_pct"], (
+        f"{elastic_sum} {static_sum} {why}")
     assert (mreg.counter("loadgen.offered").value
             == elastic_sum["offered"])
     assert mreg.counter("loadgen.slo_good").value > 0

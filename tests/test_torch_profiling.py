@@ -746,6 +746,101 @@ def test_a_one_chunk_capture_keeps_its_name_and_keys(tmp_path):
     assert "chunks" not in out["held_s"]
 
 
+def _fake_card(monkeypatch, counts):
+    """A CUDA session on the CPU: the profiler's CUDA flag set over CPU
+    activities, the card's drain and marker kernel stubbed, and each
+    recording's trace counted with ``counts`` (kernel launches, kernel
+    records, copies) for its records of those kinds."""
+    real_kwargs, real_count = profiling._profiler_kwargs, profiling.count_records
+
+    def kwargs(torch_):
+        kw, _, threads = real_kwargs(torch_)
+        return kw, True, threads
+
+    def count(read):
+        n = real_count(read)
+        n["launch"], n["kernel"], n["gpu_memcpy"] = counts
+        return n
+
+    monkeypatch.setattr(profiling, "_profiler_kwargs", kwargs)
+    monkeypatch.setattr(profiling, "count_records", count)
+    monkeypatch.setattr(profiling, "_marker", lambda torch_: None)
+    monkeypatch.setattr(profiling, "_runtime_call", lambda torch_: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+
+
+@pytest.mark.parametrize("cuda,preset,seen", [(True, None, "1"),
+                                              (True, "0", "0"),
+                                              (False, None, None)])
+def test_a_cuda_capture_tears_cupti_down_after_each_trace(
+        tmp_path, monkeypatch, cuda, preset, seen):
+    """Kineto reads ``TEARDOWN_CUPTI`` at each trace; without it, a
+    process that had run other sessions drifted its device times from
+    the host's, and Kineto dropped an idle session's every kernel record
+    as outside its window. A CUDA capture's every recording stops with
+    the variable at "1" unless the environment set it (then as set); a
+    CPU capture leaves it alone."""
+    monkeypatch.delenv(profiling.CUPTI_TEARDOWN_ENV, raising=False)
+    if preset is not None:
+        monkeypatch.setenv(profiling.CUPTI_TEARDOWN_ENV, preset)
+    if cuda:
+        _fake_card(monkeypatch, (3, 3, 0))
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.2)
+    stops = []
+    real = torch.profiler.profile.stop
+
+    def stop(prof):
+        stops.append(os.environ.get(profiling.CUPTI_TEARDOWN_ENV))
+        return real(prof)
+
+    monkeypatch.setattr(torch.profiler.profile, "stop", stop)
+    out = profiling.capture(duration_s=0.5, base=str(tmp_path))
+    assert len(stops) == out["chunks"] >= 2
+    assert stops == [seen] * len(stops)
+
+
+def test_a_cuda_session_starts_once_the_last_teardown_had_its_calls(
+        tmp_path, monkeypatch):
+    """Kineto finalizes CUPTI at the first runtime call after a trace,
+    on a thread of its own that then re-arms CUPTI's callbacks; a
+    session started before it was done recorded nothing. With the
+    teardown on, every recording of a CUDA capture starts after
+    ``TEARDOWN_SETTLE_CALLS`` runtime calls, the last at least
+    ``TEARDOWN_SETTLE_S`` before the start."""
+    monkeypatch.delenv(profiling.CUPTI_TEARDOWN_ENV, raising=False)
+    _fake_card(monkeypatch, (3, 3, 0))
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.2)
+    calls, starts = [], []
+    monkeypatch.setattr(profiling, "_runtime_call",
+                        lambda torch_: calls.append(time.perf_counter()))
+    real = torch.profiler.profile.start
+
+    def start(prof):
+        starts.append((len(calls), time.perf_counter()))
+        return real(prof)
+
+    monkeypatch.setattr(torch.profiler.profile, "start", start)
+    out = profiling.capture(duration_s=0.5, base=str(tmp_path))
+    assert len(starts) == out["chunks"] >= 2
+    n = profiling.TEARDOWN_SETTLE_CALLS
+    for i, (made, at) in enumerate(starts):
+        assert made == n * (i + 1)
+        assert at - calls[made - 1] >= profiling.TEARDOWN_SETTLE_S
+
+
+def test_a_cuda_trace_with_no_kernel_record_fails_the_stop(tmp_path,
+                                                           monkeypatch):
+    """A CUDA recording whose trace holds its markers' launches and a
+    copy but no kernel record fails the stop: every trace of a CUDA
+    capture holds a kernel record, never a device record of another
+    kind alone."""
+    _fake_card(monkeypatch, (3, 0, 1))
+    with pytest.raises(profiling.ProfileError,
+                       match=r"no CUDA kernel.*\[0\] kernel records of "
+                             r"\[3\] launches"):
+        profiling.capture(duration_s=0.05, base=str(tmp_path))
+
+
 def test_a_stop_that_gives_up_refuses_start_until_its_thread_ends(
         tmp_path, monkeypatch):
     """With the session thread's switch-off held back, a stop gives up
@@ -892,6 +987,107 @@ def test_each_recording_holds_the_leases_through_its_stop(tmp_path,
         assert r.lease_id not in {lease for lease, _ in seen}
         assert state._leases[r.lease_id].ttl == 0.5
     finally:
+        r.close()
+        state.close()
+
+
+@pytest.mark.parametrize("part", ["start", "count", "memory"])
+def test_a_capture_holds_the_leases_from_its_start_to_its_reply(
+        tmp_path, monkeypatch, part):
+    """Parts of a capture other than a stop can starve a short lease:
+    Kineto's start held a loaded replica's GIL 0.96 s on a 1 s lease,
+    and a keepalive went unsent for 1.09-1.13 s after a stop, while the
+    stop's last trace was counted and its reply built. With the
+    keepalive starved (it answers without refreshing, as no beat leaves a
+    process whose GIL is held) and each ``torch.profiler`` start, each
+    trace's count or the stop's memory snapshot taking 0.6 s, a
+    registration on a 0.3 s lease stays listed through every one of
+    them in a capture of several recordings, on a lease of
+    ``STOP_LEASE_S``, and is back on its 0.3 s lease after."""
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.2)
+    state = CoordState(sweep_interval=0.05)
+    coord = LocalCoord(state)
+    reg = CoordRegistry(coord, lease_ttl=0.3)
+    r = reg.register("svc", "n1", "10.0.0.1", 9000)
+    seen = []
+
+    def slow(real):
+        def run(*args, **kwargs):
+            time.sleep(0.6)
+            seen.append((bool(reg.nodes("svc")),
+                         state._leases[r.lease_id].ttl))
+            return real(*args, **kwargs)
+        return run
+
+    if part == "start":
+        monkeypatch.setattr(torch.profiler.profile, "start",
+                            slow(torch.profiler.profile.start))
+    elif part == "count":
+        monkeypatch.setattr(profiling, "count_records",
+                            slow(profiling.count_records))
+    else:
+        monkeypatch.setattr(profiling, "memory_snapshot",
+                            slow(profiling.memory_snapshot))
+    coord.keepalive = lambda lease_id: 0.3  # starved: none refreshes
+    try:
+        out = profiling.capture(duration_s=0.5, base=str(tmp_path))
+        assert out["chunks"] >= 2
+        assert len(seen) == (1 if part == "memory" else out["chunks"])
+        assert seen == [(True, profiling.STOP_LEASE_S)] * len(seen)
+        assert state._leases[r.lease_id].ttl == 0.3
+    finally:
+        del coord.keepalive
+        r.close()
+        state.close()
+
+
+def test_a_capture_frees_its_recordings_while_it_holds_the_leases(
+        tmp_path, monkeypatch):
+    """What a loaded recording leaves behind is freed only by the
+    garbage collector, and a collection that met it after the capture
+    held a replica's GIL past its 1 s lease. With the collector off, a
+    slow-to-free object in a reference cycle hung on each recording's
+    profiler is freed before the capture lets go of the leases: on a
+    lease of ``STOP_LEASE_S``, every one of them."""
+    import gc
+
+    from ptype_tpu_torch.coord.core import CoordState
+    from ptype_tpu_torch.coord.local import LocalCoord
+    from ptype_tpu_torch.registry import CoordRegistry
+
+    monkeypatch.setattr(profiling, "CHUNK_S", 0.2)
+    state = CoordState(sweep_interval=0.05)
+    r = CoordRegistry(LocalCoord(state), lease_ttl=0.3).register(
+        "svc", "n1", "10.0.0.1", 9000)
+    freed = []
+
+    class Results:
+        def __init__(self):
+            self.cycle = self
+
+        def __del__(self):
+            freed.append(state._leases[r.lease_id].ttl)
+
+    real = torch.profiler.profile.start
+
+    def start(prof):
+        prof._results = Results()
+        return real(prof)
+
+    monkeypatch.setattr(torch.profiler.profile, "start", start)
+    gc.collect()
+    gc.disable()
+    try:
+        out = profiling.capture(duration_s=0.5, base=str(tmp_path))
+        assert len(freed) == out["chunks"] >= 2
+        assert freed == [profiling.STOP_LEASE_S] * len(freed)
+    finally:
+        gc.enable()
+        gc.collect()
         r.close()
         state.close()
 
