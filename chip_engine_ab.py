@@ -6,11 +6,15 @@
 ROOT is a checkout (its ptype_tpu_torch/ and chip_smoke.py are used).
 The script builds the kernels, then serves phase 4's eight requests
 (optimus-125m at full width, 100-700 prompt tokens sharing a 96-token
-prefix, 64 new tokens each, attn="kernel") three times, each on a new
+prefix, 64 new tokens each, attn="kernel") five times, each on a new
 engine, and prints one JSON line per run: its wall seconds, the decode
-steps, the paged wrapper's calls and their summed host time. The first
-run of a process carries one-off start-up costs. To compare two
-checkouts, alternate them, one process each:
+steps and their summed wall seconds, the paged wrapper's calls and
+their summed host time. The first run of a process carries one-off
+start-up costs. A last run profiles the first two decode steps with
+every slot live (the first follows the last admission) and prints, for
+each, its wall and device ms, kernel launches, host-to-device copies
+and synchronising calls. To compare two checkouts, alternate them, one
+process each:
 
     for i in 1 2 3 4; do for r in A B; do python3 chip_engine_ab.py $r; done; done
 """
@@ -19,6 +23,39 @@ import json
 import os
 import sys
 import time
+
+
+#: Host calls that wait for the card.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def step_profile(torch, step):
+    """``step()`` under torch.profiler, synchronized: wall and device ms,
+    ``cudaLaunchKernel`` calls, host-to-device copy records on the card
+    and synchronising calls by name (one ``cudaDeviceSynchronize`` is
+    this function's own). Kept here rather than taken from ROOT's
+    chip_smoke.py, so an older checkout is profiled the same way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    row = {"wall_ms": wall * 1e3, "device_ms": 0.0, "launches": 0,
+           "h2d_copies": 0, "sync_calls": {}}
+    for ev in prof.key_averages():
+        if "CUDA" in str(getattr(ev, "device_type", "")):
+            row["device_ms"] += getattr(ev, "self_device_time_total", 0) / 1e3
+            row["h2d_copies"] += ev.count if "Memcpy HtoD" in ev.key else 0
+        elif ev.key.startswith("cudaLaunchKernel"):
+            row["launches"] += ev.count
+        elif ev.key in SYNC_CALLS:
+            row["sync_calls"][ev.key] = ev.count
+    return row
 
 
 def main(root):
@@ -58,8 +95,16 @@ def main(root):
     timed.launches = 0
     paged_mod.paged_attention = timed
     kw = dict(device="cuda", n_slots=8, block_tokens=16, prefill_chunk=256)
-    for run in range(3):
+    for run in range(5):
         eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+        step, step_s = eng._plain_step, [0.0]
+
+        def timed_step():
+            t0 = time.perf_counter()
+            step()
+            step_s[0] += time.perf_counter() - t0
+
+        eng._plain_step = timed_step
         try:
             host[:] = [0.0, 0]
             steps0 = eng.Info()["engine_steps"]
@@ -68,8 +113,24 @@ def main(root):
         finally:
             eng.close()
         print(json.dumps({"root": root, "run": run, "wall_s": wall,
-                          "decode_steps": steps, "paged_calls": host[1],
+                          "decode_steps": steps, "steps_s": step_s[0],
+                          "paged_calls": host[1],
                           "paged_host_ms": host[0] * 1e3}), flush=True)
+    paged_mod.paged_attention = wrapper
+    eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+    step, rows = eng._plain_step, []
+
+    def profiled():
+        if len(rows) == 2 or not eng._active.all():
+            return step()
+        rows.append(step_profile(torch, step))
+
+    eng._plain_step = profiled
+    try:
+        chip_smoke.run_requests(eng, prompts, 64)
+    finally:
+        eng.close()
+    print(json.dumps({"root": root, "profiled_steps": rows}), flush=True)
 
 
 if __name__ == "__main__":

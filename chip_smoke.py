@@ -890,32 +890,118 @@ def first_divergence(torch, gen_mod, params, cfg, prompts, got, want):
     return None
 
 
+class StepWatch:
+    """Classifies each plain step of ``eng`` while it serves. A step is
+    due to build the device mirror of the slot state when an admission
+    or a retire came since the last step, or a live row crosses a block
+    boundary in it; every other step is steady and uploads nothing. Per
+    step: (due, mirror builds, ``serve.slot_state`` uploads booked by
+    the armed jitwatch ``jw``, else 0). ``around(kind, step)``, if
+    given, runs each step ("build" or "steady"). ``close()`` unwraps."""
+
+    NAMES = ("_take_slot", "_retire", "_plain_step", "_mirror")
+
+    def __init__(self, eng, jw=None, around=None):
+        self.eng, self.jw, self.steps = eng, jw, []
+        self.dirty, self.builds = False, 0
+        take, retire, step, mirror = (getattr(eng, n) for n in self.NAMES)
+
+        def take_(*a):
+            take(*a)
+            self.dirty = True
+
+        def retire_(*a):
+            retire(*a)
+            self.dirty = True
+
+        def mirror_():
+            self.builds += eng._sdev is None
+            return mirror()
+
+        def step_():
+            live = eng._active.nonzero()[0]
+            cross = bool((eng._pos[live]
+                          == eng._nalloc[live] * eng.block_tokens).any())
+            due, self.dirty = self.dirty or cross, False
+            b0, u0 = self.builds, self.uploads()
+            if around is None:
+                step()
+            else:
+                around("build" if due else "steady", step)
+            self.steps.append((due, self.builds - b0, self.uploads() - u0))
+
+        for n, f in zip(self.NAMES, (take_, retire_, step_, mirror_)):
+            setattr(eng, n, f)
+
+    def uploads(self):
+        return (self.jw.sanctioned().get("serve.slot_state", 0)
+                if self.jw is not None else 0)
+
+    def faults(self, arrays=5):
+        """Steps whose builds are not their due (one build when due,
+        none when steady), or whose uploads are not the build's
+        ``arrays``."""
+        return [(i, s) for i, s in enumerate(self.steps)
+                if s[1] != s[0] or (self.jw is not None
+                                    and s[2] != arrays * s[1])]
+
+    def close(self):
+        for n in self.NAMES:
+            self.eng.__dict__.pop(n, None)
+
+
+#: Host calls that wait for the card.
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def step_counts(prof):
+    """A profiled step's kernel launches (``cudaLaunchKernel`` calls),
+    host-to-device copy records on the card and synchronising calls by
+    name."""
+    launches = h2d = 0
+    syncs = {}
+    for ev in prof.key_averages():
+        if on_device(ev):
+            h2d += ev.count if "Memcpy HtoD" in ev.key else 0
+        elif ev.key.startswith("cudaLaunchKernel"):
+            launches += ev.count
+        elif ev.key in SYNC_CALLS:
+            syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
+    return {"cuda_launch_kernel": launches, "h2d_copies": h2d,
+            "sync_calls": syncs}
+
+
 def engine_iteration_profile(torch, eng, prompts, max_new):
-    """One decode iteration of the engine under torch.profiler, taken by
-    the engine's own thread: the instance's ``_plain_step`` is wrapped so
-    that the first step with every slot live runs under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    """Two decode steps of the engine under torch.profiler, taken by the
+    engine's own thread with every slot live: the first that builds the
+    device mirror of the slot state (after an admission, a retire or a
+    block boundary) and the first steady one. Each: device and wall ms,
+    the idle share, kernel launches, host-to-device copies and
+    synchronising calls (``cudaDeviceSynchronize`` once is the profile's
+    own)."""
+    got = {}
 
-    step, got = eng._plain_step, {}
-
-    def profiled():
-        if got or not eng._active.all():
+    def around(kind, step):
+        if kind in got or not eng._active.all():
             return step()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            step()
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-        got.update(profile_summary(prof, wall_ms))
+        prof, wall_ms = profiled(torch, step)
+        got[kind] = {**profile_summary(prof, wall_ms), **step_counts(prof)}
 
-    eng._plain_step = profiled
+    watch = StepWatch(eng, around=around)
     try:
         run_requests(eng, prompts, max_new)
     finally:
-        del eng._plain_step
-    return got or {"device_time": "not measured (no step had every slot "
-                                  "live)"}
+        watch.close()
+    for kind in ("build", "steady"):
+        got.setdefault(kind, {"device_time": "not measured (no such step "
+                                             "had every slot live)"})
+    steady = got["steady"]
+    check(steady.get("h2d_copies") == 0 and watch.faults() == [],
+          f"engine_iteration_profile: a steady step copied to the card "
+          f"({steady.get('h2d_copies')}) or built off its events "
+          f"({watch.faults()[:5]})")
+    return got
 
 
 def paged_logits_pair(torch, gen_mod, params, cfg, prompts):
@@ -6665,6 +6751,7 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
                               prefill_chunk=256)
     try:
         jw = jitwatch.enable()
+        watch = StepWatch(eng, jw)
         paged_mod.paged_attention.launches = 0
         steps0 = eng.Info()["engine_steps"]
         run_requests(eng, prompts, AUDIT_MAX_NEW)
@@ -6675,6 +6762,7 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
         torch.cuda.synchronize()
         engine_launches = paged_mod.paged_attention.launches
         rep = jw.report()
+        watch.close()
         jitwatch.disable()
         plain, _ = run_requests(eng, prompts, AUDIT_MAX_NEW)
     finally:
@@ -6682,9 +6770,12 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
         eng.close()
     launches[3] += engine_launches
     books = rep["sanctioned_transfers"]
+    steady = [s for s in watch.steps if not s[0]]
     row["engine"] = {
         "requests": len(prompts), "rounds": 4, "max_new": AUDIT_MAX_NEW,
         "decode_steps": steps, "paged_launches": engine_launches,
+        "mirror_builds": watch.builds, "steady_steps": len(steady),
+        "steady_uploads": sum(s[2] for s in steady),
         "report": rep,
         "sanctioned_per_step": {k: v / steps for k, v in books.items()},
         "seconds": time.monotonic() - t0}
@@ -6693,9 +6784,14 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
           f"audits: armed engine built after steady: {rep}")
     check(rep["hot_regions"] >= steps > 0,
           f"audits: {rep['hot_regions']} hot regions, {steps} steps")
-    check(books.get("serve.decode_read") == steps
-          and books.get("serve.slot_state") == 5 * steps,
-          f"audits: engine books {books} for {steps} steps")
+    # The reference's contract: a step after no admission, retire or
+    # block boundary uploads nothing; a build uploads five arrays.
+    check(books.get("serve.decode_read") == steps == len(watch.steps)
+          and books.get("serve.slot_state") == 5 * watch.builds
+          and steady and watch.faults() == [],
+          f"audits: engine books {books} for {steps} steps, "
+          f"{watch.builds} mirror builds, {len(steady)} steady steps, "
+          f"off their events: {watch.faults()[:5]}")
     check(engine_launches == steps * L,
           f"audits: paged launches {engine_launches} != {steps} x {L}")
 

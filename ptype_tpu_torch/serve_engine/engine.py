@@ -38,8 +38,16 @@ read. Steps and prefill chunks run inside ``metrics.annotate`` ranges
 (``serve.step``, ``serve.prefill``). With :mod:`~ptype_tpu_torch.jitwatch`
 armed, the decode step, the speculation window and the KV export and
 import run in hot regions that refuse an unsanctioned host
-synchronisation; the step's read, its five slot-state uploads and the
-wire hop are the sanctioned transfers on the books.
+synchronisation; the step's read, the slot-state uploads of a mirror
+build and the wire hop are the sanctioned transfers on the books.
+
+Device-resident slot state: both steps read one device mirror of the
+slot state (tables, allocation bounds, active lanes, tokens and
+positions), built from the host arrays only after an admission, a
+retire, a block allocation or a speculation window. A plain step routes
+its KV writes from the mirror and advances the mirror's tokens and
+positions on the device, as the reference's does in-graph: a steady
+step uploads nothing. The host arrays stay authoritative.
 
 Speculative decoding (``spec=SpecConfig(...)``): a draft model with
 its own block tables in a second :class:`BlockPool` proposes ``k``
@@ -284,9 +292,10 @@ class PagedGeneratorActor(GeneratorActor):
         self._spec_probe_left = 0
         #: Tokens the last window committed over its live rows.
         self._window_emitted = 0
-        #: Device copies of the slot state a window routes with
-        #: (tables, allocation bounds, active lanes); None = upload
-        #: again (set at admission, retire and block allocation).
+        #: The device mirror of the slot state both steps read
+        #: (``_mirror``); None = build it again from the host arrays
+        #: (set at admission, retire, block allocation and after a
+        #: speculation window).
         self._sdev: dict | None = None
 
         ns = self.n_slots
@@ -1095,7 +1104,10 @@ class PagedGeneratorActor(GeneratorActor):
 
     def _plain_step(self) -> None:
         """One batched decode step over every slot (inactive lanes write
-        to the trash block and are ignored)."""
+        to the trash block and are ignored). The write routing comes
+        from the device mirror, and the mirror's tokens and positions
+        advance on the device, so a step after no admission, retire or
+        block allocation uploads nothing."""
         bt = self.block_tokens
         for slot in np.flatnonzero(self._active):
             if self._pos[slot] == self._nalloc[slot] * bt:
@@ -1107,21 +1119,23 @@ class PagedGeneratorActor(GeneratorActor):
                 self._tables[slot, self._nalloc[slot]] = bid
                 self._nalloc[slot] += 1
                 self._sdev = None
-        rows = np.arange(self.n_slots)
-        blk = np.minimum(self._pos // bt, self.nb - 1)
-        wr_b = np.where(self._active, self._tables[rows, blk], 0)
-        up = self._slot_state_upload
+        sd = self._mirror()
         with self._lock, jitwatch.hot_region("serve.decode", self.device):
+            pos, active = sd["pos"], sd["active"]
+            blk = torch.clamp(pos // bt, max=self.nb - 1).long()[:, None]
+            wr_b = torch.where(active, sd["tables"].gather(1, blk)[:, 0], 0)
             logits, _, _ = gen.decode_step_paged(
-                self.params, up(self._tok), up(self._pos), self.cfg,
-                self.pool.k, self.pool.v, up(self._tables), up(wr_b),
-                up(self._pos % bt), attn_impl=self.attn)
+                self.params, sd["tok"], pos, self.cfg, self.pool.k,
+                self.pool.v, sd["tables"], wr_b, pos % bt,
+                attn_impl=self.attn)
             if (self._temps[self._active] > 0.0).any():
                 nxt = gen.sample_token_rows(logits, self._gens,
                                             self._temps, self._topk,
                                             self._topp)
             else:
                 nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.where(active, nxt, 0)
+            sd["tok"], sd["pos"] = nxt, torch.where(active, pos + 1, pos)
         with jitwatch.sanctioned_transfer("serve.decode_read"):
             nxt = nxt.cpu().numpy()  # the step's one host read
         self._steps += 1
@@ -1143,13 +1157,36 @@ class PagedGeneratorActor(GeneratorActor):
         if self._steps % 32 == 0:
             self._export_gauges()
 
-    def _slot_state_upload(self, arr: np.ndarray) -> torch.Tensor:
-        """One of the plain step's five slot-state uploads: a pageable
-        host-to-device copy, which blocks the host on CUDA (the
-        reference's step keeps device mirrors and uploads nothing), so
-        each is a sanctioned transfer on the books."""
-        with jitwatch.sanctioned_transfer("serve.slot_state"):
-            return torch.as_tensor(arr, device=self.device)
+    def _mirror(self) -> dict:
+        """The device mirror of the slot state, built from the host
+        arrays when it was dropped: int32 tables, allocation bounds and
+        positions (the kernel's type), int64 tokens, the active lanes,
+        and under speculation the draft's tables and bounds. Each array
+        is one pinned, non-blocking upload on the books as
+        ``serve.slot_state``."""
+        if self._sdev is None:
+            arrays = {"tables": self._tables, "nalloc": self._nalloc,
+                      "active": self._active, "tok": self._tok,
+                      "pos": self._pos}
+            if self._dpool is not None:
+                arrays.update(dtables=self._dtables, dnalloc=self._dnalloc)
+            sd = {}
+            for name, arr in arrays.items():
+                with jitwatch.sanctioned_transfer("serve.slot_state"):
+                    sd[name] = self._upload(arr)
+            self._sdev = sd
+        return self._sdev
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without a host wait: on
+        CUDA through pinned memory with a non-blocking copy (a pageable
+        host-to-device copy synchronizes the stream). ``pin_memory``
+        stages each call in a fresh block of the caching host allocator,
+        which holds the block until the copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _retire(self, slot: int, reason: str = "complete") -> None:
         self._active[slot] = False
@@ -1179,15 +1216,6 @@ class PagedGeneratorActor(GeneratorActor):
         row.done.set()
 
     # ------------------------------------------------------ speculation
-
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device without a host wait: on
-        CUDA through pinned memory with a non-blocking copy (a pageable
-        host-to-device copy synchronizes the stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _draft_chunk(self, toks, start: int, table: list[int]) -> None:
         """Write the draft's KV for ``toks`` at positions ``start..``
@@ -1317,25 +1345,19 @@ class PagedGeneratorActor(GeneratorActor):
                 self._dnalloc[slot] += 1
                 self._sdev = None
             self._draft_catch_up(slot, row)
-        if self._sdev is None:
-            self._sdev = {
-                "tables": self._upload(self._tables),
-                "dtables": self._upload(self._dtables),
-                "nalloc": self._upload(self._nalloc),
-                "dnalloc": self._upload(self._dnalloc),
-                "active": self._upload(self._active),
-            }
+        sd = self._mirror()
         sampled = bool((self._temps[self._active] > 0.0).any())
         self._steps += 1
         self._max_live = max(self._max_live, len(live))
         with self._lock, jitwatch.hot_region("serve.spec_window",
                                              self.device):
-            out, n_acc = self._spec_window(W, sampled,
-                                           self._upload(self._tok),
-                                           self._upload(self._pos))
+            out, n_acc = self._spec_window(W, sampled, sd["tok"],
+                                           sd["pos"])
             host = torch.cat([out, n_acc[:, None]], dim=1)
         with jitwatch.sanctioned_transfer("serve.spec_read"):
             host = host.cpu().numpy()  # the window's one host read
+        # Ragged advances, committed on the host: the mirror goes stale.
+        self._sdev = None
         emit_recs, emit_counts = [], []
         retires: list[tuple[int, str]] = []
         total_acc = total_emit = 0

@@ -1093,8 +1093,10 @@ def test_cuda_detector_raises_sanctions_and_spares_other_threads(armed):
 
 def test_armed_paged_engine_steady_state_on_the_card(armed):
     """An armed kernel engine at a narrow width: steady requests build
-    nothing, the decode guard holds, each step books its one read and
-    five slot-state uploads, and the tokens equal a disarmed run's."""
+    nothing, the decode guard holds, each step books its one read, each
+    request's first step (after its admission; no block boundary) the
+    five uploads of the slot state's device mirror and its other steps
+    none, and the tokens equal a disarmed run's."""
     from ptype_tpu_torch import jitwatch
 
     a = PagedGeneratorActor(NARROW, device="cuda", n_slots=2, attn="kernel")
@@ -1108,11 +1110,108 @@ def test_armed_paged_engine_steady_state_on_the_card(armed):
         assert armed.recompiles_since_steady() == {}
         books = armed.sanctioned()
         assert armed.report()["hot_regions"] > 0
-        assert books["serve.slot_state"] == 5 * books["serve.decode_read"]
+        assert books["serve.decode_read"] == 3 * 7
+        assert books["serve.slot_state"] == 5 * 3
         jitwatch.disable()
         assert torch.equal(a.Generate(p, 8), warm)
     finally:
         a.close()
+
+
+def _in_order(eng, prompts, max_new):
+    """``prompts`` from one thread each, queued in order while the
+    engine's dispatch lock is held, so two engines admit and batch them
+    alike. Returns the outputs."""
+    import threading
+    import time
+
+    outs = [None] * len(prompts)
+
+    def call(i):
+        outs[i] = eng.Generate(prompts[i][None], max_new)
+
+    threads = []
+    with eng._lock:
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=call, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 60
+            while (len(eng._queue) + (eng._admitting is not None) < i + 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+    for t in threads:
+        t.join(timeout=300)
+    assert all(o is not None for o in outs)
+    return outs
+
+
+def test_steady_engine_steps_upload_nothing_on_the_card(armed):
+    """optimus-125m's widths (2 of 12 layers), 8 slots, the paged
+    kernel, armed: a step that finds the device mirror of the slot
+    state built and no row at a block boundary books no slot-state
+    upload, and the profile of one such step with every slot live holds
+    no host-to-device copy; a build books five. The tokens equal the
+    same engine's with the mirror rebuilt from the host arrays every
+    step (the host-routed step)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptype_tpu_torch.models.weights import init_params
+
+    cfg = dataclasses.replace(ttfm.preset("optimus-125m"), n_layers=2)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g)
+               for n in (40, 70, 100, 130, 160, 190, 220, 250)]
+    kw = dict(params=params, device="cuda", n_slots=8, block_tokens=16,
+              prefill_chunk=256, attn="kernel")
+    eng = PagedGeneratorActor(cfg, **kw)
+    step, steps, prof = eng._plain_step, [], {}
+
+    def watched():
+        live = eng._active.nonzero()[0]
+        steady = eng._sdev is not None and not (
+            eng._pos[live] == eng._nalloc[live] * eng.block_tokens).any()
+        n = armed.sanctioned().get("serve.slot_state", 0)
+        if steady and eng._active.all() and not prof:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                step()
+                torch.cuda.synchronize()
+            prof["events"] = p.key_averages()
+        else:
+            step()
+        steps.append((steady,
+                      armed.sanctioned().get("serve.slot_state", 0) - n))
+
+    eng._plain_step = watched
+    try:
+        got = _in_order(eng, prompts, 48)
+    finally:
+        eng.close()
+    assert sum(s for s, _ in steps) >= 20, steps
+    assert all(up == (0 if s else 5) for s, up in steps), steps
+    dev = [e for e in prof["events"]
+           if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert any("paged_decode" in e.key for e in dev), [e.key for e in dev]
+    assert [e.key for e in dev if "Memcpy HtoD" in e.key] == []
+
+    host = PagedGeneratorActor(cfg, **kw)
+    plain = host._plain_step
+
+    def rebuilt():
+        host._sdev = None
+        plain()
+
+    host._plain_step = rebuilt
+    try:
+        want = _in_order(host, prompts, 48)
+    finally:
+        host.close()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_audit_sees_a_host_read_in_a_backward_on_the_card(cuda):

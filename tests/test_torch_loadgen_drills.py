@@ -145,3 +145,109 @@ def test_diurnal_spike_elastic_holds_slo_where_static_fails():
             == elastic_sum["offered"])
     assert mreg.counter("loadgen.slo_good").value > 0
     assert mreg.histogram("loadgen.ttft_ms").count > 0
+
+
+def _staged_spike_run(spike_trace):
+    """The elastic fleet through ``spike_trace`` with each stage of its
+    scale-up stamped, in seconds into the run: the gateway's hint
+    changing (delta, reason), the reconciler's decisions (delta, fleet),
+    each spawn and activation (start, end), the registry's listing and
+    the gateway's healthy count at each change (polled every 10 ms).
+    Returns (the traffic summary, the stamps)."""
+    svc = "drill-stages"
+    state, launcher, rec, gw, mreg = _build_fleet(svc, 1, 4, elastic=True)
+    st = {"hints": [], "decisions": [], "spawns": [], "activations": [],
+          "listed": [], "healthy": []}
+    t0 = time.monotonic()
+
+    def now():
+        return round(time.monotonic() - t0, 4)
+
+    hint, apply, spawn = rec._hints, rec._apply_decision, launcher.spawn
+
+    def hint_():
+        h = hint()
+        if h is not None and (not st["hints"]
+                              or st["hints"][-1][1] != h.delta):
+            st["hints"].append((now(), int(h.delta), h.reason))
+        return h
+
+    def apply_(decision, actual):
+        st["decisions"].append((now(), int(decision.delta), actual))
+        return apply(decision, actual)
+
+    def spawn_(name, **kw):
+        began = now()
+        h = spawn(name, **kw)
+        st["spawns"].append((began, now()))
+        activate = h.activate
+
+        def activate_(*a, **k):
+            began = now()
+            out = activate(*a, **k)
+            st["activations"].append((began, now()))
+            return out
+
+        h.activate = activate_
+        return h
+
+    rec._hints, rec._apply_decision, launcher.spawn = hint_, apply_, spawn_
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            for key, n in (("listed", len(registry.nodes(svc))),
+                           ("healthy", gw.pool.n_healthy())):
+                if not st[key] or st[key][-1][1] != n:
+                    st[key].append((now(), n))
+            done.wait(0.01)
+
+    registry = launcher._registry
+    w = threading.Thread(target=watch, daemon=True)
+    try:
+        w.start()
+        led = TrafficLedger(slo_ttft_ms=SLO_TTFT_MS, registry=mreg)
+        OpenLoopDriver(spike_trace, gateway_target(gw, deadline_s=5.0),
+                       ledger=led, cfg=DriverConfig(max_inflight=256)).run()
+        return led.summary(), st
+    finally:
+        done.set()
+        w.join(timeout=1.0)
+        gw.close()
+        rec.close(stop_fleet=True)
+        launcher.close()
+        state.close()
+
+
+def test_diurnal_scale_up_follows_the_hint_within_ticks():
+    """The elastic fleet's scale-up stage by stage: the hint asks for
+    more, the reconciler decides within a few of its 20 ms ticks, and
+    the spawned replicas are listed and probed healthy well inside a
+    second of the hint, in that order. No stage waits on more than the
+    reconciler's tick and the gateway's 50 ms probe."""
+    spike = synth_trace(SEED, process="diurnal", duration_s=8.0,
+                        trough_rps=15.0, peak_rps=180.0, sharpness=2.0)
+    _, st = _staged_spike_run(spike)
+    why = json.dumps(st)
+    hint = next(t for t, d, _ in st["hints"] if d > 0)
+    decided = next(t for t, d, _ in st["decisions"] if d > 0)
+    listed = next(t for t, n in st["listed"] if n >= 2)
+    healthy = next(t for t, n in st["healthy"] if n >= 2)
+    assert hint <= decided <= hint + 0.5, why
+    assert st["spawns"] and st["activations"], why
+    assert decided <= st["spawns"][0][0] <= listed <= healthy, why
+    assert healthy - hint < 1.0, why
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/test_torch_loadgen_drills.py [RUNS]:
+    # one JSON line of stage stamps and TTFT tails a staged elastic run.
+    import sys
+
+    spike = synth_trace(SEED, process="diurnal", duration_s=8.0,
+                        trough_rps=15.0, peak_rps=180.0, sharpness=2.0)
+    for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 1):
+        summary, stamps = _staged_spike_run(spike)
+        print(json.dumps({**{k: summary[k] for k in (
+            "ttft_p50_ms", "ttft_p99_ms", "goodput_pct", "slo_bad_stages")},
+            **stamps}), flush=True)

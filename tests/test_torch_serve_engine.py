@@ -477,8 +477,10 @@ def test_steady_state_decode_builds_nothing_armed():
     request a steady stream of same-shaped requests builds nothing, the
     decode region's guard held (an unsanctioned host synchronisation in
     a step would have raised, failing the drive), and the books show a
-    step's one host read and its five slot-state uploads. Greedy tokens
-    equal the reference engine's on the same weights."""
+    step's one host read and the reference's upload contract: a step
+    after an admission builds the device mirror of the slot state (five
+    uploads), and every later step uploads nothing. Greedy tokens equal
+    the reference engine's on the same weights."""
     from ptype_tpu_torch import jitwatch
 
     pj = jtfm.init_params(jax.random.PRNGKey(0), JCFG)
@@ -491,6 +493,19 @@ def test_steady_state_decode_builds_nothing_armed():
         ref.close()
     jw = jitwatch.enable()
     actor = _engine(params=pt, n_slots=2)
+    step, mirror = actor._plain_step, actor._mirror
+    per_step, builds = [], []
+
+    def counted_step():
+        n = jw.sanctioned().get("serve.slot_state", 0)
+        step()
+        per_step.append(jw.sanctioned()["serve.slot_state"] - n)
+
+    def counted_mirror():
+        builds.append(actor._sdev is None)
+        return mirror()
+
+    actor._plain_step, actor._mirror = counted_step, counted_mirror
     try:
         warm = actor.Generate(p, 8).numpy()
         jw.mark_steady()
@@ -505,8 +520,12 @@ def test_steady_state_decode_builds_nothing_armed():
         # Four requests of 8 tokens: the first from the prefill, then
         # seven decode steps each.
         assert books["serve.decode_read"] == actor._steps == 4 * 7
-        assert books["serve.slot_state"] == 5 * books["serve.decode_read"]
     finally:
         actor.close()
         jitwatch.disable()
+    # After the close: the engine thread has booked its last step. 5 + 8
+    # tokens fit one block, so each request's first step builds (after
+    # its admission) and its six others upload nothing.
+    assert per_step == [5, 0, 0, 0, 0, 0, 0] * 4
+    assert books["serve.slot_state"] == 5 * sum(builds) == 5 * 4
     np.testing.assert_array_equal(warm, want)
