@@ -8,11 +8,13 @@ The script builds the kernels, then serves phase 4's eight requests
 (optimus-125m at full width, 100-700 prompt tokens sharing a 96-token
 prefix, 64 new tokens each, attn="kernel") five times, each on a new
 engine, and prints one JSON line per run: its wall seconds, the decode
-steps and their summed wall seconds, the paged wrapper's calls and
-their summed host time. The first run of a process carries one-off
-start-up costs. A last run profiles the first two decode steps with
-every slot live (the first follows the last admission) and prints, for
-each, its wall and device ms, kernel launches, host-to-device copies
+steps and their summed wall seconds, the paged wrapper's Python calls
+and their summed host time (where the greedy step is a replayed CUDA
+graph, the wrapper runs only in its warm-up and its capture). The first
+run of a process carries one-off start-up costs. A last run profiles
+the first two decode steps with every slot live (the first follows the
+last admission) and prints, for each, its wall and device ms, kernel
+and graph launches, kernel records on the card, host-to-device copies
 and synchronising calls. To compare two checkouts, alternate them, one
 process each:
 
@@ -32,9 +34,9 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 def step_profile(torch, step):
     """``step()`` under torch.profiler, synchronized: wall and device ms,
-    ``cudaLaunchKernel`` calls, host-to-device copy records on the card
-    and synchronising calls by name (one ``cudaDeviceSynchronize`` is
-    this function's own). Kept here rather than taken from ROOT's
+    ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, kernel and
+    host-to-device copy records on the card and synchronising calls by
+    name (one ``cudaDeviceSynchronize`` is this function's own). Kept here rather than taken from ROOT's
     chip_smoke.py, so an older checkout is profiled the same way."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -46,13 +48,18 @@ def step_profile(torch, step):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     row = {"wall_ms": wall * 1e3, "device_ms": 0.0, "launches": 0,
-           "h2d_copies": 0, "sync_calls": {}}
+           "graph_launches": 0, "device_kernels": 0, "h2d_copies": 0,
+           "sync_calls": {}}
     for ev in prof.key_averages():
         if "CUDA" in str(getattr(ev, "device_type", "")):
             row["device_ms"] += getattr(ev, "self_device_time_total", 0) / 1e3
             row["h2d_copies"] += ev.count if "Memcpy HtoD" in ev.key else 0
+            row["device_kernels"] += (0 if ev.key.startswith(
+                ("Memcpy", "Memset")) else ev.count)
         elif ev.key.startswith("cudaLaunchKernel"):
             row["launches"] += ev.count
+        elif ev.key.startswith("cudaGraphLaunch"):
+            row["graph_launches"] += ev.count
         elif ev.key in SYNC_CALLS:
             row["sync_calls"][ev.key] = ev.count
     return row

@@ -38,7 +38,12 @@ its own lines:
 4. PagedGeneratorActor at optimus-125m full width, attn="kernel", 8
    concurrent requests of 100-700 tokens sharing a 96-token prefix,
    64 new tokens each: the paged kernel must run decode steps x 12
-   layers times; greedy tokens in f32 equal the attn="gather" engine's;
+   layers times (the greedy step is captured once as a CUDA graph and
+   replayed; each replay adds the capture's launches), and the replay
+   with every slot live must equal one direct call of the step's body
+   from the same banks and mirror, bit for bit (outputs and the state
+   it leaves; the row gives the graph pool's bytes); greedy tokens in
+   f32 equal the attn="gather" engine's;
    one bf16 decode step's logits agree between the two paths; its row
    also gives the host cost of the profiler gate's ``device_work()``
    with no session open, alone and against a second thread, beside
@@ -68,7 +73,8 @@ its own lines:
    wire, equal to (a)'s, 8 migrations and no fallback, the migration
    stage's ms and bytes; (c) bf16 over the q8 wire at (1 + 4/512)/2 of
    exact's bytes a block; (d) open-loop traffic (the port's loadgen:
-   ``synth_trace`` seed 0, 8 s of arrivals at each rate of GW_RATES, RAG's
+   ``synth_trace`` seed 0, 8 s of arrivals at each rate of GW_RATES, then
+   of GW_MORE_RATES in turn until the replicas saturate, RAG's
    prompt tail cut to 800) through ``OpenLoopDriver`` and
    ``gateway_target``: every arrival answered or shed typed, per rate the
    traffic ledger's, the gateway's and the replicas' TTFT/TPOT/e2e tails,
@@ -111,9 +117,11 @@ its own lines:
    engine tokens equal the contiguous path's; moe_trainer: a finite
    router aux), and spec_engine: optimus-125m's engine with a 2-layer
    truncated draft, k=4, beside a plain engine (bf16, attn="kernel":
-   plain, spec, spec, plain), then in f32 on the gather path the two
-   engines' greedy tokens must be identical and each window must
-   synchronize with the host exactly once; then, at optimus-125m:
+   plain, spec, spec, plain; every replayed window width held bitwise
+   against its body's direct call), then in f32 on the gather path the
+   two engines' greedy tokens must be identical and each window must
+   synchronize with the host exactly once (a width's capturing window
+   counted apart); then, at optimus-125m:
    sampled_engine: phase 4's requests sampled (temperature 0.8, top-k
    50, top-p 0.95, seeds 1-8) on the kernel engine and on the
    speculative one, queued in a fixed order: two bf16 runs in fresh
@@ -303,8 +311,10 @@ its own lines:
    torch.profiler session launches kernels more slowly afterwards),
    under torch.profiler (wall, device-busy and idle share, device time
    by kernel family, top host ops): a new engine's first decode
-   iteration with every slot live (phase 4's configuration, 32 new
-   tokens); one train step each of optimus-125m and optimus-moe, the
+   iteration with every slot live and its first steady one (phase 4's
+   configuration, 32 new tokens; the steady one must be one graph
+   launch, no kernel launch, no copy to the card and one stream
+   synchronisation); one train step each of optimus-125m and optimus-moe, the
    latter with its router, dispatch, experts and combine named apart,
    and one of llama_remat's "dots" run;
    one speculation window with every slot live, draft, verify and
@@ -804,12 +814,92 @@ def run_requests(engine, prompts, max_new):
     return outs, wall
 
 
+class ReplayCheck:
+    """Holds each captured program of ``eng`` against one direct call of
+    its body: at a key's first replay with at least ``min_live[fn]``
+    slots live (default 1), the banks and the mirror's buffers are
+    cloned, the body runs eagerly, its outputs and the state it left
+    are kept, the state is put back, and the replay runs. ``results``:
+    per program, whether the outputs and the banks and mirror after are
+    bitwise equal."""
+
+    def __init__(self, torch, eng, min_live=None):
+        from ptype_tpu_torch.ops import launch_tally
+
+        self.results = {}
+        run = eng._programs.run
+        need = dict(min_live or {})
+
+        def state():
+            pools = [eng.pool] + ([eng._dpool] if eng._dpool else [])
+            return ([t for p in pools for t in (p.k, p.v)]
+                    + list(eng._sbuf.values()))
+
+        def flat(out):
+            return list(out) if isinstance(out, tuple) else [out]
+
+        def run_(fn, sig, body):
+            key = f"{fn}[{sig}]"
+            if (key in self.results or (fn, sig) not in eng._programs.progs
+                    or int(eng._active.sum()) < need.get(fn, 1)):
+                return run(fn, sig, body)
+            live = state()
+            saved = [t.clone() for t in live]
+            with launch_tally() as extra:
+                direct = [t.clone() for t in flat(body())]
+            for f, n in extra.items():  # the comparison's, not the path's
+                f.launches -= n
+            after = [t.clone() for t in live]
+            for t, v in zip(live, saved):
+                t.copy_(v)
+            got = run(fn, sig, body)
+            torch.cuda.synchronize()
+            self.results[key] = {
+                "live": int(eng._active.sum()),
+                "outputs_equal": all(torch.equal(a, b) for a, b in
+                                     zip(direct, flat(got))),
+                "state_equal": all(torch.equal(a, b) for a, b in
+                                   zip(after, live))}
+            return got
+
+        eng._programs.run = run_
+
+    def faults(self):
+        return {k: r for k, r in self.results.items()
+                if not (r["outputs_equal"] and r["state_equal"])}
+
+
+def graph_pool_bytes(torch, eng):
+    """Bytes the allocator holds in ``eng``'s graph pool (its segments
+    in ``torch.cuda.memory_snapshot()``), or "not measured"."""
+    pool = eng._programs._pool
+    if pool is None:
+        return 0
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if "segment_pool_id" in seg]
+    if not segs:
+        return "not measured (no segment_pool_id in the snapshot)"
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
                  prompts, lens, max_new, kw, phase):
     """The paged engine with attn="kernel" serving ``prompts``: the
-    paged kernel runs once a decode step and layer."""
+    paged kernel runs once a decode step and layer, the greedy step as
+    a replayed graph (launches counted per replay), held bitwise
+    against its body's direct call once with every slot live."""
+    def held():
+        st = torch.cuda.memory_stats()
+        return {k: st.get(f"{k}_bytes.all.current")
+                for k in ("allocated", "reserved")}
+
+    torch.cuda.empty_cache()
+    memory = {"before": held()}
     eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+    memory["engine"] = held()  # the banks, the mirror, the compute tree
     try:
+        replay = ReplayCheck(torch, eng, {"serve.decode": eng.n_slots})
         paged_mod.paged_attention.launches = 0
         steps0 = eng.Info()["engine_steps"]
         outs, wall = run_requests(eng, prompts, max_new)
@@ -817,10 +907,19 @@ def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
         launches = paged_mod.paged_attention.launches
         info = eng.Info()
         steps = info["engine_steps"] - steps0
+        progs = {f"{fn}[{sig}]": p.replays
+                 for (fn, sig), p in eng._programs.progs.items()}
+        memory.update(served=held(),  # with the graph captured
+                      graph_pool=graph_pool_bytes(torch, eng))
         check(steps > 0, f"{phase}: no decode step ran")
         check(launches == steps * cfg.n_layers,
               f"{phase}: paged launches {launches} != decode steps {steps} "
               f"x {cfg.n_layers}")
+        check(len(progs) == 1 and sum(progs.values()) == steps - 1,
+              f"{phase}: programs {progs} for {steps} greedy steps (one "
+              f"capture, a replay each later step)")
+        check(replay.results and replay.faults() == {},
+              f"{phase}: replay against its body: {replay.results}")
         check(all(tuple(o.shape) == (1, max_new) for o in outs),
               f"{phase}: engine output shapes")
         check(eng.pool.check_invariants() == [], f"{phase}: pool invariants")
@@ -832,7 +931,9 @@ def engine_phase(torch, paged_mod, PagedGeneratorActor, name, cfg, params,
     row = {"phase": phase, "preset": name, "requests": len(prompts),
            "prompt_lens": list(lens), "shared_prefix": 96,
            "max_new": max_new, "decode_steps": steps,
-           "paged_launches": launches, "seconds": wall,
+           "paged_launches": launches, "graph_replays": progs,
+           "replay_equals_body": replay.results, "memory": memory,
+           "seconds": wall,
            "tokens_per_s": len(prompts) * max_new / wall,
            "prefix_hit_rate": info["prefix_hit_rate"],
            "max_live_slots": info["max_live_slots"],
@@ -957,18 +1058,25 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 def step_counts(prof):
     """A profiled step's kernel launches (``cudaLaunchKernel`` calls),
-    host-to-device copy records on the card and synchronising calls by
-    name."""
-    launches = h2d = 0
+    graph launches (``cudaGraphLaunch``), kernel records on the card
+    (a graph's included), host-to-device copy records on the card and
+    synchronising calls by name."""
+    launches = graphs = kernels = h2d = 0
     syncs = {}
     for ev in prof.key_averages():
         if on_device(ev):
-            h2d += ev.count if "Memcpy HtoD" in ev.key else 0
+            if "Memcpy HtoD" in ev.key:
+                h2d += ev.count
+            elif not ev.key.startswith(("Memcpy", "Memset")):
+                kernels += ev.count
         elif ev.key.startswith("cudaLaunchKernel"):
             launches += ev.count
+        elif ev.key.startswith("cudaGraphLaunch"):
+            graphs += ev.count
         elif ev.key in SYNC_CALLS:
             syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
-    return {"cuda_launch_kernel": launches, "h2d_copies": h2d,
+    return {"cuda_launch_kernel": launches, "cuda_graph_launch": graphs,
+            "device_kernels": kernels, "h2d_copies": h2d,
             "sync_calls": syncs}
 
 
@@ -977,9 +1085,11 @@ def engine_iteration_profile(torch, eng, prompts, max_new):
     engine's own thread with every slot live: the first that builds the
     device mirror of the slot state (after an admission, a retire or a
     block boundary) and the first steady one. Each: device and wall ms,
-    the idle share, kernel launches, host-to-device copies and
-    synchronising calls (``cudaDeviceSynchronize`` once is the profile's
-    own)."""
+    the idle share, kernel and graph launches, kernel records,
+    host-to-device copies and synchronising calls
+    (``cudaDeviceSynchronize`` once is the profile's own). The steady
+    step must be one graph launch, no kernel launch, no copy to the
+    card and one stream synchronisation (the read)."""
     got = {}
 
     def around(kind, step):
@@ -1001,6 +1111,11 @@ def engine_iteration_profile(torch, eng, prompts, max_new):
           f"engine_iteration_profile: a steady step copied to the card "
           f"({steady.get('h2d_copies')}) or built off its events "
           f"({watch.faults()[:5]})")
+    check(steady.get("cuda_graph_launch") == 1
+          and steady.get("cuda_launch_kernel") == 0
+          and steady.get("sync_calls", {}).get("cudaStreamSynchronize") == 1,
+          f"engine_iteration_profile: the steady step is not one replay "
+          f"and one read: {steady}")
     return got
 
 
@@ -1725,8 +1840,9 @@ def count_syncs(torch, fn):
 def count_window_syncs(torch, eng):
     """Wrap ``eng``'s speculation windows to count, per window, its host
     synchronizations (:func:`count_syncs`) and whether it first caught
-    the draft up. Returns the list the windows append ``(syncs,
-    caught_up, sites)`` to."""
+    the draft up or captured its program (a width's first window).
+    Returns the list the windows append ``(syncs, caught_up, sites,
+    captured)`` to."""
     step, catch_up = eng._spec_step, eng._draft_catch_up
     rec, state = [], {"caught_up": False}
 
@@ -1737,8 +1853,10 @@ def count_window_syncs(torch, eng):
 
     def counted(k_eff):
         state["caught_up"] = False
+        n0 = len(eng._programs.progs)
         n, sites = count_syncs(torch, lambda: step(k_eff))
-        rec.append((n, state["caught_up"], sites))
+        rec.append((n, state["caught_up"], sites,
+                    len(eng._programs.progs) > n0))
 
     eng._spec_step, eng._draft_catch_up = counted, counted_catch_up
     return rec
@@ -1755,16 +1873,24 @@ def spec_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
     dp, dc = gen_mod.truncated_draft_params(params, cfg, n_layers=2)
     spec = SpecConfig(draft_params=dp, draft_cfg=dc, k=4, adaptive=False)
     runs, outs, launches = [], {}, {}
+    replay, replayed = None, set()
     for kind in ("plain", "spec", "spec", "plain"):
         eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
                                   spec=spec if kind == "spec" else None,
                                   **kw)
+        first_spec = kind == "spec" and replay is None
         try:
+            if first_spec:
+                # Each replayed program, held against its body.
+                replay = ReplayCheck(torch, eng)
             paged_mod.paged_attention.launches = 0
             got, wall = run_requests(eng, prompts, max_new)
             torch.cuda.synchronize()
             n = paged_mod.paged_attention.launches
             info = eng.Info()
+            if first_spec:
+                replayed = {f"{fn}[{sig}]" for (fn, sig), p in
+                            eng._programs.progs.items() if p.replays}
         finally:
             eng.close()
         windows = info.get("spec_windows", 0)
@@ -1808,22 +1934,32 @@ def spec_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
             eng.close()
     div = first_divergence(torch, gen_mod, params, cfg32, prompts,
                            got32["spec"], got32["plain"])
-    steady = [n for n, caught_up, _ in syncs if not caught_up]
+    # A width's first window captures its program: not a steady window.
+    steady = [n for n, caught_up, _, cap in syncs
+              if not (caught_up or cap)]
     row = {"phase": "spec_engine", "preset": "optimus-125m",
            "draft_layers": 2, "k": 4, "adaptive": False,
            "requests": len(prompts), "max_new": max_new, "runs": runs,
            "bf16_kernel_identical_token_share": share,
+           "replay_equals_body": replay.results,
            "f32_gather_greedy_identical": div is None,
            "f32_first_divergence": div,
            "f32_windows": len(syncs),
            "host_syncs_per_window": sorted(set(steady)),
            "host_syncs_after_catch_up": sorted(
-               {n for n, caught_up, _ in syncs if caught_up}),
-           "host_sync_sites": sorted({site for _, _, sites in syncs
+               {n for n, caught_up, _, cap in syncs
+                if caught_up and not cap}),
+           "host_syncs_capturing": sorted(
+               {n for n, _, _, cap in syncs if cap}),
+           "host_sync_sites": sorted({site for _, _, sites, _ in syncs
                                       for site in sites})}
     emit(row)
     check(div is None, f"spec_engine: f32 gather greedy tokens differ from "
           f"the plain engine's: {div}")
+    check(any(k.startswith("serve.spec_window") for k in replay.results)
+          and set(replay.results) == replayed and replay.faults() == {},
+          f"spec_engine: replays against their bodies {replay.results}, "
+          f"replayed programs {sorted(replayed)}")
     check(steady and set(steady) == {1}, f"spec_engine: a window without "
           f"catch-up made {sorted(set(steady))} host syncs, want 1")
     return launches, sorted(set(steady))
@@ -1975,13 +2111,13 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
         row[f"{kind}_f32_identical_share"] = same_tokens(batched, solo) / (
             len(prompts) * max_new)
         if kind == "spec":
-            steady = sorted({n for n, up, _ in syncs if not up})
+            steady = sorted({n for n, up, _, _ in syncs if not up})
             row.update({"sampled_windows": len(syncs),
                         "sampled_window_host_syncs": steady,
                         "sampled_window_host_syncs_after_catch_up": sorted(
-                            {n for n, up, _ in syncs if up}),
+                            {n for n, up, _, _ in syncs if up}),
                         "sampled_window_sync_sites": sorted(
-                            {x for _, _, sites in syncs for x in sites})})
+                            {x for _, _, sites, _ in syncs for x in sites})})
         checks[kind] = (same, held)
     emit(row)
     for kind, (same, held) in checks.items():
@@ -3358,6 +3494,9 @@ def cluster_rpc_phase(torch, flash_mod, paged_mod, GeneratorActor,
 #: cadence, and the RAG family's prompt tail cut so its longest request
 #: (96 + 800 prompt + 128 new tokens) fits optimus-125m's reach of 1,024.
 GW_RATES = (4, 8, 16, 24, 28, 32, 48)
+#: Rates tried past the grid, in turn, only while its last rate has not
+#: saturated the replicas (a faster fleet moves its capacity up).
+GW_MORE_RATES = (64, 96, 128)
 GW_TRACE = dict(process="poisson", duration_s=8.0)
 GW_SLO_TTFT_MS = 1000.0
 GW_SLO_TPOT_MS = 50.0
@@ -3689,7 +3828,15 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         svc = f"gateway.{GW_SERVICE}"
         points, rows_d = [], []
         t0 = time.monotonic()
-        for rate in GW_RATES:
+
+        def offered():
+            yield from GW_RATES
+            for more in GW_MORE_RATES:
+                if rows_d[-1]["saturated"]:
+                    return
+                yield more
+
+        for rate in offered():
             if points:
                 time.sleep(GW_SETTLE_S)   # the fleet drains between rates
             tr = synth_trace(0, mix=mix, rate_rps=rate, **GW_TRACE)
@@ -3763,7 +3910,8 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
         knee = locate_knee(points, 90.0)
         saturated = [pt["rate_rps"] for pt in rows_d if pt["saturated"]]
         row["d_s"] = time.monotonic() - t0
-        row["d"] = {"rates": list(GW_RATES), "trace": GW_TRACE,
+        row["d"] = {"rates": [pt["rate_rps"] for pt in rows_d],
+                    "trace": GW_TRACE,
                     "trace_arrivals": [pt["trace_arrivals"] for pt in rows_d],
                     "rag_prompt_max": GW_RAG_PROMPT_MAX,
                     "slo_ttft_ms": GW_SLO_TTFT_MS,
@@ -3786,8 +3934,9 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
                   f"{pt['rate_rps']} rps: {pt}")
         check(knee is not None, "gateway_serving: no knee")
         check(rows_d[-1]["saturated"],
-              f"gateway_serving: no saturation up to {GW_RATES[-1]} rps "
-              "(no shed, queue-wait p99 under the TTFT yardstick)")
+              f"gateway_serving: no saturation up to "
+              f"{rows_d[-1]['rate_rps']} rps (no shed, queue-wait p99 "
+              "under the TTFT yardstick)")
 
         # (e) the decode replica SIGKILLed halfway through half the knee
         rate = knee.offered_rps / 2
@@ -6690,9 +6839,11 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
     counters moving inside the programs that run them; (b) jitwatch armed
     over an 8-slot kernel engine: phase 4's requests (AUDIT_MAX_NEW new
     tokens) once, ``mark_steady``, three more rounds: no build after the
-    warmup, the decode guard live and never tripped, a step's one read
-    and five slot-state uploads on the books, tokens equal to a disarmed
-    round's; (c) the same over AUDIT_DP_STEPS StoreDPTrainer steps at
+    warmup but the greedy step's one capture (in the warmup), the decode
+    guard live and never tripped, a step's one read and a mirror
+    refill's five slot-state uploads on the books, paged launches of
+    every step (replays included), tokens equal to a disarmed round's;
+    (c) the same over AUDIT_DP_STEPS StoreDPTrainer steps at
     B=16, S=1024: losses equal to a disarmed run's bit for bit; (d)
     ``measure_jitwatch_overhead`` on the card; (e) the CUDA detector
     itself: an ``.item()`` and a pageable upload in an armed region
@@ -6794,6 +6945,11 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
           f"off their events: {watch.faults()[:5]}")
     check(engine_launches == steps * L,
           f"audits: paged launches {engine_launches} != {steps} x {L}")
+    # The greedy step's one capture, booked as the program's compile in
+    # the warmup round (none after steady) and run as a sanctioned pass.
+    check(rep["compiles"].get("serve.decode") == 1
+          and books.get("serve.capture") == 1,
+          f"audits: captures {rep['compiles']}, books {books}")
 
     def same(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b))

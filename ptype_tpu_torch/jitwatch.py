@@ -12,7 +12,9 @@ headers and flags hashed) and every first bind of a C entry point
 (``csrc/<name>:<fn>``). A second build or load of the same target in
 one process is a **recompile**: the cache should have served it, and a
 steady-state process makes none. ``on_compile(fn, signature)`` stays
-public for other program caches to book through.
+public for other program caches to book through: the paged engine books
+each CUDA graph it captures (``serve.decode``, ``serve.spec_window``;
+``serve_engine/programs.py``).
 
 - **disarmed** (default): each seam reads one module global and does
   nothing else;

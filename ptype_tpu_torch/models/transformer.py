@@ -579,6 +579,29 @@ def head_logits(x: torch.Tensor, head: torch.Tensor,
     return (x.to(cfg.dtype) @ head.to(cfg.dtype)).float()
 
 
+#: Leaves the forward reads in f32 whatever ``cfg.dtype``: the MoE
+#: router (:func:`_moe_router`).
+F32_LEAVES = ("router",)
+
+
+def compute_params(params: dict, cfg: TransformerConfig) -> dict:
+    """The tree a server decodes with: every leaf but :data:`F32_LEAVES`
+    cast to ``cfg.dtype`` once — the embedding and head, the norm scales
+    and the matrices, each of which every use casts to ``cfg.dtype``
+    (the norms cast to their input's, which is ``cfg.dtype`` on the
+    forward's path). Each use's ``.to(cfg.dtype)`` then returns its
+    input with no launch, and the results are bitwise those of
+    ``params``. At an f32 ``cfg.dtype`` the leaves are ``params``' own.
+    Training keeps its per-use casts: its weights change every step."""
+    def cast(name, v):
+        if isinstance(v, dict):
+            return {k: cast(k, x) for k, x in v.items()}
+        return v if name in F32_LEAVES else v.to(cfg.dtype)
+
+    with torch.no_grad():
+        return cast(None, params)
+
+
 def forward_with_aux(params: dict, tokens: torch.Tensor,
                      cfg: TransformerConfig, attn_fn=None, mesh=None):
     """(logits (B, S, V) f32, aux) — aux is the summed MoE router loss

@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from ptype_tpu_torch.ops import _build
+from ptype_tpu_torch.ops import _build, count_launch
 
 NEG_INF = -1e30
 #: Head dims the CUDA kernels are built for.
@@ -178,7 +178,7 @@ def _forward(q, k, v, causal: bool, want_lse: bool):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None, *_dims(q, k, causal))
     _build.check(code, "flash_fwd", "flash_fwd")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return o, lse
 
 
@@ -209,7 +209,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True):
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         *_dims(q, k, causal))
     _build.check(code, "flash_bwd_dq", "flash_bwd")
-    flash_attention_dq.launches += 1
+    count_launch(flash_attention_dq)
     return dq
 
 
@@ -232,7 +232,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True):
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_dims(q, k, causal))
     _build.check(code, "flash_bwd_dkv", "flash_bwd")
-    flash_attention_dkv.launches += 1
+    count_launch(flash_attention_dkv)
     return dk, dv
 
 

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from ptype_tpu_torch.ops import _build
+from ptype_tpu_torch.ops import _build, count_launch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
@@ -129,7 +129,7 @@ def paged_attention(q, kc, vc, tables, pos):
               ws.data_ptr(), B, H, Kh, Dh, bt, nb, _DTYPES[q.dtype],
               1.0 / math.sqrt(Dh), stream)
     _build.check(code, "paged_decode", "paged_decode")
-    paged_attention.launches += 1
+    count_launch(paged_attention)
     return out
 
 

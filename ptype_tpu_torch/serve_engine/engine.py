@@ -43,11 +43,22 @@ build and the wire hop are the sanctioned transfers on the books.
 
 Device-resident slot state: both steps read one device mirror of the
 slot state (tables, allocation bounds, active lanes, tokens and
-positions), built from the host arrays only after an admission, a
-retire, a block allocation or a speculation window. A plain step routes
-its KV writes from the mirror and advances the mirror's tokens and
-positions on the device, as the reference's does in-graph: a steady
-step uploads nothing. The host arrays stay authoritative.
+positions), static buffers allocated once and refilled from the host
+arrays only after an admission, a retire, a block allocation or a
+speculation window. A plain step routes its KV writes from the mirror
+and advances the mirror's tokens and positions on the device, as the
+reference's does in-graph: a steady step uploads nothing. The host
+arrays stay authoritative.
+
+Compiled programs: the engine decodes with its parameters cast to the
+compute dtype once (``tfm.compute_params``; bitwise the same logits). A
+greedy plain step and each greedy speculation window width are bodies
+that read and write only that tree, the banks and the mirror; on CUDA
+each is captured once as a CUDA graph and replayed
+(``serve_engine/programs.py``; the reference jits one program a
+sampling mode and one a ``(W, sampled)`` window). A step or window with
+a sampled row runs the same body eagerly: its rows draw from per-row
+``torch.Generator``s in a host loop.
 
 Speculative decoding (``spec=SpecConfig(...)``): a draft model with
 its own block tables in a second :class:`BlockPool` proposes ``k``
@@ -83,6 +94,7 @@ import contextlib
 import itertools
 import threading
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -98,6 +110,7 @@ from ptype_tpu_torch.serve import (LIFECYCLE_CODES, GeneratorActor,
                                    _norm_prompt)
 from ptype_tpu_torch.serve_engine.blocks import BlockPool, block_hashes
 from ptype_tpu_torch.serve_engine.migrate import WIRE_MODES, KVMigrator
+from ptype_tpu_torch.serve_engine.programs import Programs
 
 log = logs.get_logger("serve_engine")
 
@@ -293,10 +306,18 @@ class PagedGeneratorActor(GeneratorActor):
         #: Tokens the last window committed over its live rows.
         self._window_emitted = 0
         #: The device mirror of the slot state both steps read
-        #: (``_mirror``); None = build it again from the host arrays
-        #: (set at admission, retire, block allocation and after a
-        #: speculation window).
+        #: (``_mirror``): the static buffers ``_sbuf`` once filled; None
+        #: = refill them from the host arrays (set at admission, retire,
+        #: block allocation and after a speculation window).
         self._sdev: dict | None = None
+        #: The trees the engine's programs read: each leaf the forward
+        #: casts to the compute dtype, cast once.
+        self._cparams = tfm.compute_params(self.params, cfg)
+        self._dparams = (tfm.compute_params(spec.draft_params,
+                                            spec.draft_cfg)
+                         if spec is not None else None)
+        #: Greedy steps and windows, captured once on CUDA.
+        self._programs = Programs(self.device)
 
         ns = self.n_slots
         self._tables = np.zeros((ns, self.nb), np.int32)
@@ -316,6 +337,10 @@ class PagedGeneratorActor(GeneratorActor):
         #: advance the target alone, and the next window catches the
         #: draft up from here.
         self._dpos = np.zeros(ns, np.int32)
+        #: The mirror's device buffers, allocated once: a capture reads
+        #: their addresses, so a refill copies into them.
+        self._sbuf = {name: self._upload(arr)
+                      for name, arr in self._slot_arrays().items()}
         self._slot_state: dict[int, _PagedRow] = {}
         self._queue: list[_PagedRow] = []
         self._admitting: _PagedRow | None = None
@@ -976,8 +1001,8 @@ class PagedGeneratorActor(GeneratorActor):
         with cm:
             with self._lock:
                 logits, _, _ = gen.prefill_paged_chunk(
-                    self.params, torch.as_tensor(toks[None, start:start + n],
-                                                 device=dev),
+                    self._cparams,
+                    torch.as_tensor(toks[None, start:start + n], device=dev),
                     start, n, self.cfg, self.pool.k, self.pool.v,
                     torch.as_tensor(table, device=dev))
             row.prefill_pos += n
@@ -1104,10 +1129,10 @@ class PagedGeneratorActor(GeneratorActor):
 
     def _plain_step(self) -> None:
         """One batched decode step over every slot (inactive lanes write
-        to the trash block and are ignored). The write routing comes
-        from the device mirror, and the mirror's tokens and positions
-        advance on the device, so a step after no admission, retire or
-        block allocation uploads nothing."""
+        to the trash block and are ignored): :meth:`_decode_body` on the
+        device mirror, greedy as its program (``serve.decode``). A step
+        after no admission, retire or block allocation uploads nothing,
+        and the step reads the host back once."""
         bt = self.block_tokens
         for slot in np.flatnonzero(self._active):
             if self._pos[slot] == self._nalloc[slot] * bt:
@@ -1119,23 +1144,9 @@ class PagedGeneratorActor(GeneratorActor):
                 self._tables[slot, self._nalloc[slot]] = bid
                 self._nalloc[slot] += 1
                 self._sdev = None
-        sd = self._mirror()
+        self._mirror()
         with self._lock, jitwatch.hot_region("serve.decode", self.device):
-            pos, active = sd["pos"], sd["active"]
-            blk = torch.clamp(pos // bt, max=self.nb - 1).long()[:, None]
-            wr_b = torch.where(active, sd["tables"].gather(1, blk)[:, 0], 0)
-            logits, _, _ = gen.decode_step_paged(
-                self.params, sd["tok"], pos, self.cfg, self.pool.k,
-                self.pool.v, sd["tables"], wr_b, pos % bt,
-                attn_impl=self.attn)
-            if (self._temps[self._active] > 0.0).any():
-                nxt = gen.sample_token_rows(logits, self._gens,
-                                            self._temps, self._topk,
-                                            self._topp)
-            else:
-                nxt = torch.argmax(logits, dim=-1)
-            nxt = torch.where(active, nxt, 0)
-            sd["tok"], sd["pos"] = nxt, torch.where(active, pos + 1, pos)
+            _, nxt = self._dispatch("serve.decode", self._decode_body)
         with jitwatch.sanctioned_transfer("serve.decode_read"):
             nxt = nxt.cpu().numpy()  # the step's one host read
         self._steps += 1
@@ -1157,36 +1168,81 @@ class PagedGeneratorActor(GeneratorActor):
         if self._steps % 32 == 0:
             self._export_gauges()
 
+    def _dispatch(self, fn: str, body, W: int | None = None):
+        """Run ``body(sampled)`` for the live slots: eagerly when a live
+        row samples (its draws come from per-row generators in a host
+        loop), else as the greedy program of ``fn`` at this engine's
+        signature (the reference's test of the live slots picks its
+        program the same way)."""
+        if (self._temps[self._active] > 0.0).any():
+            return body(True)
+        dt = str(self.cfg.dtype).removeprefix("torch.")
+        sig = (f"B={self.n_slots},W={W},dtype={dt},sampled=False" if W
+               else f"B={self.n_slots},dtype={dt},attn={self.attn},"
+                    f"sampled=False")
+        return self._programs.run(fn, sig, lambda: body(False))
+
+    def _decode_body(self, sampled: bool):
+        """The plain step on the device: the write routing from the
+        mirror, the decode forward, the next tokens, and the mirror's
+        tokens and positions advanced in place. It reads and writes
+        only the compute tree, the banks and the mirror's buffers.
+        Returns (logits (B, V), next tokens (B,))."""
+        sd, bt = self._sdev, self.block_tokens
+        pos, active = sd["pos"], sd["active"]
+        blk = torch.clamp(pos // bt, max=self.nb - 1).long()[:, None]
+        wr_b = torch.where(active, sd["tables"].gather(1, blk)[:, 0], 0)
+        logits, _, _ = gen.decode_step_paged(
+            self._cparams, sd["tok"], pos, self.cfg, self.pool.k,
+            self.pool.v, sd["tables"], wr_b, pos % bt, attn_impl=self.attn)
+        if sampled:
+            nxt = gen.sample_token_rows(logits, self._gens, self._temps,
+                                        self._topk, self._topp)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        nxt = torch.where(active, nxt, 0)
+        sd["tok"].copy_(nxt)
+        pos.copy_(torch.where(active, pos + 1, pos))
+        return logits, nxt
+
+    def _slot_arrays(self) -> dict:
+        """The host arrays the mirror holds: int32 tables, allocation
+        bounds and positions (the kernel's type), int64 tokens, the
+        active lanes, and under speculation the draft's tables and
+        bounds."""
+        arrays = {"tables": self._tables, "nalloc": self._nalloc,
+                  "active": self._active, "tok": self._tok,
+                  "pos": self._pos}
+        if self._dpool is not None:
+            arrays.update(dtables=self._dtables, dnalloc=self._dnalloc)
+        return arrays
+
     def _mirror(self) -> dict:
-        """The device mirror of the slot state, built from the host
-        arrays when it was dropped: int32 tables, allocation bounds and
-        positions (the kernel's type), int64 tokens, the active lanes,
-        and under speculation the draft's tables and bounds. Each array
-        is one pinned, non-blocking upload on the books as
+        """The device mirror of the slot state, refilled from the host
+        arrays when it was dropped: each array one pinned, non-blocking
+        upload into its static buffer, on the books as
         ``serve.slot_state``."""
         if self._sdev is None:
-            arrays = {"tables": self._tables, "nalloc": self._nalloc,
-                      "active": self._active, "tok": self._tok,
-                      "pos": self._pos}
-            if self._dpool is not None:
-                arrays.update(dtables=self._dtables, dnalloc=self._dnalloc)
-            sd = {}
-            for name, arr in arrays.items():
+            for name, arr in self._slot_arrays().items():
                 with jitwatch.sanctioned_transfer("serve.slot_state"):
-                    sd[name] = self._upload(arr)
-            self._sdev = sd
+                    self._upload(arr, self._sbuf[name])
+            self._sdev = self._sbuf
         return self._sdev
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device without a host wait: on
-        CUDA through pinned memory with a non-blocking copy (a pageable
-        host-to-device copy synchronizes the stream). ``pin_memory``
-        stages each call in a fresh block of the caching host allocator,
-        which holds the block until the copy has run."""
+    def _upload(self, arr: np.ndarray,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+        """A host array into ``out`` (a new tensor on the engine's
+        device when None) without a host wait: on CUDA staged in pinned
+        memory and copied non-blocking (a pageable host-to-device copy
+        synchronizes the stream). ``pin_memory`` stages each call in a
+        fresh block of the caching host allocator, which holds the block
+        until the copy has run."""
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if out is None:
+            out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return out.copy_(t, non_blocking=True)
 
     def _retire(self, slot: int, reason: str = "complete") -> None:
         self._active[slot] = False
@@ -1224,7 +1280,7 @@ class PagedGeneratorActor(GeneratorActor):
         tarr[:len(table)] = table
         dev = self.device
         gen.prefill_paged_chunk(
-            self._spec.draft_params,
+            self._dparams,
             torch.as_tensor(np.asarray(toks)[None], device=dev), start,
             len(toks), self._spec.draft_cfg, self._dpool.k, self._dpool.v,
             torch.as_tensor(tarr, device=dev))
@@ -1303,17 +1359,25 @@ class PagedGeneratorActor(GeneratorActor):
         ok_d = sd["active"][:, None] & (ap // bt < sd["dnalloc"][:, None])
         dwr_b = torch.where(ok_d, sd["dtables"].gather(1, blk), 0)
         prop, dlg, _, _ = gen.draft_propose_paged(
-            sp.draft_params, tok, pos, sp.draft_cfg, self._dpool.k,
+            self._dparams, tok, pos, sp.draft_cfg, self._dpool.k,
             self._dpool.v, sd["dtables"], dwr_b, wr_o, self._draft_gens,
             self._temps, self._topk, self._topp, n_steps=W,
             sampled=sampled)
         toks_w = torch.cat([tok[:, None], prop[:, :W - 1]], dim=1)
         tlg, _, _ = gen.verify_step_paged(
-            self.params, toks_w, pos, self.cfg, self.pool.k, self.pool.v,
+            self._cparams, toks_w, pos, self.cfg, self.pool.k, self.pool.v,
             sd["tables"], wr_b, wr_o)
         return gen.spec_accept_rows(
             prop[:, :W - 1], dlg[:, :W - 1], tlg, self._accept_gens,
             self._temps, self._topk, self._topp, sampled=sampled)
+
+    def _window_body(self, W: int, sampled: bool) -> torch.Tensor:
+        """One window from the mirror (:meth:`_spec_window`): its
+        tokens and accept counts as one (B, W + 1) tensor, the window's
+        one read."""
+        sd = self._sdev
+        out, n_acc = self._spec_window(W, sampled, sd["tok"], sd["pos"])
+        return torch.cat([out, n_acc[:, None]], dim=1)
 
     def _spec_step(self, k_eff: int) -> None:
         """One speculation window over the live slots: ``k_eff``
@@ -1345,15 +1409,13 @@ class PagedGeneratorActor(GeneratorActor):
                 self._dnalloc[slot] += 1
                 self._sdev = None
             self._draft_catch_up(slot, row)
-        sd = self._mirror()
-        sampled = bool((self._temps[self._active] > 0.0).any())
+        self._mirror()
         self._steps += 1
         self._max_live = max(self._max_live, len(live))
         with self._lock, jitwatch.hot_region("serve.spec_window",
                                              self.device):
-            out, n_acc = self._spec_window(W, sampled, sd["tok"],
-                                           sd["pos"])
-            host = torch.cat([out, n_acc[:, None]], dim=1)
+            host = self._dispatch("serve.spec_window", partial(
+                self._window_body, W), W)
         with jitwatch.sanctioned_transfer("serve.spec_read"):
             host = host.cpu().numpy()  # the window's one host read
         # Ragged advances, committed on the host: the mirror goes stale.
@@ -1535,3 +1597,5 @@ class PagedGeneratorActor(GeneratorActor):
             self._closed = True
             self._cond.notify_all()
         self._thread.join(timeout=10)
+        if not self._thread.is_alive():
+            self._programs.close()

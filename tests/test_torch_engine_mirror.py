@@ -1,8 +1,9 @@
 """The paged engine's device mirror of its slot state, in f32 on the CPU
 at ``tiny``: at the start of every plain step and every speculation
 window a built mirror equals the host arrays, a mirror is built exactly
-after an admission, a retire, a window or a block allocation, and the
-greedy tokens equal the reference engine's. The workload crosses block
+after an admission, a retire, a window or a block allocation, into the
+same device buffers every time (a captured step reads their addresses),
+and the greedy tokens equal the reference engine's. The workload crosses block
 boundaries many times (``block_tokens`` 8, the smallest the pool
 takes), admits rows while others decode, stops a row on its stop token,
 cancels a live row, lands a migrated request, and under speculation
@@ -72,10 +73,10 @@ class MirrorWatch:
     """Wraps one engine's steps and the events that drop its mirror.
 
     At each step's start a built mirror must equal the host arrays, in
-    the host's types. A step builds the mirror exactly when an
-    admission, a retire or a window came since the last step, or the
-    step itself allocated a block. ``counts`` tallies the events and
-    the steps."""
+    the host's types, and every build fills the first build's buffers.
+    A step builds the mirror exactly when an admission, a retire or a
+    window came since the last step, or the step itself allocated a
+    block. ``counts`` tallies the events and the steps."""
 
     def __init__(self, eng):
         self.eng = eng
@@ -85,6 +86,7 @@ class MirrorWatch:
                            plain_after_window=0)
         self.dirty = False
         self.last = None
+        self.ptrs = None
         take, retire = eng._take_slot, eng._retire
         plain, spec, mirror = eng._plain_step, eng._spec_step, eng._mirror
 
@@ -115,6 +117,9 @@ class MirrorWatch:
     def _check(self, sd):
         e = self.eng
         assert sorted(sd) == sorted(self.keys), sorted(sd)
+        ptrs = {k: v.data_ptr() for k, v in sd.items()}
+        self.ptrs = self.ptrs or ptrs
+        assert ptrs == self.ptrs, "the mirror moved"
         for k, dt in self.keys.items():
             host = getattr(e, "_" + k)
             dev = sd[k].cpu().numpy()
@@ -293,9 +298,11 @@ def test_mirror_equals_host_state_through_a_mixed_workload(trees,
 
 def steady_stream_books(seed=5):
     """Armed, a `tiny` f32 engine of 4 slots serves six staggered
-    40-token requests: the books, the steps, and the steps that followed
-    an admission, a retire or a block boundary. It reads only what the
-    engine had before its mirror, so any checkout's package runs it."""
+    40-token requests: the books, the steps, the steps that followed an
+    admission, a retire or a block boundary, the steps that found a
+    built mirror unequal to the host arrays, and the distinct address
+    sets the mirror's buffers had. It reads only what the engine had
+    since its mirror, so any such checkout's package runs it."""
     from ptype_tpu_torch import jitwatch
     from ptype_tpu_torch.models.weights import init_params
 
@@ -303,7 +310,8 @@ def steady_stream_books(seed=5):
     jw = jitwatch.enable()
     eng = PagedGeneratorActor(CFG, params=params, device="cpu", n_slots=4,
                               block_tokens=16)
-    ev = {"steps": 0, "event_steps": 0}
+    ev = {"steps": 0, "event_steps": 0, "mirror_unequal": 0}
+    addresses = set()
     dirty = [False]
     take, retire, step = eng._take_slot, eng._retire, eng._plain_step
 
@@ -321,6 +329,13 @@ def steady_stream_books(seed=5):
         ev["event_steps"] += bool(dirty[0] or cross.any())
         ev["steps"] += 1
         dirty[0] = False
+        sd = eng._sdev
+        if sd is not None:
+            addresses.add(tuple(sorted((k, v.data_ptr())
+                                       for k, v in sd.items())))
+            ev["mirror_unequal"] += not all(
+                np.array_equal(v.numpy(), getattr(eng, "_" + k))
+                for k, v in sd.items())
         step()
 
     eng._take_slot, eng._retire, eng._plain_step = take_, retire_, step_
@@ -336,7 +351,19 @@ def steady_stream_books(seed=5):
     finally:
         eng.close()
         jitwatch.disable()
-    return {**ev, "books": jw.sanctioned()}
+    return {**ev, "mirror_addresses": len(addresses),
+            "books": jw.sanctioned()}
+
+
+def test_a_steady_stream_refills_one_mirror_in_place():
+    """Admissions, retires and block boundaries refill the mirror's
+    buffers: one set of addresses through the stream, equal to the host
+    arrays at every step that finds it built, five uploads a refill."""
+    got = steady_stream_books()
+    assert got["mirror_addresses"] == 1, got
+    assert got["mirror_unequal"] == 0, got
+    assert got["books"]["serve.decode_read"] == got["steps"] > 0, got
+    assert got["books"]["serve.slot_state"] == 5 * got["event_steps"], got
 
 
 if __name__ == "__main__":

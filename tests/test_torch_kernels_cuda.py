@@ -1112,6 +1112,9 @@ def test_armed_paged_engine_steady_state_on_the_card(armed):
         assert armed.report()["hot_regions"] > 0
         assert books["serve.decode_read"] == 3 * 7
         assert books["serve.slot_state"] == 5 * 3
+        # The greedy step captured once, in the warm request, and booked.
+        assert books["serve.capture"] == 1
+        assert armed.compiles()["serve.decode"] == 1
         jitwatch.disable()
         assert torch.equal(a.Generate(p, 8), warm)
     finally:
@@ -1197,6 +1200,15 @@ def test_steady_engine_steps_upload_nothing_on_the_card(armed):
            if "CUDA" in str(getattr(e, "device_type", ""))]
     assert any("paged_decode" in e.key for e in dev), [e.key for e in dev]
     assert [e.key for e in dev if "Memcpy HtoD" in e.key] == []
+    # The step is its captured program: one graph launch, no kernel
+    # launched on its own.
+    calls = {}
+    for e in prof["events"]:
+        if e not in dev and e.key.startswith(("cudaGraphLaunch",
+                                              "cudaLaunchKernel")):
+            name = e.key.split("_v")[0]
+            calls[name] = calls.get(name, 0) + e.count
+    assert calls == {"cudaGraphLaunch": 1}, calls
 
     host = PagedGeneratorActor(cfg, **kw)
     plain = host._plain_step
@@ -1212,6 +1224,80 @@ def test_steady_engine_steps_upload_nothing_on_the_card(armed):
         host.close()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_a_replay_equals_its_bodys_direct_call(cuda, moe, spec):
+    """bf16, the paged kernel, 4 slots, a narrow dense and MoE config,
+    with and without a 1-layer draft (k=3): at each program's first
+    replay the banks and the mirror are cloned, the body runs directly,
+    the state is put back and the graph replays. The outputs (a plain
+    step's logits and tokens, a window's tokens and accept counts) and
+    the banks and mirror after are bitwise equal, for the plain step and
+    every window width replayed; paged launches count every plain step,
+    replays included."""
+    import dataclasses
+
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import launch_tally
+
+    cfg = dataclasses.replace(NARROW_MOE if moe else NARROW,
+                              dtype=torch.bfloat16)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    sc = None
+    if spec:
+        dp, dc = gen_mod.truncated_draft_params(params, cfg, 1)
+        sc = SpecConfig(dp, dc, k=3, adaptive=False)
+    eng = PagedGeneratorActor(cfg, params=params, device="cuda", n_slots=4,
+                              block_tokens=16, attn="kernel", spec=sc)
+    run, results = eng._programs.run, {}
+
+    def state():
+        pools = [eng.pool] + ([eng._dpool] if spec else [])
+        return ([t for p in pools for t in (p.k, p.v)]
+                + list(eng._sbuf.values()))
+
+    def flat(out):
+        return list(out) if isinstance(out, tuple) else [out]
+
+    def checked(fn, sig, body):
+        if (fn, sig) in results or (fn, sig) not in eng._programs.progs:
+            return run(fn, sig, body)
+        live = state()
+        saved = [t.clone() for t in live]
+        with launch_tally() as extra:
+            direct = [t.clone() for t in flat(body())]
+        for f, n in extra.items():
+            f.launches -= n
+        after = [t.clone() for t in live]
+        for t, v in zip(live, saved):
+            t.copy_(v)
+        got = run(fn, sig, body)
+        torch.cuda.synchronize()
+        results[(fn, sig)] = (
+            all(torch.equal(a, b) for a, b in zip(direct, flat(got))),
+            all(torch.equal(a, b) for a, b in zip(after, live)))
+        return got
+
+    eng._programs.run = checked
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g)
+               for n in (9, 30, 41, 64, 17, 50)]
+    try:
+        paged_mod.paged_attention.launches = 0
+        _in_order(eng, prompts, 24)
+        torch.cuda.synchronize()
+        info = eng.Info()
+        replayed = {k for k, p in eng._programs.progs.items() if p.replays}
+    finally:
+        eng.close()
+    plain = info["engine_steps"] - info.get("spec_windows", 0)
+    assert paged_mod.paged_attention.launches == plain * cfg.n_layers
+    assert set(results) == replayed and results, (results, replayed)
+    assert all(a and b for a, b in results.values()), results
+    fns = {fn for fn, _ in results}
+    assert ("serve.spec_window" in fns) == spec, fns
 
 
 def test_audit_sees_a_host_read_in_a_backward_on_the_card(cuda):
