@@ -10,13 +10,21 @@ prefix, 64 new tokens each, attn="kernel") five times, each on a new
 engine, and prints one JSON line per run: its wall seconds, the decode
 steps and their summed wall seconds, the paged wrapper's Python calls
 and their summed host time (where the greedy step is a replayed CUDA
-graph, the wrapper runs only in its warm-up and its capture). The first
-run of a process carries one-off start-up costs. A last run profiles
-the first two decode steps with every slot live (the first follows the
-last admission) and prints, for each, its wall and device ms, kernel
-and graph launches, kernel records on the card, host-to-device copies
-and synchronising calls. To compare two checkouts, alternate them, one
-process each:
+graph, the wrapper runs only in its warm-up and its capture), and the
+target prefill chunks: their count and summed times, split into the
+chunks that captured their bucket's program and the others (replayed;
+"eager" where the checkout runs chunks eagerly). A chunk's times are
+its host wall (the call's) and its stream span (CUDA events around the
+call on the engine's stream, read after the run: no synchronisation is
+added). Each engine then serves the requests a second time (their
+prompts now resident: each prefills its tail), printed as run ``R.1``.
+The first run of a process carries one-off start-up costs. A last run
+profiles the first two decode steps with every slot live (the first
+follows the last admission) and the first chunk of bucket 256 that is
+neither its prompt's last nor its bucket's first in the engine, and
+prints, for each, its wall and device ms, kernel and graph launches,
+kernel records on the card, host-to-device copies and synchronising
+calls. To compare two checkouts, alternate them, one process each:
 
     for i in 1 2 3 4; do for r in A B; do python3 chip_engine_ab.py $r; done; done
 """
@@ -63,6 +71,82 @@ def step_profile(torch, step):
         elif ev.key in SYNC_CALLS:
             row["sync_calls"][ev.key] = ev.count
     return row
+
+
+def next_chunk(eng, row, budget):
+    """The chunk ``_prefill_one_chunk(row, budget)`` will run: (n, its
+    bucket, whether it is the prompt's last), or None before the row's
+    prefix-reuse walk (a row's first chunk) and for a migrated row.
+    Kept here, as ``step_profile`` is, so an older checkout is read the
+    same way."""
+    if getattr(row, "migrated", False) or row.prefill_pos < 0:
+        return None
+    start, L = row.prefill_pos, len(row.prompt)
+    n = max(1, min(eng.prefill_chunk, L - start, budget))
+    return n, max(16, 1 << (n - 1).bit_length()), start + n >= L
+
+
+class ChunkClock:
+    """Times each target prefill chunk of ``eng``: host wall, and the
+    stream span between CUDA events recorded before and after the call
+    (read by :meth:`summary`, after the run). A chunk that grew the
+    engine's programs captured its bucket; of its host wall,
+    ``capture_ms`` is the capture's own (``programs.capture``: the
+    graph's recording and instantiation), the rest mostly the warm-up
+    call of the body."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.rows, self.capture_s = torch, [], [0.0]
+        chunk = eng._prefill_one_chunk
+        staged = hasattr(eng, "_chunk")  # chunks run as programs
+
+        def timed(row, budget):
+            n0 = len(eng._programs.progs)
+            self.capture_s[0] = 0.0
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            out = chunk(row, budget)
+            host = time.perf_counter() - t0
+            e1.record()
+            kind = ("captured" if len(eng._programs.progs) > n0
+                    else "replayed" if staged else "eager")
+            self.rows.append((kind, out[0], host, e0, e1,
+                              self.capture_s[0]))
+            return out
+
+        eng._prefill_one_chunk = timed
+        if staged:
+            from ptype_tpu_torch.serve_engine import programs
+
+            capture = getattr(programs.capture, "untimed", programs.capture)
+
+            def timed_capture(*a):
+                t0 = time.perf_counter()
+                try:
+                    return capture(*a)
+                finally:
+                    self.capture_s[0] += time.perf_counter() - t0
+
+            timed_capture.untimed = capture
+            programs.capture = timed_capture
+
+    def summary(self):
+        self.torch.cuda.synchronize()
+        out = {"chunks": len(self.rows), "chunk_tokens": 0}
+        for kind, n, host, e0, e1, cap in self.rows:
+            d = out.setdefault(kind, {"chunks": 0, "tokens": 0,
+                                      "host_ms": 0.0, "span_ms": 0.0})
+            d["chunks"] += 1
+            d["tokens"] += n
+            d["host_ms"] += host * 1e3
+            d["span_ms"] += e0.elapsed_time(e1)
+            if kind == "captured":
+                d["capture_ms"] = d.get("capture_ms", 0.0) + cap * 1e3
+            out["chunk_tokens"] += n
+        self.rows = []
+        return out
 
 
 def main(root):
@@ -112,32 +196,56 @@ def main(root):
             step_s[0] += time.perf_counter() - t0
 
         eng._plain_step = timed_step
+        clock = ChunkClock(torch, eng)
         try:
-            host[:] = [0.0, 0]
-            steps0 = eng.Info()["engine_steps"]
-            _, wall = chip_smoke.run_requests(eng, prompts, 64)
-            steps = eng.Info()["engine_steps"] - steps0
+            for again in range(2):
+                host[:] = [0.0, 0]
+                step_s[0] = 0.0
+                steps0 = eng.Info()["engine_steps"]
+                _, wall = chip_smoke.run_requests(eng, prompts, 64)
+                steps = eng.Info()["engine_steps"] - steps0
+                print(json.dumps({
+                    "root": root, "run": f"{run}.{again}", "wall_s": wall,
+                    "decode_steps": steps, "steps_s": step_s[0],
+                    "paged_calls": host[1], "paged_host_ms": host[0] * 1e3,
+                    "prefill": clock.summary()}), flush=True)
         finally:
             eng.close()
-        print(json.dumps({"root": root, "run": run, "wall_s": wall,
-                          "decode_steps": steps, "steps_s": step_s[0],
-                          "paged_calls": host[1],
-                          "paged_host_ms": host[0] * 1e3}), flush=True)
     paged_mod.paged_attention = wrapper
     eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
-    step, rows = eng._plain_step, []
+    step, chunk, rows = eng._plain_step, eng._prefill_one_chunk, []
+    chunk_row, seen = {}, set()
 
     def profiled():
         if len(rows) == 2 or not eng._active.all():
             return step()
         rows.append(step_profile(torch, step))
 
-    eng._plain_step = profiled
+    def profiled_chunk(row, budget):
+        cut = next_chunk(eng, row, budget)
+        ready = (cut is not None and cut[1] == 256 and not cut[2]
+                 and not chunk_row)
+        if ready and hasattr(eng, "_chunk"):  # the bucket's program
+            ready = ("serve.prefill_chunk", "C=256,dtype=bfloat16") in \
+                eng._programs.progs
+        elif ready:  # an eager chunk after one of its bucket
+            ready = 256 in seen
+        if cut is not None:
+            seen.add(cut[1])
+        if not ready:
+            return chunk(row, budget)
+        out = []
+        chunk_row.update(step_profile(torch, lambda: out.append(
+            chunk(row, budget))), n=cut[0], C=cut[1])
+        return out[0]
+
+    eng._plain_step, eng._prefill_one_chunk = profiled, profiled_chunk
     try:
         chip_smoke.run_requests(eng, prompts, 64)
     finally:
         eng.close()
-    print(json.dumps({"root": root, "profiled_steps": rows}), flush=True)
+    print(json.dumps({"root": root, "profiled_steps": rows,
+                      "profiled_chunk": chunk_row}), flush=True)
 
 
 if __name__ == "__main__":

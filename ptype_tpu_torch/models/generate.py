@@ -247,17 +247,25 @@ def decode_step_paged(params: dict, token: torch.Tensor,
     return _head_logits(params, x[:, 0], cfg), kb, vb
 
 
-def prefill_paged_chunk(params: dict, tokens: torch.Tensor, start: int,
-                        length: int, cfg: tfm.TransformerConfig,
-                        kb: torch.Tensor, vb: torch.Tensor,
-                        table: torch.Tensor):
+def prefill_paged_chunk(params: dict, tokens: torch.Tensor,
+                        start: int | torch.Tensor,
+                        length: int | torch.Tensor,
+                        cfg: tfm.TransformerConfig, kb: torch.Tensor,
+                        vb: torch.Tensor, table: torch.Tensor):
     """One chunk of paged prefill for one sequence: ``tokens`` (1, C)
     holds positions ``[start, start + length)`` (right-padded past
-    ``length``); ``table`` (nb,) its block table. K/V of real tokens
-    are written in place into their blocks (pad columns to trash block
-    0); query c attends every position through ``start + c``. MoE
-    layers run at the zero-drop capacity ``C``. Returns (logits (1, V)
-    at the chunk's last real token, kb, vb)."""
+    ``length`` to the chunk's bucket C); ``table`` (nb,) its block
+    table. ``start`` and ``length`` are ints or 0-d tensors on the
+    tokens' device (the reference's ``jnp.int32``s): nothing here reads
+    a tensor back, so the chunk can be captured as a graph and replayed
+    over new inputs. K/V of real tokens are written in place into their
+    blocks; a pad column writes the trash block 0's own value back (the
+    reference writes the pad's K/V there: block 0 is never read, and
+    this way the bank after a chunk does not depend on which of several
+    writes to one trash slot lands last). Query c attends every
+    position through ``start + c``. MoE layers run at the zero-drop
+    capacity ``C``. Returns (logits (1, V) at the chunk's last real
+    token, kb, vb)."""
     B, C = tokens.shape
     dev = tokens.device
     bt = kb.shape[2]
@@ -271,18 +279,24 @@ def prefill_paged_chunk(params: dict, tokens: torch.Tensor, start: int,
                        0)
     wr_o = pos_vec % bt
     limits = torch.where(valid, pos_vec + 1, 0)
+    keep = valid[:, None, None]
     for i in range(cfg.n_layers):
         layer = tfm.layer_params(params, i)
         q, k, v = tfm.qkv_proj(x, layer, cfg, sin, cos)
         kc, vc = kb[i], vb[i]
-        kc[wr_b, wr_o] = k[0]
-        vc[wr_b, wr_o] = v[0]
+        kc[wr_b, wr_o] = torch.where(keep, k[0], kc[wr_b, wr_o])
+        vc[wr_b, wr_o] = torch.where(keep, v[0], vc[wr_b, wr_o])
         o = _paged_attention_gather(q, kc, vc, table[None], limits[None],
                                     cfg)
         x = tfm.attn_residual(x, o, layer, cfg)
         x, _ = tfm.mlp_residual(x, layer, cfg, moe_capacity=C)
     x = tfm.rms_norm(x, params["final_norm"])
-    return _head_logits(params, x[:, int(length) - 1], cfg), kb, vb
+    # The last real token by a device index (an int length is filled in
+    # on the device: no host-to-device copy).
+    last = (length if isinstance(length, torch.Tensor)
+            else torch.full((), int(length), device=dev)) - 1
+    x_last = x.index_select(1, last.reshape(1).long())[:, 0]
+    return _head_logits(params, x_last, cfg), kb, vb
 
 
 # ------------------------------------------------- speculative decoding

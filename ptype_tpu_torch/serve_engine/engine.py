@@ -58,7 +58,13 @@ each is captured once as a CUDA graph and replayed
 (``serve_engine/programs.py``; the reference jits one program a
 sampling mode and one a ``(W, sampled)`` window). A step or window with
 a sampled row runs the same body eagerly: its rows draw from per-row
-``torch.Generator``s in a host loop.
+``torch.Generator``s in a host loop. Every prefill chunk, the target's
+and the draft's, is padded to its bucket ``C = max(16, pow2(n))`` and
+runs as the program of that bucket (``serve.prefill_chunk``,
+``serve.draft_chunk``) over one static input buffer that a single
+pinned upload fills: a chunk that is not a prompt's last reads nothing
+back, and the last reads its logits for the first token (a sampled row
+draws it eagerly).
 
 Speculative decoding (``spec=SpecConfig(...)``): a draft model with
 its own block tables in a second :class:`BlockPool` proposes ``k``
@@ -107,7 +113,7 @@ from ptype_tpu_torch.health.serving import ServingLedger
 from ptype_tpu_torch.models import generate as gen
 from ptype_tpu_torch.models import transformer as tfm
 from ptype_tpu_torch.serve import (LIFECYCLE_CODES, GeneratorActor,
-                                   _norm_prompt)
+                                   _norm_prompt, _pow2)
 from ptype_tpu_torch.serve_engine.blocks import BlockPool, block_hashes
 from ptype_tpu_torch.serve_engine.migrate import WIRE_MODES, KVMigrator
 from ptype_tpu_torch.serve_engine.programs import Programs
@@ -316,7 +322,8 @@ class PagedGeneratorActor(GeneratorActor):
         self._dparams = (tfm.compute_params(spec.draft_params,
                                             spec.draft_cfg)
                          if spec is not None else None)
-        #: Greedy steps and windows, captured once on CUDA.
+        #: Greedy steps, windows and prefill chunk buckets, each
+        #: captured once on CUDA.
         self._programs = Programs(self.device)
 
         ns = self.n_slots
@@ -341,6 +348,11 @@ class PagedGeneratorActor(GeneratorActor):
         #: their addresses, so a refill copies into them.
         self._sbuf = {name: self._upload(arr)
                       for name, arr in self._slot_arrays().items()}
+        #: The prefill chunks' static inputs, one packed int32 buffer
+        #: (:meth:`_chunk`): start, length, the block table, then the
+        #: tokens padded to the bucket; sized for the largest bucket.
+        self._cbuf = torch.zeros(2 + self.nb + max(16, _pow2(self.reach)),
+                                 dtype=torch.int32, device=self.device)
         self._slot_state: dict[int, _PagedRow] = {}
         self._queue: list[_PagedRow] = []
         self._admitting: _PagedRow | None = None
@@ -991,20 +1003,13 @@ class PagedGeneratorActor(GeneratorActor):
         while len(row.table) * bt < start + n:
             row.table.append(self.pool.alloc())
             row.reserve_left -= 1
-        table = np.zeros(self.nb, np.int32)
-        table[:len(row.table)] = row.table
-        dev = self.device
         # The meter stays open through the final chunk's first-token
         # host read: on an asynchronous device that read is where the
         # chunk's compute is paid.
         cm = self.ledger.chunk(row.rec, n)
         with cm:
-            with self._lock:
-                logits, _, _ = gen.prefill_paged_chunk(
-                    self._cparams,
-                    torch.as_tensor(toks[None, start:start + n], device=dev),
-                    start, n, self.cfg, self.pool.k, self.pool.v,
-                    torch.as_tensor(table, device=dev))
+            logits = self._chunk(False, toks[start:start + n], start,
+                                 row.table)
             row.prefill_pos += n
             done = row.prefill_pos >= L
             if done:
@@ -1041,6 +1046,49 @@ class PagedGeneratorActor(GeneratorActor):
         else:
             self._take_slot(row, first, L)
         return n, cm.dur_s
+
+    def _chunk(self, draft: bool, toks, start: int,
+               table: list[int]) -> torch.Tensor:
+        """One prefill chunk of ``toks`` at positions ``start..`` through
+        the block table ``table``, in the target's pool or (``draft``)
+        the draft's: padded to its bucket ``C = max(16, pow2(n))`` (the
+        reference's chunk programs' key), its inputs staged into the
+        static buffer ``_cbuf`` in one pinned, non-blocking upload, and
+        :meth:`_chunk_body` run as the program ``serve.prefill_chunk``
+        (``serve.draft_chunk``) of ``C``. Under the dispatch lock, which
+        orders the chunk's bank writes against ``ExportBlocks``' reads.
+        Returns the chunk's logits (1, V) at its last real token, valid
+        until the bucket's next chunk; nothing is read back."""
+        n, nb = len(toks), self.nb
+        C = max(16, _pow2(n))
+        host = np.zeros(2 + nb + C, np.int32)
+        host[0], host[1] = start, n
+        host[2:2 + len(table)] = table
+        host[2 + nb:2 + nb + n] = toks
+        fn = "serve.draft_chunk" if draft else "serve.prefill_chunk"
+        cfg = self._spec.draft_cfg if draft else self.cfg
+        dt = str(cfg.dtype).removeprefix("torch.")
+        with self._lock:
+            self._upload(host, self._cbuf[:host.size])
+            with jitwatch.hot_region(fn, self.device):
+                return self._programs.run(
+                    fn, f"C={C},dtype={dt}",
+                    partial(self._chunk_body, draft, C))
+
+    def _chunk_body(self, draft: bool, C: int) -> torch.Tensor:
+        """A chunk of bucket ``C`` on the device: reads the compute tree,
+        the static chunk inputs and the banks, writes the banks. Returns
+        the logits (1, V)."""
+        buf, nb = self._cbuf, self.nb
+        if draft:
+            params, cfg, pool = self._dparams, self._spec.draft_cfg, \
+                self._dpool
+        else:
+            params, cfg, pool = self._cparams, self.cfg, self.pool
+        logits, _, _ = gen.prefill_paged_chunk(
+            params, buf[2 + nb:2 + nb + C][None], buf[0], buf[1], cfg,
+            pool.k, pool.v, buf[2:2 + nb])
+        return logits
 
     def _take_slot(self, row: _PagedRow, first: int, L: int) -> None:
         slot = int(np.flatnonzero(~self._active)[0])
@@ -1273,18 +1321,6 @@ class PagedGeneratorActor(GeneratorActor):
 
     # ------------------------------------------------------ speculation
 
-    def _draft_chunk(self, toks, start: int, table: list[int]) -> None:
-        """Write the draft's KV for ``toks`` at positions ``start..``
-        through the draft table ``table`` (one paged prefill chunk)."""
-        tarr = np.zeros(self.nb, np.int32)
-        tarr[:len(table)] = table
-        dev = self.device
-        gen.prefill_paged_chunk(
-            self._dparams,
-            torch.as_tensor(np.asarray(toks)[None], device=dev), start,
-            len(toks), self._spec.draft_cfg, self._dpool.k, self._dpool.v,
-            torch.as_tensor(tarr, device=dev))
-
     def _draft_prefill(self, row: _PagedRow, toks, L: int) -> None:
         """Whole-prompt draft prefill into the row's draft table when
         it takes a slot (no prefix reuse: draft KV is specific to the
@@ -1293,7 +1329,7 @@ class PagedGeneratorActor(GeneratorActor):
         while len(row.draft_table) * bt < L:
             row.draft_table.append(self._dpool.alloc())
             row.draft_reserve_left -= 1
-        self._draft_chunk(toks, 0, row.draft_table)
+        self._chunk(True, toks, 0, row.draft_table)
 
     def _draft_catch_up(self, slot: int, row: _PagedRow) -> None:
         """Write the draft's KV for positions the row committed through
@@ -1305,7 +1341,7 @@ class PagedGeneratorActor(GeneratorActor):
             return
         seq = np.concatenate([row.prompt, np.asarray(row.emitted,
                                                      np.int64)])
-        self._draft_chunk(seq[start:end], start, row.draft_table)
+        self._chunk(True, seq[start:end], start, row.draft_table)
         self._dpos[slot] = end
 
     def _spec_k_eff(self) -> int:

@@ -1,12 +1,14 @@
 """The paged engine's compiled programs: a step body captured once as a
 ``torch.cuda.CUDAGraph`` and replayed — the port's counterpart of the
-reference engine's jitted step and window programs
-(``ptype_tpu/serve_engine/engine.py``: ``_engine_step``, one program a
-sampling mode, and ``_window_prog``, one a ``(W, sampled)`` key).
+reference engine's jitted programs (``ptype_tpu/serve_engine/engine.py``:
+``_engine_step``, one program a sampling mode; ``_window_prog``, one a
+``(W, sampled)`` key; ``_chunk_prog`` and ``_draft_chunk_prog``, one a
+prefill chunk bucket ``C``).
 
 A body reads and writes only tensors whose storage outlives its graph
-(the parameter trees, the KV banks, the mirror's static buffers) and
-returns its results. On the first call of a key the body runs eagerly
+(the parameter trees, the KV banks, the mirror's and the prefill
+chunks' static input buffers) and returns its results. Keys are
+captured lazily, at their first call, as the reference compiles. On the first call of a key the body runs eagerly
 on the engine's capture stream (the warm-up, and that call's result),
 then is captured once; every later call replays the graph and returns
 the outputs the capture left in the graph pool, which each replay

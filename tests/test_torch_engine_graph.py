@@ -189,7 +189,8 @@ def test_greedy_steps_and_windows_go_through_their_programs(spec):
                            eng._window_body)
 
     def run_(fn, sig, body):
-        calls.append((fn, sig))
+        if not fn.endswith("_chunk"):  # prefill chunks: their own test
+            calls.append((fn, sig))
         return run(fn, sig, body)
 
     def decode_(sampled):

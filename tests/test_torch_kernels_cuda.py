@@ -1093,10 +1093,13 @@ def test_cuda_detector_raises_sanctions_and_spares_other_threads(armed):
 
 def test_armed_paged_engine_steady_state_on_the_card(armed):
     """An armed kernel engine at a narrow width: steady requests build
-    nothing, the decode guard holds, each step books its one read, each
-    request's first step (after its admission; no block boundary) the
-    five uploads of the slot state's device mirror and its other steps
-    none, and the tokens equal a disarmed run's."""
+    nothing, the decode and chunk guards hold, each step books its one
+    read, each request's first step (after its admission; no block
+    boundary) the five uploads of the slot state's device mirror and its
+    other steps none, and the tokens equal a disarmed run's. The warmup
+    serves the prompt twice: the cold request's chunk (bucket 32) and a
+    resident one's tail past its reused block (bucket 16), which is what
+    the steady requests prefill."""
     from ptype_tpu_torch import jitwatch
 
     a = PagedGeneratorActor(NARROW, device="cuda", n_slots=2, attn="kernel")
@@ -1104,17 +1107,20 @@ def test_armed_paged_engine_steady_state_on_the_card(armed):
         p = torch.randint(1, 256, (1, 21), generator=torch.Generator(
             device="cuda").manual_seed(3), device="cuda")
         warm = a.Generate(p, 8)
+        assert torch.equal(a.Generate(p, 8), warm)
         armed.mark_steady()
         for _ in range(2):
             assert torch.equal(a.Generate(p, 8), warm)
         assert armed.recompiles_since_steady() == {}
         books = armed.sanctioned()
         assert armed.report()["hot_regions"] > 0
-        assert books["serve.decode_read"] == 3 * 7
-        assert books["serve.slot_state"] == 5 * 3
-        # The greedy step captured once, in the warm request, and booked.
-        assert books["serve.capture"] == 1
+        assert books["serve.decode_read"] == 4 * 7
+        assert books["serve.slot_state"] == 5 * 4
+        # The greedy step and the two chunk buckets each captured once,
+        # in the warm requests, and booked.
+        assert books["serve.capture"] == len(a._programs.progs) == 3
         assert armed.compiles()["serve.decode"] == 1
+        assert armed.compiles()["serve.prefill_chunk"] == 2
         jitwatch.disable()
         assert torch.equal(a.Generate(p, 8), warm)
     finally:
@@ -1298,6 +1304,118 @@ def test_a_replay_equals_its_bodys_direct_call(cuda, moe, spec):
     assert all(a and b for a, b in results.values()), results
     fns = {fn for fn, _ in results}
     assert ("serve.spec_window" in fns) == spec, fns
+
+
+def test_chunk_programs_replay_their_bodies_bitwise_on_the_card(cuda):
+    """bf16, a narrow config with a 1-layer draft (k=3): prompts whose
+    chunks fall in every target bucket from 16 to 256 twice (16 three
+    times). At each chunk program's first replay the banks, the mirror
+    and the chunk inputs are cloned, the body runs directly, the state
+    is put back and the graph replays: logits and the banks after are
+    bitwise equal for every target bucket and the draft's. Each bucket
+    is captured once (booked once as a compile) and replayed at its
+    later chunks, and a replayed chunk's dispatch is one graph launch,
+    no kernel launch and one copy to the card."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptype_tpu_torch import jitwatch
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import launch_tally
+
+    cfg = dataclasses.replace(NARROW, dtype=torch.bfloat16)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    dp, dc = gen_mod.truncated_draft_params(params, cfg, 1)
+    eng = PagedGeneratorActor(cfg, params=params, device="cuda", n_slots=2,
+                              block_tokens=16, attn="kernel",
+                              prefill_chunk=256,
+                              spec=SpecConfig(dp, dc, k=3, adaptive=False))
+    run, results, calls = eng._programs.run, {}, {}
+    chunk_fns = ("serve.prefill_chunk", "serve.draft_chunk")
+
+    def state():
+        return [t for p in (eng.pool, eng._dpool) for t in (p.k, p.v)] + \
+            list(eng._sbuf.values()) + [eng._cbuf]
+
+    def checked(fn, sig, body):
+        calls[(fn, sig)] = calls.get((fn, sig), 0) + 1
+        if (fn not in chunk_fns or (fn, sig) in results
+                or (fn, sig) not in eng._programs.progs):
+            return run(fn, sig, body)
+        # The comparison reads the card: the test's own sanctioned pass.
+        with jitwatch.sanctioned_transfer("test.replay_check"):
+            return compare(fn, sig, body)
+
+    def compare(fn, sig, body):
+        live = state()
+        saved = [t.clone() for t in live]
+        with launch_tally() as extra:
+            direct = body().clone()
+        for f, n in extra.items():
+            f.launches -= n
+        after = [t.clone() for t in live]
+        for t, v in zip(live, saved):
+            t.copy_(v)
+        got = run(fn, sig, body)
+        torch.cuda.synchronize()
+        results[(fn, sig)] = (torch.equal(direct, got),
+                              all(torch.equal(a, b)
+                                  for a, b in zip(after, live)))
+        return got
+
+    chunk, prof = eng._chunk, {}
+
+    def profiled(draft, toks, start, table):
+        C = max(16, 1 << (len(toks) - 1).bit_length())
+        key = ("serve.prefill_chunk", f"C={C},dtype=bfloat16")
+        if draft or prof or key not in results:  # checked: replays only
+            return chunk(draft, toks, start, table)
+        out = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            out.append(chunk(draft, toks, start, table))
+            torch.cuda.synchronize()
+        prof["events"] = p.key_averages()
+        return out[0]
+
+    eng._programs.run, eng._chunk = checked, profiled
+    g = torch.Generator().manual_seed(11)
+    # Two prompts a bucket (a capture, then the checked replay), and a
+    # third of bucket 16 whose replay is profiled.
+    lens = (9, 13, 20, 30, 40, 60, 100, 120, 200, 250, 11)
+    jw = jitwatch.enable()
+    try:
+        for n in lens:
+            eng.Generate(torch.randint(1, cfg.vocab_size, (1, n),
+                                       generator=g), 4)
+        compiles = jw.compiles()
+        replays = {k: p.replays for k, p in eng._programs.progs.items()}
+    finally:
+        jitwatch.disable()
+        eng.close()
+    target = {sig for fn, sig in results if fn == "serve.prefill_chunk"}
+    assert target == {f"C={C},dtype=bfloat16"
+                      for C in (16, 32, 64, 128, 256)}, results
+    assert any(fn == "serve.draft_chunk" for fn, _ in results), results
+    assert all(a and b for a, b in results.values()), results
+    assert set(replays) == set(calls)
+    for key, n in calls.items():
+        assert replays[key] == n - 1, (key, n)
+    for fn in chunk_fns:
+        assert compiles.get(fn) == sum(f == fn for f, _ in replays), compiles
+    dev = [e for e in prof["events"]
+           if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert sum(e.count for e in dev if "Memcpy HtoD" in e.key) == 1, \
+        [e.key for e in dev]
+    launched = {}
+    for e in prof["events"]:
+        if e not in dev and e.key.startswith(("cudaGraphLaunch",
+                                              "cudaLaunchKernel")):
+            name = e.key.split("_v")[0]
+            launched[name] = launched.get(name, 0) + e.count
+    assert launched == {"cudaGraphLaunch": 1}, launched
 
 
 def test_audit_sees_a_host_read_in_a_backward_on_the_card(cuda):
