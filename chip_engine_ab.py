@@ -27,6 +27,15 @@ kernel records on the card, host-to-device copies and synchronising
 calls. To compare two checkouts, alternate them, one process each:
 
     for i in 1 2 3 4; do for r in A B; do python3 chip_engine_ab.py $r; done; done
+
+    python3 chip_engine_ab.py ROOT --sampled
+
+serves the same requests sampled instead, as chip_smoke.py's
+sampled_engine phase does (``chip_smoke.SAMPLING``, request i with seed
+i + 1, queued in order) on its plain engine (the first
+``chip_smoke.SHORT_LAYERS`` layers of the same weights), once on each
+of five new engines, with each run's TTFT and TPOT p50 and p99 from the
+engine's ledger (a registry of its own); then the same profile.
 """
 
 import json
@@ -149,17 +158,19 @@ class ChunkClock:
         return out
 
 
-def main(root):
+def main(root, sampled=False):
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_engine_ab: no CUDA device")
     sys.path.insert(0, os.path.abspath(root))
     import chip_smoke
+    from ptype_tpu_torch.models import generate as gen_mod
     from ptype_tpu_torch.models import transformer as tfm
     from ptype_tpu_torch.models.weights import init_params
     from ptype_tpu_torch.ops import _build
     from ptype_tpu_torch.ops import paged_attention as paged_mod
+    from ptype_tpu_torch.metrics import MetricsRegistry
     from ptype_tpu_torch.serve_engine import PagedGeneratorActor
 
     _build.build_all()
@@ -171,6 +182,18 @@ def main(root):
     prompts = [torch.cat([shared, torch.randint(
         1, cfg.vocab_size, (n - 96,), generator=gp)])
         for n in (100, 180, 260, 340, 420, 500, 600, 700)]
+    if sampled:
+        params, cfg = gen_mod.truncated_draft_params(
+            params, cfg, chip_smoke.SHORT_LAYERS)
+    seeds = list(range(1, len(prompts) + 1))
+
+    def serve(eng):
+        """Phase 4's requests on ``eng``; returns the wall seconds."""
+        if not sampled:
+            return chip_smoke.run_requests(eng, prompts, 64)[1]
+        t0 = time.monotonic()
+        chip_smoke.run_in_order(eng, prompts, 64, seeds)
+        return time.monotonic() - t0
 
     # The decode step imports the wrapper by name at each call, so the
     # timed stand-in is what it runs.
@@ -187,7 +210,9 @@ def main(root):
     paged_mod.paged_attention = timed
     kw = dict(device="cuda", n_slots=8, block_tokens=16, prefill_chunk=256)
     for run in range(5):
-        eng = PagedGeneratorActor(cfg, params=params, attn="kernel", **kw)
+        # Its own registry: the ledger's percentiles are this engine's.
+        eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
+                                  metrics_registry=MetricsRegistry(), **kw)
         step, step_s = eng._plain_step, [0.0]
 
         def timed_step():
@@ -198,17 +223,22 @@ def main(root):
         eng._plain_step = timed_step
         clock = ChunkClock(torch, eng)
         try:
-            for again in range(2):
+            for again in range(1 if sampled else 2):
                 host[:] = [0.0, 0]
                 step_s[0] = 0.0
                 steps0 = eng.Info()["engine_steps"]
-                _, wall = chip_smoke.run_requests(eng, prompts, 64)
-                steps = eng.Info()["engine_steps"] - steps0
+                wall = serve(eng)
+                info = eng.Info()
+                steps = info["engine_steps"] - steps0
                 print(json.dumps({
-                    "root": root, "run": f"{run}.{again}", "wall_s": wall,
+                    "root": root, "run": f"{run}.{again}",
+                    "sampled": sampled, "wall_s": wall,
                     "decode_steps": steps, "steps_s": step_s[0],
                     "paged_calls": host[1], "paged_host_ms": host[0] * 1e3,
-                    "prefill": clock.summary()}), flush=True)
+                    "prefill": clock.summary(),
+                    **({k: info[k] for k in ("ttft_p50_ms", "ttft_p99_ms",
+                                             "tpot_p50_ms", "tpot_p99_ms")}
+                       if sampled else {})}), flush=True)
         finally:
             eng.close()
     paged_mod.paged_attention = wrapper
@@ -226,8 +256,9 @@ def main(root):
         ready = (cut is not None and cut[1] == 256 and not cut[2]
                  and not chunk_row)
         if ready and hasattr(eng, "_chunk"):  # the bucket's program
-            ready = ("serve.prefill_chunk", "C=256,dtype=bfloat16") in \
-                eng._programs.progs
+            ready = any(key[0] == "serve.prefill_chunk"
+                        and key[1].startswith("C=256,")
+                        for key in eng._programs.progs)
         elif ready:  # an eager chunk after one of its bucket
             ready = 256 in seen
         if cut is not None:
@@ -241,14 +272,16 @@ def main(root):
 
     eng._plain_step, eng._prefill_one_chunk = profiled, profiled_chunk
     try:
-        chip_smoke.run_requests(eng, prompts, 64)
+        serve(eng)
     finally:
         eng.close()
-    print(json.dumps({"root": root, "profiled_steps": rows,
+    print(json.dumps({"root": root, "sampled": sampled,
+                      "profiled_steps": rows,
                       "profiled_chunk": chunk_row}), flush=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([],
+                                                          ["--sampled"]):
         sys.exit(__doc__)
-    main(sys.argv[1])
+    main(sys.argv[1], sampled=sys.argv[2:] == ["--sampled"])

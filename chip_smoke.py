@@ -77,14 +77,14 @@ its own lines:
    wire, equal to (a)'s, 8 migrations and no fallback, the migration
    stage's ms and bytes; (c) bf16 over the q8 wire at (1 + 4/512)/2 of
    exact's bytes a block; (d) open-loop traffic (the port's loadgen:
-   ``synth_trace`` seed 0, 8 s of arrivals at each rate of GW_RATES, then
-   of GW_MORE_RATES in turn until the replicas saturate, RAG's
+   ``synth_trace`` seed 0, 8 s of arrivals at each rate of GW_RATES, RAG's
    prompt tail cut to 800) through ``OpenLoopDriver`` and
    ``gateway_target``: every arrival answered or shed typed, per rate the
    traffic ledger's, the gateway's and the replicas' TTFT/TPOT/e2e tails,
    tokens/s, issue lag and the gateway's stage ms, then the knee and the
-   rate where the gateway saturates (sheds, or a queue-wait p99 past the
-   TTFT yardstick); (e) the decode replica SIGKILLed halfway
+   rate where the gateway saturates, if one did (sheds, or a queue-wait
+   p99 past the TTFT yardstick; ``--gateway-sweep`` goes on through
+   GW_MORE_RATES until one does); (e) the decode replica SIGKILLed halfway
    through a run at half the knee: no arrival lost, the ms to its
    eviction. Paged launches on both replicas = decode steps x 12 in
    (a) and (b); no gateway's probe reads a listed replica as warm;
@@ -132,7 +132,11 @@ its own lines:
    speculative one, queued in a fixed order: two bf16 runs in fresh
    engines give the same tokens, in f32 a co-batched row equals its
    solo run (on the speculative engine while the row has k+1 tokens to
-   go), a sampled window reads the host once; serving_ledger: phase 4's
+   go), a sampled window reads the host once; sampled steps and windows
+   run as their sampled programs (``sampled=True``), each captured at
+   its first call and replayed after, no sampled body run eagerly after
+   that, each replay bitwise its body's direct call from the same
+   generator states; TTFT and TPOT p50 a run; serving_ledger: phase 4's
    run as its ServingLedger saw it (TTFT, TPOT and e2e percentiles, 8
    records retired complete, one TPOT sample a token after the first,
    the seams' cost), and no host sync from the ledger's modules in a
@@ -306,9 +310,10 @@ its own lines:
    kernel engine serving phase 4's requests (16 new tokens) five
    rounds, steady after the second (which prefills only the tails past
    resident blocks, as the steady rounds do): no build, the decode and
-   chunk guards never tripped, one sanctioned read and five slot-state uploads a step,
-   tokens equal to a disarmed round's; (c) 4 armed StoreDPTrainer steps
-   at B=16, S=1024 with losses equal to a disarmed run's bit for bit;
+   chunk guards never tripped, one sanctioned read a step and eight
+   slot-state uploads a mirror build, tokens equal to a disarmed
+   round's; (c) 4 armed StoreDPTrainer steps at B=16, S=1024 with
+   losses equal to a disarmed run's bit for bit;
    (d) measure_jitwatch_overhead on the card; (e) the CUDA detector: an
    .item() and a pageable upload raise in an armed region, pass counted
    in a sanctioned one, and another thread's .cpu() meanwhile does not
@@ -322,7 +327,10 @@ its own lines:
    launch, no kernel launch, no copy to the card and one stream
    synchronisation), and its first replayed prefill chunk of bucket
    256 that is not a prompt's last (one graph launch, no kernel launch,
-   one copy to the card, no synchronisation); one train step each of optimus-125m and optimus-moe, the
+   one copy to the card, no synchronisation); the same two steps of
+   sampled_engine's plain engine with every slot sampling (the steady
+   one a replay of the sampled program, held as the greedy one is); one
+   train step each of optimus-125m and optimus-moe, the
    latter with its router, dispatch, experts and combine named apart,
    and one of llama_remat's "dots" run;
    one speculation window with every slot live, draft, verify and
@@ -330,7 +338,8 @@ its own lines:
    exact) — health's goodput rung —, (ZeRO 0, overlap) and (ZeRO-2,
    exact), NCCL and the bucket pack (cat) among the families.
 
-Then each phase's wall seconds (one JSON line), the kernels' JSON
+A line as each phase ends gives its wall seconds and the run's so far;
+then each phase's wall seconds (one JSON line), the kernels' JSON
 line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
 sampled_engine, disagg_engine, batching_generator, moe_paged_parity,
@@ -341,7 +350,10 @@ outside a checkout, it exits non-zero and prints no result.
 
 Other modes: ``--failover N`` runs the failover phase alone N times
 (one line of its profile records a run); ``--audits`` runs the audits
-phase alone.
+phase alone; ``--gateway-sweep`` runs gateway_serving alone with its
+(d) going on past GW_RATES through GW_MORE_RATES until the replicas
+saturate (the default run stops at GW_RATES); ``--profile-sweep``
+measures what a profile costs a loaded replica.
 """
 
 import dataclasses
@@ -831,11 +843,12 @@ class ReplayCheck:
     its body: at a key's first replay with at least ``min_live[fn]``
     slots live (default 1 for a step or window, 0 for a prefill chunk),
     the banks, the mirror's buffers and the chunks' input buffer are
-    cloned, the body runs eagerly, its outputs and the state it left
-    are kept, the state is put back, and the replay runs. ``results``:
-    per program, whether the outputs and the banks, mirror and chunk
-    inputs after are bitwise equal. ``calls``: every call per program
-    (its capture's included)."""
+    cloned and the slots' generator states kept, the body runs eagerly,
+    its outputs and the state it left are kept, the state is put back,
+    and the replay runs (a sampled one draws what the direct call drew).
+    ``results``: per program, whether the outputs, and the banks,
+    mirror, chunk inputs and generator states after, are bitwise equal.
+    ``calls``: every call per program (its capture's included)."""
 
     def __init__(self, torch, eng, min_live=None):
         from ptype_tpu_torch.ops import launch_tally
@@ -849,33 +862,41 @@ class ReplayCheck:
             return ([t for p in pools for t in (p.k, p.v)]
                     + list(eng._sbuf.values()) + [eng._cbuf])
 
+        gens = eng._slot_gens + eng._slot_dgens + eng._slot_agens
+
         def flat(out):
             return list(out) if isinstance(out, tuple) else [out]
 
-        def run_(fn, sig, body):
+        def run_(fn, sig, body, *generators):
             key = f"{fn}[{sig}]"
             self.calls[key] = self.calls.get(key, 0) + 1
             if (key in self.results or (fn, sig) not in eng._programs.progs
                     or int(eng._active.sum())
                     < need.get(fn, 0 if fn in CHUNK_FNS else 1)):
-                return run(fn, sig, body)
+                return run(fn, sig, body, *generators)
             live = state()
             saved = [t.clone() for t in live]
+            drawn = [g.get_state() for g in gens]
             with launch_tally() as extra:
                 direct = [t.clone() for t in flat(body())]
             for f, n in extra.items():  # the comparison's, not the path's
                 f.launches -= n
             after = [t.clone() for t in live]
+            after_g = [g.get_state() for g in gens]
             for t, v in zip(live, saved):
                 t.copy_(v)
-            got = run(fn, sig, body)
+            for g, v in zip(gens, drawn):
+                g.set_state(v)
+            got = run(fn, sig, body, *generators)
             torch.cuda.synchronize()
             self.results[key] = {
                 "live": int(eng._active.sum()),
                 "outputs_equal": all(torch.equal(a, b) for a, b in
                                      zip(direct, flat(got))),
                 "state_equal": all(torch.equal(a, b) for a, b in
-                                   zip(after, live))}
+                                   zip(after, live)) and all(
+                    torch.equal(a, g.get_state())
+                    for a, g in zip(after_g, gens))}
             return got
 
         eng._programs.run = run_
@@ -1092,7 +1113,7 @@ class StepWatch:
         return (self.jw.sanctioned().get("serve.slot_state", 0)
                 if self.jw is not None else 0)
 
-    def faults(self, arrays=5):
+    def faults(self, arrays=8):
         """Steps whose builds are not their due (one build when due,
         none when steady), or whose uploads are not the build's
         ``arrays``."""
@@ -1113,9 +1134,11 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 def step_counts(prof):
     """A profiled step's kernel launches (``cudaLaunchKernel`` calls),
     graph launches (``cudaGraphLaunch``), kernel records on the card
-    (a graph's included), host-to-device copy records on the card and
-    synchronising calls by name."""
-    launches = graphs = kernels = h2d = 0
+    (a graph's included), host-to-device copy records on the card,
+    synchronising calls by name, and ``aten::fill_`` calls on the host
+    (a replay's generator prologue: PyTorch fills each registered
+    generator's seed and offset on the card before the graph runs)."""
+    launches = graphs = kernels = h2d = fills = 0
     syncs = {}
     for ev in prof.key_averages():
         if on_device(ev):
@@ -1129,9 +1152,11 @@ def step_counts(prof):
             graphs += ev.count
         elif ev.key in SYNC_CALLS:
             syncs[ev.key] = syncs.get(ev.key, 0) + ev.count
+        elif ev.key == "aten::fill_":
+            fills += ev.count
     return {"cuda_launch_kernel": launches, "cuda_graph_launch": graphs,
             "device_kernels": kernels, "h2d_copies": h2d,
-            "sync_calls": syncs}
+            "sync_calls": syncs, "host_fills": fills}
 
 
 def chunk_to_come(eng, row, budget):
@@ -1145,7 +1170,8 @@ def chunk_to_come(eng, row, budget):
     return start, n, max(16, 1 << (n - 1).bit_length()), start + n >= L
 
 
-def engine_iteration_profile(torch, eng, prompts, max_new, chunk_C=256):
+def engine_iteration_profile(torch, eng, prompts, max_new, chunk_C=256,
+                             seeds=None, phase="engine_iteration_profile"):
     """Two decode steps and one prefill chunk of the engine under
     torch.profiler, taken by the engine's own thread: the first step
     with every slot live that builds the device mirror of the slot state
@@ -1158,8 +1184,14 @@ def engine_iteration_profile(torch, eng, prompts, max_new, chunk_C=256):
     step must be one graph launch, no kernel launch, no copy to the
     card and one stream synchronisation (the read); the chunk one graph
     launch, no kernel launch, its one pinned copy of inputs and no
-    synchronisation."""
+    synchronisation. With ``seeds`` (one a request) the requests sample
+    (``SAMPLING``), queued in order, and no chunk is profiled: the
+    steps are the sampled program's, and the steady one's kernel
+    launches must be its replay's generator prologue and nothing else:
+    two fills a slot generator it draws from (its seed and offset),
+    ``prologue_fills``."""
     got = {}
+    fills = 2 * len(eng._slot_gens) if seeds is not None else 0
 
     def around(kind, step):
         if kind in got or not eng._active.all():
@@ -1184,36 +1216,44 @@ def engine_iteration_profile(torch, eng, prompts, max_new, chunk_C=256):
                         **step_counts(prof)}
         return out[0]
 
-    eng._prefill_one_chunk = chunk_
+    if seeds is None:
+        eng._prefill_one_chunk = chunk_
     watch = StepWatch(eng, around=around)
     try:
-        run_requests(eng, prompts, max_new)
+        if seeds is None:
+            run_requests(eng, prompts, max_new)
+        else:
+            run_in_order(eng, prompts, max_new, seeds)
     finally:
         watch.close()
-        del eng._prefill_one_chunk
+        eng.__dict__.pop("_prefill_one_chunk", None)
     for kind in ("build", "steady"):
         got.setdefault(kind, {"device_time": "not measured (no such step "
                                              "had every slot live)"})
-    got.setdefault("chunk", {"device_time": "not measured (no replayed "
-                                            "chunk that was not a last)"})
-    ch = got["chunk"]
-    check(ch.get("cuda_graph_launch") == 1
-          and ch.get("cuda_launch_kernel") == 0
-          and ch.get("h2d_copies") == 1
-          and not set(ch.get("sync_calls", {"none": 1}))
-          - {"cudaDeviceSynchronize"},
-          f"engine_iteration_profile: the replayed chunk is not one replay "
-          f"over one pinned copy with no synchronisation: {ch}")
+    if seeds is None:
+        got.setdefault("chunk", {"device_time": "not measured (no "
+                                                "replayed chunk that was "
+                                                "not a last)"})
+        ch = got["chunk"]
+        check(ch.get("cuda_graph_launch") == 1
+              and ch.get("cuda_launch_kernel") == 0
+              and ch.get("h2d_copies") == 1
+              and not set(ch.get("sync_calls", {"none": 1}))
+              - {"cudaDeviceSynchronize"},
+              f"{phase}: the replayed chunk is not one replay over one "
+              f"pinned copy with no synchronisation: {ch}")
     steady = got["steady"]
     check(steady.get("h2d_copies") == 0 and watch.faults() == [],
-          f"engine_iteration_profile: a steady step copied to the card "
+          f"{phase}: a steady step copied to the card "
           f"({steady.get('h2d_copies')}) or built off its events "
           f"({watch.faults()[:5]})")
     check(steady.get("cuda_graph_launch") == 1
-          and steady.get("cuda_launch_kernel") == 0
+          and steady.get("cuda_launch_kernel") == steady.get("host_fills")
+          == fills
           and steady.get("sync_calls", {}).get("cudaStreamSynchronize") == 1,
-          f"engine_iteration_profile: the steady step is not one replay "
-          f"and one read: {steady}")
+          f"{phase}: the steady step is not one replay ({fills} generator "
+          f"fills before it) and one read: {steady}")
+    got["prologue_fills"] = fills
     return got
 
 
@@ -2139,6 +2179,44 @@ def same_tokens(a, b):
     return sum(int((x.cpu() == y.cpu()).sum()) for x, y in zip(a, b))
 
 
+class SampledWatch:
+    """Counts the sampled step and window bodies of ``eng`` that ran
+    outside their key's first call (whose warm-up and capture run the
+    body): on CUDA every later call replays, so ``eager`` stays 0. A
+    body run outside any program counts too."""
+
+    def __init__(self, eng):
+        self.eager, self.first = 0, False
+        run, decode, window = (eng._programs.run, eng._decode_body,
+                               eng._window_body)
+
+        def run_(fn, sig, body, *generators):
+            prev = self.first
+            self.first = (fn, sig) not in eng._programs.progs
+            try:
+                return run(fn, sig, body, *generators)
+            finally:
+                self.first = prev
+
+        def decode_(sampled):
+            self.eager += sampled and not self.first
+            return decode(sampled)
+
+        def window_(W, sampled):
+            self.eager += sampled and not self.first
+            return window(W, sampled)
+
+        eng._programs.run = run_
+        eng._decode_body, eng._window_body = decode_, window_
+
+
+def sampled_programs(eng):
+    """The engine's sampled programs: key -> replays."""
+    return {f"{fn}[{sig}]": p.replays
+            for (fn, sig), p in eng._programs.progs.items()
+            if sig.endswith("sampled=True")}
+
+
 def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
                   SpecConfig, params, prompts, max_new, kw):
     """Sampled requests on the card (temperature 0.8, top-k 50, top-p
@@ -2149,7 +2227,13 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
     committed while the row had at least k+1 to go (past that a window's
     depth follows the deepest live row, so a co-batched row's last
     window draws more than its solo one); and each sampled window reads
-    the host as often as a greedy one. Emits its row, then checks."""
+    the host as often as a greedy one. Sampled steps and windows run as
+    their programs (``sampled=True``): each key captured at its first
+    call and replayed at every later one, no sampled body run eagerly
+    after that (the first bf16 run), each replay bitwise its body's
+    direct call from the same generator states (the second), paged
+    launches every plain step's, replays included. Per run its TTFT and
+    TPOT p50 and the graph pool's bytes. Emits its row, then checks."""
     cfg = tfm.preset("optimus-125m", n_layers=SHORT_LAYERS)
     cfg32 = tfm.preset("optimus-125m", dtype=torch.float32,
                        n_layers=SHORT_LAYERS)
@@ -2167,13 +2251,17 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
             dp, dc = gen_mod.truncated_draft_params(params, c, n_layers=2)
             return SpecConfig(dp, dc, k=k, adaptive=False)
 
-        runs, syncs = [], None
+        runs, syncs, watch, replay = [], None, None, None
         for rep in range(2):
             eng = PagedGeneratorActor(cfg, params=params, attn="kernel",
                                       spec=spec(cfg), **kw)
             try:
-                if kind == "spec" and rep == 0:
-                    syncs = count_window_syncs(torch, eng)
+                if rep == 0:
+                    watch = SampledWatch(eng)
+                    if kind == "spec":
+                        syncs = count_window_syncs(torch, eng)
+                else:
+                    replay = ReplayCheck(torch, eng)
                 paged_mod.paged_attention.launches = 0
                 t0 = time.monotonic()
                 runs.append(run_in_order(eng, prompts, max_new, seeds))
@@ -2181,6 +2269,8 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
                 wall = time.monotonic() - t0
                 n = paged_mod.paged_attention.launches
                 info = eng.Info()
+                progs = sampled_programs(eng)
+                pool_bytes = graph_pool_bytes(torch, eng)
             finally:
                 eng.close()
             plain_steps = info["engine_steps"] - info.get("spec_windows", 0)
@@ -2191,10 +2281,21 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
                 launches += n
             row[f"{kind}_bf16_run{rep}"] = {
                 "seconds": wall, "engine_steps": info["engine_steps"],
-                "paged_launches": n,
-                **{key: info[key] for key in ("spec_windows",
+                "paged_launches": n, "sampled_programs": progs,
+                "graph_pool_bytes": pool_bytes,
+                **{key: info[key] for key in ("ttft_p50_ms", "tpot_p50_ms",
+                                              "tpot_p99_ms", "spec_windows",
                                               "spec_accept_rate")
                    if key in info}}
+            # The spec engine's plain steps are its rows' last tokens:
+            # its sampled step may run once, a capture and no replay.
+            want = "serve.spec_window" if kind == "spec" else "serve.decode"
+            check(any(key.startswith(want + "[") and n
+                      for key, n in progs.items()),
+                  f"sampled_engine ({kind}): sampled programs {progs}, want "
+                  f"{want} captured and replayed")
+        row[f"{kind}_eager_sampled_bodies"] = watch.eager
+        row[f"{kind}_replay_equals_body"] = replay.results
         same = same_tokens(runs[0], runs[1])
         row[f"{kind}_bf16_reproduced_tokens"] = same
         row[f"{kind}_bf16_distinct_tokens"] = len(
@@ -2207,26 +2308,32 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
             batched = run_in_order(eng, prompts, max_new, seeds)
             solo = [run_in_order(eng, [p], max_new, [s])[0]
                     for p, s in zip(prompts, seeds)]
+            progs32 = sampled_programs(eng)
         finally:
             eng.close()
         cut = max_new if kind == "plain" else max_new - k
         held = all(torch.equal(a[:, :cut].cpu(), b[:, :cut].cpu())
                    for a, b in zip(batched, solo))
+        row[f"{kind}_f32_sampled_programs"] = progs32
         row[f"{kind}_f32_cobatched_equals_solo_first_tokens"] = cut
         row[f"{kind}_f32_cobatched_equals_solo"] = held
         row[f"{kind}_f32_identical_share"] = same_tokens(batched, solo) / (
             len(prompts) * max_new)
         if kind == "spec":
-            steady = sorted({n for n, up, _, _ in syncs if not up})
+            steady = sorted({n for n, up, _, cap in syncs
+                             if not (up or cap)})
             row.update({"sampled_windows": len(syncs),
                         "sampled_window_host_syncs": steady,
                         "sampled_window_host_syncs_after_catch_up": sorted(
-                            {n for n, up, _, _ in syncs if up}),
+                            {n for n, up, _, cap in syncs
+                             if up and not cap}),
+                        "sampled_window_host_syncs_capturing": sorted(
+                            {n for n, _, _, cap in syncs if cap}),
                         "sampled_window_sync_sites": sorted(
                             {x for _, _, sites, _ in syncs for x in sites})})
-        checks[kind] = (same, held)
+        checks[kind] = (same, held, watch.eager, replay)
     emit(row)
-    for kind, (same, held) in checks.items():
+    for kind, (same, held, eager, replay) in checks.items():
         check(same == len(prompts) * max_new,
               f"sampled_engine ({kind}): a second bf16 run reproduced "
               f"{same} of {len(prompts) * max_new} tokens")
@@ -2234,6 +2341,12 @@ def sampled_phase(torch, tfm, gen_mod, paged_mod, PagedGeneratorActor,
               f"from its solo run in its first "
               f"{row[kind + '_f32_cobatched_equals_solo_first_tokens']} "
               f"tokens")
+        check(eager == 0, f"sampled_engine ({kind}): {eager} sampled bodies "
+              f"ran eagerly after their key's first call")
+        check(any(key.endswith("sampled=True]") for key in replay.results)
+              and replay.faults() == {},
+              f"sampled_engine ({kind}): replays against their bodies "
+              f"{replay.results}")
     check(row["sampled_window_host_syncs"] == [1],
           f"sampled_engine: a sampled window without catch-up made "
           f"{row['sampled_window_host_syncs']} host syncs, want 1")
@@ -3600,11 +3713,12 @@ def cluster_rpc_phase(torch, flash_mod, paged_mod, GeneratorActor,
 #: cadence, and the RAG family's prompt tail cut so its longest request
 #: (96 + 800 prompt + 128 new tokens) fits optimus-125m's reach of 1,024.
 GW_RATES = (4, 8, 16, 24, 28, 32, 48)
-#: Rates tried past the grid, in turn, only while its last rate has not
-#: saturated the replicas (a faster fleet moves its capacity up; with
-#: replayed prefill chunks two replicas on an NVIDIA H100 80GB HBM3 at
-#: 700.00 W first saturated at 128 rps shedding 44 of 1,040 requests,
-#: or at 192, so 192 and 256 stand behind 128).
+#: ``--gateway-sweep``'s rates past the grid, tried in turn only while
+#: the last rate has not saturated the replicas (a faster fleet moves
+#: its capacity up; with replayed prefill chunks two replicas on an
+#: NVIDIA H100 80GB HBM3 at 700.00 W first saturated at 128 rps
+#: shedding 44 of 1,040 requests, or at 192, so 192 and 256 stand
+#: behind 128).
 GW_MORE_RATES = (64, 96, 128, 192, 256)
 GW_TRACE = dict(process="poisson", duration_s=8.0)
 GW_SLO_TTFT_MS = 1000.0
@@ -3759,7 +3873,7 @@ def migrate_spans(trace):
 
 
 def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
-                          max_new, kw, card):
+                          max_new, kw, card, more_rates=()):
     """optimus-125m served from two replica processes (``--actor-server
     --serve-class prefill|decode``, one service) through the port's
     ``InferenceGateway``: (a) interleaved f32 tokens equal to in-process
@@ -3769,7 +3883,9 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
     bytes a block at equal dtype; (d) open-loop traffic from the port's
     load generator, 8 s of arrivals at each rate of ``GW_RATES`` through
     ``OpenLoopDriver`` and ``gateway_target``, every arrival answered or
-    shed typed, the knee, and saturation at the top rate; (e) the decode replica SIGKILLed halfway through a run at half
+    shed typed, and the knee; with ``more_rates``, those in turn while
+    the last rate has not saturated the replicas, and saturation at the
+    top rate; (e) the decode replica SIGKILLed halfway through a run at half
     the knee: no arrival lost, the dead replica evicted. Returns the
     replicas' paged-kernel launches over (a)-(e) up to the kill."""
     from ptype_tpu_torch import Config, PlatformConfig, join, trace
@@ -3836,17 +3952,23 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
             wait_child_line(proc, out_path, log_path, 300, "gateway_serving")
         row["replicas_ready_s"] = time.monotonic() - t0
 
-        # (a) interleaved, f32
+        # (a) interleaved, f32. Each engine's first prefill and steps
+        # through a gateway of their own first: a gateway that probed a
+        # replica while it warmed up scores it slow (its probe EWMA) and
+        # may route all of (a) to the other one.
         gw = gateway(MetricsRegistry())
         reps = replicas(gw)
         check(set(reps) == {"prefill", "decode"},
               f"gateway_serving: replica classes {sorted(reps)}")
-        for r in reps.values():   # each engine's first prefill and steps
+        for r in reps.values():
             for engine in ("Paged32", "Paged"):
                 replica_call(r, f"{engine}.Generate",
                              torch.ones((1, 16), dtype=torch.int32,
                                         device="cuda"), 4)
             replica_call(r, "Probe.Reset")
+        gw.close()
+        gw = gateway(MetricsRegistry())
+        reps = replicas(gw)
         c0 = counters(reps)
         t0 = time.monotonic()
         outs_a = gateway_generate_all(torch, gw, prompts, max_new)
@@ -3940,7 +4062,7 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
 
         def offered():
             yield from GW_RATES
-            for more in GW_MORE_RATES:
+            for more in more_rates:
                 if rows_d[-1]["saturated"]:
                     return
                 yield more
@@ -4042,7 +4164,7 @@ def gateway_serving_phase(torch, tfm, PagedGeneratorActor, params, prompts,
                   f"gateway_serving: an arrival unaccounted at "
                   f"{pt['rate_rps']} rps: {pt}")
         check(knee is not None, "gateway_serving: no knee")
-        check(rows_d[-1]["saturated"],
+        check(rows_d[-1]["saturated"] or not more_rates,
               f"gateway_serving: no saturation up to "
               f"{rows_d[-1]['rate_rps']} rps (no shed, queue-wait p99 "
               "under the TTFT yardstick)")
@@ -6952,7 +7074,7 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
     more rounds: no build after the warmup but the greedy step's and
     each chunk bucket's one capture (in the warmup), the decode and
     chunk guards live and never tripped, a step's one read and a mirror
-    refill's five slot-state uploads on the books, paged launches of
+    refill's eight slot-state uploads on the books, paged launches of
     every step (replays included), tokens equal to a disarmed round's;
     (c) the same over AUDIT_DP_STEPS StoreDPTrainer steps at
     B=16, S=1024: losses equal to a disarmed run's bit for bit; (d)
@@ -7053,9 +7175,9 @@ def audits_phase(torch, tfm, flash_mod, paged_mod, train_mod,
     check(rep["hot_regions"] >= steps > 0,
           f"audits: {rep['hot_regions']} hot regions, {steps} steps")
     # The reference's contract: a step after no admission, retire or
-    # block boundary uploads nothing; a build uploads five arrays.
+    # block boundary uploads nothing; a build uploads eight arrays.
     check(books.get("serve.decode_read") == steps == len(watch.steps)
-          and books.get("serve.slot_state") == 5 * watch.builds
+          and books.get("serve.slot_state") == 8 * watch.builds
           and steady and watch.faults() == [],
           f"audits: engine books {books} for {steps} steps, "
           f"{watch.builds} mirror builds, {len(steady)} steady steps, "
@@ -7351,6 +7473,31 @@ def profile_sweep(runs=SWEEP_RUNS):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def gateway_sweep():
+    """``--gateway-sweep``: the gateway_serving phase alone (after the
+    kernels' build, as ``main`` has it), its (d) going on past
+    ``GW_RATES`` through ``GW_MORE_RATES`` until the two replicas
+    saturate, which they must; then the last line."""
+    import torch
+
+    from ptype_tpu_torch.models import transformer as tfm
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import _build
+    from ptype_tpu_torch.serve_engine import PagedGeneratorActor
+
+    if not torch.cuda.is_available():
+        raise SmokeError("no CUDA device: chip_smoke.py runs on a GPU")
+    _build.build_all()
+    card = card_line()
+    cfg = tfm.preset("optimus-125m")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    kw = dict(device="cuda", n_slots=8, block_tokens=16, prefill_chunk=256)
+    launches = gateway_serving_phase(
+        torch, tfm, PagedGeneratorActor, params, phase4_prompts(torch, cfg),
+        64, kw, card, more_rates=GW_MORE_RATES)
+    emit({"gateway_sweep_paged_launches": launches, "card": card})
+
+
 def audits_only():
     """``--audits``: the audits phase alone (after the kernels' build and
     a world-1 NCCL group, as ``main`` has), then the last line."""
@@ -7439,10 +7586,12 @@ def main():
     seconds = {}
 
     def lap(name):
-        """Wall seconds since the previous lap, under ``name``."""
+        """Wall seconds since the previous lap, under ``name``, printed
+        as they end (a cut run still shows where its time went)."""
         nonlocal last
         now = time.monotonic()
         seconds[name] = seconds.get(name, 0.0) + now - last
+        emit({"lap": name, "seconds": now - last, "total_s": now - started})
         last = now
 
     build_thread.join()
@@ -7751,6 +7900,19 @@ def main():
               **engine_iteration_profile(torch, eng, prompts, 32)})
     finally:
         eng.close()
+    # The sampled step: sampled_engine's plain engine, every slot
+    # sampling.
+    eng = PagedGeneratorActor(tfm.preset("optimus-125m",
+                                         n_layers=SHORT_LAYERS),
+                              params=short, attn="kernel", **kw)
+    try:
+        emit({"phase": "sampled_step_profile", "n_layers": SHORT_LAYERS,
+              "sampling": SAMPLING, **engine_iteration_profile(
+                  torch, eng, prompts, 32,
+                  seeds=list(range(1, len(prompts) + 1)),
+                  phase="sampled_step_profile")})
+    finally:
+        eng.close()
     lap("profile_engine")
     emit(trainer_profile(torch, tfm, train_mod, "optimus-125m"))
     torch.cuda.empty_cache()
@@ -7922,6 +8084,16 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         try:
             profile_sweep()
+        except SmokeError as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+            sys.exit(1)
+        finally:
+            stop_children()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--gateway-sweep"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        try:
+            gateway_sweep()
         except SmokeError as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
             sys.exit(1)

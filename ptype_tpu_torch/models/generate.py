@@ -397,73 +397,70 @@ def draft_propose_paged(params: dict, tok: torch.Tensor,
     return torch.stack(toks, dim=1), torch.stack(lgs, dim=1), kb, vb
 
 
-def _accept_sampled_row(d_toks, d_lg, t_lg, generator, temp, top_k,
-                        top_p):
-    """Residual acceptance for one sampled row: token ``j`` is accepted
-    with probability ``min(1, p_j(d_j) / q_j(d_j))``; the first
-    rejection draws from ``max(p − q, 0)`` renormalised, and a window
-    accepted whole draws its bonus token from ``p_k``. Two draws from
-    ``generator``: k uniforms, then one Gumbel vector. Returns (out
-    (k+1,), n_acc ()), both on the device."""
-    k = d_toks.shape[0]
-    dev = d_toks.device
-    p = torch.softmax(_filter_logits(t_lg.float() / temp, top_k, top_p),
-                      dim=-1)                                  # (k+1, V)
-    q = torch.softmax(_filter_logits(d_lg.float() / temp, top_k, top_p),
-                      dim=-1)                                  # (k, V)
-    idx = torch.arange(k, device=dev)
-    ratio = p[idx, d_toks] / torch.clamp(q[idx, d_toks], min=1e-30)
-    u = torch.rand(k, generator=generator, device=dev,
-                   dtype=torch.float32)
-    ok = (u < torch.clamp(ratio, max=1.0)).long()
-    n_acc = torch.cumprod(ok, dim=0).sum().view(1)
-    q_pad = torch.cat([q, torch.zeros_like(q[:1])])
-    p_at = p[n_acc][0]
-    res = torch.clamp(p_at - q_pad[n_acc][0], min=0.0)
-    rs = res.sum()
-    # A numerically empty residual (p == q to float precision, yet the
-    # ratio test rejected) falls back to p itself.
-    res = torch.where(rs > 0, res / torch.clamp(rs, min=1e-30), p_at)
-    g = _gumbel(res.shape, generator, dev)
-    c = torch.argmax(torch.log(torch.clamp(res, min=1e-38)) + g)
-    out = torch.cat([d_toks, torch.zeros_like(d_toks[:1])])
-    out[n_acc] = c.view(1)
-    return out, n_acc[0]
-
-
 def spec_accept_rows(draft_toks: torch.Tensor, draft_logits: torch.Tensor,
                      target_logits: torch.Tensor, generators, temps,
                      top_ks, top_ps, sampled: bool = True):
     """Acceptance over one speculation window. ``draft_toks`` (B, k),
     ``draft_logits`` (B, k, V) and ``target_logits`` (B, k+1, V) raw
-    f32.
+    f32; ``temps``, ``top_ks`` and ``top_ps`` per row, as
+    :func:`sample_token_rows` takes them.
 
     Greedy rows (``temps[b] == 0``): accept the longest draft prefix
     matching the target's argmax chain, then emit the target argmax at
     the first mismatch — the tokens sequential greedy decode gives,
-    whatever the draft proposed. Sampled rows: residual acceptance
-    with the row's acceptance generator (``generators[b]``), so the
-    emitted stream is distributed as sampling the target directly. All
-    rows are computed on the device; sampled rows take a host loop, as
-    :func:`sample_token_rows` does. Returns (out (B, k+1) int64, n_acc
-    (B,)): row ``b`` emits ``out[b, :n_acc[b] + 1]``."""
+    whatever the draft proposed. Sampled rows: token ``j`` is accepted
+    with probability ``min(1, p_j(d_j) / q_j(d_j))``, where ``p`` and
+    ``q`` are the filtered, temperature-scaled target and draft
+    distributions; the first rejection draws from ``max(p − q, 0)``
+    renormalised, and a window accepted whole draws its bonus token
+    from ``p_k``, so the emitted stream is distributed as sampling the
+    target directly. A sampled window computes every row that way on
+    the device, with no host read, and ``where`` keeps the greedy
+    result for rows with temperature 0, as the reference's vmapped rows
+    do. Each row's acceptance generator (``generators[b]``; None draws
+    nothing) draws k uniforms, then one (V,) Gumbel vector. Returns
+    (out (B, k+1) int64, n_acc (B,)): row ``b`` emits
+    ``out[b, :n_acc[b] + 1]``."""
     B, k = draft_toks.shape
     rows = torch.arange(B, device=draft_toks.device)
     gt = torch.argmax(target_logits, dim=-1)                   # (B, k+1)
     match = (draft_toks == gt[:, :k]).long()
-    n_acc = torch.cumprod(match, dim=1).sum(dim=1)
     out = torch.cat([draft_toks, torch.zeros_like(draft_toks[:, :1])],
                     dim=1)
-    out[rows, n_acc] = gt[rows, n_acc]
     if not sampled:
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+        out[rows, n_acc] = gt[rows, n_acc]
         return out, n_acc
-    for b in range(B):
-        t = float(temps[b])
-        if t <= 0.0:
-            continue
-        out[b], n_acc[b] = _accept_sampled_row(
-            draft_toks[b], draft_logits[b], target_logits[b],
-            generators[b], t, int(top_ks[b]), float(top_ps[b]))
+    V, dev = target_logits.shape[-1], target_logits.device
+    t = _row_values(temps, dev, torch.float32)
+    tk = _row_values(top_ks, dev)[:, None]
+    tp = _row_values(top_ps, dev, torch.float32)[:, None]
+
+    def dist(lg):  # raw (B, n, V) logits -> filtered sampling probs
+        x = _scaled(lg, t[:, None, None])
+        return torch.softmax(_filter_logits_traced(x, tk, tp), dim=-1)
+
+    p = dist(target_logits)                                    # (B, k+1, V)
+    q = dist(draft_logits)                                     # (B, k, V)
+    d = draft_toks[..., None]
+    ratio = (p[:, :k].gather(2, d)[..., 0]
+             / torch.clamp(q.gather(2, d)[..., 0], min=1e-30))
+    u = _row_uniforms(generators, k, dev)
+    g = _gumbel(_row_uniforms(generators, V, dev))
+    samples = t > 0.0
+    ok = torch.where(samples[:, None], u < torch.clamp(ratio, max=1.0),
+                     match.bool())
+    n_acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+    at = n_acc[:, None, None].expand(B, 1, V)
+    p_at = p.gather(1, at)[:, 0]
+    q_at = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1).gather(1, at)
+    res = torch.clamp(p_at - q_at[:, 0], min=0.0)
+    rs = res.sum(dim=-1, keepdim=True)
+    # A numerically empty residual (p == q to float precision, yet the
+    # ratio test rejected) falls back to p itself.
+    res = torch.where(rs > 0, res / torch.clamp(rs, min=1e-30), p_at)
+    c = torch.argmax(torch.log(torch.clamp(res, min=1e-38)) + g, dim=-1)
+    out[rows, n_acc] = torch.where(samples, c, gt[rows, n_acc])
     return out, n_acc
 
 
@@ -491,51 +488,83 @@ def _filter_logits(logits: torch.Tensor, top_k: int,
 
 def _filter_logits_traced(logits: torch.Tensor, top_k,
                           top_p) -> torch.Tensor:
-    """:func:`_filter_logits` for one (V,) row with per-row ``top_k``
-    and ``top_p`` (the engine's per-slot filters): the same masking,
-    with a disabled filter an exact no-op."""
-    V = logits.shape[-1]
-    top_k = int(top_k)
-    top_p = float(top_p)
-    desc = torch.sort(logits, descending=True).values
-    kth = desc[min(max(top_k, 1), V) - 1]
-    if top_k > 0:
-        logits = torch.where(logits < kth, -torch.inf, logits)
-    desc2 = torch.sort(logits, descending=True).values
-    probs = torch.softmax(desc2, dim=-1)
+    """:func:`_filter_logits` with per-row filters (the engine's per-slot
+    ``top_k`` and ``top_p``): ``logits`` (..., V) f32, ``top_k`` and
+    ``top_p`` tensors of the leading shape, or numbers. The same masking
+    values, with the k-th largest value taken from one descending sort
+    at ``clamp(top_k, 1, V) - 1`` and each filter gated by ``where``, so
+    a disabled one is an exact no-op and nothing is read back."""
+    V, dev = logits.shape[-1], logits.device
+    top_k = torch.as_tensor(top_k, device=dev)[..., None]
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)[..., None]
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    at = (torch.clamp(top_k, 1, V) - 1).long()
+    kth = desc.gather(-1, at.expand(*desc.shape[:-1], 1))
+    logits = torch.where((top_k > 0) & (logits < kth), -torch.inf, logits)
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(desc, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = (cum - probs) < top_p
-    cutoff = torch.where(keep, desc2, torch.inf).amin()
-    if top_p < 1.0:
-        logits = torch.where(logits < cutoff, -torch.inf, logits)
-    return logits
+    cutoff = torch.where(keep, desc, torch.inf).amin(dim=-1, keepdim=True)
+    return torch.where((top_p < 1.0) & (logits < cutoff), -torch.inf,
+                       logits)
 
 
-def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+def _row_values(values, device, dtype=None) -> torch.Tensor:
+    """Per-row sampling parameters as a (B,) tensor on ``device``: the
+    engine's mirror is used as it is (nothing moves); a sequence is
+    copied in."""
+    if not isinstance(values, torch.Tensor):
+        values = np.asarray(values)
+    return torch.as_tensor(values, dtype=dtype, device=device)
+
+
+def _scaled(logits: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
+    """f32 logits over their rows' temperatures (``temps`` broadcast
+    against them; a temperature of 0, a greedy row's, divides by 1). A
+    tensor divisor divides on every device, where a Python number would
+    be multiplied by its reciprocal on CUDA: the engine's rows and the
+    solo :func:`generate` scale alike."""
+    return logits.float() / torch.where(temps > 0, temps, 1.0)
+
+
+def _row_uniforms(generators, n: int, device) -> torch.Tensor:
+    """(B, n) uniforms: row i one draw of n from ``generators[i]`` (the
+    draw ``torch.rand((1, n))`` makes), zeros for a row with no
+    generator, whose draws nothing reads."""
+    u = torch.zeros((len(generators), n), dtype=torch.float32,
+                    device=device)
+    for i, g in enumerate(generators):
+        if g is not None:
+            u[i].uniform_(generator=g)
+    return u
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniforms."""
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
 def sample_token_rows(logits: torch.Tensor, generators, temps, top_ks,
                       top_ps) -> torch.Tensor:
-    """Per-row sampling for the continuous engine: row i with
-    ``temps[i] > 0`` draws one (1, V) Gumbel sample from ITS OWN
-    generator over its temperature-scaled, filtered logits — exactly
-    the draw the solo :func:`generate` makes for a one-row request, so
-    a co-batched sampled request sees its solo RNG stream. Rows with
-    temperature 0 take the argmax. logits (B, V) f32 → (B,) int64."""
-    out = torch.argmax(logits, dim=-1)
-    for i in range(logits.shape[0]):
-        t = float(temps[i])
-        if t <= 0.0:
-            continue
-        x = logits[i].float() / t
-        x = _filter_logits_traced(x, top_ks[i], top_ps[i])
-        g = _gumbel((1, x.shape[-1]), generators[i], x.device)[0]
-        out[i] = torch.argmax(x + g)
-    return out
+    """Per-row sampling for the continuous engine, on the device with no
+    host read: row i draws one (1, V) uniform from ITS OWN generator
+    (``generators[i]``; None draws nothing) and takes the Gumbel argmax
+    of its temperature-scaled, filtered logits — exactly the draw the
+    solo :func:`generate` makes for a one-row request, so a co-batched
+    sampled request sees its solo RNG stream. Rows with temperature 0
+    take the argmax. ``temps``, ``top_ks``, ``top_ps``: (B,) tensors
+    (the engine's per-slot mirror) or sequences. logits (B, V) f32 ->
+    (B,) int64."""
+    V, dev = logits.shape[-1], logits.device
+    t = _row_values(temps, dev, torch.float32)
+    x = _filter_logits_traced(_scaled(logits, t[:, None]),
+                              _row_values(top_ks, dev),
+                              _row_values(top_ps, dev, torch.float32))
+    sampled = torch.argmax(x + _gumbel(_row_uniforms(generators, V, dev)),
+                           dim=-1)
+    return torch.where(t > 0.0, sampled, torch.argmax(logits, dim=-1))
 
 
 def pad_prompts(prompts, pad_token: int = 0, device="cpu"):
@@ -581,6 +610,7 @@ def generate(params: dict, cfg: tfm.TransformerConfig,
         top_k, top_p = 0, 1.0
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    temps = torch.full((B, 1), float(temperature), device=dev)
     lens = None
     if prompt_lens is not None:
         lens = torch.as_tensor(prompt_lens, device=dev).long()
@@ -615,8 +645,10 @@ def generate(params: dict, cfg: tfm.TransformerConfig,
             logits = torch.where(seen, pen, logits)
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1)
-        x = _filter_logits(logits / temperature, top_k, top_p)
-        return torch.argmax(x + _gumbel(x.shape, generator, dev), dim=-1)
+        x = _filter_logits(_scaled(logits, temps), top_k, top_p)
+        u = torch.rand(x.shape, generator=generator, device=dev,
+                       dtype=torch.float32)
+        return torch.argmax(x + _gumbel(u), dim=-1)
 
     tok = sample(logits)
     out = [tok]

@@ -42,29 +42,33 @@ synchronisation; the step's read, the slot-state uploads of a mirror
 build and the wire hop are the sanctioned transfers on the books.
 
 Device-resident slot state: both steps read one device mirror of the
-slot state (tables, allocation bounds, active lanes, tokens and
-positions), static buffers allocated once and refilled from the host
-arrays only after an admission, a retire, a block allocation or a
-speculation window. A plain step routes its KV writes from the mirror
-and advances the mirror's tokens and positions on the device, as the
-reference's does in-graph: a steady step uploads nothing. The host
-arrays stay authoritative.
+slot state (tables, allocation bounds, active lanes, tokens, positions
+and sampling filters), static buffers allocated once and refilled from
+the host arrays only after an admission, a retire, a block allocation
+or a speculation window. A plain step routes its KV writes from the
+mirror and advances the mirror's tokens and positions on the device,
+as the reference's does in-graph: a steady step uploads nothing. The
+host arrays stay authoritative.
 
 Compiled programs: the engine decodes with its parameters cast to the
 compute dtype once (``tfm.compute_params``; bitwise the same logits). A
-greedy plain step and each greedy speculation window width are bodies
-that read and write only that tree, the banks and the mirror; on CUDA
-each is captured once as a CUDA graph and replayed
-(``serve_engine/programs.py``; the reference jits one program a
-sampling mode and one a ``(W, sampled)`` window). A step or window with
-a sampled row runs the same body eagerly: its rows draw from per-row
-``torch.Generator``s in a host loop. Every prefill chunk, the target's
-and the draft's, is padded to its bucket ``C = max(16, pow2(n))`` and
-runs as the program of that bucket (``serve.prefill_chunk``,
-``serve.draft_chunk``) over one static input buffer that a single
-pinned upload fills: a chunk that is not a prompt's last reads nothing
-back, and the last reads its logits for the first token (a sampled row
-draws it eagerly).
+plain step and each speculation window width are bodies that read and
+write only that tree, the banks and the mirror; on CUDA each is
+captured once as a CUDA graph and replayed
+(``serve_engine/programs.py``), one program a sampling mode (keyed
+``sampled=False`` or ``sampled=True``), as the reference jits one
+program a sampling mode and one a ``(W, sampled)`` window. A sampled
+body draws on the device from per-slot generators made once with the
+engine (a sampling one a slot, and under speculation a draft and an
+acceptance one): admission copies a row's generator states into its
+slot's in place, so a request's stream goes on in the slot, and the
+rows' temperatures and filters are read from the mirror. Every prefill
+chunk, the target's and the draft's, is padded to its bucket ``C =
+max(16, pow2(n))`` and runs as the program of that bucket
+(``serve.prefill_chunk``, ``serve.draft_chunk``) over one static input
+buffer that a single pinned upload fills: a chunk that is not a
+prompt's last reads nothing back, and the last reads its logits for
+the first token (a sampled row draws it eagerly).
 
 Speculative decoding (``spec=SpecConfig(...)``): a draft model with
 its own block tables in a second :class:`BlockPool` proposes ``k``
@@ -322,11 +326,17 @@ class PagedGeneratorActor(GeneratorActor):
         self._dparams = (tfm.compute_params(spec.draft_params,
                                             spec.draft_cfg)
                          if spec is not None else None)
-        #: Greedy steps, windows and prefill chunk buckets, each
-        #: captured once on CUDA.
+        #: Steps and windows of each sampling mode and prefill chunk
+        #: buckets, each captured once on CUDA.
         self._programs = Programs(self.device)
 
         ns = self.n_slots
+        #: Each slot's generators, made once: a sampled program draws
+        #: from them and registers them at its capture, so an admission
+        #: copies its row's streams into them in place.
+        self._slot_gens = self._generators()
+        self._slot_dgens = self._generators() if spec is not None else ()
+        self._slot_agens = self._generators() if spec is not None else ()
         self._tables = np.zeros((ns, self.nb), np.int32)
         self._nalloc = np.zeros(ns, np.int32)
         self._tok = np.zeros(ns, np.int64)
@@ -335,9 +345,6 @@ class PagedGeneratorActor(GeneratorActor):
         self._temps = np.zeros(ns, np.float32)
         self._topk = np.zeros(ns, np.int32)
         self._topp = np.ones(ns, np.float32)
-        self._gens: list[torch.Generator | None] = [None] * ns
-        self._draft_gens: list[torch.Generator | None] = [None] * ns
-        self._accept_gens: list[torch.Generator | None] = [None] * ns
         self._dtables = np.zeros((ns, self.nb), np.int32)
         self._dnalloc = np.zeros(ns, np.int32)
         #: First position whose draft KV is not written yet: plain steps
@@ -371,6 +378,11 @@ class PagedGeneratorActor(GeneratorActor):
         self._thread.start()
 
     # ------------------------------------------------------------ public
+
+    def _generators(self) -> tuple:
+        """One generator a slot on the engine's device."""
+        return tuple(torch.Generator(device=self.device)
+                     for _ in range(self.n_slots))
 
     def _row_rngs(self, seed: int, temperature: float,
                   drawn: int = 0):
@@ -1018,9 +1030,7 @@ class PagedGeneratorActor(GeneratorActor):
                 for i in range(row.reused, len(row.hashes)):
                     self.pool.seal(row.table[i], row.hashes[i],
                                    toks[i * bt:(i + 1) * bt])
-                first = int(gen.sample_token_rows(
-                    logits, [row.generator], [row.temperature],
-                    [row.top_k], [row.top_p])[0])
+                first = self._first_token(row, logits)
                 if (self._dpool is not None and row.max_new > 1
                         and not (row.stop_token >= 0
                                  and first == row.stop_token)):
@@ -1046,6 +1056,17 @@ class PagedGeneratorActor(GeneratorActor):
         else:
             self._take_slot(row, first, L)
         return n, cm.dur_s
+
+    def _first_token(self, row: _PagedRow, logits: torch.Tensor) -> int:
+        """The token after the prompt, from the last chunk's logits (1,
+        V): the argmax, or a sampled row's draw from its own generator,
+        eager (once a request, as the reference's ``_sample_first``
+        program is)."""
+        if row.temperature == 0.0:
+            return int(torch.argmax(logits[0]))
+        return int(gen.sample_token_rows(
+            logits, [row.generator], [row.temperature], [row.top_k],
+            [row.top_p])[0])
 
     def _chunk(self, draft: bool, toks, start: int,
                table: list[int]) -> torch.Tensor:
@@ -1102,14 +1123,19 @@ class PagedGeneratorActor(GeneratorActor):
         self._temps[slot] = row.temperature
         self._topk[slot] = row.top_k
         self._topp[slot] = row.top_p
-        self._gens[slot] = row.generator
+        # The row's streams go on in the slot's generators, copied in
+        # place: the objects a sampled program registered stay, and its
+        # next replay draws from the new state.
+        for gens, g in ((self._slot_gens, row.generator),
+                        (self._slot_dgens, row.draft_gen),
+                        (self._slot_agens, row.accept_gen)):
+            if g is not None:
+                gens[slot].set_state(g.get_state())
         if self._dpool is not None:
             self._dtables[slot] = 0
             self._dtables[slot, :len(row.draft_table)] = row.draft_table
             self._dnalloc[slot] = len(row.draft_table)
             self._dpos[slot] = L  # the draft prefill wrote 0..L-1
-            self._draft_gens[slot] = row.draft_gen
-            self._accept_gens[slot] = row.accept_gen
         self._sdev = None
 
     def _activate_migrated(self, row: _PagedRow) -> tuple[int, float]:
@@ -1217,18 +1243,21 @@ class PagedGeneratorActor(GeneratorActor):
             self._export_gauges()
 
     def _dispatch(self, fn: str, body, W: int | None = None):
-        """Run ``body(sampled)`` for the live slots: eagerly when a live
-        row samples (its draws come from per-row generators in a host
-        loop), else as the greedy program of ``fn`` at this engine's
-        signature (the reference's test of the live slots picks its
-        program the same way)."""
-        if (self._temps[self._active] > 0.0).any():
-            return body(True)
+        """Run ``body(sampled)`` for the live slots as the program of
+        ``fn`` at this engine's signature: the sampled one when a live
+        row samples, else the greedy one (the reference's test of the
+        live slots picks its program the same way). A sampled program
+        draws from the slots' generators (a window's acceptance and
+        draft ones), which its capture registers."""
+        sampled = bool((self._temps[self._active] > 0.0).any())
         dt = str(self.cfg.dtype).removeprefix("torch.")
-        sig = (f"B={self.n_slots},W={W},dtype={dt},sampled=False" if W
+        sig = (f"B={self.n_slots},W={W},dtype={dt},sampled={sampled}" if W
                else f"B={self.n_slots},dtype={dt},attn={self.attn},"
-                    f"sampled=False")
-        return self._programs.run(fn, sig, lambda: body(False))
+                    f"sampled={sampled}")
+        if not sampled:
+            return self._programs.run(fn, sig, lambda: body(False))
+        gens = self._slot_agens + self._slot_dgens if W else self._slot_gens
+        return self._programs.run(fn, sig, lambda: body(True), gens)
 
     def _decode_body(self, sampled: bool):
         """The plain step on the device: the write routing from the
@@ -1244,8 +1273,8 @@ class PagedGeneratorActor(GeneratorActor):
             self._cparams, sd["tok"], pos, self.cfg, self.pool.k,
             self.pool.v, sd["tables"], wr_b, pos % bt, attn_impl=self.attn)
         if sampled:
-            nxt = gen.sample_token_rows(logits, self._gens, self._temps,
-                                        self._topk, self._topp)
+            nxt = gen.sample_token_rows(logits, self._slot_gens,
+                                        sd["temps"], sd["topk"], sd["topp"])
         else:
             nxt = torch.argmax(logits, dim=-1)
         nxt = torch.where(active, nxt, 0)
@@ -1256,11 +1285,13 @@ class PagedGeneratorActor(GeneratorActor):
     def _slot_arrays(self) -> dict:
         """The host arrays the mirror holds: int32 tables, allocation
         bounds and positions (the kernel's type), int64 tokens, the
-        active lanes, and under speculation the draft's tables and
+        active lanes, the sampling filters (f32 temperatures and top-p,
+        int32 top-k), and under speculation the draft's tables and
         bounds."""
         arrays = {"tables": self._tables, "nalloc": self._nalloc,
                   "active": self._active, "tok": self._tok,
-                  "pos": self._pos}
+                  "pos": self._pos, "temps": self._temps,
+                  "topk": self._topk, "topp": self._topp}
         if self._dpool is not None:
             arrays.update(dtables=self._dtables, dnalloc=self._dnalloc)
         return arrays
@@ -1295,9 +1326,6 @@ class PagedGeneratorActor(GeneratorActor):
     def _retire(self, slot: int, reason: str = "complete") -> None:
         self._active[slot] = False
         self._temps[slot] = 0.0
-        self._gens[slot] = None
-        self._draft_gens[slot] = None
-        self._accept_gens[slot] = None
         self._sdev = None
         self._finish_row(self._slot_state.pop(slot), reason)
         self._export_gauges()
@@ -1394,18 +1422,20 @@ class PagedGeneratorActor(GeneratorActor):
         wr_b = torch.where(ok_t, sd["tables"].gather(1, blk), 0)
         ok_d = sd["active"][:, None] & (ap // bt < sd["dnalloc"][:, None])
         dwr_b = torch.where(ok_d, sd["dtables"].gather(1, blk), 0)
+        # The sampling filters: a greedy window reads none.
+        filters = ([sd["temps"], sd["topk"], sd["topp"]] if sampled
+                   else [None] * 3)
         prop, dlg, _, _ = gen.draft_propose_paged(
             self._dparams, tok, pos, sp.draft_cfg, self._dpool.k,
-            self._dpool.v, sd["dtables"], dwr_b, wr_o, self._draft_gens,
-            self._temps, self._topk, self._topp, n_steps=W,
-            sampled=sampled)
+            self._dpool.v, sd["dtables"], dwr_b, wr_o, self._slot_dgens,
+            *filters, n_steps=W, sampled=sampled)
         toks_w = torch.cat([tok[:, None], prop[:, :W - 1]], dim=1)
         tlg, _, _ = gen.verify_step_paged(
             self._cparams, toks_w, pos, self.cfg, self.pool.k, self.pool.v,
             sd["tables"], wr_b, wr_o)
         return gen.spec_accept_rows(
-            prop[:, :W - 1], dlg[:, :W - 1], tlg, self._accept_gens,
-            self._temps, self._topk, self._topp, sampled=sampled)
+            prop[:, :W - 1], dlg[:, :W - 1], tlg, self._slot_agens,
+            *filters, sampled=sampled)
 
     def _window_body(self, W: int, sampled: bool) -> torch.Tensor:
         """One window from the mirror (:meth:`_spec_window`): its

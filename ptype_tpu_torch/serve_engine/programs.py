@@ -8,12 +8,22 @@ prefill chunk bucket ``C``).
 A body reads and writes only tensors whose storage outlives its graph
 (the parameter trees, the KV banks, the mirror's and the prefill
 chunks' static input buffers) and returns its results. Keys are
-captured lazily, at their first call, as the reference compiles. On the first call of a key the body runs eagerly
-on the engine's capture stream (the warm-up, and that call's result),
-then is captured once; every later call replays the graph and returns
-the outputs the capture left in the graph pool, which each replay
-overwrites. Nothing runs while a capture records, so the warm-up's
-writes are the call's only effect. Off CUDA a body just runs.
+captured lazily, at their first call, as the reference compiles. On the
+first call of a key the body runs eagerly on the engine's capture
+stream (the warm-up, and that call's result), then is captured once;
+every later call replays the graph and returns the outputs the capture
+left in the graph pool, which each replay overwrites. Nothing runs
+while a capture records, so the warm-up's writes are the call's only
+effect. Off CUDA a body just runs.
+
+A sampled body draws from generators that outlive its graph (the
+engine's per-slot ones). Each is registered on the graph before its
+capture begins (``CUDAGraph.register_generator_state``): the capture
+draws nothing from it, so it stays where the warm-up left it, and each
+replay reads its seed and offset as they are then and advances it by
+what the capture drew — a replayed draw continues the eager stream, and
+a generator whose state was set in place since (an admission) draws
+its new stream.
 
 Captures are booked through the armed :mod:`jitwatch` as compiles
 (``on_compile(fn, signature)``), run under a ``serve.capture``
@@ -59,11 +69,14 @@ class Program:
         return self.outputs
 
 
-def capture(body, pool, stream) -> Program:
-    """Capture ``body()`` on ``stream`` into ``pool``. The wrappers'
-    launch counts made while it records are taken back and kept as the
+def capture(body, pool, stream, generators=()) -> Program:
+    """Capture ``body()`` on ``stream`` into ``pool``, with the
+    ``generators`` it draws from registered first. The wrappers' launch
+    counts made while it records are taken back and kept as the
     program's launches a replay."""
     graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
     with launch_tally() as launches:
         with torch.cuda.graph(graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
@@ -76,7 +89,7 @@ def capture(body, pool, stream) -> Program:
 class Programs:
     """An engine's programs by ``(fn, signature)``: :meth:`run` captures
     a body at its key's first call on CUDA and replays it after; off
-    CUDA it runs the body."""
+    CUDA it runs the body. ``generators``: those the body draws from."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -84,7 +97,7 @@ class Programs:
         self._stream = None
         self._pool = None
 
-    def run(self, fn: str, signature: str, body):
+    def run(self, fn: str, signature: str, body, generators=()):
         if self.device.type != "cuda":
             return body()
         prog = self.progs.get((fn, signature))
@@ -103,8 +116,8 @@ class Programs:
             out = body()
         cur.wait_stream(self._stream)
         with jitwatch.sanctioned_transfer("serve.capture"), _CAPTURE:
-            self.progs[(fn, signature)] = capture(body, self._pool,
-                                                  self._stream)
+            self.progs[(fn, signature)] = capture(
+                body, self._pool, self._stream, generators)
         if jitwatch._watch is not None:
             jitwatch._watch.on_compile(fn, signature)
         return out

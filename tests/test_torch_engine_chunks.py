@@ -150,7 +150,7 @@ def stub_graphs(monkeypatch):
     rewrites the same K/V). Returns the captured graphs."""
     graphs = []
 
-    def capture(body, pool, stream):
+    def capture(body, pool, stream, generators=()):
         with launch_tally() as launches:
             outputs = body()
         graphs.append(_ReplayGraph(body, outputs))

@@ -4,11 +4,14 @@ The serving weights are cast to the compute dtype once
 (``transformer.compute_params``): at bf16 the paged decode step, the
 verify step and the draft's proposals give logits bitwise equal to the
 f32 tree's (dense and MoE), and the engine decoding with that tree gives
-the reference engine's greedy tokens. A greedy plain step and each
-greedy window width go through the engine's programs by their key; a
-sampled one runs its body eagerly. The capture's launch accounting runs
-against stub graphs (the CPU has no CUDA graphs): a capture tallies its
-own thread's launches, takes them back, and each replay adds them."""
+the reference engine's greedy tokens. A plain step and each window width
+go through the engine's programs by their key, greedy and sampled
+alike, a sampled one handed the slots' generators. The capture's
+launch accounting and generator registration run against stub graphs
+(the CPU has no CUDA graphs): a capture tallies its own thread's
+launches, takes them back, and each replay adds them; a sampled capture
+registers its generators before it begins, and a slot re-admitted with
+another seed replays that seed's stream."""
 
 import threading
 from contextlib import contextmanager, nullcontext
@@ -170,11 +173,14 @@ def _together(fn, prompts):
 
 @pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
 def test_greedy_steps_and_windows_go_through_their_programs(spec):
-    """Every greedy plain step asks the engine's programs for
-    ``serve.decode`` at the engine's one signature, every greedy window
-    for ``serve.spec_window`` at its width; a step or window with a
-    sampled row live runs its body eagerly. Off CUDA a program runs its
-    body, so nothing is captured."""
+    """Every plain step asks the engine's programs for ``serve.decode``
+    at the engine's signature of its sampling mode, every window for
+    ``serve.spec_window`` at its width and mode: ``sampled=False`` while
+    every live row is greedy, ``sampled=True`` while a sampled row is
+    live, a sampled program handed the slots' generators (a window's
+    acceptance and draft ones) to draw from. No step or window body runs
+    outside its program. Off CUDA a program runs its body, so nothing is
+    captured."""
     cfg = ttfm.preset("tiny", dtype=torch.float32)
     params = init_params(torch.Generator().manual_seed(0), cfg)
     sc = None
@@ -184,21 +190,26 @@ def test_greedy_steps_and_windows_go_through_their_programs(spec):
     eng = PagedGeneratorActor(cfg, params=params, device="cpu", n_slots=2,
                               block_tokens=BT, spec=sc,
                               metrics_registry=MetricsRegistry())
-    calls, eager = [], []
+    calls, bodies, inside = [], [], [False]
     run, decode, window = (eng._programs.run, eng._decode_body,
                            eng._window_body)
 
-    def run_(fn, sig, body):
-        if not fn.endswith("_chunk"):  # prefill chunks: their own test
-            calls.append((fn, sig))
-        return run(fn, sig, body)
+    def run_(fn, sig, body, generators=()):
+        if fn.endswith("_chunk"):  # prefill chunks: their own test
+            return run(fn, sig, body)
+        calls.append((fn, sig, tuple(generators)))
+        inside[0] = True
+        try:
+            return run(fn, sig, body, generators)
+        finally:
+            inside[0] = False
 
     def decode_(sampled):
-        eager.append(("decode", sampled))
+        bodies.append((sampled, inside[0]))
         return decode(sampled)
 
     def window_(W, sampled):
-        eager.append(("window", sampled))
+        bodies.append((sampled, inside[0]))
         return window(W, sampled)
 
     eng._programs.run = run_
@@ -206,32 +217,46 @@ def test_greedy_steps_and_windows_go_through_their_programs(spec):
     p = torch.as_tensor(np.random.default_rng(1).integers(1, 256, 9))[None]
     try:
         eng.Generate(p, 12)
-        n_greedy = len(eager)
-        assert len(calls) == n_greedy > 0 and not any(s for _, s in eager)
+        n_greedy = len(calls)
         eng.Generate(p, 12, temperature=0.8, seed=3)
-        assert len(calls) == n_greedy and all(s for _, s in
-                                              eager[n_greedy:])
     finally:
         eng.close()
     assert eng._programs.progs == {}
-    sigs = set(calls)
-    plain = ("serve.decode", "B=2,dtype=float32,attn=gather,sampled=False")
-    if spec:
-        # Windows of k + 1, and the plain step of a one-token tail.
-        assert ("serve.spec_window",
-                "B=2,W=4,dtype=float32,sampled=False") in sigs
-        assert {f for f, _ in sigs - {plain}} == {"serve.spec_window"}
-    else:
-        assert sigs == {plain}
+    assert len(bodies) == len(calls) > n_greedy > 0
+    assert all(ran_inside for _, ran_inside in bodies)
+    assert [s for s, _ in bodies] == [False] * n_greedy + [True] * (
+        len(calls) - n_greedy)
+    greedy, sampled = set(calls[:n_greedy]), set(calls[n_greedy:])
+    sig = "B=2,dtype=float32,attn=gather,sampled={}"
+    gens = {"serve.decode": eng._slot_gens,
+            "serve.spec_window": eng._slot_agens + eng._slot_dgens}
+    for mode, got in ((False, greedy), (True, sampled)):
+        plain = ("serve.decode", sig.format(mode),
+                 gens["serve.decode"] if mode else ())
+        if spec:
+            # Windows of k + 1, and the plain step of a one-token tail.
+            assert ("serve.spec_window",
+                    f"B=2,W=4,dtype=float32,sampled={mode}",
+                    gens["serve.spec_window"] if mode else ()) in got
+            assert {c[0] for c in got - {plain}} == {"serve.spec_window"}
+        else:
+            assert got == {plain}
+        assert all(g == (gens[fn] if mode else ()) for fn, _, g in got)
 
 
 class _StubGraph:
-    """A CUDA graph's stand-in: records the body its capture ran and
-    counts replays."""
+    """A CUDA graph's stand-in: counts its captures and replays, and
+    records the generators registered on it and those registered when
+    its capture began."""
 
     def __init__(self):
         self.replays = 0
         self.captured = 0
+        self.generators = []
+        self.at_capture = None
+
+    def register_generator_state(self, generator):
+        self.generators.append(generator)
 
     def replay(self):
         self.replays += 1
@@ -252,6 +277,7 @@ def stub_cuda(monkeypatch):
     def graph(g, pool=None, stream=None, capture_error_mode="global"):
         modes.append((pool, capture_error_mode))
         g.captured += 1
+        g.at_capture = list(g.generators)
         yield
 
     def new_graph():
@@ -332,3 +358,81 @@ def test_a_captures_tally_is_its_own_threads():
     finally:
         paged_attention.launches, flash_attention.launches = before
 
+
+def test_a_sampled_capture_registers_its_generators_before_it_begins(
+        stub_cuda):
+    """The generators handed to :meth:`Programs.run` are registered on
+    the key's graph, every one, before its capture begins; a greedy key
+    registers none."""
+    graphs, _ = stub_cuda
+    progs = programs_mod.Programs(torch.device("cuda"))
+    gens = tuple(torch.Generator().manual_seed(s) for s in (1, 2, 3))
+    calls = []
+    progs.run("serve.decode", "B=3,sampled=True", _fake_step(0, calls),
+              gens)
+    progs.run("serve.decode", "B=3,sampled=False", _fake_step(0, calls))
+    progs.run("serve.decode", "B=3,sampled=True", _fake_step(0, calls),
+              gens)
+    assert len(graphs) == 2 and graphs[0].replays == 1
+    assert len(graphs[0].at_capture) == len(gens)
+    assert all(a is b for a, b in zip(graphs[0].at_capture, gens))
+    assert graphs[1].at_capture == []
+
+
+class _RerunGraph:
+    """A CUDA graph's stand-in whose capture records nothing (as a real
+    one runs nothing) and whose replay runs the body again into its
+    program's outputs; it keeps the generators registered on it."""
+
+    def __init__(self, body, generators):
+        self.body, self.generators = body, tuple(generators)
+        self.program = None
+
+    def replay(self):
+        self.program.outputs = self.body()
+
+
+def test_a_readmitted_slot_draws_its_new_seed_on_replay(monkeypatch):
+    """A one-slot f32 engine on the programs' CUDA path (stub graphs that
+    replay by running the body again): the sampled step's capture
+    registers the slot's generator, and two sampled requests with other
+    seeds, one after the other in that slot, each equal their solo
+    ``generate``. The second runs on replays only: its stream was copied
+    into the registered generator in place at its admission."""
+    graphs = []
+
+    def capture(body, pool, stream, generators=()):
+        graphs.append(_RerunGraph(body, generators))
+        graphs[-1].program = programs_mod.Program(graphs[-1], None, {})
+        return graphs[-1].program
+
+    monkeypatch.setattr(programs_mod, "capture", capture)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a: _StubStream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: _StubStream())
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: ("pool",))
+    cfg = ttfm.preset("tiny", dtype=torch.float32)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    eng = PagedGeneratorActor(cfg, params=params, device="cpu", n_slots=1,
+                              block_tokens=BT,
+                              metrics_registry=MetricsRegistry())
+    eng._programs = programs_mod.Programs(torch.device("cuda"))
+    rng = np.random.default_rng(4)
+    kw = dict(temperature=0.9, top_k=40, top_p=0.9)
+    reqs = [(torch.as_tensor(rng.integers(1, 256, n))[None], seed)
+            for n, seed in ((9, 5), (13, 9))]
+    try:
+        got = [eng.Generate(p, 10, seed=seed, **kw) for p, seed in reqs]
+        key = ("serve.decode", "B=1,dtype=float32,attn=gather,sampled=True")
+        prog = eng._programs.progs[key]
+    finally:
+        eng.close()
+    assert prog.replays == 2 * 9 - 1  # captured at the first step
+    reg = prog.graph.generators
+    assert len(reg) == 1 and reg[0] is eng._slot_gens[0]
+    for (p, seed), out in zip(reqs, got):
+        want = tgen.generate(params, cfg, p, 10,
+                             generator=torch.Generator().manual_seed(seed),
+                             **kw)
+        assert torch.equal(out, want), seed

@@ -40,7 +40,8 @@ REQUESTS = {"A": (5, 30, 1), "B": (11, 26, 2), "C": (17, 20, 3),
             "D": (7, 40, 4), "E": (13, 18, 5), "F": (9, 22, 6)}
 #: The mirror's arrays and their host types.
 MIRROR = {"tables": np.int32, "nalloc": np.int32, "active": np.bool_,
-          "tok": np.int64, "pos": np.int32}
+          "tok": np.int64, "pos": np.int32, "temps": np.float32,
+          "topk": np.int32, "topp": np.float32}
 DRAFT_MIRROR = {"dtables": np.int32, "dnalloc": np.int32}
 #: The blocks' projections scaled up from the init: at the init's scale
 #: the tied head repeats the last token whatever the context, so a
@@ -358,12 +359,14 @@ def steady_stream_books(seed=5):
 def test_a_steady_stream_refills_one_mirror_in_place():
     """Admissions, retires and block boundaries refill the mirror's
     buffers: one set of addresses through the stream, equal to the host
-    arrays at every step that finds it built, five uploads a refill."""
+    arrays at every step that finds it built, one upload an array of the
+    mirror (eight) a refill."""
     got = steady_stream_books()
     assert got["mirror_addresses"] == 1, got
     assert got["mirror_unequal"] == 0, got
     assert got["books"]["serve.decode_read"] == got["steps"] > 0, got
-    assert got["books"]["serve.slot_state"] == 5 * got["event_steps"], got
+    assert got["books"]["serve.slot_state"] == (len(MIRROR)
+                                                * got["event_steps"]), got
 
 
 if __name__ == "__main__":

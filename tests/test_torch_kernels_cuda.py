@@ -1095,7 +1095,7 @@ def test_armed_paged_engine_steady_state_on_the_card(armed):
     """An armed kernel engine at a narrow width: steady requests build
     nothing, the decode and chunk guards hold, each step books its one
     read, each request's first step (after its admission; no block
-    boundary) the five uploads of the slot state's device mirror and its
+    boundary) the eight uploads of the slot state's device mirror and its
     other steps none, and the tokens equal a disarmed run's. The warmup
     serves the prompt twice: the cold request's chunk (bucket 32) and a
     resident one's tail past its reused block (bucket 16), which is what
@@ -1115,7 +1115,7 @@ def test_armed_paged_engine_steady_state_on_the_card(armed):
         books = armed.sanctioned()
         assert armed.report()["hot_regions"] > 0
         assert books["serve.decode_read"] == 4 * 7
-        assert books["serve.slot_state"] == 5 * 4
+        assert books["serve.slot_state"] == 8 * 4
         # The greedy step and the two chunk buckets each captured once,
         # in the warm requests, and booked.
         assert books["serve.capture"] == len(a._programs.progs) == 3
@@ -1127,17 +1127,19 @@ def test_armed_paged_engine_steady_state_on_the_card(armed):
         a.close()
 
 
-def _in_order(eng, prompts, max_new):
+def _in_order(eng, prompts, max_new, kws=None):
     """``prompts`` from one thread each, queued in order while the
     engine's dispatch lock is held, so two engines admit and batch them
-    alike. Returns the outputs."""
+    alike; ``kws``: each request's sampling keywords. Returns the
+    outputs."""
     import threading
     import time
 
     outs = [None] * len(prompts)
 
     def call(i):
-        outs[i] = eng.Generate(prompts[i][None], max_new)
+        outs[i] = eng.Generate(prompts[i][None], max_new,
+                               **(kws[i] if kws else {}))
 
     threads = []
     with eng._lock:
@@ -1159,7 +1161,7 @@ def test_steady_engine_steps_upload_nothing_on_the_card(armed):
     kernel, armed: a step that finds the device mirror of the slot
     state built and no row at a block boundary books no slot-state
     upload, and the profile of one such step with every slot live holds
-    no host-to-device copy; a build books five. The tokens equal the
+    no host-to-device copy; a build books eight. The tokens equal the
     same engine's with the mirror rebuilt from the host arrays every
     step (the host-routed step)."""
     import dataclasses
@@ -1201,7 +1203,7 @@ def test_steady_engine_steps_upload_nothing_on_the_card(armed):
     finally:
         eng.close()
     assert sum(s for s, _ in steps) >= 20, steps
-    assert all(up == (0 if s else 5) for s, up in steps), steps
+    assert all(up == (0 if s else 8) for s, up in steps), steps
     dev = [e for e in prof["events"]
            if "CUDA" in str(getattr(e, "device_type", ""))]
     assert any("paged_decode" in e.key for e in dev), [e.key for e in dev]
@@ -1304,6 +1306,128 @@ def test_a_replay_equals_its_bodys_direct_call(cuda, moe, spec):
     assert all(a and b for a, b in results.values()), results
     fns = {fn for fn, _ in results}
     assert ("serve.spec_window" in fns) == spec, fns
+
+
+#: Sampling of the sampled-program tests: temperature, top-k and top-p.
+SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_a_sampled_replay_equals_its_eager_body_on_the_card(cuda, spec):
+    """f32, a narrow config, 4 slots, four sampled requests (their own
+    seeds) and two greedy ones, with and without a 1-layer draft (k=3):
+    at each sampled program's first replay the banks, the mirror and
+    every slot generator's state are kept, the body runs directly, all
+    is put back and the graph replays. Its tokens (a plain step's logits
+    and tokens, a window's tokens and accept counts), and the banks,
+    mirror and generator states after, are bitwise the direct call's.
+    Each sampled key is captured once and replayed after; paged
+    launches count every plain step, replays included."""
+    from ptype_tpu_torch.models.weights import init_params
+    from ptype_tpu_torch.ops import launch_tally
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         NARROW)
+    sc = None
+    if spec:
+        dp, dc = gen_mod.truncated_draft_params(params, NARROW, 1)
+        sc = SpecConfig(dp, dc, k=3, adaptive=False)
+    eng = PagedGeneratorActor(NARROW, params=params, device="cuda",
+                              n_slots=4, block_tokens=16, attn="kernel",
+                              spec=sc)
+    run, results, calls = eng._programs.run, {}, {}
+    gens = eng._slot_gens + eng._slot_dgens + eng._slot_agens
+
+    def state():
+        pools = [eng.pool] + ([eng._dpool] if spec else [])
+        return ([t for p in pools for t in (p.k, p.v)]
+                + list(eng._sbuf.values()))
+
+    def flat(out):
+        return list(out) if isinstance(out, tuple) else [out]
+
+    def checked(fn, sig, body, *generators):
+        key = (fn, sig)
+        calls[key] = calls.get(key, 0) + 1
+        if (not sig.endswith("sampled=True") or key in results
+                or key not in eng._programs.progs):
+            return run(fn, sig, body, *generators)
+        live, drawn = state(), [g.get_state() for g in gens]
+        saved = [t.clone() for t in live]
+        with launch_tally() as extra:
+            direct = [t.clone() for t in flat(body())]
+        for f, n in extra.items():
+            f.launches -= n
+        after = [t.clone() for t in live] + [g.get_state() for g in gens]
+        for t, v in zip(live, saved):
+            t.copy_(v)
+        for g, v in zip(gens, drawn):
+            g.set_state(v)
+        got = run(fn, sig, body, *generators)
+        torch.cuda.synchronize()
+        results[key] = (
+            all(torch.equal(a, b) for a, b in zip(direct, flat(got))),
+            all(torch.equal(a, b) for a, b in
+                zip(after, live + [g.get_state() for g in gens])))
+        return got
+
+    eng._programs.run = checked
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(1, NARROW.vocab_size, (n,), generator=g)
+               for n in (9, 30, 41, 64, 17, 50)]
+    kws = [dict(SAMPLED, seed=s) for s in (1, 2, 3, 4)] + [{}, {}]
+    try:
+        paged_mod.paged_attention.launches = 0
+        _in_order(eng, prompts, 24, kws)
+        torch.cuda.synchronize()
+        info = eng.Info()
+        sampled = {k: p.replays for k, p in eng._programs.progs.items()
+                   if k[1].endswith("sampled=True")}
+    finally:
+        eng.close()
+    plain = info["engine_steps"] - info.get("spec_windows", 0)
+    assert paged_mod.paged_attention.launches == plain * NARROW.n_layers
+    assert sampled and all(n == calls[k] - 1 for k, n in sampled.items())
+    assert set(results) == {k for k, n in sampled.items() if n}, results
+    assert all(a and b for a, b in results.values()), results
+    assert ("serve.spec_window" in {fn for fn, _ in results}) == spec
+
+
+def test_a_replay_after_a_readmission_follows_the_new_seed(cuda):
+    """f32, a narrow config, one slot: request A (seed 1) captures the
+    sampled step, then request B (seed 2) decodes on replays alone, its
+    stream copied into the slot's registered generator in place; B's
+    tokens equal B's on a fresh engine, where its first sampled step is
+    the eager warm-up that precedes the capture."""
+    from ptype_tpu_torch.models.weights import init_params
+
+    params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                         NARROW)
+    g = torch.Generator().manual_seed(9)
+    pa, pb = (torch.randint(1, NARROW.vocab_size, (1, n), generator=g)
+              for n in (11, 23))
+
+    def engine():
+        return PagedGeneratorActor(NARROW, params=params, device="cuda",
+                                   n_slots=1, block_tokens=16,
+                                   attn="kernel")
+
+    key = ("serve.decode", "B=1,dtype=float32,attn=kernel,sampled=True")
+    eng = engine()
+    try:
+        a = eng.Generate(pa.cuda(), 16, seed=1, **SAMPLED)
+        replays = eng._programs.progs[key].replays
+        b = eng.Generate(pb.cuda(), 16, seed=2, **SAMPLED)
+        assert eng._programs.progs[key].replays == replays + 15
+    finally:
+        eng.close()
+    fresh = engine()
+    try:
+        want = fresh.Generate(pb.cuda(), 16, seed=2, **SAMPLED)
+    finally:
+        fresh.close()
+    assert torch.equal(b, want), (b, want)
+    assert not torch.equal(a[:, :8], b[:, :8])
 
 
 def test_chunk_programs_replay_their_bodies_bitwise_on_the_card(cuda):

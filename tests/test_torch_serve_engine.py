@@ -478,7 +478,7 @@ def test_steady_state_decode_builds_nothing_armed():
     decode region's guard held (an unsanctioned host synchronisation in
     a step would have raised, failing the drive), and the books show a
     step's one host read and the reference's upload contract: a step
-    after an admission builds the device mirror of the slot state (five
+    after an admission builds the device mirror of the slot state (eight
     uploads), and every later step uploads nothing. Greedy tokens equal
     the reference engine's on the same weights."""
     from ptype_tpu_torch import jitwatch
@@ -526,6 +526,6 @@ def test_steady_state_decode_builds_nothing_armed():
     # After the close: the engine thread has booked its last step. 5 + 8
     # tokens fit one block, so each request's first step builds (after
     # its admission) and its six others upload nothing.
-    assert per_step == [5, 0, 0, 0, 0, 0, 0] * 4
-    assert books["serve.slot_state"] == 5 * sum(builds) == 5 * 4
+    assert per_step == [8, 0, 0, 0, 0, 0, 0] * 4
+    assert books["serve.slot_state"] == 8 * sum(builds) == 8 * 4
     np.testing.assert_array_equal(warm, want)
